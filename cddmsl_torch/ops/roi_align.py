@@ -14,7 +14,10 @@ respect to F is the transposed contraction; the boxes get none.
 `roi_align_batched` is what the model calls: a `RoIAlignFunction` whose
 forward is K1 and whose backward is K3 (csrc/roi_align.cu) on CUDA tensors,
 and the plain versions `roi_align_batched_plain` and
-`roi_align_backward_plain` on CPU tensors.
+`roi_align_backward_plain` on CPU tensors. The kernels take C % 8 == 0,
+output sizes up to 64 and up to 8 samples per bin axis. K3 gathers into
+each map tile with no atomics and no scratch, so its dF is the same bit for
+bit from run to run.
 """
 
 import ctypes
@@ -45,8 +48,7 @@ KERNEL = CudaKernel(
             ctypes.c_int,  # 0 = float32, 1 = bfloat16
             ctypes.c_void_p,  # batch index (R,) int32
             ctypes.c_void_p,  # boxes (R, 4) float32
-            ctypes.c_void_p,  # zeroed float32 sums (B, H, W, C)
-            ctypes.c_void_p,  # out (B, H, W, C); the sums themselves for float32
+            ctypes.c_void_p,  # out (B, H, W, C), every value written
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H W C
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # R PH PW
             ctypes.c_float,  # spatial scale
@@ -57,6 +59,8 @@ KERNEL = CudaKernel(
     },
 )
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_POOLED = 64  # PH and PW, kMaxPooled in csrc/roi_align.cu
+MAX_SAMPLES = 8  # samples per bin axis, kMaxSamples
 
 
 def _samples(sampling_ratio: int) -> int:
@@ -221,13 +225,21 @@ def roi_align_backward_plain(
     return df.to(grad.dtype)
 
 
-def _check_inputs(name, t, batch_idx, boxes, R):
+def _check_inputs(name, t, batch_idx, boxes, R, output_size, sampling_ratio):
+    PH, PW = output_size
+    if not (0 < PH <= MAX_POOLED and 0 < PW <= MAX_POOLED and _samples(sampling_ratio) <= MAX_SAMPLES):
+        raise ValueError(
+            f"{name}: the kernels take output sizes up to {MAX_POOLED} and up to {MAX_SAMPLES} samples per bin axis, "
+            f"got {tuple(output_size)} and sampling_ratio {sampling_ratio}"
+        )
     if t.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: features must be float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the map and its gradient must be contiguous channels-last tensors")
-    if t.shape[-1] % 2:
-        raise ValueError(f"{name}: the kernel reads channel pairs; C={t.shape[-1]} is odd")
+    if t.shape[-1] % 8:
+        raise ValueError(f"{name}: the kernels move 16-byte channel vectors; C={t.shape[-1]} is not a multiple of 8")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the map and its gradient must start on a 16-byte boundary")
     if boxes.dtype != torch.float32 or tuple(boxes.shape) != (R, 4) or not boxes.is_contiguous():
         raise ValueError(f"{name}: boxes must be a contiguous (R, 4) float32 tensor")
     if batch_idx.dtype != torch.int32 or tuple(batch_idx.shape) != (R,) or not batch_idx.is_contiguous():
@@ -256,7 +268,7 @@ def roi_align_forward(
     B, H, W, C = features.shape
     R = boxes.shape[0]
     PH, PW = output_size
-    _check_inputs("roi_align_batched", features, batch_idx, boxes, R)
+    _check_inputs("roi_align_batched", features, batch_idx, boxes, R, output_size, sampling_ratio)
     out = torch.empty((R, PH, PW, C), dtype=features.dtype, device=features.device)
     if R == 0:
         return out
@@ -294,15 +306,14 @@ def roi_align_backward(
     PH, PW = output_size
     if tuple(grad.shape) != (R, PH, PW, C):
         raise ValueError(f"roi_align_backward: grad has shape {tuple(grad.shape)}, expected {(R, PH, PW, C)}")
-    _check_inputs("roi_align_backward", grad, batch_idx, boxes, R)
-    sums = torch.zeros((B, H, W, C), dtype=torch.float32, device=grad.device)
-    out = sums if grad.dtype == torch.float32 else torch.empty((B, H, W, C), dtype=grad.dtype, device=grad.device)
+    _check_inputs("roi_align_backward", grad, batch_idx, boxes, R, output_size, sampling_ratio)
+    out = torch.empty((B, H, W, C), dtype=grad.dtype, device=grad.device)
     with torch.cuda.device(grad.device):
         KERNEL.launch(
             "cddmsl_roi_align_bwd",
-            grad.data_ptr(), _DTYPE_CODE[grad.dtype], batch_idx.data_ptr(), boxes.data_ptr(), sums.data_ptr(),
-            out.data_ptr(), B, H, W, C, R, PH, PW, float(spatial_scale), _samples(sampling_ratio),
-            int(aligned), torch.cuda.current_stream(grad.device).cuda_stream,
+            grad.data_ptr(), _DTYPE_CODE[grad.dtype], batch_idx.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+            B, H, W, C, R, PH, PW, float(spatial_scale), _samples(sampling_ratio), int(aligned),
+            torch.cuda.current_stream(grad.device).cuda_stream,
         )
     return out
 

@@ -23,7 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 
 GROUPS = (
     ("K1 roi_align_fwd", ("roi_align_fwd_kernel",)),
-    ("K3 roi_align_bwd", ("roi_align_bwd_kernel", "f32_to_bf16_kernel")),
+    ("K3 roi_align_bwd", ("roi_align_bwd_kernel",)),
     ("K4 nms", ("nms",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "fprop", "nchwToNhwc", "nhwcToNchw")),
     ("matrix product (cuBLAS)", ("gemm", "cutlass", "nvjet", "sm90_xmma")),

@@ -12,9 +12,10 @@ Phases, each of which fails the run with a non-zero exit:
      and bf16 (against the plain version in fp32 on the same bf16 inputs)
      to rtol 2e-2; K3 on two 50x84x1024 maps with heavily overlapping and
      partly outside boxes, aligned both ways, fp32 to 1e-4 of max |dF|
-     (looser than K1: the atomics sum in a changing order) and bf16 to rtol
-     2e-2, and torch.autograd through `roi_align_batched` against autograd
-     through the plain forward; K4 exactly, on 6000 boxes at IoU 0.7
+     (relative to the largest value: K3 sums in another order than the
+     plain version) and bf16 to rtol 2e-2, bit for bit against a second call
+     on the same inputs, and torch.autograd through `roi_align_batched`
+     against autograd through the plain forward; K4 exactly, on 6000 boxes at IoU 0.7
      keeping 1000, on 12000 boxes keeping 2000 (the training RPN), on 2048
      class-shifted boxes at 0.5 keeping 100, and on a cluster whose IoUs sit
      within a few ulps of the threshold;
@@ -33,7 +34,9 @@ Phases, each of which fails the run with a non-zero exit:
      finite, frozen parameters bit-for-bit unchanged; then 2 warm-up and 5
      timed steps (ms/step, images/s), after which every trainable parameter
      has moved, and K1, K3 and K4 timed at the step's own shapes beside
-     their plain versions and bounds.
+     their plain versions and bounds: K1 and K3 at each of the step's three
+     RoIAlign calls (`training_roi_align_calls`: the supervised pool and the
+     region pool on the source and on the translated map), one line each.
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/training`): the launches of that
 path's run, and the kernel's times and bounds at that path's shapes (for a
@@ -146,6 +149,8 @@ def check_k3(roi_ops, dev):
     for aligned in (True, False):
         g = torch.randn((R, 14, 14, C), generator=gen, device=dev)
         got = roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, aligned)
+        if not torch.equal(got, roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, aligned)):
+            fail(f"K3 fp32 (aligned={aligned}) differs between two calls on the same inputs")
         want = roi_ops.roi_align_backward_plain(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, aligned)
         abs_errs.append((got - want).abs().max().item())
         errs[f"fp32_aligned={aligned}"] = abs_errs[-1] / want.abs().max().item()
@@ -155,12 +160,16 @@ def check_k3(roi_ops, dev):
     got = roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, True)
     if got.dtype != torch.bfloat16 or not got.is_contiguous():
         fail(f"K3 bf16 returned a {got.dtype} tensor")
+    if not torch.equal(got, roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, True)):
+        fail("K3 bf16 differs between two calls on the same inputs")
     got = got.float()
     want = roi_ops.roi_align_backward_plain(g.float(), bidx, boxes, shape, (14, 14), 1 / 16, 0, True)
     rel = ((got - want).abs() / want.abs().clamp_min(1e-30))[want != 0]
     bad = int(((got - want).abs() > 2e-2 * want.abs()).sum())
     if bad or not torch.equal(got == 0, want == 0):
         fail(f"K3 bf16: {bad} values off by more than rtol 2e-2 (max rel {rel.max().item():.3g})")
+    cluster_ms = cuda_ms(lambda: roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, True), 10)
+    print(f"K3 bf16 on these boxes (256 of {R} on almost the same pixels): {cluster_ms:.4f} ms")
     feats = torch.rand(shape, generator=gen, device=dev)
     cot = torch.randn((R, 14, 14, C), generator=gen, device=dev)
     grads = []
@@ -174,7 +183,7 @@ def check_k3(roi_ops, dev):
     if not autograd_err <= 1e-4 or not grads[0].is_contiguous():
         fail(f"autograd through roi_align_batched disagrees with the plain autograd: {autograd_err}")
     print(f"K3 check: fp32 max abs err / max |dF| {errs} (tol 1e-4), bf16 max rel err {rel.max().item():.3g} "
-          f"(rtol 2e-2), autograd {autograd_err:.3g} (tol 1e-4)")
+          f"(rtol 2e-2), autograd {autograd_err:.3g} (tol 1e-4), fp32 and bf16 bit-identical on a second call")
     return max(abs_errs)
 
 
@@ -329,19 +338,17 @@ def read_launches(roi_ops, nms_ops):
             "nms": nms_ops.KERNEL.launches["cddmsl_nms"]}
 
 
-def roi_bounds_ms(feats, R, backward):
-    """(bound ms, bound_by) of K1 (backward=False) or K3 over the map `feats`
-    and R 14x14 ROIs. Bytes: each input read once, each output written once,
-    plus, for K3, its float32 sums. Operations: K1 2 per tap (multiply and
-    add), S x S samples x 4 taps; K3 16 fp32 adds per gradient value."""
+def roi_bounds_ms(feats, R):
+    """(bound ms, bound_by) of K1 or K3 over the map `feats` and R 14x14
+    ROIs; both move the same bytes and do the same work. Bytes: each input
+    read once, each output written once, in the map's dtype: for K1 the map,
+    the boxes and indices, and the pooled values; for K3 the gradient g, the
+    boxes and indices, and dF. Operations: (2S)^2 = 16 multiply-adds, 32
+    flops, per pooled value at the path's S = 2."""
     es = feats.element_size()
     values = R * 14 * 14 * feats.shape[-1]
-    if backward:
-        bytes_ = values * es + R * (4 + 16) + feats.numel() * (es + 4)
-        ops = 16 * values
-    else:
-        bytes_ = feats.numel() * es + R * (4 + 16) + values * es
-        ops = 2 * values * (2 * 2) ** 2
+    bytes_ = values * es + R * (4 + 16) + feats.numel() * es
+    ops = 32 * values
     t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, ops / H100_FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -410,7 +417,7 @@ def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
                proposals.boxes[0].contiguous(), (14, 14), 1 / 16, 0, True)
     k1_ms = cuda_ms(lambda: roi_ops.roi_align_forward(*k1_args), 20)
     k1_plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*k1_args), 3, warmup=1)
-    k1_bound, k1_by = roi_bounds_ms(k1_args[0], R, backward=False)
+    k1_bound, k1_by = roi_bounds_ms(k1_args[0], R)
     print(f"roi_align_fwd inference {R}x14x14x{features.shape[-1]} {features.dtype}: {k1_ms:.4f} ms kernel, "
           f"{k1_plain_ms:.4f} ms plain, bound {k1_bound:.5f} ms ({k1_by})")
     # the RPN's NMS on this image's own candidates; the detection NMS on
@@ -422,6 +429,29 @@ def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
     nms_times = nms_row(nms_ops, "inference", [rpn_nms, (db[None], ds[None], dv[None], dthr, dk)])
     return {"roi_align_fwd": (launches["roi_align_fwd"], k1_ms, k1_plain_ms, k1_bound, k1_by),
             "nms": (launches["nms"], *nms_times)}
+
+
+def training_roi_align_calls(model, batch, draw):
+    """The RoIAlign calls of one CDDMSL training step past burn-up, rebuilt
+    outside autograd on the model's device: [(label, features, batch_idx,
+    boxes)] as `roi_heads.pool` hands them to `roi_align_batched`, in the
+    step's order. The supervised pool (B x batch_size_per_image sampled
+    ROIs) on the source res4 map, then the region-consistency pool (B x
+    region_consistency_boxes random proposals) on the source and on the
+    translated res4 map."""
+    rpn, rh = model.proposal_generator, model.roi_heads
+    f_src = model.backbone(model._normalize(batch.image))["res4"]
+    proposals = rpn._predict_proposals(*rpn._head(f_src), batch.image_sizes, True)
+    sampled = rh.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)[0]
+    region = model._random_region_boxes(proposals, draw)
+    f_trgt = model.backbone(model._normalize(batch.image_trgt))["res4"]
+
+    def call(label, features, boxes):
+        b, s = boxes.shape[:2]
+        bidx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(s)
+        return label, features.contiguous(), bidx, boxes.reshape(b * s, 4).float().contiguous()
+
+    return [call("supervised", f_src, sampled), call("region_src", f_src, region), call("region_trgt", f_trgt, region)]
 
 
 LOSS_NAMES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "cont_loss", "kd_loss", "cont_loss_region")
@@ -487,30 +517,30 @@ def training_path(dev, smi, roi_ops, nms_ops):
     # ---- the kernels at the step's own shapes ----
     rpn = model.proposal_generator
     f_src = model.backbone(model._normalize(batch.image))["res4"]
-    anchors, logits, deltas = rpn._head(f_src)
-    nms_inputs = rpn._nms_inputs(anchors, logits, deltas, batch.image_sizes, True)
-    proposals = rpn._predict_proposals(anchors, logits, deltas, batch.image_sizes, True)
-    boxes = model.roi_heads.label_and_sample_proposals(
-        proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, trainer.draw)[0]
-    b, s = boxes.shape[:2]
-    R = b * s
-    feats = f_src.contiguous()
-    bidx = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(s)
-    rois = boxes.reshape(R, 4).float().contiguous()
-    k1_args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
-    g = torch.randn((R, 14, 14, feats.shape[-1]), device=dev).bfloat16()
-    k3_args = (g, bidx, rois, tuple(feats.shape), (14, 14), 1 / 16, 0, True)
-    rows = {}
-    for name, kernel, plain, args, backward in (
-        ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args, False),
-        ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args, True),
-    ):
-        ms = cuda_ms(lambda: kernel(*args), 10)
-        plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
-        bound, by = roi_bounds_ms(feats, R, backward)
-        rows[name] = (launches[name], ms, plain_ms, bound, by)
-        print(f"{name} training {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
-              f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {bound:.5f} ms ({by})")
+    nms_inputs = rpn._nms_inputs(*rpn._head(f_src), batch.image_sizes, True)
+    rows = {"roi_align_fwd": [launches["roi_align_fwd"], 0.0, 0.0, 0.0, set()],
+            "roi_align_bwd": [launches["roi_align_bwd"], 0.0, 0.0, 0.0, set()]}
+    for label, feats, bidx, rois in training_roi_align_calls(model, batch, trainer.draw):
+        R = rois.shape[0]
+        k1_args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
+        g = torch.randn((R, 14, 14, feats.shape[-1]), device=dev).bfloat16()
+        k3_args = (g, bidx, rois, tuple(feats.shape), (14, 14), 1 / 16, 0, True)
+        bound, by = roi_bounds_ms(feats, R)
+        for name, kernel, plain, args in (
+            ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args),
+            ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args),
+        ):
+            ms = cuda_ms(lambda: kernel(*args), 10)
+            plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
+            row = rows[name]
+            row[1] += ms
+            row[2] += plain_ms
+            row[3] += bound
+            row[4].add(by)
+            print(f"{name} training {label} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
+                  f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {bound:.5f} ms ({by})")
+    rows = {name: (n, ms, plain_ms, bound, "bytes" if bys == {"bytes"} else "operations")
+            for name, (n, ms, plain_ms, bound, bys) in rows.items()}
     nms_call = (*nms_inputs, rpn.nms_thresh, rpn.post_nms_topk[True])
     rows["nms"] = (launches["nms"], *nms_row(nms_ops, "training", [nms_call]))
     return rows
