@@ -36,12 +36,16 @@ class CudaKernel:
 
     `functions` maps each exported C name to its ctypes argtypes; every entry
     returns the `cudaError_t` of its launches as an int. `launches[name]`
-    counts the successful calls of each entry point.
+    counts the successful calls of each entry point. `queries` maps exported
+    C names that launch nothing (sizes the kernels need) to their argtypes
+    and restype; `query` calls them.
     """
 
-    def __init__(self, source: str, functions: Dict[str, Sequence], extra_flags: Tuple[str, ...] = ()):
+    def __init__(self, source: str, functions: Dict[str, Sequence], extra_flags: Tuple[str, ...] = (),
+                 queries: Optional[Dict[str, Tuple[Sequence, type]]] = None):
         self.source = CSRC / source
         self.functions = functions
+        self.queries = queries or {}
         self.flags = ARCH_FLAGS + BASE_FLAGS + tuple(extra_flags)
         self.launches: Dict[str, int] = dict.fromkeys(functions, 0)
         self._lib: Optional[ctypes.CDLL] = None
@@ -81,6 +85,10 @@ class CudaKernel:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in self.queries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
             self._lib = lib
         return self._lib
 
@@ -90,6 +98,10 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{name} failed with cudaError_t {err}")
         self.launches[name] += 1
+
+    def query(self, name: str, *args):
+        """Calls one C entry point of `queries` and returns its value."""
+        return getattr(self.library(), name)(*args)
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(self.functions, 0)

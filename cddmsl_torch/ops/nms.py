@@ -24,10 +24,11 @@ KERNEL = CudaKernel(
     "nms.cu",
     {
         "cddmsl_nms": (
-            ctypes.c_void_p,  # boxes (B, N, 4) float32, score order
-            ctypes.c_void_p,  # valid (B, N) uint8, score order
-            ctypes.c_void_p,  # order (B, N) int64
-            ctypes.c_void_p,  # mask scratch (B, N, ceil(N/64)) uint64
+            ctypes.c_void_p,  # boxes (B, N, 4) float32
+            ctypes.c_void_p,  # valid (B, N) bool
+            ctypes.c_void_p,  # order (B, N) int64, score order
+            ctypes.c_void_p,  # masked scores (B, N) float32 in score order, or None
+            ctypes.c_void_p,  # scratch, cddmsl_nms_scratch_words(B, N) int64 words
             ctypes.c_void_p,  # out_idx (B, max_out) int64
             ctypes.c_void_p,  # out_valid (B, max_out) bool
             ctypes.c_int, ctypes.c_int,  # B N
@@ -37,16 +38,17 @@ KERNEL = CudaKernel(
         )
     },
     extra_flags=("-fmad=false",),
+    queries={"cddmsl_nms_scratch_words": ((ctypes.c_int, ctypes.c_int), ctypes.c_longlong)},
 )
 
 _TILE = 256
 
 
-def _score_order(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _score_order(scores: torch.Tensor, valid: torch.Tensor):
     """Descending score order along the last dim, invalid rows last, ties to
-    the lower index."""
-    masked = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
-    return torch.sort(masked, dim=-1, descending=True, stable=True).indices
+    the lower index: torch.sort's (values, indices) of the scores with the
+    invalid rows' set to -inf."""
+    return torch.sort(torch.where(valid, scores, float("-inf")), dim=-1, descending=True, stable=True)
 
 
 def _greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, max_keep: int) -> torch.Tensor:
@@ -84,7 +86,7 @@ def nms_mask(
     n = boxes.shape[0]
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=boxes.device)
-    order = _score_order(scores, valid)
+    order = _score_order(scores, valid).indices
     kept_sorted = _greedy_keep(boxes[order], valid[order], iou_threshold, n)
     keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
     keep[order] = kept_sorted
@@ -99,7 +101,9 @@ def nms_plain(
     valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K4 for one image: boxes (N, 4), scores (N,) ->
-    idx (max_out,) int64 in score order, padded with 0, and valid (max_out,)."""
+    idx (max_out,) int64 in score order, padded with 0, and valid (max_out,).
+    With max_out >= N, a kept row whose score is not above -inf is given
+    index 0 and marked invalid, as JAX's `nms` does in that case."""
     n = boxes.shape[0]
     dev = boxes.device
     if valid is None:
@@ -108,12 +112,15 @@ def nms_plain(
     out_valid = torch.zeros(max_out, dtype=torch.bool, device=dev)
     if n == 0:
         return idx, out_valid
-    order = _score_order(scores, valid)
+    order = _score_order(scores, valid).indices
     kept_sorted = _greedy_keep(boxes[order], valid[order], iou_threshold, max_out)
     pos = torch.nonzero(kept_sorted).squeeze(1)[:max_out]
     k = pos.numel()
     idx[:k] = order[pos]
     out_valid[:k] = True
+    if max_out >= n:
+        out_valid[:k] = scores[idx[:k]] > float("-inf")
+        idx[:k] = torch.where(out_valid[:k], idx[:k], 0)
     return idx, out_valid
 
 
@@ -122,21 +129,27 @@ def _nms_cuda(boxes, scores, valid, iou_threshold, max_out):
     dev = boxes.device
     if boxes.dtype != torch.float32:
         raise TypeError(f"nms: boxes must be float32, got {boxes.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"nms: valid must be bool, got {valid.dtype}")
     if scores.device != dev or valid.device != dev:
         raise ValueError("nms: all inputs must be on the same device")
     out_idx = torch.empty((B, max_out), dtype=torch.int64, device=dev)
     out_valid = torch.empty((B, max_out), dtype=torch.bool, device=dev)
     if N == 0 or max_out == 0:
         return out_idx.zero_(), out_valid.zero_()
-    order = _score_order(scores, valid)
-    boxes_s = torch.gather(boxes, 1, order[..., None].expand(B, N, 4)).contiguous()
-    valid_s = torch.gather(valid, 1, order).to(torch.uint8).contiguous()
-    mask = torch.empty((B, N, (N + 63) // 64), dtype=torch.int64, device=dev)
+    values, order = _score_order(scores, valid)
+    # with max_out >= N the kernel drops kept rows whose score is -inf (JAX's rule)
+    values = values.float() if max_out >= N else None
+    boxes, valid = boxes.contiguous(), valid.contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads each box as one float4
+        boxes = boxes.clone()
     with torch.cuda.device(dev):
+        words = KERNEL.query("cddmsl_nms_scratch_words", B, N)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev)
         KERNEL.launch(
             "cddmsl_nms",
-            boxes_s.data_ptr(), valid_s.data_ptr(), order.data_ptr(), mask.data_ptr(),
-            out_idx.data_ptr(), out_valid.data_ptr(), B, N, float(iou_threshold), max_out,
+            boxes.data_ptr(), valid.data_ptr(), order.data_ptr(), None if values is None else values.data_ptr(),
+            scratch.data_ptr(), out_idx.data_ptr(), out_valid.data_ptr(), B, N, float(iou_threshold), max_out,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     return out_idx, out_valid

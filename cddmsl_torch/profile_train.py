@@ -8,8 +8,8 @@ steps with `torch.profiler` (CPU and CUDA activity). Prints the card with
 its power limit, ms per step on the host clock, the device's busy and idle
 shares (the union of the kernels' intervals over the traced wall time), the
 device time of each group of kernels (the port's K1/K3/K4, convolutions,
-matrix products, the rest) and the `--top` kernels by device time. Exits 1
-without a card.
+matrix products, the rest), the `--top` kernels by device time, and each of
+the port's own kernels. Exits 1 without a card.
 """
 
 import argparse
@@ -88,6 +88,10 @@ def main() -> int:
     print(f"kernel time sum {kernel_sum / 1e3 / steps:.3f} ms/step")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]:
         print(f"  {t / 1e3 / steps:9.4f} ms  {_group(name):26s} {name[:110]}")
+    print("the port's kernels, each:")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if _group(name).startswith("K"):
+            print(f"  {t / 1e3 / steps:9.4f} ms  {_group(name):26s} {name[:110]}")
     return 0
 
 

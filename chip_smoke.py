@@ -17,8 +17,12 @@ Phases, each of which fails the run with a non-zero exit:
      on the same inputs, and torch.autograd through `roi_align_batched`
      against autograd through the plain forward; K4 exactly, on 6000 boxes at IoU 0.7
      keeping 1000, on 12000 boxes keeping 2000 (the training RPN), on 2048
-     class-shifted boxes at 0.5 keeping 100, and on a cluster whose IoUs sit
-     within a few ulps of the threshold;
+     class-shifted boxes at 0.5 keeping 100, on a cluster whose IoUs sit
+     within a few ulps of the threshold, at the edges of its 64-row blocks,
+     on tied duplicates, on dense boxes with heavy suppression, at a
+     threshold of 0 (every pair divides), with no valid row, with valid
+     rows scored -inf, and on a batch of three images (twice: the same
+     result);
   4. the tiny configuration in fp32 on the card against the same model on
      the CPU (plain versions): inference on two 128x160 images, and one
      training step with the same weights and the same sampler draws (the 7
@@ -187,6 +191,17 @@ def check_k3(roi_ops, dev):
     return max(abs_errs)
 
 
+def nms_equal(nms_ops, boxes, scores, valid, thr, max_out):
+    """K4 on (B, N, 4) boxes against `nms_plain` image by image; returns the
+    kernel's (idx, valid) or None where they differ."""
+    got = nms_ops.nms(boxes, scores, thr, max_out, valid=valid)
+    for i in range(boxes.shape[0]):
+        want = nms_ops.nms_plain(boxes[i], scores[i], thr, max_out, valid=valid[i])
+        if not (torch.equal(got[0][i], want[0]) and torch.equal(got[1][i], want[1])):
+            return None
+    return got
+
+
 def check_k4(nms_ops, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = {}
@@ -204,51 +219,101 @@ def check_k4(nms_ops, dev):
     cases["det_2048_0.5_100"] = (det + shift[:, None], det_scores, det_valid, 0.5, 100)
     cl = near_threshold_cluster(0.7, 300, dev)
     cases["cluster_600_0.7"] = (cl, torch.rand(len(cl), generator=gen, device=dev), None, 0.7, 600)
+    # the edges of the walk's 64-row blocks: max_out reached inside a block, N below and just past 64,
+    # max_out above N, tied duplicates across a block edge, no valid row
+    for n, k in ((1, 1), (63, 20), (65, 37), (130, 200)):
+        cases[f"edge_{n}_0.5_{k}"] = (boxes[:n], scores[:n], valid[:n], 0.5, k)
+    dup_boxes, dup_scores = boxes[:300].clone(), torch.round(scores[:300] * 8) / 8
+    dup_boxes[40:80], dup_scores[40:80] = dup_boxes[7], dup_scores[7]
+    cases["ties_300_0.5_400"] = (dup_boxes, dup_scores, valid[:300], 0.5, 400)
+    dense = random_boxes(gen, 3000, 300.0, 200.0, dev, max_size=150.0)  # the walk reads far past max_out rows
+    cases["dense_3000_0.3_150"] = (dense, torch.rand(3000, generator=gen, device=dev), None, 0.3, 150)
+    # below 2^-100 the threshold test always divides: any overlap suppresses
+    cases["zero_thr_600_0.0_600"] = (boxes[:600], scores[:600], valid[:600], 0.0, 600)
+    cases["no_valid_row_500_0.7_100"] = (boxes[:500], scores[:500], torch.zeros(500, dtype=torch.bool, device=dev),
+                                        0.7, 100)
+    # valid rows scored -inf: dropped from the output where max_out >= N, as JAX's nms drops them
+    inf_scores = scores[:600].clone()
+    inf_scores[1::7] = float("-inf")
+    for k in (300, 600):
+        cases[f"minus_inf_600_0.7_{k}"] = (boxes[:600], inf_scores, valid[:600], 0.7, k)
     for name, (b, s, v, thr, k) in cases.items():
-        got = nms_ops.nms(b, s, thr, k, valid=v)
-        want = nms_ops.nms_plain(b, s, thr, k, valid=v)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        v = torch.ones(len(b), dtype=torch.bool, device=dev) if v is None else v
+        got = nms_equal(nms_ops, b[None], s[None], v[None], thr, k)
+        if got is None:
             fail(f"K4 {name}: kernel and plain version keep different boxes")
+        if name.startswith("minus_inf") and k >= len(b) and not torch.isfinite(s[got[0][got[1]]]).all():
+            fail(f"K4 {name}: a kept row scored -inf is marked valid")
         print(f"K4 check {name}: equal ({int(got[1].sum())} kept)")
-    # a batch of two images in one launch
-    bb = torch.stack([boxes, boxes.flip(0)])
-    got = nms_ops.nms(bb, torch.stack([scores, scores.flip(0)]), 0.7, 1000, valid=torch.stack([valid, valid.flip(0)]))
-    want = nms_ops.nms_plain(boxes.flip(0), scores.flip(0), 0.7, 1000, valid=valid.flip(0))
-    if not (torch.equal(got[0][1], want[0]) and torch.equal(got[1][1], want[1])):
-        fail("K4 batched: image 1 differs from its own plain run")
+    # a batch of three images in one launch, each with its own validity; a second call gives the same
+    bb = torch.stack([boxes, boxes.flip(0), boxes.roll(100, 0)])
+    bs = torch.stack([scores, scores.flip(0), scores.roll(100, 0)])
+    bv = torch.stack([valid, torch.ones_like(valid), torch.arange(6000, device=dev) < 900])
+    got = nms_equal(nms_ops, bb, bs, bv, 0.7, 1000)
+    if got is None:
+        fail("K4 batched: an image differs from its own plain run")
+    again = nms_ops.nms(bb, bs, 0.7, 1000, valid=bv)
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        fail("K4 batched: a second call on the same inputs differs")
+    print(f"K4 check batched_3x6000_0.7_1000: equal, and equal on a second call ({got[1].sum(1).tolist()} kept)")
     return cases
 
 
-def nms_bound_ms(nms_ops, boxes, scores, valid, thr, max_out):
-    """Bytes: boxes, scores and valid read once, indices and mask written
-    once. Operations: the IoUs the greedy walk needs on this data, each kept
-    box against every later box up to the last row examined, ~14 flops each."""
+def nms_work(nms_ops, boxes, scores, valid, thr, max_out):
+    """What one image's NMS needs on this data, from the plain version:
+    (bound ms, bound_by). Bytes: boxes, scores and valid read once, the
+    indices and validity written once; the kernel's scratch (the suppression
+    mask) is the design's, not the work's, and is not counted. Operations:
+    the IoUs the greedy walk needs, each kept box against every later box up
+    to the last row examined, ~14 flops each."""
     n = boxes.shape[0]
     valid = torch.ones(n, dtype=torch.bool, device=boxes.device) if valid is None else valid
-    order = nms_ops._score_order(scores, valid)
+    order = nms_ops._score_order(scores, valid).indices
     kept = torch.nonzero(nms_ops._greedy_keep(boxes[order], valid[order], thr, max_out)).squeeze(1)[:max_out]
     last = int(kept[-1]) if len(kept) == max_out else n - 1
     pairs = float((last - kept).clamp_min(0).sum())
     bytes_ = n * (16 + 4 + 1) + max_out * (8 + 1)
-    return max(bytes_ / H100_BYTES_PER_S, 14 * pairs / H100_FP32_FLOP_PER_S) * 1e3, (
-        "bytes" if bytes_ / H100_BYTES_PER_S >= 14 * pairs / H100_FP32_FLOP_PER_S else "operations")
+    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, 14 * pairs / H100_FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def walk_extent(nms_ops, idx, ok, scores, valid, max_out):
+    """The 64-row blocks K4's walk visited and the rows it kept, read from
+    one image's output (idx, ok): the walk stops at the block of its
+    max_out-th kept row, else it visits every block."""
+    n = scores.shape[0]
+    valid = torch.ones(n, dtype=torch.bool, device=scores.device) if valid is None else valid
+    kept = int(ok.sum())
+    if kept < max_out:
+        return -(-n // 64), kept
+    rank = torch.empty(n, dtype=torch.int64, device=scores.device)
+    rank[nms_ops._score_order(scores, valid).indices] = torch.arange(n, device=scores.device)
+    return int(rank[idx[max_out - 1]]) // 64 + 1, kept
 
 
 def nms_row(nms_ops, label, calls):
     """Times K4 over `calls` ((B, N, 4) boxes, scores, valid, threshold,
-    max_out), each beside its plain version (one image at a time) and its
-    bound; returns the sums (ms, plain ms, bound ms, bound_by)."""
+    max_out): the whole call, and apart from it the score order it starts
+    with, each beside its plain version (one image at a time) and its bound,
+    with the walk's blocks visited and rows kept per image (read from the
+    kernel's output by `walk_extent`); returns the sums
+    (ms, plain ms, bound ms, bound_by)."""
     total = [0.0, 0.0, 0.0]
     bys = set()
     for boxes, scores, valid, thr, k in calls:
         b, n = scores.shape
         ms = cuda_ms(lambda: nms_ops.nms(boxes, scores, thr, k, valid=valid), 10)
+        order_ms = cuda_ms(lambda: nms_ops._score_order(scores, valid), 10)
         plain = cuda_ms(lambda: [nms_ops.nms_plain(boxes[i], scores[i], thr, k, valid=valid[i]) for i in range(b)],
                         3, warmup=1)
-        bounds = [nms_bound_ms(nms_ops, boxes[i], scores[i], valid[i], thr, k) for i in range(b)]
-        bound = sum(x[0] for x in bounds)
-        bys.update(x[1] for x in bounds)
-        print(f"nms {label} {b}x{n} -> {k} at {thr}: {ms:.4f} ms kernel, {plain:.4f} ms plain, bound {bound:.5f} ms")
+        work = [nms_work(nms_ops, boxes[i], scores[i], valid[i], thr, k) for i in range(b)]
+        bound = sum(x[0] for x in work)
+        bys.update(x[1] for x in work)
+        idx, ok = nms_ops.nms(boxes, scores, thr, k, valid=valid)
+        walk = [walk_extent(nms_ops, idx[i], ok[i], scores[i], valid[i], k) for i in range(b)]
+        print(f"nms {label} {b}x{n} -> {k} at {thr}: {ms:.4f} ms kernel call ({order_ms:.4f} ms of it the score "
+              f"order), {plain:.4f} ms plain, bound {bound:.5f} ms; the kernel's walk visited blocks "
+              f"{[x[0] for x in walk]} of {-(-n // 64)}, kept {[x[1] for x in walk]}")
         for i, v in enumerate((ms, plain, bound)):
             total[i] += v
     return (*total, "bytes" if bys == {"bytes"} else "operations")

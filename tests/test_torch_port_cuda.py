@@ -14,7 +14,11 @@ order 1; K3 in float32 within 1e-4 of the largest |dF| (its sums run in
 another order than the plain version's); bfloat16 against the plain version
 run in float32 on the same bfloat16 inputs, rtol 2e-2 (the kernels round
 once, the plain forward rounds its first contraction); K3 against itself
-bit for bit; K4 exactly.
+bit for bit; K4 exactly, at the edges of its 64-row blocks (N of 1, 63, 64,
+65; max_out reached inside a block and above N), at a threshold of 0, on
+boxes off 16-byte alignment, with no valid row, with tied duplicates, over
+a batch of images, class-shifted, and with scores of -inf where max_out
+covers N.
 """
 
 import pytest
@@ -197,14 +201,119 @@ def test_wrapper_refuses_channels_the_kernels_cannot_vectorize(dev):
         roi_ops.roi_align_forward(torch.zeros((2, 12, 16, 12), device=dev), bidx, boxes, *ARGS, True)
 
 
-@pytest.mark.parametrize("thr, max_out", [(0.7, 300), (0.5, 40)])
-def test_k4_equals_plain(dev, thr, max_out):
-    g = torch.Generator(device=dev).manual_seed(4)
-    xy = torch.rand((2, 1500, 2), generator=g, device=dev) * 600
-    boxes = torch.cat([xy, xy + 4 + torch.rand((2, 1500, 2), generator=g, device=dev) * 150], -1)
-    scores = torch.rand((2, 1500), generator=g, device=dev)
-    valid = torch.rand((2, 1500), generator=g, device=dev) > 0.1
+def nms_case(b, n, seed, span=(1344.0, 800.0), size=400.0, p_valid=0.9):
+    """B images of n random boxes, scores and validity, made on the CPU so
+    that the same case can be read there."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand((b, n, 2), generator=g) * torch.tensor(span)
+    boxes = torch.cat([xy, xy + 4 + torch.rand((b, n, 2), generator=g) * size], -1)
+    return boxes, torch.rand((b, n), generator=g), torch.rand((b, n), generator=g) < p_valid
+
+
+def assert_k4_equals_plain(boxes, scores, valid, thr, max_out):
     idx, keep = nms_ops.nms(boxes, scores, thr, max_out, valid=valid)
-    for i in range(2):
+    assert idx.dtype == torch.int64 and keep.dtype == torch.bool and idx.shape == (boxes.shape[0], max_out)
+    for i in range(boxes.shape[0]):
         want_idx, want_keep = nms_ops.nms_plain(boxes[i], scores[i], thr, max_out, valid=valid[i])
-        assert torch.equal(idx[i], want_idx) and torch.equal(keep[i], want_keep)
+        assert torch.equal(idx[i], want_idx) and torch.equal(keep[i], want_keep), i
+    return idx, keep
+
+
+# at a threshold of 0 the test always divides: any overlap suppresses
+@pytest.mark.parametrize("thr, max_out", [(0.7, 300), (0.5, 40), (0.0, 300)])
+def test_k4_equals_plain(dev, thr, max_out):
+    boxes, scores, valid = (t.to(dev) for t in nms_case(2, 1500, 4, span=(600.0, 600.0), size=150.0))
+    assert_k4_equals_plain(boxes, scores, valid, thr, max_out)
+
+
+# max_out is reached inside a 64-row block: the walk stops at that row, not at the block's end
+@pytest.mark.parametrize("n, max_out, size", [(1, 1, 400.0), (63, 20, 400.0), (65, 37, 400.0),
+                                              (12000, 2000, 400.0), (5000, 700, 120.0)])
+def test_k4_stops_where_max_out_is_reached(dev, n, max_out, size):
+    boxes, scores, valid = (t.to(dev) for t in nms_case(1, n, n, size=size, p_valid=1.0))
+    _, keep = assert_k4_equals_plain(boxes, scores, valid, 0.7, max_out)
+    assert int(keep.sum()) == max_out
+
+
+# heavy suppression: the walk reads rows far past the first 5/4 max_out
+@pytest.mark.parametrize("max_out", [150, 1000])
+def test_k4_with_heavy_suppression(dev, max_out):
+    boxes, scores, valid = (t.to(dev) for t in nms_case(1, 3000, 21, span=(300.0, 200.0), size=150.0))
+    idx, keep = assert_k4_equals_plain(boxes, scores, valid, 0.3, max_out)
+    rank = torch.empty(3000, dtype=torch.int64, device=dev)
+    rank[nms_ops._score_order(scores[0], valid[0]).indices] = torch.arange(3000, device=dev)
+    assert int(rank[idx[0][keep[0]]].max()) >= 5 * max_out // 4 + 64
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 130])
+def test_k4_with_max_out_above_n(dev, n):
+    boxes, scores, valid = (t.to(dev) for t in nms_case(2, n, 10 + n, span=(200.0, 150.0), size=120.0))
+    _, keep = assert_k4_equals_plain(boxes, scores, valid, 0.5, n + 70)
+    assert not keep[:, n:].any()
+
+
+def test_k4_reads_boxes_from_a_view_off_16_byte_alignment(dev):
+    boxes, scores, valid = (t.to(dev) for t in nms_case(1, 700, 9, size=300.0))
+    flat = torch.empty(700 * 4 + 1, device=dev)
+    flat[1:] = boxes.reshape(-1)
+    view = flat[1:].view(1, 700, 4)  # contiguous, 4 bytes past an aligned address
+    assert view.is_contiguous() and view.data_ptr() % 16
+    assert_k4_equals_plain(view, scores, valid, 0.7, 200)
+
+
+def test_k4_with_no_valid_row(dev):
+    boxes, scores, _ = (t.to(dev) for t in nms_case(2, 200, 3))
+    idx, keep = nms_ops.nms(boxes, scores, 0.7, 50, valid=torch.zeros_like(scores, dtype=torch.bool))
+    assert not keep.any() and not idx.any()
+
+
+def test_k4_duplicates_with_tied_scores_keep_the_lower_index(dev):
+    boxes, scores, valid = nms_case(1, 300, 4, span=(300.0, 200.0), size=150.0)
+    boxes[0, 40:80] = boxes[0, 7]  # 41 identical boxes across a block edge
+    scores = torch.round(scores * 8) / 8
+    scores[0, 40:80] = scores[0, 7]
+    valid[0, 7] = False  # the first of them is padding: the next index must win
+    boxes, scores, valid = boxes.to(dev), scores.to(dev), valid.to(dev)
+    for thr, max_out in ((0.7, 100), (0.5, 400)):
+        idx, keep = assert_k4_equals_plain(boxes, scores, valid, thr, max_out)
+        assert int(((idx[0] >= 40) & (idx[0] < 80) & keep[0]).sum()) == 1
+
+
+def test_k4_batch_of_images_with_different_validity(dev):
+    boxes, scores, valid = nms_case(3, 1000, 5)
+    valid[0] = True
+    valid[1] = torch.arange(1000) % 3 != 0
+    valid[2, 100:] = False
+    boxes, scores, valid = boxes.to(dev), scores.to(dev), valid.to(dev)
+    idx, keep = assert_k4_equals_plain(boxes, scores, valid, 0.7, 300)
+    assert int(keep[2].sum()) <= 100 and valid[1][idx[1][keep[1]]].all()
+
+
+def test_k4_gives_the_same_result_on_a_second_call(dev):
+    boxes, scores, valid = (t.to(dev) for t in nms_case(2, 6000, 6, size=300.0))
+    first = nms_ops.nms(boxes, scores, 0.7, 1000, valid=valid)
+    for _ in range(2):
+        again = nms_ops.nms(boxes, scores, 0.7, 1000, valid=valid)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+def test_k4_class_shifted_boxes(dev):
+    boxes, scores, valid = nms_case(2, 2048, 7, span=(800.0, 640.0), size=200.0)
+    cls = torch.randint(0, 20, (2, 2048), generator=torch.Generator().manual_seed(7))
+    boxes, scores, valid, cls = boxes.to(dev), scores.to(dev), valid.to(dev), cls.to(dev)
+    idx, keep = nms_ops.batched_nms(boxes, scores, cls, 0.5, 100, valid=valid)
+    for i in range(2):
+        want = nms_ops.batched_nms(boxes[i].cpu(), scores[i].cpu(), cls[i].cpu(), 0.5, 100, valid=valid[i].cpu())
+        assert torch.equal(idx[i].cpu(), want[0]) and torch.equal(keep[i].cpu(), want[1])
+
+
+@pytest.mark.parametrize("max_out", [2, 4, 6, 300])
+def test_k4_drops_kept_rows_scored_minus_inf_when_max_out_covers_n(dev, max_out):
+    boxes, scores, valid = nms_case(1, 200, 8, span=(300.0, 200.0), size=150.0)
+    boxes[0, :4] = torch.tensor([[0.0, 0, 10, 10], [20, 20, 30, 30], [40, 40, 50, 50], [60, 60, 70, 70]]) + 1000
+    scores[0, :4] = torch.tensor([2.0, float("-inf"), 1.5, float("-inf")])
+    scores[0, 100:130] = float("-inf")
+    valid[0, :4] = torch.tensor([True, True, True, False])
+    n = 4 if max_out <= 6 else 200
+    idx, keep = assert_k4_equals_plain(boxes[:, :n].to(dev), scores[:, :n].to(dev), valid[:, :n].to(dev), 0.5, max_out)
+    assert torch.isfinite(scores[0, idx[0][keep[0]].cpu()]).all()

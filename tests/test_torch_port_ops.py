@@ -269,6 +269,18 @@ def test_nms_equals_jax(kind, max_out):
     assert 0 < int(out_valid.sum()) and not np.any(np.asarray(valid)[idx.numpy()[out_valid.numpy()]] == 0)
 
 
+@pytest.mark.parametrize("max_out", [2, 4, 6])  # kept-buffer branch; max_out >= n, where -inf rows drop out
+def test_nms_drops_kept_rows_scored_minus_inf_as_jax_does(max_out):
+    bx = np.asarray([[0, 0, 10, 10], [20, 20, 30, 30], [40, 40, 50, 50], [60, 60, 70, 70]], np.float32)
+    sc = np.asarray([0.9, -np.inf, 0.5, -np.inf], np.float32)
+    valid = np.asarray([True, True, True, False])
+    want_idx, want_valid = jax_nms(jnp.asarray(bx), jnp.asarray(sc), 0.5, max_out, valid=jnp.asarray(valid))
+    idx, out_valid = nms.nms_plain(_t(bx), _t(sc), 0.5, max_out, valid=_t(valid))
+    np.testing.assert_array_equal(out_valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    assert idx.tolist()[:2] == [0, 2] and out_valid.tolist()[:2] == [True, True]
+
+
 def test_nms_mask_equals_jax():
     bx, sc, valid = _nms_case("ties")
     want = jax_nms_mask(jnp.asarray(bx), jnp.asarray(sc), 0.5, valid=jnp.asarray(valid))

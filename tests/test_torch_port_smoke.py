@@ -1,6 +1,7 @@
 """The parts of chip_smoke.py that the CPU can check: the rebuilt RoIAlign
-calls of a training step, which its training rows time, and the bounds its
-kernels line reports beside each time.
+calls of a training step, which its training rows time, the bounds its
+kernels line reports beside each time, and the NMS walk's blocks and kept
+rows it prints.
 
 The rebuilt calls must be the step's own: one tiny CDDMSL step past burn-up
 runs on the CPU with a spy on `roi_align_batched`, and the spy's record of
@@ -20,6 +21,7 @@ from cddmsl_torch.engine.train_loop import Trainer
 from cddmsl_torch.entry import synthetic_batch
 from cddmsl_torch.models import roi_heads
 from cddmsl_torch.models.build import build_model
+from cddmsl_torch.ops import nms as nms_ops
 from cddmsl_torch.solver.build import build_optimizer
 
 
@@ -73,3 +75,32 @@ def test_roi_bounds_count_each_byte_once_at_the_training_shape(R, want_bytes):
     # 16 multiply-adds (32 flops) per pooled value at S = 2, below the bytes at 67 TFLOP/s
     flops_ms = 32 * R * 14 * 14 * 1024 / 67e12 * 1e3
     assert flops_ms < bound_ms
+
+
+def _row_of_boxes(n):
+    """n boxes of 10x10 on a row, 20 apart: no two overlap."""
+    x = torch.arange(n, dtype=torch.float32) * 20
+    return torch.stack([x, torch.zeros(n), x + 10, torch.full((n,), 10.0)], 1)
+
+
+@pytest.mark.parametrize("n, max_out, want", [
+    # rows 0 and 1 overlap (IoU 90/110 > 0.7): 1 is suppressed; the walk stops at row 2 with 2 kept,
+    # 2 + 0 later boxes examined, 3 x 21 + 2 x 9 bytes
+    (3, 2, (81, 14 * 2, 1, 2)),
+    # no overlap: max_out reached at sorted row 99, in the second 64-row block
+    (200, 100, (200 * 21 + 100 * 9, 14 * sum(range(100)), 2, 100)),
+    # max_out above N: every row is kept and the walk visits all four blocks
+    (200, 300, (200 * 21 + 300 * 9, 14 * sum(range(200)), 4, 200)),
+])
+def test_nms_work_counts_what_the_walk_needs(n, max_out, want):
+    boxes = _row_of_boxes(n)
+    if n == 3:
+        boxes[1] = torch.tensor([1.0, 0.0, 11.0, 10.0])
+    scores = torch.linspace(1.0, 0.5, n)
+    bound_ms, by = chip_smoke.nms_work(nms_ops, boxes, scores, None, 0.7, max_out)
+    blocks, kept = chip_smoke.walk_extent(nms_ops, *nms_ops.nms(boxes, scores, 0.7, max_out), scores, None, max_out)
+    want_bytes, want_flops, want_blocks, want_kept = want
+    t_bytes, t_ops = want_bytes / 3.35e12, want_flops / 67e12
+    assert (blocks, kept) == (want_blocks, want_kept)
+    assert bound_ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")
