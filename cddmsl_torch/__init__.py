@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of cddmsl_tpu's inference path and CDDMSL training
-step for an NVIDIA H100.
+"""PyTorch/CUDA port of cddmsl_tpu's inference path, CDDMSL training step
+and VOC train-and-evaluate loop (`python -m cddmsl_torch.train_net`) for an
+NVIDIA H100.
 
 The JAX package `cddmsl_tpu` stays the reference; this package imports
 nothing of it. Module paths mirror the JAX package's. Entry points run on

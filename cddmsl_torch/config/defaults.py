@@ -1,0 +1,162 @@
+"""The port's default configuration tree: the keys of
+cddmsl_tpu/config/defaults.py that the port reads or checks, with the same
+defaults. `config.check_supported` raises for a value the port does not
+implement; a key that is not here raises when a file or an override sets it
+(`cfg_node.py`).
+
+Two TPU keys are accepted with either value and change nothing here:
+TPU.REMAT_BACKBONE (activation recomputation: memory, not results) and
+TPU.FAST_INIT (how the JAX package fills its initial parameters; the port
+always fills them with `init_random_`).
+"""
+
+from .cfg_node import CfgNode
+
+
+def get_cfg() -> CfgNode:
+    """A fresh copy of the default tree."""
+    _C = CfgNode()
+    _C.VERSION = 2
+    _C.OUTPUT_DIR = "./output"
+    _C.SEED = -1
+
+    _C.MODEL = CfgNode()
+    _C.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
+    _C.MODEL.WEIGHTS = ""
+    _C.MODEL.MASK_ON = False
+    _C.MODEL.KEYPOINT_ON = False
+    _C.MODEL.LOAD_PROPOSALS = False
+    _C.MODEL.PIXEL_MEAN = [103.530, 116.280, 123.675]
+    _C.MODEL.PIXEL_STD = [1.0, 1.0, 1.0]
+    _C.MODEL.KD_REGULRAZIATION = True  # (sic) the reference's key name
+    _C.MODEL.PRE_TRAINED_RCLIP_PATH = ""
+    _C.MODEL.VISION_TO_LANG_PATH = ""
+    _C.MODEL.CONSISTENCY_BRANCH = ""
+
+    _C.MODEL.BACKBONE = CfgNode()
+    _C.MODEL.BACKBONE.NAME = "build_clip_resnet_backbone"
+    _C.MODEL.BACKBONE.FREEZE_AT = 2
+
+    _C.MODEL.RESNETS = CfgNode()
+    _C.MODEL.RESNETS.DEPTH = 50
+    _C.MODEL.RESNETS.OUT_FEATURES = ["res4"]
+    _C.MODEL.RESNETS.NORM = "FrozenBN"
+
+    _C.MODEL.ANCHOR_GENERATOR = CfgNode()
+    _C.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
+    _C.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS = [[0.5, 1.0, 2.0]]
+
+    _C.MODEL.RPN = CfgNode()
+    _C.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 256
+    _C.MODEL.RPN.POSITIVE_FRACTION = 0.5
+    _C.MODEL.RPN.LOSS_WEIGHT = 1.0
+    _C.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 12000
+    _C.MODEL.RPN.PRE_NMS_TOPK_TEST = 6000
+    _C.MODEL.RPN.POST_NMS_TOPK_TRAIN = 2000
+    _C.MODEL.RPN.POST_NMS_TOPK_TEST = 1000
+    _C.MODEL.RPN.NMS_THRESH = 0.7
+
+    _C.MODEL.ROI_HEADS = CfgNode()
+    _C.MODEL.ROI_HEADS.NAME = "CLIPRes5ROIHeads"
+    _C.MODEL.ROI_HEADS.NUM_CLASSES = 80
+    _C.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 512
+    _C.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.25
+    _C.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
+    _C.MODEL.ROI_HEADS.NMS_THRESH_TEST = 0.5
+    _C.MODEL.ROI_HEADS.SOFT_NMS_ENABLED = False
+
+    _C.MODEL.ROI_BOX_HEAD = CfgNode()
+    _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
+    _C.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = False
+
+    _C.MODEL.CLIP = CfgNode()
+    _C.MODEL.CLIP.CROP_REGION_TYPE = "RPN"
+    _C.MODEL.CLIP.BB_RPN_WEIGHTS = None
+    _C.MODEL.CLIP.IMS_PER_BATCH_TEST = 8
+    _C.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER = False
+    _C.MODEL.CLIP.TEXT_EMB_PATH = None
+    _C.MODEL.CLIP.NO_BOX_DELTA = False
+    _C.MODEL.CLIP.BG_CLS_LOSS_WEIGHT = None
+    _C.MODEL.CLIP.MULTIPLY_RPN_SCORE = False
+    _C.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES = None
+    _C.MODEL.CLIP.CLSS_TEMP = 0.01
+    _C.MODEL.CLIP.FOCAL_SCALED_LOSS = None
+
+    _C.INPUT = CfgNode()
+    _C.INPUT.MIN_SIZE_TRAIN = (800,)
+    _C.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
+    _C.INPUT.MAX_SIZE_TRAIN = 1333
+    _C.INPUT.MIN_SIZE_TEST = 800
+    _C.INPUT.MAX_SIZE_TEST = 1333
+    _C.INPUT.RANDOM_FLIP = "horizontal"
+    _C.INPUT.CROP = CfgNode()
+    _C.INPUT.CROP.ENABLED = False
+    _C.INPUT.FORMAT = "BGR"
+
+    _C.DATASETS = CfgNode()
+    _C.DATASETS.TRAIN = ()
+    _C.DATASETS.TEST = ()
+
+    _C.DATALOADER = CfgNode()
+    _C.DATALOADER.NUM_WORKERS = 4  # the prefetch depth of the train loader
+    _C.DATALOADER.ASPECT_RATIO_GROUPING = True
+    _C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"
+    _C.DATALOADER.FILTER_EMPTY_ANNOTATIONS = True
+
+    _C.SOLVER = CfgNode()
+    _C.SOLVER.IMS_PER_BATCH = 16
+    _C.SOLVER.BASE_LR = 0.001
+    _C.SOLVER.MOMENTUM = 0.9
+    _C.SOLVER.NESTEROV = False
+    _C.SOLVER.WEIGHT_DECAY = 0.0001
+    _C.SOLVER.WEIGHT_DECAY_BIAS = 0.0001  # decay stays uniform, as in the JAX package
+    _C.SOLVER.GAMMA = 0.1
+    _C.SOLVER.STEPS = (30000,)
+    _C.SOLVER.MAX_ITER = 40000
+    _C.SOLVER.WARMUP_FACTOR = 1.0 / 1000
+    _C.SOLVER.WARMUP_ITERS = 1000
+    _C.SOLVER.WARMUP_METHOD = "linear"
+    _C.SOLVER.LR_SCHEDULER_NAME = "WarmupMultiStepLR"
+    _C.SOLVER.CHECKPOINT_PERIOD = 1000
+    _C.SOLVER.CHECKPOINT_MAX_TO_KEEP = 0
+    _C.SOLVER.ACCUM_STEPS = 1
+    _C.SOLVER.CLIP_GRADIENTS = CfgNode()
+    _C.SOLVER.CLIP_GRADIENTS.ENABLED = False
+    _C.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "value"
+    _C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    _C.SOLVER.CAPTION_BURNUP_ITERS = 10000
+
+    _C.TEST = CfgNode()
+    _C.TEST.EVAL_PERIOD = 0
+    _C.TEST.EXPECTED_RESULTS = []
+    _C.TEST.DETECTIONS_PER_IMAGE = 100
+    _C.TEST.AUG = CfgNode()
+    _C.TEST.AUG.ENABLED = False
+    _C.TEST.PRECISE_BN = CfgNode()
+    _C.TEST.PRECISE_BN.ENABLED = False
+
+    _C.TPU = CfgNode()
+    _C.TPU.MESH_SHAPE = [-1]
+    _C.TPU.SPATIAL_PARTITION = False
+    _C.TPU.FSDP = False
+    _C.TPU.PIPELINE_AXIS = ""
+    _C.TPU.MOE = CfgNode()
+    _C.TPU.MOE.NUM_EXPERTS = 0
+    _C.TPU.QUANT_EVAL = False
+    _C.TPU.ASYNC_CHECKPOINT = False
+    _C.TPU.COMPUTE_DTYPE = "bfloat16"
+    _C.TPU.MAX_GT_BOXES = 100
+    _C.TPU.PAD_SIZE_TRAIN = [800, 1344]
+    _C.TPU.PAD_SIZE_TEST = [800, 1344]
+    _C.TPU.PAD_BUCKETS = []
+    _C.TPU.REGION_CONSISTENCY_BOXES = 16
+    _C.TPU.V2L_IMAGE_SIZE = 224
+    _C.TPU.ENABLE_CAPTION_CONSISTENCY = True
+    _C.TPU.REMAT_BACKBONE = True
+    _C.TPU.FAST_INIT = False
+    _C.TPU.BACKBONE_LAYERS = []
+    _C.TPU.BACKBONE_WIDTH = 0
+    _C.TPU.EMBED_DIM = 0
+    _C.TPU.V2L_MAPPER_LAYERS = 8
+    _C.TPU.V2L_MAPPER_TOKENS = 40
+    return _C

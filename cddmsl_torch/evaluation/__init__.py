@@ -1,0 +1,2 @@
+from .evaluator import inference_on_dataset, print_csv_format, verify_results
+from .pascal_voc import PascalVOCDetectionEvaluator

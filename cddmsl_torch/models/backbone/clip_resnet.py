@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.resize import resize_bilinear_grid
+
 
 def _nchw(x_nhwc: torch.Tensor) -> torch.Tensor:
     return x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -110,16 +112,18 @@ class AttentionPool2d(nn.Module):
         return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H, W, C) -> (N, output_dim)."""
+        """x: (N, H, W, C) -> (N, output_dim). On a grid other than
+        spacial_dim^2 the grid part of the positional embedding is resized
+        bilinearly (antialiased when it shrinks), as the JAX module does."""
         n, h, w, c = x.shape
+        pos = self.positional_embedding
         if h * w != self.spacial_dim ** 2:
-            raise NotImplementedError(
-                f"AttentionPool2d: a {h}x{w} grid needs the positional-embedding resize, "
-                f"which is not ported; this path feeds {self.spacial_dim}x{self.spacial_dim}"
-            )
+            s = self.spacial_dim
+            grid = resize_bilinear_grid(pos[1:].reshape(s, s, -1), (h, w))
+            pos = torch.cat([pos[:1], grid.reshape(h * w, -1)], dim=0)
         seq = x.reshape(n, h * w, c)
         cls = seq.mean(dim=1, keepdim=True)
-        tokens = torch.cat([cls, seq], dim=1) + self.positional_embedding.to(x.dtype)[None]
+        tokens = torch.cat([cls, seq], dim=1) + pos.to(x.dtype)[None]
 
         heads = self.num_heads
         hd = c // heads

@@ -200,19 +200,21 @@ class GeneralizedRCNN(nn.Module):
     def _student_v2l(self, images224: torch.Tensor) -> torch.Tensor:
         return v2l(self.v2l_mapper(self.backbone.global_embed(images224)))
 
-    def caption_consistency(self, batch: DetBatch) -> Dict[str, torch.Tensor]:
-        """Image-level caption-consistency InfoNCE, and the KD L1 between the
-        student's and the frozen offline backbone's source features."""
+    def caption_consistency(self, batch: DetBatch, kd_regularization: bool = True) -> Dict[str, torch.Tensor]:
+        """Image-level caption-consistency InfoNCE, and with
+        `kd_regularization` the KD L1 between the student's and the frozen
+        offline backbone's source features."""
         src = self._v2l_preprocess(batch.image)
         trgt = self._v2l_preprocess(batch.image_trgt)
         feats_trgt = self._student_v2l(trgt)
         feats_src = self._student_v2l(src)
-        with torch.no_grad():
-            teacher = v2l(self.v2l_mapper(self.offline_backbone.global_embed(src)))
-        return {
-            "kd_loss": torch.mean(torch.abs(teacher.float() - feats_src.float())),
-            "cont_loss": infonce_bidirectional(self.projector(feats_trgt), self.projector(feats_src)),
-        }
+        losses = {}
+        if kd_regularization:
+            with torch.no_grad():
+                teacher = v2l(self.v2l_mapper(self.offline_backbone.global_embed(src)))
+            losses["kd_loss"] = torch.mean(torch.abs(teacher.float() - feats_src.float()))
+        losses["cont_loss"] = infonce_bidirectional(self.projector(feats_trgt), self.projector(feats_src))
+        return losses
 
     def _random_region_boxes(self, proposals: Proposals, draw: Draw) -> torch.Tensor:
         """region_consistency_boxes random valid proposals per image: the
@@ -224,13 +226,16 @@ class GeneralizedRCNN(nn.Module):
         idx = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, : self.region_consistency_boxes]
         return torch.gather(proposals.boxes, 1, idx[..., None].expand(-1, -1, 4))
 
-    def cddmsl_losses(self, batch: DetBatch, draw: Draw, caption_on: bool) -> Dict[str, torch.Tensor]:
-        """The CDDMSL loss set of one step, with the caption and KD branches
-        enabled (bench.py's `make_train_step(enable_caption=True,
-        kd_regularization=True)`). The source view's res4 map is shared by
-        the supervised branch and the region-level branch; the caption
-        branches run only when `caption_on` (past burn-up) and give zeros
-        otherwise."""
+    def cddmsl_losses(
+        self, batch: DetBatch, draw: Draw, caption_on: bool, kd_regularization: bool = True,
+        enable_caption: bool = True,
+    ) -> Dict[str, torch.Tensor]:
+        """The CDDMSL loss set of one step (bench.py runs it with both
+        switches on). The source view's res4 map is shared by the supervised
+        branch and the region-level branch. Without `enable_caption` only the
+        supervised losses are returned; otherwise the caption branches run
+        when `caption_on` (past burn-up) and give zeros before, and
+        `kd_loss` is present only with `kd_regularization`, as in JAX."""
         f_src = self.backbone(self._normalize(batch.image))["res4"]
         proposals, rpn_losses = self.proposal_generator(
             f_src, batch.image_sizes, training=True, gt_boxes=batch.gt_boxes, gt_valid=batch.gt_valid, draw=draw
@@ -241,16 +246,20 @@ class GeneralizedRCNN(nn.Module):
             gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
         )
         losses = {**det_losses, **rpn_losses}
+        if not enable_caption:
+            return losses
         if not caption_on:
             zero = torch.zeros((), dtype=torch.float32, device=f_src.device)
-            return {**losses, "cont_loss": zero, "kd_loss": zero, "cont_loss_region": zero}
-        cc = self.caption_consistency(batch)
+            off = {"cont_loss": zero, "kd_loss": zero} if kd_regularization else {"cont_loss": zero}
+            return {**losses, **off, "cont_loss_region": zero}
+        cc = self.caption_consistency(batch, kd_regularization)
         f_trgt = self.backbone(self._normalize(batch.image_trgt))["res4"]
         boxes = self._random_region_boxes(proposals, draw)
         r_src, r_trgt = self.roi_heads.forward_get_features(f_src, f_trgt, boxes, res5_fn, attnpool_fn)
         p_src = self.projector(v2l(self.v2l_mapper(r_src)))
         p_trgt = self.projector(v2l(self.v2l_mapper(r_trgt)))
         losses["cont_loss"] = cc["cont_loss"]
-        losses["kd_loss"] = cc["kd_loss"]
+        if kd_regularization:
+            losses["kd_loss"] = cc["kd_loss"]
         losses["cont_loss_region"] = infonce_bidirectional(p_src, p_trgt)
         return losses

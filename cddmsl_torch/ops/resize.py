@@ -1,19 +1,21 @@
-"""Bicubic resize as `jax.image.resize(x, shape, "bicubic", antialias=False)`
-computes it, for NHWC images.
+"""Bicubic and bilinear resizes as `jax.image.resize` computes them: bicubic
+with `antialias=False` for NHWC images, bilinear with the default
+`antialias=True` for the attention pool's positional-embedding grid.
 
 Each resized axis is one (out, in) float32 weight matrix applied with a
 matmul. The weights are those of jax/_src/image/scale.py
-`compute_weight_mat`: the Keys cubic kernel with a = -0.5 at the sample
-positions (i + 0.5) / scale - 0.5, each column renormalized to sum to 1 (so
-taps that fall outside the input are dropped, not clamped), and zero where
-the sample lies wholly outside the input. An axis whose size does not change
-is left as it is. `F.interpolate(mode="bicubic")` is a different function
-(a = -0.75, clamped borders).
+`compute_weight_mat`: the kernel (Keys cubic with a = -0.5, or the
+triangle) at the sample positions (i + 0.5) / scale - 0.5, each column
+renormalized to sum to 1 (so taps that fall outside the input are dropped,
+not clamped), and zero where the sample lies wholly outside the input. With
+antialiasing a downsizing axis widens the triangle by 1 / scale. An axis
+whose size does not change is left as it is. `F.interpolate` is a different
+function (bicubic a = -0.75, clamped borders, no antialiased triangle).
 
-`jax.image.resize` is jitted, and XLA fuses the sample position's
-multiply-add and the kernel's polynomial, rounding each once. A sample
-position near 1344 has an ulp of 1.2e-4, so one rounding more moves a
-weight by ~1e-4; the position and the polynomial are therefore computed in
+`jax.image.resize` runs inside a jitted program, and XLA fuses the sample
+position's multiply-add and the kernel's polynomial, rounding each once. A
+sample position near 1344 has an ulp of 1.2e-4, so one rounding more moves
+a weight by ~1e-4; the position and the kernel are therefore computed in
 float64 and rounded once to float32.
 """
 
@@ -31,13 +33,19 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out).float()
 
 
-def bicubic_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
-    """(out_size, in_size) float32 interpolation matrix."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """max(0, 1 - x) of float64 distances, rounded once."""
+    return torch.clamp(1.0 - x, min=0.0).float()
+
+
+def _weights(in_size: int, out_size: int, kernel, antialias: bool, device) -> torch.Tensor:
+    """`compute_weight_mat` with zero translation: (out_size, in_size)."""
     inv_scale = float(np.float32(1.0 / (out_size / in_size)))
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
     half = torch.arange(out_size, dtype=torch.float32, device=device) + 0.5
     sample_f = (half.double() * inv_scale - 0.5).float()
     x = torch.abs(sample_f[None, :] - torch.arange(in_size, dtype=torch.float32, device=device)[:, None])
-    w = _keys_cubic(x)  # (in, out)
+    w = kernel(x.double() / kernel_scale)  # (in, out)
     total = w.sum(dim=0, keepdim=True)
     w = torch.where(
         torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
@@ -46,6 +54,29 @@ def bicubic_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
     )
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
     return torch.where(inside[None, :], w, torch.zeros_like(w)).T.contiguous()
+
+
+def bicubic_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
+    """(out_size, in_size) float32 bicubic interpolation matrix."""
+    return _weights(in_size, out_size, _keys_cubic, False, device)
+
+
+def bilinear_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
+    """(out_size, in_size) float32 antialiased bilinear matrix."""
+    return _weights(in_size, out_size, _triangle, True, device)
+
+
+def resize_bilinear_grid(grid: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """grid (H, W, C) -> (h, w, C), as `jax.image.resize(grid, (h, w, C),
+    "bilinear")`; float32 weights applied in the grid's dtype."""
+    h_in, w_in, _ = grid.shape
+    h_out, w_out = size
+    x = grid
+    if h_out != h_in:
+        x = torch.einsum("oh,hwc->owc", bilinear_weights(h_in, h_out, grid.device).to(x.dtype), x)
+    if w_out != w_in:
+        x = torch.einsum("ow,hwc->hoc", bilinear_weights(w_in, w_out, grid.device).to(x.dtype), x)
+    return x
 
 
 def resize_bicubic(images: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

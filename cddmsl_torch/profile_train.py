@@ -40,6 +40,26 @@ def _group(name: str) -> str:
     return "elementwise and other"
 
 
+def device_kernels(prof) -> list:
+    """The device kernels of a `torch.profiler` trace, not the user
+    annotations on the device timeline."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_and_span_us(kernels) -> tuple:
+    """(busy, span) in microseconds: the union of the kernels' intervals, and
+    the time from the first kernel's start to the last one's end."""
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in intervals:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    span_us = max(hi for _, hi in intervals) - intervals[0][0] if intervals else 0.0
+    return busy_us, span_us
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
@@ -63,15 +83,8 @@ def main() -> int:
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()  # device kernels, not the user annotations on the device timeline
-               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in intervals:  # union of the kernels' intervals
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    span_us = max(hi for _, hi in intervals) - intervals[0][0] if intervals else 0.0
+    kernels = device_kernels(prof)
+    busy_us, span_us = busy_and_span_us(kernels)
     total = {}
     by_name = {}
     for e in kernels:

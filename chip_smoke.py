@@ -30,21 +30,42 @@ Phases, each of which fails the run with a non-zero exit:
   5. the inference path: `entry()`'s full-width flagship detector
      (CLIP-RN50 C4, bf16, seeded random weights) on one 640x800 image
      through `model.inference`, with the launch counts read around that one
-     call, then timed with CUDA events: ms per image, each stage, K1 and K4
-     beside their plain versions and bounds;
+     call, then timed with CUDA events: ms per image, each stage, and K1
+     and K4 at the path's shapes, each held against its plain version on
+     the same inputs (K1 in bf16 to rtol 2e-2, K4 exactly) and timed beside
+     it and its bound;
   6. the training path: `train_entry()`'s full-width flagship (bf16 compute,
      fp32 parameters) takes one CDDMSL step past burn-up on two 800x1344
      images, with the launch counts read around that step; all 7 losses
      finite, frozen parameters bit-for-bit unchanged; then 2 warm-up and 5
      timed steps (ms/step, images/s), after which every trainable parameter
-     has moved, and K1, K3 and K4 timed at the step's own shapes beside
-     their plain versions and bounds: K1 and K3 at each of the step's three
-     RoIAlign calls (`training_roi_align_calls`: the supervised pool and the
-     region pool on the source and on the translated map), one line each.
+     has moved, and K1, K3 and K4 at the step's own shapes, each held
+     against its plain version on the same inputs (K1 and K3 in bf16 to rtol
+     2e-2 with the same zeros, K4 exactly) and timed beside it and its
+     bound: K1 and K3 at each of the step's three RoIAlign calls
+     (`training_roi_align_calls`: the supervised pool and the region pool on
+     the source and on the translated map), one line each;
+  7. the train_net path: `DefaultTrainer` on the VOC recipe (batch 8, bf16,
+     clip by norm 5.0, KD off, seeded random weights: the RegionCLIP and
+     ClipCap files are not in the repository) with the synthetic VOC
+     fixture (16 images) through `train()`: 12 steps, the caption branch on
+     from step 5, checkpoints at steps 6 and 12, then the final `test()`.
+     Per step: CUDA events, host wall, the wait on the loader and the
+     K1/K3/K4 launches (3/3/1 with the caption branch, 1/1/1 before, or the
+     run fails); launches per eval batch (1/0/2), eval ms per image through
+     `inference_on_dataset`, the AP dict (printed, not judged); a new
+     trainer resumed from model_final must hold iteration 12 and the saved
+     parameters and momentum bit for bit; then 5 steps timed on one batch
+     of the loop's loader already on the card, beside the loop's ms/step,
+     2 more traced with torch.profiler for the device's busy and idle
+     shares, and K1, K3 and K4 checked and timed at that batch's shapes as
+     in phase 6.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/training`): the launches of that
-path's run, and the kernel's times and bounds at that path's shapes (for a
-kernel launched more than once on a path, the sum over those launches).
+(`roi_align_fwd/inference`, ..., `nms/train_net`). `launches` counts that
+path's whole run (for train_net, 12 steps and the final test);
+`max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
+launches checked and timed at the path's shapes (one inference, one
+training step): the largest error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -132,7 +153,6 @@ def check_k1(roi_ops, dev):
         fail(f"K1 batched fp32 disagrees with the plain version: {err2}")
     print(f"K1 check: fp32 max abs err {errs} (tol 1e-4), batched {err2:.3g}, "
           f"bf16 max rel err {rel.max().item():.3g} (rtol 2e-2)")
-    return max(fp32_err, err2)
 
 
 def check_k3(roi_ops, dev):
@@ -149,15 +169,14 @@ def check_k3(roi_ops, dev):
                                    [-100, -100, -1, -1], [700, 400, 700.5, 400.5]], device=dev)
     bidx = torch.randint(0, B, (R,), generator=gen, device=dev, dtype=torch.int32)
     shape = (B, H, W, C)
-    errs, abs_errs = {}, []
+    errs = {}
     for aligned in (True, False):
         g = torch.randn((R, 14, 14, C), generator=gen, device=dev)
         got = roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, aligned)
         if not torch.equal(got, roi_ops.roi_align_backward(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, aligned)):
             fail(f"K3 fp32 (aligned={aligned}) differs between two calls on the same inputs")
         want = roi_ops.roi_align_backward_plain(g, bidx, boxes, shape, (14, 14), 1 / 16, 0, aligned)
-        abs_errs.append((got - want).abs().max().item())
-        errs[f"fp32_aligned={aligned}"] = abs_errs[-1] / want.abs().max().item()
+        errs[f"fp32_aligned={aligned}"] = (got - want).abs().max().item() / want.abs().max().item()
     if not max(errs.values()) <= 1e-4:
         fail(f"K3 fp32 disagrees with the plain version (max abs err / max |dF|): {errs}")
     g = torch.rand((R, 14, 14, C), generator=gen, device=dev).bfloat16()
@@ -182,24 +201,49 @@ def check_k3(roi_ops, dev):
             f = feats.clone().requires_grad_(True)
             (grad,) = torch.autograd.grad((fn(f, bidx, boxes, (14, 14), 1 / 16, 0, True) * cot).sum(), f)
             grads.append(grad)
-    abs_errs.append((grads[0] - grads[1]).abs().max().item())
-    autograd_err = abs_errs[-1] / grads[1].abs().max().item()
+    autograd_err = (grads[0] - grads[1]).abs().max().item() / grads[1].abs().max().item()
     if not autograd_err <= 1e-4 or not grads[0].is_contiguous():
         fail(f"autograd through roi_align_batched disagrees with the plain autograd: {autograd_err}")
     print(f"K3 check: fp32 max abs err / max |dF| {errs} (tol 1e-4), bf16 max rel err {rel.max().item():.3g} "
           f"(rtol 2e-2), autograd {autograd_err:.3g} (tol 1e-4), fp32 and bf16 bit-identical on a second call")
-    return max(abs_errs)
+
+
+def nms_max_abs_err(nms_ops, got, boxes, scores, valid, thr, max_out) -> float:
+    """K4's output `got` (idx, valid) on (B, N, 4) boxes against `nms_plain`
+    image by image: the largest difference of a kept index or a validity
+    flag (0 where they are equal, inf where their shapes differ)."""
+    err = 0.0
+    for i in range(boxes.shape[0]):
+        want = nms_ops.nms_plain(boxes[i], scores[i], thr, max_out, valid=valid[i])
+        for g, w in zip((got[0][i], got[1][i]), want):
+            if g.shape != w.shape:
+                return float("inf")
+            if g.numel():
+                err = max(err, (g.long() - w.long()).abs().max().item())
+    return err
 
 
 def nms_equal(nms_ops, boxes, scores, valid, thr, max_out):
     """K4 on (B, N, 4) boxes against `nms_plain` image by image; returns the
     kernel's (idx, valid) or None where they differ."""
     got = nms_ops.nms(boxes, scores, thr, max_out, valid=valid)
-    for i in range(boxes.shape[0]):
-        want = nms_ops.nms_plain(boxes[i], scores[i], thr, max_out, valid=valid[i])
-        if not (torch.equal(got[0][i], want[0]) and torch.equal(got[1][i], want[1])):
-            return None
-    return got
+    return got if nms_max_abs_err(nms_ops, got, boxes, scores, valid, thr, max_out) == 0 else None
+
+
+def bf16_max_abs_err(label, got, want) -> float:
+    """A kernel's bf16 output against its plain version in fp32 on the same
+    bf16 inputs: every value within rtol 2e-2 and the zeros in the same
+    places, else the run fails; returns the max abs err."""
+    if got.dtype != torch.bfloat16:
+        fail(f"{label}: the kernel returned {got.dtype}, not bfloat16")
+    got = got.float()
+    diff = (got - want).abs()
+    bad = int((diff > 2e-2 * want.abs()).sum())
+    if bad or not torch.equal(got == 0, want == 0):
+        rel = (diff / want.abs().clamp_min(1e-30))[want != 0]
+        fail(f"{label}: {bad} values off by more than rtol 2e-2 (max rel {rel.max().item():.3g}), "
+             f"or zeros in other places")
+    return diff.max().item()
 
 
 def check_k4(nms_ops, dev):
@@ -291,32 +335,52 @@ def walk_extent(nms_ops, idx, ok, scores, valid, max_out):
     return int(rank[idx[max_out - 1]]) // 64 + 1, kept
 
 
-def nms_row(nms_ops, label, calls):
-    """Times K4 over `calls` ((B, N, 4) boxes, scores, valid, threshold,
-    max_out): the whole call, and apart from it the score order it starts
-    with, each beside its plain version (one image at a time) and its bound,
-    with the walk's blocks visited and rows kept per image (read from the
-    kernel's output by `walk_extent`); returns the sums
-    (ms, plain ms, bound ms, bound_by)."""
-    total = [0.0, 0.0, 0.0]
-    bys = set()
+def new_row(launches):
+    return {"launches": launches, "launches_timed": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "bound_by": set()}
+
+
+def add_to_row(row, err, ms, plain_ms, bound, by) -> None:
+    """One timed launch of a path's kernel, added to its row."""
+    row["launches_timed"] += 1
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["ms"] += ms
+    row["plain_ms"] += plain_ms
+    row["bound_ms"] += bound
+    row["bound_by"].add(by)
+
+
+def close_row(row):
+    row["bound_by"] = "bytes" if row["bound_by"] == {"bytes"} else "operations"
+    return row
+
+
+def nms_row(nms_ops, label, launches, calls):
+    """K4 over `calls` ((B, N, 4) boxes, scores, valid, threshold, max_out),
+    each held exactly against its plain version (one image at a time), then
+    timed: the whole call, and apart from it the score order it starts with,
+    beside the plain version and its bound, with the walk's blocks visited
+    and rows kept per image (read from the kernel's output by
+    `walk_extent`). Returns the path's row, with its `launches`."""
+    row = new_row(launches)
     for boxes, scores, valid, thr, k in calls:
         b, n = scores.shape
+        idx, ok = got = nms_ops.nms(boxes, scores, thr, k, valid=valid)
+        err = nms_max_abs_err(nms_ops, got, boxes, scores, valid, thr, k)
+        if err != 0:
+            fail(f"K4 {label} {b}x{n} -> {k}: kernel and plain version keep different boxes (max abs err {err})")
         ms = cuda_ms(lambda: nms_ops.nms(boxes, scores, thr, k, valid=valid), 10)
         order_ms = cuda_ms(lambda: nms_ops._score_order(scores, valid), 10)
         plain = cuda_ms(lambda: [nms_ops.nms_plain(boxes[i], scores[i], thr, k, valid=valid[i]) for i in range(b)],
                         3, warmup=1)
         work = [nms_work(nms_ops, boxes[i], scores[i], valid[i], thr, k) for i in range(b)]
         bound = sum(x[0] for x in work)
-        bys.update(x[1] for x in work)
-        idx, ok = nms_ops.nms(boxes, scores, thr, k, valid=valid)
         walk = [walk_extent(nms_ops, idx[i], ok[i], scores[i], valid[i], k) for i in range(b)]
-        print(f"nms {label} {b}x{n} -> {k} at {thr}: {ms:.4f} ms kernel call ({order_ms:.4f} ms of it the score "
-              f"order), {plain:.4f} ms plain, bound {bound:.5f} ms; the kernel's walk visited blocks "
-              f"{[x[0] for x in walk]} of {-(-n // 64)}, kept {[x[1] for x in walk]}")
-        for i, v in enumerate((ms, plain, bound)):
-            total[i] += v
-    return (*total, "bytes" if bys == {"bytes"} else "operations")
+        print(f"nms {label} {b}x{n} -> {k} at {thr}: equal to the plain version; {ms:.4f} ms kernel call "
+              f"({order_ms:.4f} ms of it the score order), {plain:.4f} ms plain, bound {bound:.5f} ms; the "
+              f"kernel's walk visited blocks {[x[0] for x in walk]} of {-(-n // 64)}, kept {[x[1] for x in walk]}")
+        add_to_row(row, err, ms, plain, bound, "bytes" if all(x[1] == "bytes" for x in work) else "operations")
+    return close_row(row)
 
 
 def check_tiny_against_cpu(dev):
@@ -420,8 +484,7 @@ def roi_bounds_ms(feats, R):
 
 def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
     """The serving path at full width: launches, checks, timing, stages and
-    K1/K4 at its shapes. Returns its rows {kernel: (launches, ms, plain ms,
-    bound ms, bound_by)}."""
+    K1/K4 at its shapes. Returns its rows {kernel: row}."""
     from cddmsl_torch.entry import entry
     from cddmsl_torch.models.fast_rcnn import fast_rcnn_inference
 
@@ -480,20 +543,24 @@ def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
     R = proposals.boxes.shape[1]
     k1_args = (features.contiguous(), torch.zeros(R, dtype=torch.int32, device=dev),
                proposals.boxes[0].contiguous(), (14, 14), 1 / 16, 0, True)
+    k1_err = bf16_max_abs_err("K1 inference", roi_ops.roi_align_forward(*k1_args),
+                              roi_ops.roi_align_batched_plain(k1_args[0].float(), *k1_args[1:]))
     k1_ms = cuda_ms(lambda: roi_ops.roi_align_forward(*k1_args), 20)
     k1_plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*k1_args), 3, warmup=1)
     k1_bound, k1_by = roi_bounds_ms(k1_args[0], R)
-    print(f"roi_align_fwd inference {R}x14x14x{features.shape[-1]} {features.dtype}: {k1_ms:.4f} ms kernel, "
-          f"{k1_plain_ms:.4f} ms plain, bound {k1_bound:.5f} ms ({k1_by})")
+    print(f"roi_align_fwd inference {R}x14x14x{features.shape[-1]} {features.dtype}: max abs err {k1_err:.4g} "
+          f"(rtol 2e-2), {k1_ms:.4f} ms kernel, {k1_plain_ms:.4f} ms plain, bound {k1_bound:.5f} ms ({k1_by})")
+    k1_row = new_row(launches["roi_align_fwd"])
+    add_to_row(k1_row, k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by)
     # the RPN's NMS on this image's own candidates; the detection NMS on
     # random class-shifted boxes at its shape (2048 -> 100 at 0.5)
     rpn = model.proposal_generator
     rpn_nms = (*rpn._nms_inputs(*rpn._head(features), batch.image_sizes, False),
                rpn.nms_thresh, rpn.post_nms_topk[False])
     db, ds, dv, dthr, dk = k4_cases["det_2048_0.5_100"]
-    nms_times = nms_row(nms_ops, "inference", [rpn_nms, (db[None], ds[None], dv[None], dthr, dk)])
-    return {"roi_align_fwd": (launches["roi_align_fwd"], k1_ms, k1_plain_ms, k1_bound, k1_by),
-            "nms": (launches["nms"], *nms_times)}
+    return {"roi_align_fwd": close_row(k1_row),
+            "nms": nms_row(nms_ops, "inference", launches["nms"],
+                           [rpn_nms, (db[None], ds[None], dv[None], dthr, dk)])}
 
 
 def training_roi_align_calls(model, batch, draw):
@@ -524,8 +591,7 @@ LOSS_NAMES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "cont_
 
 def training_path(dev, smi, roi_ops, nms_ops):
     """The CDDMSL training step at full width: launches, checks, timing and
-    K1, K3 and K4 at the step's shapes. Returns its rows {kernel:
-    (launches, ms, plain ms, bound ms, bound_by)}."""
+    K1, K3 and K4 at the step's shapes. Returns its rows {kernel: row}."""
     from cddmsl_torch.entry import train_entry
     from cddmsl_torch.solver.build import split_parameters
 
@@ -579,36 +645,245 @@ def training_path(dev, smi, roi_ops, nms_ops):
     print(f"after {reps + 3} steps: all {len(trainable)} trainable parameters moved, "
           f"all {len(frozen)} frozen parameters unchanged")
 
-    # ---- the kernels at the step's own shapes ----
+    return step_kernel_rows(dev, model, batch, trainer.draw, launches, roi_ops, nms_ops, "training")
+
+
+def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label):
+    """K1, K3 and K4 at one training step's own shapes: K1 and K3 at each of
+    its three RoIAlign calls, K4 at its RPN NMS. Each is held against its
+    plain version on the same inputs (K1 and K3 in bf16 to rtol 2e-2 with
+    the same zeros, K4 exactly), then timed beside the plain version and its
+    bound. Returns the path's rows, with its `launches`; the times, bounds
+    and errors are summed or maxed over the step's launches."""
     rpn = model.proposal_generator
     f_src = model.backbone(model._normalize(batch.image))["res4"]
     nms_inputs = rpn._nms_inputs(*rpn._head(f_src), batch.image_sizes, True)
-    rows = {"roi_align_fwd": [launches["roi_align_fwd"], 0.0, 0.0, 0.0, set()],
-            "roi_align_bwd": [launches["roi_align_bwd"], 0.0, 0.0, 0.0, set()]}
-    for label, feats, bidx, rois in training_roi_align_calls(model, batch, trainer.draw):
+    rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for call, feats, bidx, rois in training_roi_align_calls(model, batch, draw):
         R = rois.shape[0]
         k1_args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
-        g = torch.randn((R, 14, 14, feats.shape[-1]), device=dev).bfloat16()
+        # a positive gradient, as in check_k3: no cancellation in dF's sums
+        g = torch.rand((R, 14, 14, feats.shape[-1]), generator=gen, device=dev).bfloat16()
         k3_args = (g, bidx, rois, tuple(feats.shape), (14, 14), 1 / 16, 0, True)
         bound, by = roi_bounds_ms(feats, R)
-        for name, kernel, plain, args in (
-            ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args),
-            ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args),
+        for name, kernel, plain, args, fp32_args in (
+            ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args,
+             (feats.float(), *k1_args[1:])),
+            ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args,
+             (g.float(), *k3_args[1:])),
         ):
+            err = bf16_max_abs_err(f"{name} {label} {call}", kernel(*args), plain(*fp32_args))
             ms = cuda_ms(lambda: kernel(*args), 10)
             plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
-            row = rows[name]
-            row[1] += ms
-            row[2] += plain_ms
-            row[3] += bound
-            row[4].add(by)
-            print(f"{name} training {label} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
-                  f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {bound:.5f} ms ({by})")
-    rows = {name: (n, ms, plain_ms, bound, "bytes" if bys == {"bytes"} else "operations")
-            for name, (n, ms, plain_ms, bound, bys) in rows.items()}
+            add_to_row(rows[name], err, ms, plain_ms, bound, by)
+            print(f"{name} {label} {call} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
+                  f"max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+                  f"bound {bound:.5f} ms ({by})")
+    rows = {name: close_row(row) for name, row in rows.items()}
     nms_call = (*nms_inputs, rpn.nms_thresh, rpn.post_nms_topk[True])
-    rows["nms"] = (launches["nms"], *nms_row(nms_ops, "training", [nms_call]))
+    rows["nms"] = nms_row(nms_ops, label, launches["nms"], [nms_call])
     return rows
+
+
+# the caption branch runs at iterations past the burn-up (0-based, as in
+# JAX): with 3, steps 5-12 of 12
+TRAIN_NET_STEPS, TRAIN_NET_BURNUP, TRAIN_NET_IMAGES = 12, 3, 16
+
+
+def train_net_path(dev, smi, roi_ops, nms_ops):
+    """The VOC train-and-evaluate loop at full width: `DefaultTrainer` on the
+    VOC recipe with the synthetic fixture, `train()` (12 steps of 8 images,
+    the caption branch on from step 5, checkpoints at steps 6 and 12, then
+    `test()`), timed step by step, then a resume check and the kernels at
+    the loop's own shapes. Returns its rows {kernel: row}."""
+    import os
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, to_device
+    from cddmsl_torch.data import build_detection_train_loader
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
+    from cddmsl_torch.data.datasets.voc import register_pascal_DG, register_pascal_voc
+    from cddmsl_torch.engine import hooks
+    from cddmsl_torch.engine.defaults import DefaultTrainer, build_evaluator
+    from cddmsl_torch.evaluation import inference_on_dataset
+    from cddmsl_torch.profile_train import busy_and_span_us, device_kernels
+
+    class StepProbe(hooks.HookBase):
+        """Per step: CUDA events and host clock around it, and the kernel
+        launches it made (host counters, read without a sync)."""
+
+        def __init__(self):
+            self.steps = []
+
+        def before_train(self):
+            self.t_train = time.perf_counter()
+
+        def before_step(self):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self._open = (e, time.perf_counter(), read_launches(roi_ops, nms_ops))
+
+        def after_step(self):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.steps.append((*self._open, e, time.perf_counter(), read_launches(roi_ops, nms_ops)))
+
+        def after_train(self):
+            torch.cuda.synchronize()
+            self.loop_s = time.perf_counter() - self.t_train
+            self.loop_launches = read_launches(roi_ops, nms_ops)
+
+    class ProbedTrainer(DefaultTrainer):
+        def build_hooks(self):
+            self.probe = StepProbe()
+            return [self.probe] + super().build_hooks()
+
+        def test(self, cfg=None):
+            t0 = time.perf_counter()
+            results = super().test(cfg)
+            self.test_s = time.perf_counter() - t0
+            return results
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_train_net_")
+    names = ("chip_smoke_voc_dg", "chip_smoke_voc_test")
+    try:
+        voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
+        register_pascal_DG(names[0], voc, "trainval", 2007, "dt_clipart")
+        register_pascal_voc(names[1], voc, "test", 2007)
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml"))
+        cfg.merge_from_list([
+            "OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0",
+            "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
+            "DATASETS.TRAIN", repr((names[0],)), "DATASETS.TEST", repr((names[1],)),
+            "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS), "SOLVER.CAPTION_BURNUP_ITERS", str(TRAIN_NET_BURNUP),
+            "SOLVER.CHECKPOINT_PERIOD", "6", "TEST.EVAL_PERIOD", "0",
+        ])
+        cfg.freeze()
+        print(f"train_net: the VOC recipe ({cfg.SOLVER.IMS_PER_BATCH} images a step, {cfg.TPU.COMPUTE_DTYPE}, "
+              f"clip by {cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE} {cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE}, "
+              f"KD {cfg.MODEL.KD_REGULRAZIATION}) on the synthetic VOC fixture ({TRAIN_NET_IMAGES} images, "
+              "seed 0); the RegionCLIP and ClipCap weights are not in the repository, so "
+              "PRE_TRAINED_RCLIP_PATH and VISION_TO_LANG_PATH are '' and every weight is seeded random")
+
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.resume_or_load(resume=False)
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        print(f"train_net path launches (12 steps and the final test): {launches}")
+        if min(launches.values()) < 1:
+            fail(f"the train_net path did not go through every kernel: {launches}")
+
+        probe = trainer.probe
+        if len(probe.steps) != TRAIN_NET_STEPS:
+            fail(f"the loop ran {len(probe.steps)} steps")
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+        per_step = []
+        for i, (e0, h0, l0, e1, h1, l1) in enumerate(probe.steps):
+            counts = tuple(l1[k] - l0[k] for k in keys)
+            want = (3, 3, 1) if i > TRAIN_NET_BURNUP else (1, 1, 1)
+            if counts != want:
+                fail(f"step {i + 1} launched K1/K3/K4 {counts}, expected {want}")
+            per_step.append((e0.elapsed_time(e1), (h1 - h0) * 1e3, waits[i] * 1e3, counts))
+        for i, (dev_ms, host_ms, wait_ms, counts) in enumerate(per_step):
+            print(f"train_net step {i + 1}: {dev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host wall, "
+                  f"{wait_ms:.3f} ms waiting on the loader, K1/K3/K4 launches {counts}")
+        warm = per_step[TRAIN_NET_BURNUP + 2:]  # caption on, past its first step
+        mean = lambda xs: sum(xs) / len(xs)
+        print(f"train_net loop, steps {TRAIN_NET_BURNUP + 3}-{TRAIN_NET_STEPS} (caption on): "
+              f"{mean([p[0] for p in warm]):.3f} ms/step CUDA events, {mean([p[1] for p in warm]):.3f} ms/step "
+              f"host wall, {mean([p[2] for p in warm]):.3f} ms/step waiting on the loader; whole loop "
+              f"{probe.loop_s * 1e3 / TRAIN_NET_STEPS:.3f} ms/step host wall with 2 checkpoint saves; "
+              f"launches per step K1/K3/K4 3/3/1 with caption, 1/1/1 before; on {smi}")
+
+        n_test_batches = -(-TRAIN_NET_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        eval_launches = {k: launches[k] - probe.loop_launches[k] for k in keys}
+        per_batch = tuple(eval_launches[k] / n_test_batches for k in keys)
+        if per_batch != (1, 0, 2):
+            fail(f"the final test launched K1/K3/K4 {per_batch} per batch, expected (1, 0, 2)")
+        evaluator = build_evaluator(cfg, names[1])
+        loader, n = build_detection_test_loader(cfg, names[1], pin_memory=True)
+        t0 = time.perf_counter()
+        with loader:
+            again = inference_on_dataset(trainer.model, loader, n, evaluator)
+        warm_eval_s = time.perf_counter() - t0
+        if again != results[names[1]]:
+            fail("a second evaluation of the trained weights gave other results")
+        ap = {k: round(v, 4) for k, v in results[names[1]]["bbox"].items() if k in ("AP", "AP50", "AP75", "AP50-dog",
+                                                                                      "AP50-cat")}
+        print(f"train_net eval through inference_on_dataset, {n} images in batches of "
+              f"{cfg.MODEL.CLIP.IMS_PER_BATCH_TEST}: {trainer.test_s * 1e3 / n:.3f} ms/image in train()'s final "
+              f"test (first call), {warm_eval_s * 1e3 / n:.3f} ms/image warm (host wall, data included); "
+              f"launches per batch K1/K3/K4 {per_batch}; AP (random weights, not judged) {json.dumps(ap)}")
+
+        resumed = DefaultTrainer(cfg, device="cuda")
+        resumed.resume_or_load(resume=True)
+        saved, got = trainer.state.state_dict(), resumed.state.state_dict()
+        if resumed.start_iter != TRAIN_NET_STEPS or got["optimizer"]["count"] != TRAIN_NET_STEPS:
+            fail(f"resume restored iteration {resumed.start_iter}, count {got['optimizer']['count']}")
+        bad = [k for k, v in saved["model"].items() if not torch.equal(got["model"][k], v)]
+        momentum = saved["optimizer"]["sgd"]["state"]
+        bad += [f"momentum {i}" for i, s in momentum.items()
+                if not torch.equal(got["optimizer"]["sgd"]["state"][i]["momentum_buffer"], s["momentum_buffer"])]
+        if bad or not momentum:
+            fail(f"the resumed state differs from the saved one: {bad[:5]}")
+        print(f"train_net resume: a new trainer with resume=True restored iteration {resumed.start_iter}; "
+              f"{len(saved['model'])} parameters and buffers and {len(momentum)} momentum buffers bit-equal "
+              f"to model_final")
+        del resumed
+
+        # the same step on a batch already on the card (no loader, no hooks),
+        # beside the loop's; then the kernels at the loop's shapes
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        for _ in range(2):
+            trainer.run_step(batch)
+        reps = 5
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            trainer.run_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        print(f"train_net step on a batch already on the card ({tuple(batch.image.shape)}, caption on): "
+              f"{start.elapsed_time(end) / reps:.3f} ms/step CUDA events, "
+              f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall")
+        # how busy the device is in that step: the union of its kernels'
+        # intervals in a torch.profiler trace
+        traced = 2
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(traced):
+                trainer.run_step(batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) / traced * 1e3
+        kernels = device_kernels(prof)
+        if not kernels:
+            fail("the trace of the train_net step holds no device kernel")
+        busy_us, span_us = busy_and_span_us(kernels)
+        print(f"train_net step traced ({traced} steps on the batch on the card, torch.profiler on): "
+              f"{len(kernels) / traced:.0f} kernels/step, device busy {busy_us / 1e3 / traced:.3f} ms/step of "
+              f"{traced_ms:.3f} ms/step host wall; of the kernels' span, busy share {busy_us / span_us:.4f}, "
+              f"idle share {1 - busy_us / span_us:.4f}")
+        return step_kernel_rows(dev, trainer.model, batch, trainer.state.draw, launches, roi_ops, nms_ops,
+                                "train_net")
+    finally:
+        for name in names:
+            DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -636,8 +911,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {k.source.name}: {line.strip()}")
 
-    k1_err = check_k1(roi_ops, dev)
-    k3_err = check_k3(roi_ops, dev)
+    check_k1(roi_ops, dev)
+    check_k3(roi_ops, dev)
     k4_cases = check_k4(nms_ops, dev)
     check_tiny_against_cpu(dev)
     check_tiny_train_against_cpu(dev)
@@ -645,19 +920,20 @@ def main() -> int:
     paths = {"inference": inference_path(dev, smi, roi_ops, nms_ops, k4_cases)}
     torch.cuda.empty_cache()
     paths["training"] = training_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["train_net"] = train_net_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
-        "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94", k1_err),
-        "roi_align_bwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:302", k3_err),
-        "nms": ("cddmsl_torch/csrc/nms.cu", "cddmsl_tpu/ops/nms.py:125", 0.0),
+        "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),
+        "roi_align_bwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:302"),
+        "nms": ("cddmsl_torch/csrc/nms.cu", "cddmsl_tpu/ops/nms.py:125"),
     }
     kernels = []
     for path, rows in paths.items():
-        for name, (launches, ms, plain_ms, bound, by) in rows.items():
-            source, replaces, err = meta[name]
+        for name, row in rows.items():
+            source, replaces = meta[name]
             kernels.append({"name": f"{name}/{path}", "route": "cuda", "source": source, "replaces": replaces,
-                            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound, "bound_by": by, "library_ms": None})
+                            **row, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

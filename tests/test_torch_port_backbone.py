@@ -98,9 +98,16 @@ def test_global_embed_matches_jax(backbones):
 
 
 def test_attnpool_refuses_other_grids(backbones):
-    _, _, ours = backbones
-    with pytest.raises(NotImplementedError):
-        ours.attnpool_forward(torch.zeros(1, 5, 5, WIDTH * 32))
+    """A grid other than 7x7 is no longer refused: the positional embedding
+    is resized as JAX resizes it (bilinear, antialiased when it shrinks),
+    down to 5x6 and up to 10x12."""
+    jax_model, params, ours = backbones
+    for seed, hw in enumerate(((5, 6), (10, 12))):
+        feats = np.random.RandomState(seed).randn(2, *hw, WIDTH * 32).astype(np.float32)
+        want = jax.jit(lambda p, x: jax_model.apply(p, x, method=jax_model.attnpool_forward))(params, jnp.asarray(feats))
+        with torch.no_grad():
+            got = ours.attnpool_forward(torch.from_numpy(feats))
+        _close(got, want)
 
 
 def test_converter_rejects_unknown_keys(backbones):

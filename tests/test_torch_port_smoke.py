@@ -104,3 +104,39 @@ def test_nms_work_counts_what_the_walk_needs(n, max_out, want):
     assert (blocks, kept) == (want_blocks, want_kept)
     assert bound_ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
     assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@pytest.mark.parametrize("case, passes", [
+    ("equal", True), ("one value 5% off", False), ("a zero made nonzero", False), ("fp32 output", False),
+])
+def test_bf16_max_abs_err_holds_a_kernel_to_rtol_and_zeros(case, passes):
+    want = torch.rand((4, 14, 14, 8), generator=torch.Generator().manual_seed(0)) + 0.5
+    want[0] = 0.0
+    got = want.bfloat16()
+    if case == "one value 5% off":
+        got[1, 2, 3, 4] *= 1.05
+    elif case == "a zero made nonzero":
+        got[0, 0, 0, 0] = 1e-3
+    elif case == "fp32 output":
+        got = want.clone()
+    if passes:
+        err = chip_smoke.bf16_max_abs_err(case, got, want)
+        assert err == (want.bfloat16().float() - want).abs().max().item() and 0 < err < 2e-2 * 1.5
+    else:
+        with pytest.raises(SystemExit, match="chip_smoke FAILED"):
+            chip_smoke.bf16_max_abs_err(case, got, want)
+
+
+@pytest.mark.parametrize("tamper, want_err", [(None, 0.0), ("an index moved by 3", 3.0), ("a row short", float("inf"))])
+def test_nms_max_abs_err_compares_each_image_with_the_plain_version(tamper, want_err):
+    boxes = torch.stack([_row_of_boxes(50), _row_of_boxes(50).flip(0)])
+    scores = torch.stack([torch.linspace(1.0, 0.5, 50)] * 2)
+    valid = torch.ones((2, 50), dtype=torch.bool)
+    idx, ok = nms_ops.nms(boxes, scores, 0.7, 20, valid=valid)
+    if tamper == "an index moved by 3":
+        idx = idx.clone()
+        idx[1, 5] += 3
+    elif tamper == "a row short":
+        idx, ok = idx[:, :-1], ok[:, :-1]
+    assert chip_smoke.nms_max_abs_err(nms_ops, (idx, ok), boxes, scores, valid, 0.7, 20) == want_err
+    assert chip_smoke.nms_equal(nms_ops, boxes, scores, valid, 0.7, 20) is not None

@@ -284,9 +284,10 @@ def test_training_config_matches_the_jax_cfg(tiny):
         (s.BASE_LR, s.MOMENTUM, s.WEIGHT_DECAY, s.GAMMA))
     assert tuple(solver.steps) == tuple(s.STEPS)
     assert (solver.warmup_factor, solver.warmup_iters) == (pytest.approx(s.WARMUP_FACTOR), s.WARMUP_ITERS)
-    assert (s.WARMUP_METHOD, s.LR_SCHEDULER_NAME) == ("linear", "WarmupMultiStepLR")  # the port's only schedule
+    assert (s.WARMUP_METHOD, s.LR_SCHEDULER_NAME) == ("linear", "WarmupMultiStepLR")  # the flagship's schedule
     clip = s.CLIP_GRADIENTS
-    assert (clip.ENABLED, clip.CLIP_TYPE, solver.clip_value) == (True, "value", clip.CLIP_VALUE)  # the port's only clip
+    assert (clip.ENABLED, clip.CLIP_TYPE, solver.clip_value) == (True, "value", clip.CLIP_VALUE)  # the flagship's clip
+    assert (solver.clip_enabled, solver.clip_type) == (clip.ENABLED, clip.CLIP_TYPE)
     assert solver.caption_burnup_iters == s.CAPTION_BURNUP_ITERS and solver.freeze_at == cfg.MODEL.BACKBONE.FREEZE_AT
     schedule, want = build_lr_schedule(solver), jax_build_lr_schedule(cfg)
     for step in (0, 1, 500, 999, 1000, 10001, 29999, 30000, 39999):
