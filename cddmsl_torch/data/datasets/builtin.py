@@ -1,5 +1,5 @@
-"""The VOC-family dataset names of cddmsl_tpu/data/datasets/builtin.py
-`register_all` (the reference's detectron2/data/datasets/builtin.py):
+"""The dataset names of cddmsl_tpu/data/datasets/builtin.py `register_all`
+(the reference's detectron2/data/datasets/builtin.py) that the port reads:
 
   * plain VOC:      voc_{2007,2012}_{train,val,trainval,test} (no 2012 test)
   * DG-paired VOC:  voc_{clipart,watercolor,comic}_{2007,2012}_{train,trainval},
@@ -7,14 +7,21 @@
   * artistic tests: Clipart1k_{train,test}, Watercolor_{train,test},
                     Comic_{train,test} (the last four on the 6 classes they
                     annotate) and dt_Clipart_test
+  * adverse weather: cityscapes_{train,val},
+                    cityscapes_DG_{train,val} (clear images paired with their
+                    leftImg8bit_foggy twins), cityscapes_foggy_{train,val}
+                    (the clear images when leftImg8bit_foggy/<split> is
+                    missing) and bdd_100k_val (COCO json, evaluator "coco")
 
-The Cityscapes, BDD, COCO and LVIS names of the JAX package are not ported.
-The dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is
-read from disk until a dataset is requested.
+The COCO, panoptic and LVIS names of the JAX package are not ported. The
+dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
+from disk until a dataset is requested.
 """
 
 import os
 
+from .cityscapes import register_cityscapes, register_cityscapes_DG
+from .coco import register_coco_instances
 from .voc import ARTISTIC_6_CLASSES, register_pascal_DG, register_pascal_voc
 
 _REGISTERED = False
@@ -46,3 +53,18 @@ def register_all(root: str = None) -> None:
         for split in ("train", "test"):
             register_pascal_voc(f"{name}_{split}", os.path.join(root, folder), split, 2007, ARTISTIC_6_CLASSES)
     register_pascal_voc("dt_Clipart_test", os.path.join(root, "dt_clipart", "VOC2007"), "test", 2007)
+
+    city = os.path.join(root, "cityscapes")
+    for split in ("train", "val"):
+        img_dir = os.path.join(city, "leftImg8bit", split)
+        gt_dir = os.path.join(city, "gtFine", split)
+        foggy_dir = os.path.join(city, "leftImg8bit_foggy", split)
+        register_cityscapes(f"cityscapes_{split}", img_dir, gt_dir)
+        register_cityscapes_DG(f"cityscapes_DG_{split}", img_dir, gt_dir, foggy_dir)
+        register_cityscapes(f"cityscapes_foggy_{split}", foggy_dir if os.path.isdir(foggy_dir) else img_dir, gt_dir)
+
+    register_coco_instances(
+        "bdd_100k_val",
+        os.path.join(root, "bdd100k", "labels", "bdd100k_labels_images_det_coco_val.json"),
+        os.path.join(root, "bdd100k", "images", "100k", "val"),
+    )

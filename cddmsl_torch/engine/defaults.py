@@ -32,7 +32,9 @@ from ..data.build import _bucket_for, pad_and_collate
 from ..data.datasets.voc import ARTISTIC_6_CLASSES
 from ..data.transforms import ResizeShortestEdge, apply_augmentations
 from ..device import resolve_device
-from ..evaluation import PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results
+from ..evaluation import (
+    COCOEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
+)
 from ..models.build import build_model
 from ..solver.build import build_optimizer
 from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter
@@ -65,14 +67,22 @@ def default_setup(cfg: CfgNode, args=None) -> None:
     cfg.dump_to_file(os.path.join(cfg.OUTPUT_DIR, "config.yaml"))
 
 
-def build_evaluator(cfg: CfgNode, dataset_name: str) -> PascalVOCDetectionEvaluator:
-    """The VOC evaluator; Watercolor and Comic are scored on the 6 classes
-    they annotate. Other evaluator types are not ported."""
+def build_evaluator(cfg: CfgNode, dataset_name: str):
+    """The VOC evaluator (Watercolor and Comic scored on the 6 classes they
+    annotate), or for a "coco" set the COCO bbox evaluator, which writes its
+    detections to OUTPUT_DIR/inference/coco_instances_results_<name>.json.
+    Other evaluator types, and COCO segm and keypoints, are not ported."""
     ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "pascal_voc")
-    if ev_type != "pascal_voc":
-        raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
-    target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
-    return PascalVOCDetectionEvaluator(dataset_name, target_classnames=target)
+    if ev_type == "pascal_voc":
+        target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
+        return PascalVOCDetectionEvaluator(dataset_name, target_classnames=target)
+    if ev_type == "coco":
+        if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
+            raise NotImplementedError(f"COCO segm and keypoint evaluation of {dataset_name} is not ported")
+        out_json = (os.path.join(cfg.OUTPUT_DIR, "inference", f"coco_instances_results_{dataset_name}.json")
+                    if cfg.OUTPUT_DIR else None)
+        return COCOEvaluator(dataset_name, output_json=out_json)
+    raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
 
 
 def _iteration_seed(seed: int, iteration: int) -> int:
@@ -200,9 +210,10 @@ class DefaultTrainer:
         cfg = cfg or self.cfg
         results = {}
         for name in cfg.DATASETS.TEST:
-            evaluator = build_evaluator(cfg, name)
+            # the loader first: a COCO set names its classes in the metadata when it is read
             loader, n = build_detection_test_loader(cfg, name, pin_memory=self.device.type == "cuda")
             with loader:
+                evaluator = build_evaluator(cfg, name)
                 results[name] = inference_on_dataset(self.model, loader, n, evaluator, self.device)
             logger.info("Results on %s:", name)
             print_csv_format(results[name])
@@ -221,8 +232,9 @@ class DefaultPredictor:
     resized by INPUT.MIN/MAX_SIZE_TEST, padded to the TPU.PAD_SIZE_TEST
     bucket of its orientation, `model.inference`. Without a `model` it
     builds the serving model with seeded random weights, then loads
-    MODEL.WEIGHTS (a file `DetectionCheckpointer` wrote) or, without one,
-    the text embeddings of MODEL.CLIP.TEXT_EMB_PATH."""
+    MODEL.WEIGHTS (a file `DetectionCheckpointer` wrote or a reference
+    checkpoint) and then the text embeddings of MODEL.CLIP.TEXT_EMB_PATH
+    over it, in the order of the JAX package's `resume_or_load`."""
 
     def __init__(self, cfg: CfgNode, model: Optional[torch.nn.Module] = None, device="cuda"):
         self.cfg = cfg
@@ -233,7 +245,7 @@ class DefaultPredictor:
             model = model.to(resolve_device(device))
             if cfg.MODEL.WEIGHTS:
                 DetectionCheckpointer.load_model(cfg.MODEL.WEIGHTS, model)
-            elif cfg.MODEL.CLIP.TEXT_EMB_PATH:
+            if cfg.MODEL.CLIP.TEXT_EMB_PATH:
                 load_text_emb_classifier(model, cfg.MODEL.CLIP.TEXT_EMB_PATH)
         self.model = model
         self.device = next(model.parameters()).device

@@ -1,0 +1,212 @@
+"""COCO-style bbox AP in numpy (the port's copy of the bbox path of
+cddmsl_tpu/evaluation/coco_eval.py `COCOEvaluator`).
+
+101-point interpolated AP averaged over IoU .50:.95, AP50 and AP75, the
+small/medium/large area splits and the per-class AP, with crowd boxes as
+ignored ground truth (pycocotools' `COCOeval` rules). The matcher is the
+numpy one; segm, keypoints and the open-vocabulary split metrics are not
+ported.
+"""
+
+import json
+import os
+from collections import defaultdict
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..data.catalog import MetadataCatalog
+
+IOU_THRESHOLDS = np.linspace(0.5, 0.95, 10)  # pycocotools Params.setDetParams
+RECALL_POINTS = np.linspace(0.0, 1.0, 101)
+AREA_RANGES = {
+    "all": (0.0, 1e10),
+    "small": (0.0, 32 ** 2),
+    "medium": (32 ** 2, 96 ** 2),
+    "large": (96 ** 2, 1e10),
+}
+
+
+def _iou_matrix(dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
+    """(D,4),(G,4) XYXY -> (D,G); crowd GT uses intersection-over-det-area."""
+    if len(dets) == 0 or len(gts) == 0:
+        return np.zeros((len(dets), len(gts)))
+    lt = np.maximum(dets[:, None, :2], gts[None, :, :2])
+    rb = np.minimum(dets[:, None, 2:], gts[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_d = (dets[:, 2] - dets[:, 0]) * (dets[:, 3] - dets[:, 1])
+    area_g = (gts[:, 2] - gts[:, 0]) * (gts[:, 3] - gts[:, 1])
+    union = area_d[:, None] + area_g[None, :] - inter
+    union = np.where(iscrowd[None, :], area_d[:, None], union)
+    return np.where(union > 0, inter / np.maximum(union, 1e-10), 0.0)
+
+
+def _eval_image(dets, det_scores, gts, gt_ignore, iscrowd, thresholds):
+    """Greedy matching per COCOeval.evaluateImg: for each threshold, the
+    detections by score (descending) take the best free ground truth.
+    Returns the sorted scores and (T, D) true-positive and ignored flags."""
+    order = np.argsort(-det_scores, kind="stable")
+    dets = dets[order]
+    # real ground truth before ignored (cocoeval sorts by the ignore flag)
+    g_order = np.argsort(gt_ignore.astype(np.int8), kind="stable")
+    gts, gt_ignore, iscrowd = gts[g_order], gt_ignore[g_order], iscrowd[g_order]
+    ious = _iou_matrix(dets, gts, iscrowd)
+    T, D, G = len(thresholds), len(dets), len(gts)
+    tp = np.zeros((T, D), bool)
+    ignore_det = np.zeros((T, D), bool)
+    for t_i, t in enumerate(thresholds):
+        matched = np.zeros(G, bool)
+        for d in range(D):
+            best, best_iou = -1, min(t, 1 - 1e-10)
+            for g in range(G):
+                if matched[g] and not iscrowd[g]:
+                    continue
+                # once matched to a real ground truth, never switch to an ignored one
+                if best > -1 and not gt_ignore[best] and gt_ignore[g]:
+                    break
+                if ious[d, g] < best_iou:
+                    continue
+                best_iou = ious[d, g]
+                best = g
+            if best == -1:
+                continue
+            matched[best] = True
+            if gt_ignore[best]:
+                ignore_det[t_i, d] = True
+            else:
+                tp[t_i, d] = True
+    return det_scores[order], tp, ignore_det
+
+
+def _box_area(boxes: np.ndarray) -> np.ndarray:
+    if len(boxes) == 0:
+        return np.zeros(0)
+    return (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+
+
+class COCOEvaluator:
+    """Accumulates detections and ground truth; `evaluate()` returns
+    {"bbox": {AP, AP50, AP75, APs, APm, APl, AP-<class>...}} and, with
+    `output_json`, writes the detections in the COCO results schema."""
+
+    def __init__(self, dataset_name: str, output_json: Optional[str] = None):
+        classes = MetadataCatalog.get(dataset_name).get("thing_classes")
+        self.num_classes = len(classes) if classes else 80
+        self.class_names = classes
+        self.output_json = output_json
+        self.reset()
+
+    def reset(self):
+        self._dets = defaultdict(lambda: defaultdict(list))  # class -> image -> [(score, box)]
+        self._gts = defaultdict(lambda: defaultdict(list))  # class -> image -> [(box, iscrowd)]
+        self._images = set()
+
+    def process(self, image_id, boxes, scores, classes):
+        self._images.add(image_id)
+        for b, s, c in zip(boxes, scores, classes):
+            self._dets[int(c)][image_id].append((float(s), np.asarray(b, np.float64)))
+
+    def process_gt(self, image_id, boxes, classes, iscrowd=None):
+        self._images.add(image_id)
+        if iscrowd is None:
+            iscrowd = np.zeros(len(boxes), bool)
+        for b, c, cr in zip(boxes, classes, iscrowd):
+            self._gts[int(c)][image_id].append((np.asarray(b, np.float64), bool(cr)))
+
+    def evaluate(self) -> Dict[str, Dict[str, float]]:
+        out = {"bbox": self._evaluate_bbox()}
+        if self.output_json:
+            self.dump_predictions(self.output_json)
+        return out
+
+    def dump_predictions(self, path: str) -> None:
+        """The detections as COCO results: image_id, category_id (the
+        contiguous id), bbox in XYWH, score."""
+        records = []
+        for c, per_img in self._dets.items():
+            for img, dets in per_img.items():
+                for score, box in dets:
+                    x1, y1, x2, y2 = [float(v) for v in box]
+                    records.append({"image_id": img, "category_id": int(c), "bbox": [x1, y1, x2 - x1, y2 - y1],
+                                    "score": float(score)})
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(records, f)
+
+    def _evaluate_bbox(self) -> Dict[str, float]:
+        ap_per_class = {area: [] for area in AREA_RANGES}
+        ap50, ap75 = [], []
+        named = {}
+        for c in range(self.num_classes):
+            if not any(len(v) for v in self._gts.get(c, {}).values()):
+                continue
+            for area, (lo, hi) in AREA_RANGES.items():
+                precisions = self._class_pr(c, lo, hi)  # (T, 101)
+                ap = np.nan if precisions is None else float(np.mean(precisions))
+                ap_per_class[area].append(ap)
+                if area == "all":
+                    if self.class_names and c < len(self.class_names):
+                        named[f"AP-{self.class_names[c]}"] = 100 * ap if np.isfinite(ap) else float("nan")
+                    if precisions is not None:
+                        ap50.append(float(np.mean(precisions[0])))
+                        ap75.append(float(np.mean(precisions[5])))
+        return {
+            "AP": 100 * float(np.nanmean(ap_per_class["all"])) if ap_per_class["all"] else float("nan"),
+            "AP50": 100 * float(np.mean(ap50)) if ap50 else float("nan"),
+            "AP75": 100 * float(np.mean(ap75)) if ap75 else float("nan"),
+            "APs": 100 * float(np.nanmean(ap_per_class["small"])) if ap_per_class["small"] else float("nan"),
+            "APm": 100 * float(np.nanmean(ap_per_class["medium"])) if ap_per_class["medium"] else float("nan"),
+            "APl": 100 * float(np.nanmean(ap_per_class["large"])) if ap_per_class["large"] else float("nan"),
+            **named,
+        }
+
+    def _class_pr(self, c: int, area_lo: float, area_hi: float) -> Optional[np.ndarray]:
+        """(T, 101) interpolated precision of class `c` in an area range;
+        None when it has no ground truth there."""
+        T = len(IOU_THRESHOLDS)
+        all_scores, all_tp, all_ign = [], [], []
+        npos = 0
+        det_imgs, gt_imgs = self._dets.get(c, {}), self._gts.get(c, {})
+        for img in self._images:
+            gt_list = gt_imgs.get(img, [])
+            gts = np.array([b for b, _ in gt_list]).reshape(-1, 4)
+            iscrowd = np.array([cr for _, cr in gt_list], bool)
+            areas = _box_area(gts)
+            gt_ignore = iscrowd | (areas < area_lo) | (areas > area_hi)
+            npos += int((~gt_ignore).sum())
+            det_list = det_imgs.get(img, [])
+            if not det_list:
+                continue
+            det_boxes = np.array([b for _, b in det_list]).reshape(-1, 4)
+            det_scores = np.array([s for s, _ in det_list])
+            scores, tp, ign = _eval_image(det_boxes, det_scores, gts, gt_ignore, iscrowd, IOU_THRESHOLDS)
+            # unmatched detections outside the area range are ignored
+            d_areas = _box_area(det_boxes)
+            order = np.argsort(-det_scores, kind="stable")
+            out_of_range = ((d_areas < area_lo) | (d_areas > area_hi))[order]
+            ign = ign | (out_of_range[None, :] & ~tp)
+            all_scores.append(scores)
+            all_tp.append(tp)
+            all_ign.append(ign)
+        if npos == 0:
+            return None
+        if not all_scores:
+            return np.zeros((T, len(RECALL_POINTS)))
+        scores = np.concatenate(all_scores)
+        order = np.argsort(-scores, kind="mergesort")
+        tp = np.concatenate(all_tp, axis=1)[:, order]
+        ign = np.concatenate(all_ign, axis=1)[:, order]
+        out = np.zeros((T, len(RECALL_POINTS)))
+        for t in range(T):
+            keep = ~ign[t]
+            tps = np.cumsum(tp[t][keep])
+            fps = np.cumsum(~tp[t][keep])
+            rec = tps / npos
+            prec = tps / np.maximum(tps + fps, 1e-10)
+            # the monotone precision envelope, read at the 101 recall points
+            for i in range(len(prec) - 1, 0, -1):
+                prec[i - 1] = max(prec[i - 1], prec[i])
+            idx = np.searchsorted(rec, RECALL_POINTS, side="left")
+            out[t] = np.where(idx < len(prec), prec[np.minimum(idx, max(len(prec) - 1, 0))], 0.0) if len(prec) else 0.0
+        return out

@@ -17,7 +17,9 @@ def inference_on_dataset(model, data_loader, num_images: int, evaluator, device=
     `device` (the model's own by default), feeds the evaluator each real
     image's detections and ground truth, and returns its metrics. The rows
     past len(metas) repeat the batch's last image and are dropped. Reading
-    the detections back to the host is each batch's sync."""
+    the detections back to the host is each batch's sync. The ground truth's
+    `difficult` flags (0 where a record has none) go in third, as in the JAX
+    package, where `COCOEvaluator.process_gt` takes them as `iscrowd`."""
     evaluator.reset()
     device = device if device is not None else next(model.parameters()).device
     total_compute = total_eval = total_data = 0.0

@@ -82,7 +82,7 @@ def fast_rcnn_losses(
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 
 
-def fast_rcnn_inference(
+def detection_candidates(
     scores: torch.Tensor,  # (B, R, K+1) logits
     deltas: torch.Tensor,  # (B, R, K*4)
     proposal_boxes: torch.Tensor,  # (B, R, 4)
@@ -91,13 +91,12 @@ def fast_rcnn_inference(
     box2box: Box2BoxTransform,
     num_classes: int,
     score_thresh: float = 0.05,
-    nms_thresh: float = 0.5,
-    topk_per_image: int = 100,
     max_candidates: int = 2048,
-) -> DetectionResult:
-    """`fast_rcnn_inference_single_image` over a batch: softmax, drop the
-    background, per-class score threshold, top `max_candidates` candidates,
-    class-aware NMS through the coordinate shift, top `topk_per_image`."""
+):
+    """What `fast_rcnn_inference` hands to the class-aware NMS: softmax, drop
+    the background, per-class score threshold, the top `max_candidates`
+    candidates -> boxes (B, M, 4), scores (B, M), classes (B, M), valid
+    (B, M)."""
     b, r = scores.shape[:2]
     probs = torch.softmax(scores, dim=-1)[..., :-1]  # (B, R, K)
     d = deltas.reshape(b, r, num_classes, 4)
@@ -114,9 +113,28 @@ def fast_rcnn_inference(
     top_scores, top_idx = torch.sort(flat_scores, dim=1, descending=True, stable=True)
     top_scores, top_idx = top_scores[:, :m], top_idx[:, :m]
     top_boxes = torch.gather(flat_boxes, 1, top_idx[..., None].expand(-1, -1, 4))
-    top_classes = flat_classes[top_idx]
-    top_valid = top_scores > max(score_thresh, 0.0)
+    return top_boxes, top_scores, flat_classes[top_idx], top_scores > max(score_thresh, 0.0)
 
+
+def fast_rcnn_inference(
+    scores: torch.Tensor,  # (B, R, K+1) logits
+    deltas: torch.Tensor,  # (B, R, K*4)
+    proposal_boxes: torch.Tensor,  # (B, R, 4)
+    proposal_valid: torch.Tensor,  # (B, R)
+    image_hw: torch.Tensor,  # (B, 2)
+    box2box: Box2BoxTransform,
+    num_classes: int,
+    score_thresh: float = 0.05,
+    nms_thresh: float = 0.5,
+    topk_per_image: int = 100,
+    max_candidates: int = 2048,
+) -> DetectionResult:
+    """`fast_rcnn_inference_single_image` over a batch: the candidates of
+    `detection_candidates`, class-aware NMS through the coordinate shift,
+    top `topk_per_image`."""
+    top_boxes, top_scores, top_classes, top_valid = detection_candidates(
+        scores, deltas, proposal_boxes, proposal_valid, image_hw, box2box, num_classes, score_thresh, max_candidates
+    )
     keep_idx, keep_valid = batched_nms(
         top_boxes, top_scores, top_classes, nms_thresh, max_out=topk_per_image, valid=top_valid
     )

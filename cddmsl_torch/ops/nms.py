@@ -190,6 +190,16 @@ def nms(
     return idx, out_valid
 
 
+def class_shifted(boxes: torch.Tensor, idxs: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The coordinate shift of `batched_nms`: boxes of different `idxs` move
+    apart by idx * (max_coord + 1), max_coord taken per image over the valid
+    boxes, so they never overlap."""
+    kept = boxes if valid is None else torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    max_coord = torch.amax(kept, dim=(-2, -1), keepdim=True)  # (..., 1, 1)
+    offsets = idxs.to(boxes.dtype) * (max_coord[..., 0] + 1.0)
+    return boxes + offsets[..., None]
+
+
 def batched_nms(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -198,11 +208,6 @@ def batched_nms(
     max_out: int,
     valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Class-aware NMS by the coordinate shift: boxes of different `idxs`
-    move apart by idx * (max_coord + 1) so they never overlap, then one
-    `nms` runs. Shapes as in `nms`; max_coord is taken per image over the
-    valid boxes."""
-    kept = boxes if valid is None else torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
-    max_coord = torch.amax(kept, dim=(-2, -1), keepdim=True)  # (..., 1, 1)
-    offsets = idxs.to(boxes.dtype) * (max_coord[..., 0] + 1.0)
-    return nms(boxes + offsets[..., None], scores, iou_threshold, max_out, valid=valid)
+    """Class-aware NMS: one `nms` over the boxes of `class_shifted`. Shapes
+    as in `nms`."""
+    return nms(class_shifted(boxes, idxs, valid), scores, iou_threshold, max_out, valid=valid)

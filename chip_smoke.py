@@ -59,18 +59,46 @@ Phases, each of which fails the run with a non-zero exit:
      of the loop's loader already on the card, beside the loop's ms/step,
      2 more traced with torch.profiler for the device's busy and idle
      shares, and K1, K3 and K4 checked and timed at that batch's shapes as
-     in phase 6.
+     in phase 6, then K1 and K4 at the shapes of the test set's first batch
+     (`eval_kernel_calls`: the RoI heads' pool, the RPN NMS and the
+     detection NMS);
+  8. the adverse-weather path: `DefaultTrainer` on the Cityscapes -> Foggy
+     Cityscapes / BDD100k recipe (batch 8, bf16, KD on, clip by norm 5.0)
+     with a fixture at the data's size: 16 Cityscapes train PNGs of
+     2048x1024 with fog twins (one missing), 8 val PNGs and 8 BDD-style
+     1280x720 JPEGs in a COCO json, registered under the fixture's own
+     names in DATASETS.TRAIN and DATASETS.TEST. MODEL.WEIGHTS is a
+     detectron2-style `model_final.pth` of a seeded full-width model in the
+     d2_rcnn dialect (9-row cls_score, 36-output bbox_pred): after the load
+     the backbone, the offline backbone, the RPN head and the box predictor
+     must equal the file's tensors after the background-row surgery, bit
+     for bit.
+     `test()` of the loaded weights on the three test sets, then `train()`:
+     8 steps, the caption branch on from step 5, launches checked per step
+     as in phase 7, every loss finite (KD's too), the frozen parameters
+     unchanged bit for bit, and the final test set by set (launches 1/0/2
+     per batch, eval ms per image, AP dicts printed, not judged). Then
+     `train_net.main --eval-only` from the same file must give the AP dicts
+     of the first `test()`; last, the step timed on one batch of the loop's
+     loader already on the card and K1, K3 and K4 checked and timed at its
+     shapes as in phase 6, then K1 and K4 at the shapes of the first batch
+     of a Cityscapes test set and of the BDD one, as in phase 7.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/train_net`). `launches` counts that
-path's whole run (for train_net, 12 steps and the final test);
+(`roi_align_fwd/inference`, ..., `nms/adverse_weather`). `launches` counts
+that path's whole run (for train_net, 12 steps and the final test; for
+adverse_weather, 8 steps and the final test);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
-launches checked and timed at the path's shapes (one inference, one
-training step): the largest error and the sums of the times and bounds.
+launches checked and timed at the path's shapes (one inference; one
+training step; for train_net and adverse_weather also K1 and K4 of one
+eval batch per test set checked, 1 and 2 launches each): the largest error
+and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
 
+import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -563,6 +591,40 @@ def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
                            [rpn_nms, (db[None], ds[None], dv[None], dthr, dk)])}
 
 
+def pool_args(features, boxes):
+    """(features, batch_idx, boxes) as `roi_heads.pool` hands them to
+    `roi_align_batched`, for boxes (B, S, 4) over the map (B, H, W, C)."""
+    b, s = boxes.shape[:2]
+    bidx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(s)
+    return features.contiguous(), bidx, boxes.reshape(b * s, 4).float().contiguous()
+
+
+@torch.no_grad()
+def eval_kernel_calls(model, batch):
+    """The kernel calls of `model.inference` on one eval batch, rebuilt on
+    the model's device: K1's (features, batch_idx, boxes), the RoI heads'
+    pool over the batch's proposals, and K4's (boxes, scores, valid,
+    threshold, max_out) of the RPN NMS and of the detection NMS (its
+    candidates shifted apart by class, as `batched_nms` shifts them), in
+    the order inference makes them."""
+    from cddmsl_torch.models.fast_rcnn import detection_candidates
+    from cddmsl_torch.ops.nms import class_shifted
+
+    rpn, rh, backbone = model.proposal_generator, model.roi_heads, model.backbone
+    features = backbone(model._normalize(batch.image))["res4"]
+    head = rpn._head(features)
+    rpn_call = (*rpn._nms_inputs(*head, batch.image_sizes, False), rpn.nms_thresh, rpn.post_nms_topk[False])
+    proposals = rpn._predict_proposals(*head, batch.image_sizes, False)
+    b, s = proposals.boxes.shape[:2]
+    scores, deltas = rh.box_predictor(rh._region_embed(features, proposals.boxes, backbone.res5_forward,
+                                                       backbone.attnpool_forward))
+    boxes, det_scores, classes, valid = detection_candidates(
+        scores.reshape(b, s, -1), deltas.reshape(b, s, -1), proposals.boxes, proposals.valid, batch.image_sizes,
+        rh.box2box, rh.num_classes, rh.score_thresh_test)
+    det_call = (class_shifted(boxes, classes, valid), det_scores, valid, rh.nms_thresh_test, rh.detections_per_image)
+    return pool_args(features, proposals.boxes), [rpn_call, det_call]
+
+
 def training_roi_align_calls(model, batch, draw):
     """The RoIAlign calls of one CDDMSL training step past burn-up, rebuilt
     outside autograd on the model's device: [(label, features, batch_idx,
@@ -577,13 +639,8 @@ def training_roi_align_calls(model, batch, draw):
     sampled = rh.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)[0]
     region = model._random_region_boxes(proposals, draw)
     f_trgt = model.backbone(model._normalize(batch.image_trgt))["res4"]
-
-    def call(label, features, boxes):
-        b, s = boxes.shape[:2]
-        bidx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(s)
-        return label, features.contiguous(), bidx, boxes.reshape(b * s, 4).float().contiguous()
-
-    return [call("supervised", f_src, sampled), call("region_src", f_src, region), call("region_trgt", f_trgt, region)]
+    return [("supervised", *pool_args(f_src, sampled)), ("region_src", *pool_args(f_src, region)),
+            ("region_trgt", *pool_args(f_trgt, region))]
 
 
 LOSS_NAMES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "cont_loss", "kd_loss", "cont_loss_region")
@@ -648,17 +705,21 @@ def training_path(dev, smi, roi_ops, nms_ops):
     return step_kernel_rows(dev, model, batch, trainer.draw, launches, roi_ops, nms_ops, "training")
 
 
-def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label):
+def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label, eval_batches=None):
     """K1, K3 and K4 at one training step's own shapes: K1 and K3 at each of
-    its three RoIAlign calls, K4 at its RPN NMS. Each is held against its
-    plain version on the same inputs (K1 and K3 in bf16 to rtol 2e-2 with
-    the same zeros, K4 exactly), then timed beside the plain version and its
-    bound. Returns the path's rows, with its `launches`; the times, bounds
-    and errors are summed or maxed over the step's launches."""
+    its three RoIAlign calls, K4 at its RPN NMS; then, for each of
+    `eval_batches` ({name: batch on the card}), K1 and K4 at that eval
+    batch's shapes (`eval_kernel_calls`: the RoI heads' pool, the RPN NMS
+    and the detection NMS). Each is held against its plain version on the
+    same inputs (K1 and K3 in bf16 to rtol 2e-2 with the same zeros, K4
+    exactly), then timed beside the plain version and its bound. Returns
+    the path's rows, with its `launches`; the times, bounds and errors are
+    summed or maxed over the launches checked (`launches_timed`)."""
     rpn = model.proposal_generator
     f_src = model.backbone(model._normalize(batch.image))["res4"]
     nms_inputs = rpn._nms_inputs(*rpn._head(f_src), batch.image_sizes, True)
     rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+    nms_calls = [(*nms_inputs, rpn.nms_thresh, rpn.post_nms_topk[True])]
     gen = torch.Generator(device=dev).manual_seed(6)
     for call, feats, bidx, rois in training_roi_align_calls(model, batch, draw):
         R = rois.shape[0]
@@ -680,15 +741,104 @@ def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label)
             print(f"{name} {label} {call} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
                   f"max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
                   f"bound {bound:.5f} ms ({by})")
+    for set_name, eval_batch in (eval_batches or {}).items():
+        (feats, bidx, rois), calls = eval_kernel_calls(model, eval_batch)
+        R = rois.shape[0]
+        args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
+        err = bf16_max_abs_err(f"roi_align_fwd {label} eval {set_name}", roi_ops.roi_align_forward(*args),
+                               roi_ops.roi_align_batched_plain(feats.float(), *args[1:]))
+        ms = cuda_ms(lambda: roi_ops.roi_align_forward(*args), 10)
+        plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*args), 3, warmup=1)
+        bound, by = roi_bounds_ms(feats, R)
+        add_to_row(rows["roi_align_fwd"], err, ms, plain_ms, bound, by)
+        print(f"roi_align_fwd {label} eval {set_name} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} "
+              f"{feats.dtype}: max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {bound:.5f} ms ({by})")
+        nms_calls += calls
     rows = {name: close_row(row) for name, row in rows.items()}
-    nms_call = (*nms_inputs, rpn.nms_thresh, rpn.post_nms_topk[True])
-    rows["nms"] = nms_row(nms_ops, label, launches["nms"], [nms_call])
+    rows["nms"] = nms_row(nms_ops, label, launches["nms"], nms_calls)
     return rows
 
 
 # the caption branch runs at iterations past the burn-up (0-based, as in
 # JAX): with 3, steps 5-12 of 12
 TRAIN_NET_STEPS, TRAIN_NET_BURNUP, TRAIN_NET_IMAGES = 12, 3, 16
+
+
+class StepProbe:
+    """A trainer hook (it has every method of `engine.hooks.HookBase`): per
+    step, CUDA events and host clock around it, and the kernel launches it
+    made (host counters, read without a sync)."""
+
+    def __init__(self, roi_ops, nms_ops):
+        self.steps = []
+        self.read = lambda: read_launches(roi_ops, nms_ops)
+
+    def before_train(self):
+        self.t_train = time.perf_counter()
+
+    def before_step(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self._open = (e, time.perf_counter(), self.read())
+
+    def after_step(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.steps.append((*self._open, e, time.perf_counter(), self.read()))
+
+    def after_train(self):
+        torch.cuda.synchronize()
+        self.loop_s = time.perf_counter() - self.t_train
+        self.loop_launches = self.read()
+
+
+def loop_steps(label, probe, waits, n_steps, burnup):
+    """The loop's steps from `probe`: per step CUDA events, host wall, the
+    wait on the loader and the K1/K3/K4 launches, which must be 3/3/1 with
+    the caption branch and 1/1/1 before it; printed one line each."""
+    if len(probe.steps) != n_steps:
+        fail(f"the {label} loop ran {len(probe.steps)} steps")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    per_step = []
+    for i, (e0, h0, l0, e1, h1, l1) in enumerate(probe.steps):
+        counts = tuple(l1[k] - l0[k] for k in keys)
+        want = (3, 3, 1) if i > burnup else (1, 1, 1)
+        if counts != want:
+            fail(f"{label} step {i + 1} launched K1/K3/K4 {counts}, expected {want}")
+        per_step.append((e0.elapsed_time(e1), (h1 - h0) * 1e3, waits[i] * 1e3, counts))
+    for i, (dev_ms, host_ms, wait_ms, counts) in enumerate(per_step):
+        print(f"{label} step {i + 1}: {dev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host wall, "
+              f"{wait_ms:.3f} ms waiting on the loader, K1/K3/K4 launches {counts}")
+    return per_step
+
+
+def first_eval_batch(cfg, name, dev):
+    """The first batch of the eval loader of `name`, on the card."""
+    from cddmsl_torch.data import build_detection_test_loader, to_device
+
+    loader, _ = build_detection_test_loader(cfg, name, pin_memory=dev.type == "cuda")
+    with loader:
+        batch, _ = next(loader)
+    return to_device(batch, dev)
+
+
+def time_device_batch(label, trainer, batch, reps=5):
+    """The loop's step on a batch already on the card (no loader, no
+    hooks), after 2 warm-up steps: CUDA events and host wall, printed."""
+    for _ in range(2):
+        trainer.run_step(batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        trainer.run_step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"{label} step on a batch already on the card ({tuple(batch.image.shape)}, caption on): "
+          f"{start.elapsed_time(end) / reps:.3f} ms/step CUDA events, "
+          f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall")
 
 
 def train_net_path(dev, smi, roi_ops, nms_ops):
@@ -708,39 +858,13 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
     from cddmsl_torch.data import build_detection_train_loader
     from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
     from cddmsl_torch.data.datasets.voc import register_pascal_DG, register_pascal_voc
-    from cddmsl_torch.engine import hooks
     from cddmsl_torch.engine.defaults import DefaultTrainer, build_evaluator
     from cddmsl_torch.evaluation import inference_on_dataset
     from cddmsl_torch.profile_train import busy_and_span_us, device_kernels
 
-    class StepProbe(hooks.HookBase):
-        """Per step: CUDA events and host clock around it, and the kernel
-        launches it made (host counters, read without a sync)."""
-
-        def __init__(self):
-            self.steps = []
-
-        def before_train(self):
-            self.t_train = time.perf_counter()
-
-        def before_step(self):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self._open = (e, time.perf_counter(), read_launches(roi_ops, nms_ops))
-
-        def after_step(self):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self.steps.append((*self._open, e, time.perf_counter(), read_launches(roi_ops, nms_ops)))
-
-        def after_train(self):
-            torch.cuda.synchronize()
-            self.loop_s = time.perf_counter() - self.t_train
-            self.loop_launches = read_launches(roi_ops, nms_ops)
-
     class ProbedTrainer(DefaultTrainer):
         def build_hooks(self):
-            self.probe = StepProbe()
+            self.probe = StepProbe(roi_ops, nms_ops)
             return [self.probe] + super().build_hooks()
 
         def test(self, cfg=None):
@@ -784,20 +908,9 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
             fail(f"the train_net path did not go through every kernel: {launches}")
 
         probe = trainer.probe
-        if len(probe.steps) != TRAIN_NET_STEPS:
-            fail(f"the loop ran {len(probe.steps)} steps")
         waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("train_net", probe, waits, TRAIN_NET_STEPS, TRAIN_NET_BURNUP)
         keys = ("roi_align_fwd", "roi_align_bwd", "nms")
-        per_step = []
-        for i, (e0, h0, l0, e1, h1, l1) in enumerate(probe.steps):
-            counts = tuple(l1[k] - l0[k] for k in keys)
-            want = (3, 3, 1) if i > TRAIN_NET_BURNUP else (1, 1, 1)
-            if counts != want:
-                fail(f"step {i + 1} launched K1/K3/K4 {counts}, expected {want}")
-            per_step.append((e0.elapsed_time(e1), (h1 - h0) * 1e3, waits[i] * 1e3, counts))
-        for i, (dev_ms, host_ms, wait_ms, counts) in enumerate(per_step):
-            print(f"train_net step {i + 1}: {dev_ms:.3f} ms CUDA events, {host_ms:.3f} ms host wall, "
-                  f"{wait_ms:.3f} ms waiting on the loader, K1/K3/K4 launches {counts}")
         warm = per_step[TRAIN_NET_BURNUP + 2:]  # caption on, past its first step
         mean = lambda xs: sum(xs) / len(xs)
         print(f"train_net loop, steps {TRAIN_NET_BURNUP + 3}-{TRAIN_NET_STEPS} (caption on): "
@@ -846,20 +959,7 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
         # beside the loop's; then the kernels at the loop's shapes
         with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
             batch = to_device(next(train_loader), dev)
-        for _ in range(2):
-            trainer.run_step(batch)
-        reps = 5
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(reps):
-            trainer.run_step(batch)
-        end.record()
-        torch.cuda.synchronize()
-        print(f"train_net step on a batch already on the card ({tuple(batch.image.shape)}, caption on): "
-              f"{start.elapsed_time(end) / reps:.3f} ms/step CUDA events, "
-              f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall")
+        time_device_batch("train_net", trainer, batch)
         # how busy the device is in that step: the union of its kernels'
         # intervals in a torch.profiler trace
         traced = 2
@@ -878,10 +978,220 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
               f"{traced_ms:.3f} ms/step host wall; of the kernels' span, busy share {busy_us / span_us:.4f}, "
               f"idle share {1 - busy_us / span_us:.4f}")
         return step_kernel_rows(dev, trainer.model, batch, trainer.state.draw, launches, roi_ops, nms_ops,
-                                "train_net")
+                                "train_net", {names[1]: first_eval_batch(cfg, names[1], dev)})
     finally:
         for name in names:
             DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 8: the caption branch at 0-based iterations past 3, steps 5-8 of 8
+ADVERSE_STEPS, ADVERSE_BURNUP = 8, 3
+ADVERSE_TRAIN, ADVERSE_VAL, ADVERSE_BDD = 16, 8, 8
+BDD_CLASSES = ("person", "rider", "car", "bus", "truck", "bike", "motor", "traffic light", "traffic sign", "train")
+BOX_PREDICTOR = "roi_heads.box_predictor."
+D2_RCNN_TOWERS = ("backbone.", "proposal_generator.rpn_head.", BOX_PREDICTOR)  # what the file holds
+
+
+def write_d2_rcnn_file(model, path, seed):
+    """The model's backbone, RPN head and box predictor under the reference's
+    names in a detectron2-style model_final.pth (model, optimizer,
+    scheduler, iteration), a random background row put in front of
+    cls_score and 4 random outputs in front of bbox_pred. Returns what the
+    model must hold after loading it: the backbone's tensors also in the
+    offline backbone, the box predictor without the background."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+          if k.startswith(D2_RCNN_TOWERS)}
+    want = dict(sd)
+    want.update({"offline_" + k: v for k, v in sd.items() if k.startswith("backbone.")})
+    for name, n in (("cls_score.weight", 1), ("bbox_pred.weight", 4), ("bbox_pred.bias", 4)):
+        v = sd[BOX_PREDICTOR + name]
+        sd[BOX_PREDICTOR + name] = torch.cat([torch.randn((n, *v.shape[1:]), generator=g), v])
+    torch.save({"model": sd, "optimizer": {"state": {}, "param_groups": []}, "scheduler": {"last_epoch": 60000},
+                "iteration": 60000}, path)
+    return want, {k: tuple(sd[BOX_PREDICTOR + k].shape) for k in ("cls_score.weight", "bbox_pred.weight")}
+
+
+def adverse_weather_path(dev, smi, roi_ops, nms_ops):
+    """The adverse-weather recipe at full width from a reference checkpoint:
+    the fixture, the weights through MODEL.WEIGHTS, `test()`, `train()` (8
+    steps of 8 images, caption from step 5, KD on, then `test()` set by
+    set), `train_net.main --eval-only`, and the kernels at the loop's own
+    shapes. Returns its rows {kernel: row}."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch import train_net
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.config import CfgNode, get_cfg, model_config_from_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.cityscapes import register_cityscapes, register_cityscapes_DG
+    from cddmsl_torch.data.datasets.coco import register_coco_instances
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_bdd, make_synthetic_cityscapes
+    from cddmsl_torch.engine.defaults import DefaultTrainer, default_argument_parser
+    from cddmsl_torch.models.build import build_model
+    from cddmsl_torch.solver.build import split_parameters
+
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+
+    class ProbedTrainer(DefaultTrainer):
+        """Keeps each step's metrics and evaluates set by set, with the
+        launches and host wall of each set's evaluation."""
+
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            self.step_metrics = []
+            return [self.probe] + super().build_hooks()
+
+        def run_step(self, batch):
+            metrics = super().run_step(batch)
+            self.step_metrics.append(metrics)
+            return metrics
+
+        def test(self, cfg=None):
+            cfg = cfg or self.cfg
+            results, self.eval_log = {}, {}
+            for name in cfg.DATASETS.TEST:
+                one = CfgNode(cfg)
+                one.DATASETS.TEST = (name,)
+                torch.cuda.synchronize()
+                l0, t0 = read_launches(roi_ops, nms_ops), time.perf_counter()
+                results.update(super().test(one))
+                torch.cuda.synchronize()
+                l1 = read_launches(roi_ops, nms_ops)
+                self.eval_log[name] = (time.perf_counter() - t0, tuple(l1[k] - l0[k] for k in keys))
+            return results
+
+    def eval_lines(label, trainer, results):
+        for name, (secs, counts) in trainer.eval_log.items():
+            n = len(DatasetCatalog.get(name))
+            per_batch = tuple(c / -(-n // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST) for c in counts)
+            if per_batch != (1, 0, 2):
+                fail(f"adverse_weather {label} on {name} launched K1/K3/K4 {per_batch} per batch, expected (1, 0, 2)")
+            ap = {k: round(v, 4) for k, v in results[name]["bbox"].items()}
+            print(f"adverse_weather {label} on {name}: {n} images, {secs * 1e3 / n:.3f} ms/image (host wall, data "
+                  f"and evaluator included), launches per batch K1/K3/K4 {per_batch}; AP (not judged) "
+                  f"{json.dumps(ap)}")
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_adverse_weather_")
+    data = os.path.join(root, "datasets")
+    # the recipe's train set and its three test sets, in its order, under
+    # the fixture's own names
+    train_name = "chip_smoke_cityscapes_DG_train"
+    test_names = ("chip_smoke_cityscapes_foggy_val", "chip_smoke_bdd_100k_val", "chip_smoke_cityscapes_val")
+    try:
+        t0 = time.perf_counter()
+        city = make_synthetic_cityscapes(data, n=ADVERSE_TRAIN, seed=0, split="train")
+        make_synthetic_cityscapes(data, n=ADVERSE_VAL, seed=1, split="val", foggy=False)
+        bdd_json, bdd_images = make_synthetic_bdd(data, n=ADVERSE_BDD, seed=2, hw=(720, 1280), classes=BDD_CLASSES)
+        images, gt = os.path.join(city, "leftImg8bit"), os.path.join(city, "gtFine")
+        register_cityscapes_DG(train_name, os.path.join(images, "train"), os.path.join(gt, "train"),
+                               os.path.join(city, "leftImg8bit_foggy", "train"))
+        # the val split has no fog twins: the foggy set reads the clear
+        # images, as register_all registers it where leftImg8bit_foggy/val
+        # is missing
+        for name in (test_names[0], test_names[2]):
+            register_cityscapes(name, os.path.join(images, "val"), os.path.join(gt, "val"))
+        register_coco_instances(test_names[1], bdd_json, bdd_images)
+        print(f"adverse_weather fixture: {ADVERSE_TRAIN} Cityscapes train PNGs of 2048x1024 with fog twins (one "
+              f"missing), {ADVERSE_VAL} val PNGs without (the foggy test set reads them), {ADVERSE_BDD} "
+              f"BDD-style 1280x720 JPEGs, written in {time.perf_counter() - t0:.1f} s")
+
+        recipe = os.path.join(here, "configs", "AdverseWeather-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml")
+        weights = os.path.join(root, "model_final.pth")
+        opts = ["SEED", "0", "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
+                "MODEL.WEIGHTS", weights, "DATASETS.TRAIN", repr((train_name,)), "DATASETS.TEST", repr(test_names)]
+        cfg = get_cfg()
+        cfg.merge_from_file(recipe)
+        cfg.merge_from_list(opts + [
+            "OUTPUT_DIR", os.path.join(root, "out"), "SOLVER.MAX_ITER", str(ADVERSE_STEPS),
+            "SOLVER.CAPTION_BURNUP_ITERS", str(ADVERSE_BURNUP), "SOLVER.CHECKPOINT_PERIOD", "0",
+            "TEST.EVAL_PERIOD", "0",
+        ])
+        cfg.freeze()
+        reference = build_model(model_config_from_cfg(cfg), device="cpu", training=True)
+        init_random_(reference, torch.Generator().manual_seed(7))
+        want, shapes = write_d2_rcnn_file(reference, weights, seed=8)
+        del reference
+        print(f"adverse_weather: the recipe ({cfg.SOLVER.IMS_PER_BATCH} images a step, {cfg.TPU.COMPUTE_DTYPE}, KD "
+              f"{cfg.MODEL.KD_REGULRAZIATION}, clip by {cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE} "
+              f"{cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE}, {cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, test sets "
+              f"{list(cfg.DATASETS.TEST)}); MODEL.WEIGHTS a detectron2-style d2_rcnn model_final.pth of a seeded "
+              f"full-width model (cls_score {shapes['cls_score.weight']}, bbox_pred {shapes['bbox_pred.weight']})")
+
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.resume_or_load(resume=False)
+        state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+        bad = [k for k, v in want.items() if not torch.equal(state[k], v)]
+        if bad or trainer.start_iter != 0:
+            fail(f"the d2_rcnn weights did not load bit for bit: {bad[:5]}, start_iter {trainer.start_iter}")
+        towers = collections.Counter(next(t for t in ("offline_backbone.", *D2_RCNN_TOWERS) if k.startswith(t))
+                                     for k in want)
+        print(f"adverse_weather weights: {dict(towers)} tensors bit-equal to the file after the background-row "
+              f"surgery; iteration {trainer.start_iter}")
+        params = dict(trainer.model.named_parameters())
+        _, frozen = split_parameters(trainer.model)
+        frozen_before = {n: params[n].detach().clone() for n in frozen}
+
+        loaded = trainer.test()
+        eval_lines("test() of the loaded weights", trainer, loaded)
+
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        print(f"adverse_weather path launches ({ADVERSE_STEPS} steps and the final test): {launches}")
+        probe = trainer.probe
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("adverse_weather", probe, waits, ADVERSE_STEPS, ADVERSE_BURNUP)
+        for i, metrics in enumerate(trainer.step_metrics):
+            losses = {k: v.item() for k, v in metrics.items() if "loss" in k}
+            if "kd_loss" not in losses or not all(map(math.isfinite, losses.values())):
+                fail(f"adverse_weather step {i + 1}: losses {losses}")
+        print(f"adverse_weather losses finite in all {ADVERSE_STEPS} steps; the last: "
+              f"{json.dumps({k: round(v.item(), 6) for k, v in trainer.step_metrics[-1].items() if 'loss' in k})}")
+        changed = [n for n, v in frozen_before.items() if not torch.equal(params[n], v)]
+        if changed:
+            fail(f"adverse_weather: frozen parameters changed: {changed[:5]}")
+        print(f"adverse_weather: all {len(frozen)} frozen parameters bit-for-bit unchanged")
+        warm = per_step[ADVERSE_BURNUP + 2:]  # caption on, past its first step
+        mean = lambda xs: sum(xs) / len(xs)
+        print(f"adverse_weather loop, steps {ADVERSE_BURNUP + 3}-{ADVERSE_STEPS} (caption and KD on): "
+              f"{mean([p[0] for p in warm]):.3f} ms/step CUDA events, {mean([p[1] for p in warm]):.3f} ms/step "
+              f"host wall, {mean([p[2] for p in warm]):.3f} ms/step waiting on the loader; steps 2-{ADVERSE_BURNUP + 1}"
+              f" (before the caption branch): {mean([p[2] for p in per_step[1:ADVERSE_BURNUP + 1]]):.3f} ms/step "
+              f"waiting on the loader; whole loop {probe.loop_s * 1e3 / ADVERSE_STEPS:.3f} ms/step host wall; on {smi}")
+        eval_lines("final test", trainer, results)
+
+        t0 = time.perf_counter()
+        args = default_argument_parser().parse_args(
+            ["--eval-only", "--config-file", recipe, *opts, "OUTPUT_DIR", os.path.join(root, "eval")])
+        again = train_net.main(args)
+        if json.dumps(again, sort_keys=True) != json.dumps(loaded, sort_keys=True):
+            fail(f"train_net --eval-only from {weights} gave other AP dicts than test() of the loaded weights")
+        print(f"adverse_weather eval-only (train_net.main --eval-only, MODEL.WEIGHTS the d2_rcnn file): the AP "
+              f"dicts of the 3 test sets equal those of test() of the loaded weights; {time.perf_counter() - t0:.1f} s")
+
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        time_device_batch("adverse_weather", trainer, batch)
+        # K1 and K4 also at the eval batches' shapes: a Cityscapes batch
+        # (the two Cityscapes sets read the same images here) and a BDD one
+        eval_batches = {name: first_eval_batch(cfg, name, dev) for name in test_names[1:]}
+        rows = step_kernel_rows(dev, trainer.model, batch, trainer.state.draw, launches, roi_ops, nms_ops,
+                                "adverse_weather", eval_batches)
+        print(f"adverse_weather phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        for name in (train_name, *test_names):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
             MetadataCatalog.remove(name)
         shutil.rmtree(root, ignore_errors=True)
 
@@ -894,6 +1204,7 @@ def main() -> int:
     from cddmsl_torch.ops import nms as nms_ops
     from cddmsl_torch.ops import roi_align as roi_ops
 
+    t_start = time.perf_counter()
     torch.set_grad_enabled(False)  # the training phases enable it where they need it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -922,6 +1233,8 @@ def main() -> int:
     paths["training"] = training_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["train_net"] = train_net_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["adverse_weather"] = adverse_weather_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),
@@ -934,6 +1247,7 @@ def main() -> int:
             source, replaces = meta[name]
             kernels.append({"name": f"{name}/{path}", "route": "cuda", "source": source, "replaces": replaces,
                             **row, "library_ms": None})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall after the card was found")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

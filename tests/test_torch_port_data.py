@@ -74,6 +74,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 VOC_RECIPE = REPO / "configs" / "VOC-Experiments" / "faster_rcnn_CLIP_R_50_C4.yaml"
 TINY_RECIPE = REPO / "cddmsl_torch" / "configs" / "voc_tiny.yaml"
+CITY_RECIPES = [REPO / "configs" / "AdverseWeather-Experiments" / f"faster_rcnn_CLIP_R_50_{name}.yaml"
+                for name in ("C4", "baseline")] + [REPO / "cddmsl_torch" / "configs" / "city_tiny.yaml"]
 
 
 def _flat(node, prefix=""):
@@ -102,7 +104,8 @@ def _assert_port_keys_equal(ours, ref):
 
 
 # ---------------- config ----------------
-@pytest.mark.parametrize("path", [VOC_RECIPE, TINY_RECIPE], ids=["voc_recipe", "voc_tiny"])
+@pytest.mark.parametrize("path", [VOC_RECIPE, TINY_RECIPE, *CITY_RECIPES],
+                         ids=["voc_recipe", "voc_tiny", "city_recipe", "city_baseline", "city_tiny"])
 def test_recipe_loads_to_the_jax_cfg(path):
     ours, ref = _both_cfgs(path)
     _assert_port_keys_equal(ours, ref)
@@ -163,12 +166,12 @@ def test_keys_the_port_does_not_read_raise():
     with pytest.raises(NotImplementedError, match="SEMISUPNET.Trainer"):
         check_supported(cfg)
     register_all()
-    MetadataCatalog.get("port_test_coco_like").set(evaluator_type="coco", thing_classes=["a"])
+    MetadataCatalog.get("port_test_lvis_like").set(evaluator_type="lvis", thing_classes=["a"])
     try:
-        with pytest.raises(NotImplementedError, match="coco"):
-            build_evaluator(cfg, "port_test_coco_like")
+        with pytest.raises(NotImplementedError, match="lvis"):
+            build_evaluator(cfg, "port_test_lvis_like")
     finally:
-        MetadataCatalog.remove("port_test_coco_like")
+        MetadataCatalog.remove("port_test_lvis_like")
 
 
 # ---------------- fixture and loaders ----------------

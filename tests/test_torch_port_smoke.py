@@ -1,14 +1,17 @@
 """The parts of chip_smoke.py that the CPU can check: the rebuilt RoIAlign
-calls of a training step, which its training rows time, the bounds its
-kernels line reports beside each time, and the NMS walk's blocks and kept
-rows it prints.
+calls of a training step and the rebuilt RoIAlign and NMS calls of an eval
+batch, which its kernel rows time, the bounds its kernels line reports
+beside each time, and the NMS walk's blocks and kept rows it prints.
 
 The rebuilt calls must be the step's own: one tiny CDDMSL step past burn-up
 runs on the CPU with a spy on `roi_align_batched`, and the spy's record of
 every call (map, image indices, boxes) must equal, exactly, what
 `training_roi_align_calls` returns for the same weights and draws (the same
 float32 operations on the same inputs, and draws that depend on the site
-name alone).
+name alone). Likewise the eval batch's calls, rebuilt by
+`eval_kernel_calls`, must equal what `model.inference` hands to
+`roi_align_batched` and to `nms` (the RPN's and the detection NMS's, after
+the class shift).
 """
 
 import pytest
@@ -19,7 +22,7 @@ from cddmsl_torch.checkpoint.convert_jax import init_random_
 from cddmsl_torch.config import flagship_config, flagship_solver_config
 from cddmsl_torch.engine.train_loop import Trainer
 from cddmsl_torch.entry import synthetic_batch
-from cddmsl_torch.models import roi_heads
+from cddmsl_torch.models import roi_heads, rpn
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.ops import nms as nms_ops
 from cddmsl_torch.solver.build import build_optimizer
@@ -58,6 +61,45 @@ def test_training_roi_align_calls_are_the_steps_own(monkeypatch):
         assert torch.equal(boxes, s_boxes), label
     # the region pools read the same boxes from the two views' maps
     assert torch.equal(rebuilt[1][3], rebuilt[2][3]) and not torch.equal(rebuilt[1][1], rebuilt[2][1])
+
+
+@pytest.mark.parametrize("score_thresh", [0.0, 0.05])
+def test_eval_kernel_calls_are_the_inference_batchs_own(monkeypatch, score_thresh):
+    cfg = flagship_config(tiny=True)
+    model = build_model(cfg, device="cpu")
+    init_random_(model, torch.Generator().manual_seed(4))
+    model.roi_heads.score_thresh_test = score_thresh
+    batch = synthetic_batch(2, 128, 160, seed=3, device="cpu")
+    (features, batch_idx, boxes), nms_calls = chip_smoke.eval_kernel_calls(model, batch)
+
+    pools, nmss = [], []
+    pool, nms = roi_heads.roi_align_batched, nms_ops.nms
+
+    def pool_spy(features, batch_idx, boxes, *args):
+        pools.append((features.clone(), batch_idx.clone(), boxes.clone()))
+        return pool(features, batch_idx, boxes, *args)
+
+    def nms_spy(boxes, scores, iou_threshold, max_out, valid=None):
+        nmss.append((boxes.clone(), scores.clone(), valid.clone(), iou_threshold, max_out))
+        return nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+    monkeypatch.setattr(roi_heads, "roi_align_batched", pool_spy)
+    monkeypatch.setattr(rpn, "nms", nms_spy)
+    monkeypatch.setattr(nms_ops, "nms", nms_spy)  # batched_nms's
+    model.inference(batch)
+
+    assert len(pools) == 1 and len(nmss) == len(nms_calls) == 2
+    for got, want in zip((features, batch_idx, boxes), pools[0]):
+        assert torch.equal(got, want)
+    assert boxes.shape == (2 * cfg.rpn_post_nms_topk_test, 4)
+    for label, got, want in zip(("rpn", "detection"), nms_calls, nmss):
+        for x, y in zip(got[:3], want[:3]):
+            assert torch.equal(x, y), label
+        assert got[3:] == want[3:], label
+    assert nms_calls[0][4] == cfg.rpn_post_nms_topk_test and nms_calls[1][4] == cfg.detections_per_image
+    if score_thresh == 0.0:  # every candidate kept: several classes, shifted apart past the image
+        det_boxes, _, det_valid = nms_calls[1][:3]
+        assert det_valid.all() and det_boxes.amax() > 160
 
 
 @pytest.mark.parametrize("R, want_bytes", [
