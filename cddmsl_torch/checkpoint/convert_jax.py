@@ -11,6 +11,12 @@ conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear weights
 (out, in), LayerNorm scale -> weight; FrozenBN buffers, the positional
 embedding, the mapper's prefix and the (K, D) class embeddings copy as they
 are. The offline backbone maps as the backbone does.
+
+`convert_jax_caption_params` does the same for the JAX package's
+`ClipCaptionModel` tree (its `clip_project` mapper and its GPT-2) into
+`models.caption.ClipCaptionModel`'s names (`clip_project.*`,
+`gpt.transformer.*`); GPT-2's Dense kernels are HF Conv1D weights as they
+are, (in, out).
 """
 
 import re
@@ -21,12 +27,40 @@ import torch
 from torch import nn
 
 from ..models.backbone.clip_resnet import FrozenBatchNorm2d
+from ..models.gpt2 import Conv1D
 
-# subtrees of the JAX model that the port does not build (the projector of
-# the language-free consistency branches)
+# the subtree of the JAX model that the port builds only for the
+# language-free consistency branches (MODEL.CONSISTENCY_BRANCH "image" and
+# "image_region"): the JAX model always holds it
 SKIPPED_SUBTREES = ("image_projector",)
 
 _BN = r"(weight|bias|running_mean|running_var)"
+
+
+def _mapper_rules(name: str):
+    """A ClipCap TransformerMapper under `name`, in both trees."""
+    layer = rf"{name}/layers_(\d+)"
+    return (
+        (rf"{name}/linear/kernel", rf"{name}.linear.weight", "dense"),
+        (rf"{name}/linear/bias", rf"{name}.linear.bias", "copy"),
+        (rf"{name}/prefix_const", rf"{name}.prefix_const", "copy"),
+        (rf"{layer}/(norm[12])/scale", rf"{name}.transformer.layers.\1.\2.weight", "copy"),
+        (rf"{layer}/(norm[12])/bias", rf"{name}.transformer.layers.\1.\2.bias", "copy"),
+        (rf"{layer}/attn/(to_queries|to_keys_values|project)/kernel", rf"{name}.transformer.layers.\1.attn.\2.weight",
+         "dense"),
+        (rf"{layer}/attn/project/bias", rf"{name}.transformer.layers.\1.attn.project.bias", "copy"),
+        (rf"{layer}/mlp_(fc[12])/kernel", rf"{name}.transformer.layers.\1.mlp.\2.weight", "dense"),
+        (rf"{layer}/mlp_(fc[12])/bias", rf"{name}.transformer.layers.\1.mlp.\2.bias", "copy"),
+    )
+
+
+def _projector_rules(name: str):
+    return (
+        (rf"{name}/(fc[12])/kernel", rf"{name}.\1.weight", "dense"),
+        (rf"{name}/(fc[12])/bias", rf"{name}.\1.bias", "copy"),
+    )
+
+
 # (JAX path regex, torch key template, layout)
 _RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"backbone/(conv[123])/kernel", r"backbone.\1.weight", "conv"),
@@ -51,21 +85,20 @@ _RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"roi_heads/box_predictor/cls_score_weight", r"roi_heads.box_predictor.cls_score.weight", "copy"),
     (r"roi_heads/box_predictor/bbox_pred/kernel", r"roi_heads.box_predictor.bbox_pred.weight", "dense"),
     (r"roi_heads/box_predictor/bbox_pred/bias", r"roi_heads.box_predictor.bbox_pred.bias", "copy"),
-    (r"v2l_mapper/linear/kernel", r"v2l_mapper.linear.weight", "dense"),
-    (r"v2l_mapper/linear/bias", r"v2l_mapper.linear.bias", "copy"),
-    (r"v2l_mapper/prefix_const", r"v2l_mapper.prefix_const", "copy"),
-    (r"v2l_mapper/layers_(\d+)/(norm[12])/scale", r"v2l_mapper.transformer.layers.\1.\2.weight", "copy"),
-    (r"v2l_mapper/layers_(\d+)/(norm[12])/bias", r"v2l_mapper.transformer.layers.\1.\2.bias", "copy"),
-    (
-        r"v2l_mapper/layers_(\d+)/attn/(to_queries|to_keys_values|project)/kernel",
-        r"v2l_mapper.transformer.layers.\1.attn.\2.weight",
-        "dense",
-    ),
-    (r"v2l_mapper/layers_(\d+)/attn/project/bias", r"v2l_mapper.transformer.layers.\1.attn.project.bias", "copy"),
-    (r"v2l_mapper/layers_(\d+)/mlp_(fc[12])/kernel", r"v2l_mapper.transformer.layers.\1.mlp.\2.weight", "dense"),
-    (r"v2l_mapper/layers_(\d+)/mlp_(fc[12])/bias", r"v2l_mapper.transformer.layers.\1.mlp.\2.bias", "copy"),
-    (r"projector/(fc[12])/kernel", r"projector.\1.weight", "dense"),
-    (r"projector/(fc[12])/bias", r"projector.\1.bias", "copy"),
+    *_mapper_rules("v2l_mapper"),
+    *_projector_rules("projector"),
+)
+_CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_mapper_rules("clip_project"),
+    (r"gpt/(wte|wpe)", r"gpt.transformer.\1.weight", "copy"),
+    (r"gpt/ln_f/scale", r"gpt.transformer.ln_f.weight", "copy"),
+    (r"gpt/ln_f/bias", r"gpt.transformer.ln_f.bias", "copy"),
+    (r"gpt/h_(\d+)/(ln_[12])/scale", r"gpt.transformer.h.\1.\2.weight", "copy"),
+    (r"gpt/h_(\d+)/(ln_[12])/bias", r"gpt.transformer.h.\1.\2.bias", "copy"),
+    (r"gpt/h_(\d+)/(c_attn|c_proj)/kernel", r"gpt.transformer.h.\1.attn.\2.weight", "copy"),
+    (r"gpt/h_(\d+)/(c_attn|c_proj)/bias", r"gpt.transformer.h.\1.attn.\2.bias", "copy"),
+    (r"gpt/h_(\d+)/mlp_(c_fc|c_proj)/kernel", r"gpt.transformer.h.\1.mlp.\2.weight", "copy"),
+    (r"gpt/h_(\d+)/mlp_(c_fc|c_proj)/bias", r"gpt.transformer.h.\1.mlp.\2.bias", "copy"),
 )
 _OFFLINE = "offline_backbone"
 _LAYOUT = {
@@ -84,19 +117,16 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, val
 
 
-def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GeneralizedRCNN params (with or without the top-level 'params'
-    key) -> state dict. Skips `SKIPPED_SUBTREES`; raises on any other key it
-    does not map."""
+def _convert(params: Mapping[str, Any], rules, what: str, skip=()) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     state: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(params):
         tower, _, rest = path.partition("/")
-        if tower in SKIPPED_SUBTREES:
+        if tower in skip:
             continue
         offline = tower == _OFFLINE  # the backbone's rules, under another name
-        for pattern, template, layout in _RULES:
+        for pattern, template, layout in rules:
             m = re.fullmatch(pattern, "backbone/" + rest if offline else path)
             if m:
                 arr = _LAYOUT[layout](np.asarray(val, dtype=np.float32))
@@ -104,8 +134,24 @@ def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 state[_OFFLINE + key[len("backbone"):] if offline else key] = torch.tensor(np.ascontiguousarray(arr))
                 break
         else:
-            raise KeyError(f"convert_jax_params: no mapping for JAX parameter {path!r}")
+            raise KeyError(f"{what}: no mapping for JAX parameter {path!r}")
     return state
+
+
+def convert_jax_params(params: Mapping[str, Any], image_projector: bool = False) -> Dict[str, torch.Tensor]:
+    """JAX GeneralizedRCNN params (with or without the top-level 'params'
+    key) -> state dict. Skips `SKIPPED_SUBTREES` unless `image_projector`
+    (for a model built with an "image" or "image_region" branch); raises on
+    any other key it does not map."""
+    rules = _RULES + (_projector_rules("image_projector") if image_projector else ())
+    return _convert(params, rules, "convert_jax_params", () if image_projector else SKIPPED_SUBTREES)
+
+
+def convert_jax_caption_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ClipCaptionModel params (with or without 'params') -> the state
+    dict of `models.caption.ClipCaptionModel`; raises on a key it does not
+    map."""
+    return _convert(params, _CAPTION_RULES, "convert_jax_caption_params")
 
 
 @torch.no_grad()
@@ -113,7 +159,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fills every parameter and FrozenBN buffer from `generator` (a CPU
     generator): He-normal convs, 1/sqrt(fan_in) linears, FrozenBN with
     running_var in [0.5, 1.5], LayerNorm scales in [0.5, 1.5], small
-    RPN/box-regression heads, a unit-normal mapper prefix. For runs that
+    RPN/box-regression heads, a unit-normal mapper prefix; for GPT-2,
+    1/sqrt(fan_in) Conv1D weights and normal token (0.02) and position
+    (0.01) embeddings, as the JAX package initialises them. For runs that
     have no JAX checkpoint at hand; the model may live on any device."""
 
     def normal(t: torch.Tensor, std: float) -> None:
@@ -137,6 +185,11 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.LayerNorm):
             uniform(mod.weight, 0.5, 1.5)
             uniform(mod.bias, -0.1, 0.1)
+        elif isinstance(mod, Conv1D):
+            normal(mod.weight, mod.weight.shape[0] ** -0.5)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            normal(mod.weight, 0.02 if name.endswith("wte") else 0.01)
         elif isinstance(mod, nn.Linear):
             regressor = name.endswith("bbox_pred")
             normal(mod.weight, 0.001 if regressor else mod.in_features ** -0.5)

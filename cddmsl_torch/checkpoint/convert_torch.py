@@ -1,6 +1,7 @@
 """The reference's `.pth` files (counterpart of `load_rcnn_weights`,
 `detect_dialect`, `load_offline_backbone`, `load_clipcap_mapper` and
-`load_text_emb_classifier` in cddmsl_tpu/checkpoint/convert_torch.py).
+`load_text_emb_classifier` in cddmsl_tpu/checkpoint/convert_torch.py, and of
+`convert_hf_gpt2` in cddmsl_tpu/models/gpt2.py).
 
 The port's modules carry the reference checkpoint keys, so each load is a
 prefix swap into the model's own state: the RegionCLIP visual tower
@@ -13,6 +14,12 @@ backbones) or "clipcap" (the mapper). Only the keys the JAX converters take
 are read: the rest of the file, and every tensor of the model it names no
 key for, is left as it is. A key whose shape differs raises, where the JAX
 package skips it with a warning.
+
+An HF GPT-2 state dict (`transformer.*` keys, or the same without the
+prefix) goes into `models.gpt2.GPT2LMHead` through `convert_hf_gpt2`, which
+keeps the keys the JAX converter takes (the embeddings, the blocks' norms and
+projections, the final norm) and leaves out HF's attention-mask buffers and
+the tied `lm_head.weight`.
 """
 
 import logging
@@ -46,6 +53,10 @@ _VISUAL = re.compile(
 _MAPPER = re.compile(
     r"(linear\.(weight|bias)|prefix_const|transformer\.layers\.\d+\.(norm[12]\.(weight|bias)|"
     r"attn\.(to_queries|to_keys_values|project)\.weight|attn\.project\.bias|mlp\.fc[12]\.(weight|bias)))"
+)
+_GPT2 = re.compile(
+    r"(wte|wpe)\.weight|ln_f\.(weight|bias)|h\.\d+\.(ln_[12]\.(weight|bias)|attn\.c_(attn|proj)\.(weight|bias)|"
+    r"mlp\.c_(fc|proj)\.(weight|bias))"
 )
 _RPN_HEAD = re.compile(r"(conv|objectness_logits|anchor_deltas)\.(weight|bias)")
 _BOX_PREDICTOR = re.compile(r"cls_score\.weight|bbox_pred\.(weight|bias)")
@@ -125,6 +136,11 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
     return dialect
 
 
+def load_visual_tower(tower: nn.Module, sd: Dict[str, torch.Tensor], prefix: str, what: str) -> int:
+    """The CLIP visual tensors of `sd` under `prefix` into a ModifiedResNet."""
+    return _load_prefixed(tower, sd, prefix, what, _VISUAL)
+
+
 def load_offline_backbone(model: nn.Module, path: str) -> None:
     """MODEL.PRE_TRAINED_RCLIP_PATH -> the frozen offline backbone."""
     sd = load_torch_state_dict(path)
@@ -135,7 +151,31 @@ def load_offline_backbone(model: nn.Module, path: str) -> None:
 def load_clipcap_mapper(model: nn.Module, path: str) -> None:
     """MODEL.VISION_TO_LANG_PATH -> the frozen ClipCap mapper (only
     `clip_project` is kept)."""
-    _load_prefixed(model.v2l_mapper, load_torch_state_dict(path), "clip_project.", "ClipCap mapper", _MAPPER)
+    load_mapper_state(model.v2l_mapper, load_torch_state_dict(path), "ClipCap mapper")
+
+
+def load_mapper_state(mapper: nn.Module, sd: Dict[str, torch.Tensor], what: str) -> int:
+    """The "clip_project.*" tensors of a ClipCap state dict into a
+    TransformerMapper (the caption model's `clip_project`)."""
+    return _load_prefixed(mapper, sd, "clip_project.", what, _MAPPER)
+
+
+def convert_hf_gpt2(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """HF GPT2LMHeadModel (or GPT2Model) state dict -> the state dict of
+    `models.gpt2.GPT2LMHead`: Conv1D weights stay (in, out)."""
+    out = {}
+    for key, val in sd.items():
+        k = key[len("transformer."):] if key.startswith("transformer.") else key
+        if _GPT2.fullmatch(k):
+            out["transformer." + k] = val
+    return out
+
+
+@torch.no_grad()
+def load_gpt2(gpt: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """An HF GPT-2 state dict into `gpt` (a GPT2LMHead): every tensor of
+    the model must be in it, at its shape."""
+    gpt.load_state_dict(convert_hf_gpt2(sd), strict=True)
 
 
 @torch.no_grad()

@@ -30,6 +30,8 @@ CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
 RESNET_SPECS = {50: ((3, 4, 6, 3), 64), 101: ((3, 4, 23, 3), 64), 200: ((4, 6, 10, 6), 80)}
 EMBED_DIMS = {50: 1024, 101: 512, 200: 640}
 IMAGE_RESOLUTIONS = {50: 224, 101: 224, 200: 288}
+# MODEL.CONSISTENCY_BRANCH values, as the JAX DefaultTrainer asserts them
+CONSISTENCY_BRANCHES = ("", "image", "image_region", "caption_pl_img", "caption_pl_region")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +76,9 @@ class ModelConfig:
     v2l_image_size: int = 224
     v2l_mapper_layers: int = 8
     v2l_mapper_tokens: int = 40
+    # MODEL.CONSISTENCY_BRANCH: "image" and "image_region" build the image
+    # projector of the language-free branches
+    consistency_branch: str = ""
     # TPU.COMPUTE_DTYPE
     compute_dtype: str = "bfloat16"
 
@@ -155,7 +160,8 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.MASK_ON", _falsy),
     ("MODEL.KEYPOINT_ON", _falsy),
     ("MODEL.LOAD_PROPOSALS", _falsy),
-    ("MODEL.CONSISTENCY_BRANCH", lambda v: v == ""),
+    ("MODEL.CONSISTENCY_BRANCH", lambda v: v in CONSISTENCY_BRANCHES),
+    ("MODEL.CAPTION_PL_LOSS", lambda v: v in ("pseudo_label", "kl")),
     ("MODEL.ROI_HEADS.NAME", lambda v: v == "CLIPRes5ROIHeads"),
     ("MODEL.ROI_HEADS.SOFT_NMS_ENABLED", _falsy),
     ("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", _falsy),
@@ -249,6 +255,7 @@ def model_config_from_cfg(cfg) -> ModelConfig:
         v2l_image_size=tpu.V2L_IMAGE_SIZE,
         v2l_mapper_layers=tpu.V2L_MAPPER_LAYERS,
         v2l_mapper_tokens=tpu.V2L_MAPPER_TOKENS,
+        consistency_branch=m.CONSISTENCY_BRANCH,
         compute_dtype=tpu.COMPUTE_DTYPE,
     )
 

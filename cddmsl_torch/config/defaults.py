@@ -31,7 +31,14 @@ def get_cfg() -> CfgNode:
     _C.MODEL.KD_REGULRAZIATION = True  # (sic) the reference's key name
     _C.MODEL.PRE_TRAINED_RCLIP_PATH = ""
     _C.MODEL.VISION_TO_LANG_PATH = ""
+    # "" or a branch: "image" / "image_region" add the language-free InfoNCE
+    # to the step, "caption_pl_img" / "caption_pl_region" run the
+    # pseudo-label caption step after it (a second update per iteration)
     _C.MODEL.CONSISTENCY_BRANCH = ""
+    _C.MODEL.CONSISTENCY_LOSS_WEIGHT = 0.1
+    _C.MODEL.CAPTION_PL_LOSS = "pseudo_label"  # or "kl"
+    _C.MODEL.CAPTION_PL_MAX_LEN = 20
+    _C.MODEL.CAPTION_GPT2_PATH = ""  # an HF GPT-2 state dict for the pl decoder
 
     _C.MODEL.BACKBONE = CfgNode()
     _C.MODEL.BACKBONE.NAME = "build_clip_resnet_backbone"
@@ -159,4 +166,10 @@ def get_cfg() -> CfgNode:
     _C.TPU.EMBED_DIM = 0
     _C.TPU.V2L_MAPPER_LAYERS = 8
     _C.TPU.V2L_MAPPER_TOKENS = 40
+    # GPT-2 of the caption_pl decoder: HF gpt2's dims
+    _C.TPU.GPT2_VOCAB = 50257
+    _C.TPU.GPT2_POSITIONS = 1024
+    _C.TPU.GPT2_EMBD = 768
+    _C.TPU.GPT2_LAYERS = 12
+    _C.TPU.GPT2_HEADS = 12
     return _C

@@ -12,6 +12,13 @@ classes. One process drives one device; there is no mesh.
 Each iteration's sampler draws come from a generator seeded by (SEED,
 iteration), as the JAX loop folds the iteration into its key, so a resumed
 run draws what an uninterrupted one would.
+
+MODEL.CONSISTENCY_BRANCH "image" / "image_region" adds the language-free
+branch to the step (weighted by MODEL.CONSISTENCY_LOSS_WEIGHT);
+"caption_pl_img" / "caption_pl_region" builds the frozen caption model
+(`build_caption_model`) and runs the pseudo-label step after every main
+step from iteration 0, its draws seeded by (SEED, iteration, 1) as JAX
+folds 1 into the step's key.
 """
 
 import argparse
@@ -25,7 +32,10 @@ import torch
 
 from ..checkpoint.checkpointer import DetectionCheckpointer
 from ..checkpoint.convert_jax import init_random_
-from ..checkpoint.convert_torch import load_clipcap_mapper, load_offline_backbone, load_text_emb_classifier
+from ..checkpoint.convert_torch import (
+    load_clipcap_mapper, load_gpt2, load_mapper_state, load_offline_backbone, load_text_emb_classifier,
+    load_torch_state_dict,
+)
 from ..config import CfgNode, check_supported, model_config_from_cfg, solver_config_from_cfg
 from ..data import MetadataCatalog, build_detection_test_loader, build_detection_train_loader, register_all, to_device
 from ..data.build import _bucket_for, pad_and_collate
@@ -36,10 +46,12 @@ from ..evaluation import (
     COCOEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
 )
 from ..models.build import build_model
+from ..models.caption import ClipCaptionModel
+from ..models.gpt2 import GPT2Config
 from ..solver.build import build_optimizer
 from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter
 from . import hooks as H
-from .train_loop import Trainer
+from .train_loop import Trainer, make_caption_pl_step
 
 logger = logging.getLogger(__name__)
 
@@ -85,8 +97,28 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
 
 
-def _iteration_seed(seed: int, iteration: int) -> int:
-    return int(np.random.SeedSequence([seed, iteration]).generate_state(1, np.uint64)[0])
+def _iteration_seed(seed: int, iteration: int, *fold: int) -> int:
+    return int(np.random.SeedSequence([seed, iteration, *fold]).generate_state(1, np.uint64)[0])
+
+
+def build_caption_model(cfg: CfgNode, device="cuda") -> ClipCaptionModel:
+    """The frozen caption model of the caption_pl branches, in float32:
+    GPT-2 of TPU.GPT2_*, a ClipCap mapper of 8 layers whose prefix and clip
+    lengths are TPU.V2L_MAPPER_TOKENS, from the detector's CLIP embedding
+    width; seeded random weights (SEED + 41), then MODEL.VISION_TO_LANG_PATH
+    into `clip_project` and MODEL.CAPTION_GPT2_PATH into `gpt` where set."""
+    t = cfg.TPU
+    gpt = GPT2Config(vocab_size=t.GPT2_VOCAB, n_positions=t.GPT2_POSITIONS, n_embd=t.GPT2_EMBD,
+                     n_layer=t.GPT2_LAYERS, n_head=t.GPT2_HEADS)
+    model = ClipCaptionModel(prefix_length=t.V2L_MAPPER_TOKENS, clip_length=t.V2L_MAPPER_TOKENS,
+                             dim_clip=model_config_from_cfg(cfg).embed_dim, gpt_config=gpt)
+    init_random_(model, torch.Generator().manual_seed(max(cfg.SEED, 0) + 41))
+    if cfg.MODEL.VISION_TO_LANG_PATH:
+        load_mapper_state(model.clip_project, load_torch_state_dict(cfg.MODEL.VISION_TO_LANG_PATH),
+                          "caption model's ClipCap mapper")
+    if cfg.MODEL.CAPTION_GPT2_PATH:
+        load_gpt2(model.gpt, load_torch_state_dict(cfg.MODEL.CAPTION_GPT2_PATH))
+    return model.requires_grad_(False).to(resolve_device(device)).eval()
 
 
 class DefaultTrainer:
@@ -101,11 +133,22 @@ class DefaultTrainer:
         self.optimizer = build_optimizer(self.model, solver_config_from_cfg(cfg))
         self._draw_seed = max(cfg.SEED, 0) + 12345
         self.generator = torch.Generator(device=self.device)
+        branch = cfg.MODEL.CONSISTENCY_BRANCH
         self.state = Trainer(
             self.model, self.optimizer, caption_burnup_iters=cfg.SOLVER.CAPTION_BURNUP_ITERS,
             generator=self.generator, kd_regularization=cfg.MODEL.KD_REGULRAZIATION,
             enable_caption=cfg.TPU.ENABLE_CAPTION_CONSISTENCY, accum_steps=cfg.SOLVER.ACCUM_STEPS,
+            consistency_branch=branch if branch in ("image", "image_region") else "",
+            consistency_weight=cfg.MODEL.CONSISTENCY_LOSS_WEIGHT,
         )
+        self.caption_model = self.caption_pl_step = None
+        if branch.startswith("caption_pl"):
+            self.caption_model = build_caption_model(cfg, self.device)
+            self.caption_pl_step = make_caption_pl_step(
+                self.model, self.caption_model, self.optimizer, level=branch[len("caption_pl_"):],
+                loss_type=cfg.MODEL.CAPTION_PL_LOSS, max_len=cfg.MODEL.CAPTION_PL_MAX_LEN,
+                loss_weight=cfg.MODEL.CONSISTENCY_LOSS_WEIGHT,
+            )
         self.checkpointer = DetectionCheckpointer(cfg.OUTPUT_DIR, max_to_keep=cfg.SOLVER.CHECKPOINT_MAX_TO_KEEP)
         self.start_iter = 0
         self.max_iter = cfg.SOLVER.MAX_ITER
@@ -154,9 +197,15 @@ class DefaultTrainer:
 
     # ---- training ----
     def run_step(self, batch) -> Dict[str, torch.Tensor]:
-        """One training step with this iteration's draws."""
-        self.generator.manual_seed(_iteration_seed(self._draw_seed, self.state.iteration))
-        return self.state.train_step(batch)
+        """One training step with this iteration's draws, then with a
+        caption_pl branch the pseudo-label step on the same batch."""
+        it = self.state.iteration
+        self.generator.manual_seed(_iteration_seed(self._draw_seed, it))
+        metrics = self.state.train_step(batch)
+        if self.caption_pl_step is not None:
+            self.generator.manual_seed(_iteration_seed(self._draw_seed, it, 1))
+            metrics.update(self.caption_pl_step(batch, self.state.draw))
+        return metrics
 
     def train(self) -> Dict[str, dict]:
         """Iterations start_iter..MAX_ITER-1, then model_final and `test`.

@@ -1,6 +1,5 @@
 """The CDDMSL training step (counterpart of cddmsl_tpu/engine/train_loop.py
-`make_train_step` without the language-free consistency branch and without
-shardings).
+`make_train_step` without shardings, and of `make_caption_pl_step`).
 
 One step: `GeneralizedRCNN.cddmsl_losses` with the caption branches on past
 burn-up (`iteration > caption_burnup_iters`, a host comparison), the sum of
@@ -12,12 +11,26 @@ microbatch); their losses and gradients are summed, scaled by
 InfoNCE losses then see microbatch-sized pools, as in JAX. The sampler draws
 come from a `torch.Generator` on the model's device unless the caller hands
 in a `Draw`.
+
+With `consistency_branch` "image" or "image_region" every step, from step 0
+(no burn-up), adds the language-free InfoNCE of that branch, times
+`consistency_weight`, to the same loss dict and the same update, as
+f"{branch}_cont_loss".
+
+`make_caption_pl_step` is the pseudo-label caption step of the
+"caption_pl_img" / "caption_pl_region" branches: a second update per
+iteration, run after the main step on the same batch. The caption model is
+frozen and lives outside the detector, so checkpoints do not hold it. The
+optimizer steps again, so it counts two per iteration: the second update
+reads the LR at the count after the main one, decays and applies momentum
+again, and clips its own gradient, as optax does in the JAX step.
 """
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from ..models.caption import ClipCaptionModel, pseudo_labeling_loss, unsupervised_kl_loss
 from ..models.rcnn import DetBatch, GeneralizedRCNN
 from ..models.sampling import Draw, generator_draw
 from ..solver.build import Optimizer
@@ -46,7 +59,11 @@ class Trainer:
         kd_regularization: bool = True,
         enable_caption: bool = True,
         accum_steps: int = 1,
+        consistency_branch: str = "",
+        consistency_weight: float = 1.0,
     ):
+        if consistency_branch not in ("", "image", "image_region"):
+            raise ValueError(f"consistency_branch {consistency_branch!r} is not a branch of the step")
         self.model = model
         self.optimizer = optimizer
         self.caption_burnup_iters = caption_burnup_iters
@@ -55,6 +72,18 @@ class Trainer:
         self.kd_regularization = kd_regularization
         self.enable_caption = enable_caption
         self.accum_steps = accum_steps
+        self.consistency_branch = consistency_branch
+        self.consistency_weight = consistency_weight
+
+    def _losses(self, batch: DetBatch, draw: Draw, caption_on: bool) -> Dict[str, torch.Tensor]:
+        losses = self.model.cddmsl_losses(batch, draw, caption_on, self.kd_regularization, self.enable_caption)
+        branch = self.consistency_branch
+        if branch:
+            model = self.model
+            extra = model.image_consistency(batch) if branch == "image" else model.image_consistency_region(batch, draw)
+            for k, v in extra.items():
+                losses[f"{branch}_{k}"] = v * self.consistency_weight
+        return losses
 
     def train_step(self, batch: DetBatch, draw: Optional[Draw] = None) -> Dict[str, torch.Tensor]:
         """Runs one step; returns the losses, `total_loss` and `lr`: the
@@ -72,7 +101,7 @@ class Trainer:
         total, losses = None, None
         with torch.enable_grad():
             for mb in micro:
-                ls = self.model.cddmsl_losses(mb, draw, caption_on, self.kd_regularization, self.enable_caption)
+                ls = self._losses(mb, draw, caption_on)
                 t = torch.stack(list(ls.values())).sum()
                 t.backward()
                 ls = {k: v.detach() for k, v in ls.items()}
@@ -98,6 +127,50 @@ class Trainer:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "iteration": self.iteration}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Restores a `state_dict` of the same build. A save made under
+        another MODEL.CONSISTENCY_BRANCH differs by `image_projector` (built
+        for image and image_region only) and raises, where the JAX package,
+        whose tree always holds it, restores it."""
+        mine, saved = self.model.state_dict().keys(), state["model"].keys()
+        if mine != saved:
+            raise KeyError(f"the save's model is another build: it lacks {sorted(mine - saved)[:5]} and adds "
+                           f"{sorted(saved - mine)[:5]}; restore it under the MODEL.CONSISTENCY_BRANCH it was "
+                           f"trained with")
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.iteration = int(state["iteration"])
+
+
+def make_caption_pl_step(
+    model: GeneralizedRCNN,
+    caption_model: ClipCaptionModel,
+    optimizer: Optimizer,
+    level: str = "img",
+    loss_type: str = "pseudo_label",
+    max_len: int = 20,
+    loss_weight: float = 1.0,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """-> pl_step(batch, draw=None) -> {"token-pl_loss" or
+    "token-pl-region_loss": loss}. One update of the detector by the
+    pseudo-label loss (or with `loss_type` "kl" the KL loss) of the frozen
+    caption model on the prefixes of `level` "img" (the views' CLIP
+    embeddings) or "region" (region embeddings; its boxes come from `draw`),
+    times `loss_weight`. It does not advance the trainer's iteration."""
+    if level not in ("img", "region") or loss_type not in ("pseudo_label", "kl"):
+        raise ValueError(f"caption pl step: level {level!r}, loss {loss_type!r}")
+    loss_fn = pseudo_labeling_loss if loss_type == "pseudo_label" else unsupervised_kl_loss
+    name = "token-pl_loss" if level == "img" else "token-pl-region_loss"
+
+    def pl_step(batch: DetBatch, draw: Optional[Draw] = None) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        with torch.enable_grad():
+            if level == "img":
+                p_src, p_trgt = model.caption_pl_prefixes(batch)
+            else:
+                p_src, p_trgt = model.caption_pl_region_prefixes(batch, draw)
+            loss = loss_fn(caption_model, p_src, p_trgt, max_len=max_len) * loss_weight
+            loss.backward()
+        optimizer.step()
+        return {name: loss.detach()}
+
+    return pl_step

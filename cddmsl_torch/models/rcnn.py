@@ -1,7 +1,9 @@
 """GeneralizedRCNN with the CDDMSL training branches (counterpart of
 cddmsl_tpu/models/rcnn.py `GeneralizedRCNN`: `_normalize`, `inference`,
-`_v2l_preprocess`, `caption_consistency`, `_random_region_boxes` and
-`cddmsl_losses`, and of `infonce_bidirectional`).
+`_v2l_preprocess`, `caption_consistency`, `_random_region_boxes`,
+`image_consistency`, `image_consistency_region`, `caption_pl_prefixes`,
+`caption_pl_region_prefixes` and `cddmsl_losses`, and of
+`infonce_bidirectional`).
 
 `cddmsl_losses` is the training step's loss set: the supervised RPN and RoI
 losses on the source view and, past burn-up, the image-level caption
@@ -10,8 +12,18 @@ consistency (224^2 bicubic view -> `global_embed` -> frozen ClipCap mapper
 backbone, and the region-level consistency over random proposals pooled from
 both views. The burn-up gate is a host `if`. The modules only those
 branches read (the offline backbone, the mapper, the projector) are built
-with `training_modules=True`; the image projector of the language-free
-branches is not built.
+with `training_modules=True`.
+
+MODEL.CONSISTENCY_BRANCH adds a branch. "image" and "image_region" are the
+language-free InfoNCE over `image_projector` (built only for them): of the
+two views' CLIP embeddings, or of region embeddings of the same random
+proposals pooled from both views' res4 maps. "caption_pl_img" and
+"caption_pl_region" give the prefixes of the pseudo-label caption step
+(engine/train_loop.py `make_caption_pl_step`): the source view's, without a
+gradient, and the target view's. The region branches recompute both views'
+res4 and the training proposals (no losses), as the JAX package does, and
+draw their boxes at sites of their own ("image_region",
+"caption_pl_region").
 """
 
 from typing import Dict, NamedTuple, Optional, Sequence
@@ -90,6 +102,7 @@ class GeneralizedRCNN(nn.Module):
         v2l_image_size: int = 224,
         v2l_mapper_layers: int = 8,
         v2l_mapper_tokens: int = 40,
+        consistency_branch: str = "",
         dtype: torch.dtype = torch.float32,
         training_modules: bool = False,
     ):
@@ -150,6 +163,8 @@ class GeneralizedRCNN(nn.Module):
                 num_layers=v2l_mapper_layers,
             ).requires_grad_(False)
             self.projector = Projector(in_dim=768)
+            if consistency_branch in ("image", "image_region"):
+                self.image_projector = Projector(in_dim=embed_dim)
 
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
         mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=images.device)
@@ -216,15 +231,62 @@ class GeneralizedRCNN(nn.Module):
         losses["cont_loss"] = infonce_bidirectional(self.projector(feats_trgt), self.projector(feats_src))
         return losses
 
-    def _random_region_boxes(self, proposals: Proposals, draw: Draw) -> torch.Tensor:
+    def _random_region_boxes(self, proposals: Proposals, draw: Draw, site: str = "region") -> torch.Tensor:
         """region_consistency_boxes random valid proposals per image: the
-        largest uniforms among the valid rows (draw site "region", (B, K)),
-        ties to the lower index -> (B, n, 4)."""
+        largest uniforms among the valid rows (draw `site`, (B, K)), ties to
+        the lower index -> (B, n, 4)."""
         b, k, _ = proposals.boxes.shape
-        u = draw("region", (b, k))
+        u = draw(site, (b, k))
         scores = torch.where(proposals.valid, u, torch.full_like(u, float("-inf")))
         idx = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, : self.region_consistency_boxes]
         return torch.gather(proposals.boxes, 1, idx[..., None].expand(-1, -1, 4))
+
+    def _branch_region_boxes(self, f_src: torch.Tensor, batch: DetBatch, draw: Draw, site: str) -> torch.Tensor:
+        """Random proposals of a region branch: the training RPN's proposals
+        on the source map, without losses or gradient."""
+        rpn = self.proposal_generator
+        with torch.no_grad():
+            proposals = rpn._predict_proposals(*rpn._head(f_src), batch.image_sizes, True)
+        return self._random_region_boxes(proposals, draw, site)
+
+    def image_consistency(self, batch: DetBatch) -> Dict[str, torch.Tensor]:
+        """InfoNCE of the two views' CLIP embeddings through the image projector."""
+        src = self._v2l_preprocess(batch.image)
+        trgt = self._v2l_preprocess(batch.image_trgt)
+        p_trgt = self.image_projector(self.backbone.global_embed(trgt))
+        p_src = self.image_projector(self.backbone.global_embed(src))
+        return {"cont_loss": infonce_bidirectional(p_trgt, p_src)}
+
+    def image_consistency_region(self, batch: DetBatch, draw: Draw) -> Dict[str, torch.Tensor]:
+        """InfoNCE of region embeddings of the same random proposals (site
+        "image_region") pooled from both views' res4 maps, through the image
+        projector."""
+        f_src = self.backbone(self._normalize(batch.image))["res4"]
+        f_trgt = self.backbone(self._normalize(batch.image_trgt))["res4"]
+        boxes = self._branch_region_boxes(f_src, batch, draw, "image_region")
+        r_src, r_trgt = self.roi_heads.forward_get_features(
+            f_src, f_trgt, boxes, self.backbone.res5_forward, self.backbone.attnpool_forward)
+        return {"cont_loss": infonce_bidirectional(self.image_projector(r_src), self.image_projector(r_trgt))}
+
+    def caption_pl_prefixes(self, batch: DetBatch):
+        """(source prefix without a gradient, target prefix): the two views'
+        CLIP embeddings (B, embed_dim)."""
+        with torch.no_grad():
+            p_src = self.backbone.global_embed(self._v2l_preprocess(batch.image))
+        return p_src, self.backbone.global_embed(self._v2l_preprocess(batch.image_trgt))
+
+    def caption_pl_region_prefixes(self, batch: DetBatch, draw: Draw):
+        """(source prefixes without a gradient, target prefixes): region
+        embeddings (B * region_consistency_boxes, embed_dim) of the same
+        random proposals (site "caption_pl_region") from both views."""
+        backbone, rh = self.backbone, self.roi_heads
+        with torch.no_grad():
+            f_src = backbone(self._normalize(batch.image))["res4"]
+        f_trgt = backbone(self._normalize(batch.image_trgt))["res4"]
+        boxes = self._branch_region_boxes(f_src, batch, draw, "caption_pl_region")
+        with torch.no_grad():
+            r_src = rh._region_embed(f_src, boxes, backbone.res5_forward, backbone.attnpool_forward)
+        return r_src, rh._region_embed(f_trgt, boxes, backbone.res5_forward, backbone.attnpool_forward)
 
     def cddmsl_losses(
         self, batch: DetBatch, draw: Draw, caption_on: bool, kd_regularization: bool = True,

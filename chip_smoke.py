@@ -83,15 +83,29 @@ Phases, each of which fails the run with a non-zero exit:
      loader already on the card and K1, K3 and K4 checked and timed at its
      shapes as in phase 6, then K1 and K4 at the shapes of the first batch
      of a Cityscapes test set and of the BDD one, as in phase 7.
+  9. the consistency path: each MODEL.CONSISTENCY_BRANCH (image,
+     image_region, caption_pl_img, caption_pl_region) in turn through
+     `DefaultTrainer.train()` on the VOC recipe (batch 8, bf16) with phase
+     7's fixture: 5 steps, the caption branch from step 3; the pl branches
+     with a full-width GPT-2 caption model in fp32 decoding 20 tokens. Per
+     step: the K1/K3/K4 launches of `BRANCH_LAUNCHES`, every loss finite
+     under JAX's names, the frozen parameters (the caption model's too)
+     unchanged bit for bit. Then the step on a batch on the card, for the
+     pl branches the pl step and its greedy decode (ms, tokens/s), for the
+     region branches K1, K3 and K4 at the branch's own calls
+     (`branch_kernel_calls`), checked and timed as in phase 6; last
+     `gen_captions.main` at full width on one fixture image (token ids, ms).
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/adverse_weather`). `launches` counts
+(`roi_align_fwd/inference`, ..., `nms/consistency`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
-adverse_weather, 8 steps and the final test);
+adverse_weather, 8 steps and the final test; for consistency, the four
+branches' 5 steps);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
-eval batch per test set checked, 1 and 2 launches each): the largest error
-and the sums of the times and bounds.
+eval batch per test set checked, 1 and 2 launches each; for consistency
+the two region branches' calls: K1 4, K3 3, K4 2): the largest error and
+the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -495,19 +509,39 @@ def read_launches(roi_ops, nms_ops):
             "nms": nms_ops.KERNEL.launches["cddmsl_nms"]}
 
 
-def roi_bounds_ms(feats, R):
-    """(bound ms, bound_by) of K1 or K3 over the map `feats` and R 14x14
-    ROIs; both move the same bytes and do the same work. Bytes: each input
-    read once, each output written once, in the map's dtype: for K1 the map,
-    the boxes and indices, and the pooled values; for K3 the gradient g, the
-    boxes and indices, and dF. Operations: (2S)^2 = 16 multiply-adds, 32
+def roi_bounds_ms(feats, R, map_pixels):
+    """(bound ms, bound_by) of K1 or K3 over `map_pixels` pixels of the map
+    `feats` and R 14x14 ROIs; both do the same work. Bytes: each input read
+    once, each output written once, in the map's dtype: for K1 the map pixels
+    it reads (`read_map_pixels`), the boxes and indices, and the pooled
+    values; for K3 the gradient g, the boxes and indices, and dF, written
+    whole (all the map's pixels). Operations: (2S)^2 = 16 multiply-adds, 32
     flops, per pooled value at the path's S = 2."""
     es = feats.element_size()
     values = R * 14 * 14 * feats.shape[-1]
-    bytes_ = values * es + R * (4 + 16) + feats.numel() * es
+    bytes_ = values * es + R * (4 + 16) + map_pixels * feats.shape[-1] * es
     ops = 32 * values
     t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, ops / H100_FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def read_map_pixels(feats, bidx, rois):
+    """How many pixels of the map (B, H, W, C) K1 must read for these ROIs
+    (14x14 bins, S = 2, scale 1/16, aligned): those that some ROI's bilinear
+    samples weigh by more than 0, counted once per image. The padding of a
+    bucket and the map outside every ROI are never read. A ROI's samples form
+    a grid, so it reads the rows its y samples weigh times the columns its x
+    samples weigh."""
+    from cddmsl_torch.ops.roi_align import _interp_matrix, _roi_frame
+
+    B, H, W, _ = feats.shape
+    covered = torch.zeros(B, H * W, device=feats.device)
+    for lo in range(0, rois.shape[0], 1024):
+        x1, y1, w, h = _roi_frame(rois[lo:lo + 1024], 1 / 16, True)
+        rows = _interp_matrix(y1, h, 14, 2, H).gt(0).any(1)
+        cols = _interp_matrix(x1, w, 14, 2, W).gt(0).any(1)
+        covered.index_add_(0, bidx[lo:lo + 1024].long(), (rows[:, :, None] & cols[:, None, :]).flatten(1).float())
+    return int(covered.gt(0).sum())
 
 
 def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
@@ -575,7 +609,7 @@ def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
                               roi_ops.roi_align_batched_plain(k1_args[0].float(), *k1_args[1:]))
     k1_ms = cuda_ms(lambda: roi_ops.roi_align_forward(*k1_args), 20)
     k1_plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*k1_args), 3, warmup=1)
-    k1_bound, k1_by = roi_bounds_ms(k1_args[0], R)
+    k1_bound, k1_by = roi_bounds_ms(k1_args[0], R, read_map_pixels(*k1_args[:3]))
     print(f"roi_align_fwd inference {R}x14x14x{features.shape[-1]} {features.dtype}: max abs err {k1_err:.4g} "
           f"(rtol 2e-2), {k1_ms:.4f} ms kernel, {k1_plain_ms:.4f} ms plain, bound {k1_bound:.5f} ms ({k1_by})")
     k1_row = new_row(launches["roi_align_fwd"])
@@ -705,6 +739,36 @@ def training_path(dev, smi, roi_ops, nms_ops):
     return step_kernel_rows(dev, model, batch, trainer.draw, launches, roi_ops, nms_ops, "training")
 
 
+def add_roi_rows(rows, dev, roi_ops, label, calls, k3_calls):
+    """K1 at each of `calls` [(call, features, batch_idx, boxes)] and K3 at
+    the calls named in `k3_calls`, each held against its plain version on
+    the same inputs in bf16 (rtol 2e-2, the same zeros; K3 on a positive
+    gradient, as in check_k3: no cancellation in dF's sums), then timed
+    beside the plain version and its bound, into `rows`."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for call, feats, bidx, rois in calls:
+        R = rois.shape[0]
+        k1_args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
+        g = torch.rand((R, 14, 14, feats.shape[-1]), generator=gen, device=dev).bfloat16()
+        k3_args = (g, bidx, rois, tuple(feats.shape), (14, 14), 1 / 16, 0, True)
+        for name, kernel, plain, args, fp32_args, map_pixels in (
+            ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args,
+             (feats.float(), *k1_args[1:]), read_map_pixels(feats, bidx, rois)),
+            ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args,
+             (g.float(), *k3_args[1:]), feats[..., 0].numel()),
+        ):
+            if name == "roi_align_bwd" and call not in k3_calls:
+                continue
+            bound, by = roi_bounds_ms(feats, R, map_pixels)
+            err = bf16_max_abs_err(f"{name} {label} {call}", kernel(*args), plain(*fp32_args))
+            ms = cuda_ms(lambda: kernel(*args), 10)
+            plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
+            add_to_row(rows[name], err, ms, plain_ms, bound, by)
+            print(f"{name} {label} {call} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
+                  f"max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+                  f"bound {bound:.5f} ms ({by}; {map_pixels} of {feats[..., 0].numel()} map pixels in its bytes)")
+
+
 def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label, eval_batches=None):
     """K1, K3 and K4 at one training step's own shapes: K1 and K3 at each of
     its three RoIAlign calls, K4 at its RPN NMS; then, for each of
@@ -720,27 +784,8 @@ def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label,
     nms_inputs = rpn._nms_inputs(*rpn._head(f_src), batch.image_sizes, True)
     rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
     nms_calls = [(*nms_inputs, rpn.nms_thresh, rpn.post_nms_topk[True])]
-    gen = torch.Generator(device=dev).manual_seed(6)
-    for call, feats, bidx, rois in training_roi_align_calls(model, batch, draw):
-        R = rois.shape[0]
-        k1_args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
-        # a positive gradient, as in check_k3: no cancellation in dF's sums
-        g = torch.rand((R, 14, 14, feats.shape[-1]), generator=gen, device=dev).bfloat16()
-        k3_args = (g, bidx, rois, tuple(feats.shape), (14, 14), 1 / 16, 0, True)
-        bound, by = roi_bounds_ms(feats, R)
-        for name, kernel, plain, args, fp32_args in (
-            ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args,
-             (feats.float(), *k1_args[1:])),
-            ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args,
-             (g.float(), *k3_args[1:])),
-        ):
-            err = bf16_max_abs_err(f"{name} {label} {call}", kernel(*args), plain(*fp32_args))
-            ms = cuda_ms(lambda: kernel(*args), 10)
-            plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
-            add_to_row(rows[name], err, ms, plain_ms, bound, by)
-            print(f"{name} {label} {call} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
-                  f"max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-                  f"bound {bound:.5f} ms ({by})")
+    calls = training_roi_align_calls(model, batch, draw)
+    add_roi_rows(rows, dev, roi_ops, label, calls, [call for call, *_ in calls])
     for set_name, eval_batch in (eval_batches or {}).items():
         (feats, bidx, rois), calls = eval_kernel_calls(model, eval_batch)
         R = rois.shape[0]
@@ -749,7 +794,7 @@ def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label,
                                roi_ops.roi_align_batched_plain(feats.float(), *args[1:]))
         ms = cuda_ms(lambda: roi_ops.roi_align_forward(*args), 10)
         plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*args), 3, warmup=1)
-        bound, by = roi_bounds_ms(feats, R)
+        bound, by = roi_bounds_ms(feats, R, read_map_pixels(feats, bidx, rois))
         add_to_row(rows["roi_align_fwd"], err, ms, plain_ms, bound, by)
         print(f"roi_align_fwd {label} eval {set_name} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} "
               f"{feats.dtype}: max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
@@ -793,17 +838,18 @@ class StepProbe:
         self.loop_launches = self.read()
 
 
-def loop_steps(label, probe, waits, n_steps, burnup):
+def loop_steps(label, probe, waits, n_steps, burnup, want_launches=((1, 1, 1), (3, 3, 1))):
     """The loop's steps from `probe`: per step CUDA events, host wall, the
-    wait on the loader and the K1/K3/K4 launches, which must be 3/3/1 with
-    the caption branch and 1/1/1 before it; printed one line each."""
+    wait on the loader and the K1/K3/K4 launches, which must be
+    `want_launches` (before the caption branch, with it: by default 1/1/1
+    and 3/3/1); printed one line each."""
     if len(probe.steps) != n_steps:
         fail(f"the {label} loop ran {len(probe.steps)} steps")
     keys = ("roi_align_fwd", "roi_align_bwd", "nms")
     per_step = []
     for i, (e0, h0, l0, e1, h1, l1) in enumerate(probe.steps):
         counts = tuple(l1[k] - l0[k] for k in keys)
-        want = (3, 3, 1) if i > burnup else (1, 1, 1)
+        want = want_launches[i > burnup]
         if counts != want:
             fail(f"{label} step {i + 1} launched K1/K3/K4 {counts}, expected {want}")
         per_step.append((e0.elapsed_time(e1), (h1 - h0) * 1e3, waits[i] * 1e3, counts))
@@ -838,7 +884,7 @@ def time_device_batch(label, trainer, batch, reps=5):
     torch.cuda.synchronize()
     print(f"{label} step on a batch already on the card ({tuple(batch.image.shape)}, caption on): "
           f"{start.elapsed_time(end) / reps:.3f} ms/step CUDA events, "
-          f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall")
+          f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall ({reps} steps)")
 
 
 def train_net_path(dev, smi, roi_ops, nms_ops):
@@ -1196,6 +1242,198 @@ def adverse_weather_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 9: each MODEL.CONSISTENCY_BRANCH for 5 steps, the caption branch at
+# 0-based iterations past 1 (steps 3-5)
+CONSISTENCY_STEPS, CONSISTENCY_BURNUP = 5, 1
+# the VOC recipe's losses (KD off) and each branch's own, under JAX's names
+MAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "cont_loss", "cont_loss_region")
+BRANCH_LOSS = {"image": "image_cont_loss", "image_region": "image_region_cont_loss",
+               "caption_pl_img": "token-pl_loss", "caption_pl_region": "token-pl-region_loss"}
+# K1/K3/K4 launches per step, before the caption branch and with it: the main
+# step's 1/1/1 or 3/3/1, and the branch's own. A region branch recomputes
+# both views' res4 and the training proposals (one NMS) and pools its boxes
+# from both maps (two K1); its gradient reaches both pools in image_region
+# (two K3) and only the target's in caption_pl_region (one K3).
+BRANCH_LAUNCHES = {"image": ((1, 1, 1), (3, 3, 1)), "image_region": ((3, 3, 2), (5, 5, 2)),
+                   "caption_pl_img": ((1, 1, 1), (3, 3, 1)), "caption_pl_region": ((3, 2, 2), (5, 4, 2))}
+
+
+@torch.no_grad()
+def branch_kernel_calls(model, batch, draw, site):
+    """The kernel calls of a region branch (draw site "image_region" or
+    "caption_pl_region"), rebuilt outside autograd on the model's device:
+    K4's RPN NMS on the source map (boxes, scores, valid, threshold,
+    max_out), then K1's pools [(label, features, batch_idx, boxes)] of the
+    same random proposals on the source and on the translated map."""
+    rpn = model.proposal_generator
+    f_src = model.backbone(model._normalize(batch.image))["res4"]
+    f_trgt = model.backbone(model._normalize(batch.image_trgt))["res4"]
+    nms_call = (*rpn._nms_inputs(*rpn._head(f_src), batch.image_sizes, True), rpn.nms_thresh, rpn.post_nms_topk[True])
+    boxes = model._branch_region_boxes(f_src, batch, draw, site)
+    return nms_call, [("region_src", *pool_args(f_src, boxes)), ("region_trgt", *pool_args(f_trgt, boxes))]
+
+
+def consistency_path(dev, smi, roi_ops, nms_ops):
+    """MODEL.CONSISTENCY_BRANCH at full width: for each branch in turn,
+    `DefaultTrainer` on the VOC recipe (batch 8, bf16) with phase 7's
+    fixture, `train()` for 5 steps (the caption branch from step 3), per
+    step the launches, the losses under JAX's names and the frozen
+    parameters (the caption model's too); then the step on a batch on the
+    card, for the pl branches the pl step and its decode, and for the
+    region branches their kernel calls checked and timed. Last,
+    `gen_captions` at full width on one fixture image. Returns its rows."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch import gen_captions
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
+    from cddmsl_torch.data.datasets.voc import register_pascal_DG
+    from cddmsl_torch.engine.defaults import DefaultTrainer
+    from cddmsl_torch.engine.hooks import HookBase
+    from cddmsl_torch.models.caption import generate
+
+    class FrozenCheck(HookBase):
+        """A trainer hook after the probe: the frozen tensors against their
+        values before train(), one sync per step, outside the step's events."""
+
+        def __init__(self, frozen):
+            self.frozen = frozen
+            self.changed = []
+
+        def after_step(self):
+            diff = torch.stack([(p != v).any() for p, v in self.frozen.values()])
+            if diff.any():
+                self.changed.append([n for n, d in zip(self.frozen, diff.tolist()) if d])
+
+    class ProbedTrainer(DefaultTrainer):
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            self.step_metrics = []
+            frozen = {f"model.{n}": p for n, p in self.model.named_parameters() if not p.requires_grad}
+            if self.caption_model is not None:
+                frozen.update({f"caption_model.{n}": p for n, p in self.caption_model.named_parameters()})
+            self.frozen_check = FrozenCheck({n: (p, p.detach().clone()) for n, p in frozen.items()})
+            return [self.probe] + super().build_hooks() + [self.frozen_check]
+
+        def run_step(self, batch):
+            metrics = super().run_step(batch)
+            self.step_metrics.append(metrics)
+            return metrics
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_consistency_")
+    name = "chip_smoke_consistency_dg"
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    totals = dict.fromkeys(keys, 0)
+    rows = {k: new_row(0) for k in keys[:2]}
+    nms_calls = []
+    try:
+        voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
+        register_pascal_DG(name, voc, "trainval", 2007, "dt_clipart")
+        for branch in BRANCH_LOSS:
+            cfg = get_cfg()
+            cfg.merge_from_file(os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml"))
+            cfg.merge_from_list([
+                "OUTPUT_DIR", os.path.join(root, branch), "SEED", "0",
+                "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
+                "MODEL.CONSISTENCY_BRANCH", branch, "DATASETS.TRAIN", repr((name,)), "DATASETS.TEST", "()",
+                "SOLVER.MAX_ITER", str(CONSISTENCY_STEPS), "SOLVER.CAPTION_BURNUP_ITERS", str(CONSISTENCY_BURNUP),
+                "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+            ])
+            cfg.freeze()
+            trainer = ProbedTrainer(cfg, device="cuda")
+            trainer.resume_or_load(resume=False)
+            cap = trainer.caption_model
+            if branch.startswith("caption_pl"):
+                g = cap.gpt_config
+                print(f"consistency {branch}: caption model GPT-2 {g.vocab_size}/{g.n_positions}/{g.n_embd}/"
+                      f"{g.n_layer}/{g.n_head} (vocab/positions/embd/layers/heads), a mapper of "
+                      f"{len(cap.clip_project.transformer.layers)} layers, {cap.prefix_length} prefix tokens, "
+                      f"{next(cap.parameters()).dtype}, decode {cfg.MODEL.CAPTION_PL_MAX_LEN} tokens, "
+                      f"seeded random weights")
+            torch.cuda.synchronize()
+            reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+            trainer.train()
+            torch.cuda.synchronize()
+            launches = read_launches(roi_ops, nms_ops)
+            for k in keys:
+                totals[k] += launches[k]
+            waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+            per_step = loop_steps(f"consistency {branch}", trainer.probe, waits, CONSISTENCY_STEPS,
+                                  CONSISTENCY_BURNUP, BRANCH_LAUNCHES[branch])
+            want_names = set(MAIN_LOSSES) | {BRANCH_LOSS[branch]}
+            for i, metrics in enumerate(trainer.step_metrics):
+                losses = {k: v.item() for k, v in metrics.items() if "loss" in k and k != "total_loss"}
+                if set(losses) != want_names or not all(map(math.isfinite, losses.values())):
+                    fail(f"consistency {branch} step {i + 1}: losses {losses}, expected the names {sorted(want_names)}")
+            if trainer.frozen_check.changed:
+                fail(f"consistency {branch}: frozen parameters changed: {trainer.frozen_check.changed[0][:5]}")
+            warm = per_step[CONSISTENCY_BURNUP + 2:]  # caption on, past its first step
+            mean = lambda xs: sum(xs) / len(xs)
+            last = {k: round(v.item(), 6) for k, v in trainer.step_metrics[-1].items() if "loss" in k}
+            whose = " (the caption model's included)" if cap is not None else ""
+            print(f"consistency {branch}: launches {launches} in {CONSISTENCY_STEPS} steps; losses finite under "
+                  f"JAX's names in every step, the last {json.dumps(last)}; {len(trainer.frozen_check.frozen)} "
+                  f"frozen tensors{whose} bit-equal after every step; steps "
+                  f"{CONSISTENCY_BURNUP + 3}-{CONSISTENCY_STEPS}: {mean([p[0] for p in warm]):.3f} ms/iteration "
+                  f"CUDA events, {mean([p[1] for p in warm]):.3f} ms/iteration host wall; on {smi}")
+
+            with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+                batch = to_device(next(train_loader), dev)
+            time_device_batch(f"consistency {branch}", trainer, batch, reps=3)
+            model, draw = trainer.model, trainer.state.draw
+            if cap is not None:
+                pl_ms = cuda_ms(lambda: trainer.caption_pl_step(batch, draw), 3, warmup=1)
+                with torch.no_grad():
+                    p_src = (model.caption_pl_prefixes(batch)[0] if branch == "caption_pl_img"
+                             else model.caption_pl_region_prefixes(batch, draw)[0])
+                n_len = cfg.MODEL.CAPTION_PL_MAX_LEN
+                gen_ms = cuda_ms(lambda: generate(cap, p_src, max_len=n_len), 3, warmup=1)
+                t0 = time.perf_counter()
+                _, live = generate(cap, p_src, max_len=n_len)
+                torch.cuda.synchronize()
+                gen_host = (time.perf_counter() - t0) * 1e3
+                print(f"consistency {branch} pl step on the batch on the card: {pl_ms:.3f} ms CUDA events; "
+                      f"its greedy decode of {p_src.shape[0]} prefixes x {n_len} tokens: {gen_ms:.3f} ms CUDA "
+                      f"events ({gen_host:.3f} ms host wall, once), {p_src.shape[0] * n_len / gen_ms * 1e3:.1f} "
+                      f"tokens/s, {int(live.sum())} live tokens")
+            if branch.endswith("_region"):
+                nms_call, calls = branch_kernel_calls(model, batch, site_draw(dev), branch)
+                k3 = ["region_src", "region_trgt"] if branch == "image_region" else ["region_trgt"]
+                add_roi_rows(rows, dev, roi_ops, f"consistency {branch}", calls, k3)
+                nms_calls.append(nms_call)
+            del trainer, model, cap, batch
+            torch.cuda.empty_cache()
+        print(f"consistency path launches (the four branches' {CONSISTENCY_STEPS} steps each): {totals}")
+        if min(totals.values()) < 1:
+            fail(f"the consistency path did not go through every kernel: {totals}")
+
+        jpegs = os.path.join(voc, "JPEGImages")
+        image = os.path.join(jpegs, sorted(os.listdir(jpegs))[0])
+        t0 = time.perf_counter()
+        ids = gen_captions.main(["--image", image, "--max-len", "67"])
+        torch.cuda.synchronize()
+        if not ids or not all(0 <= i < 50257 for i in ids):
+            fail(f"gen_captions gave {ids}")
+        print(f"gen_captions (python -m cddmsl_torch.gen_captions --image {os.path.basename(image)} --max-len 67, "
+              f"full width, seeded random weights): {len(ids)} token ids, {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"host wall with the models' set-up")
+        for k in keys[:2]:
+            rows[k]["launches"] = totals[k]
+        out = {k: close_row(row) for k, row in rows.items()}
+        out["nms"] = nms_row(nms_ops, "consistency", totals["nms"], nms_calls)
+        print(f"consistency phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return out
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1235,6 +1473,8 @@ def main() -> int:
     paths["train_net"] = train_net_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["adverse_weather"] = adverse_weather_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["consistency"] = consistency_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

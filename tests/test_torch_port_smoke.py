@@ -11,8 +11,11 @@ float32 operations on the same inputs, and draws that depend on the site
 name alone). Likewise the eval batch's calls, rebuilt by
 `eval_kernel_calls`, must equal what `model.inference` hands to
 `roi_align_batched` and to `nms` (the RPN's and the detection NMS's, after
-the class shift).
+the class shift), and a region branch's, rebuilt by `branch_kernel_calls`,
+what the branch hands to them.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -25,6 +28,7 @@ from cddmsl_torch.entry import synthetic_batch
 from cddmsl_torch.models import roi_heads, rpn
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.ops import nms as nms_ops
+from cddmsl_torch.ops import roi_align as roi_ops
 from cddmsl_torch.solver.build import build_optimizer
 
 
@@ -104,19 +108,34 @@ def test_eval_kernel_calls_are_the_inference_batchs_own(monkeypatch, score_thres
 
 @pytest.mark.parametrize("R, want_bytes", [
     # the supervised pool: g (or the pooled values) 1024x14x14x1024 bf16 = 411,041,792 B, boxes and
-    # indices 1024x20 = 20,480 B, dF (or the map) 2x50x84x1024 bf16 = 17,203,200 B
+    # indices 1024x20 = 20,480 B, dF (or the map, when K1 reads all of it) 2x50x84x1024 bf16 = 17,203,200 B
     (1024, 428_265_472),
     # a region pool: 32x14x14x1024 bf16 = 12,845,056 B, 32x20 = 640 B, the same map 17,203,200 B
     (32, 30_048_896),
 ])
 def test_roi_bounds_count_each_byte_once_at_the_training_shape(R, want_bytes):
     feats = torch.empty((2, 50, 84, 1024), dtype=torch.bfloat16, device="meta")
-    bound_ms, by = chip_smoke.roi_bounds_ms(feats, R)
+    bound_ms, by = chip_smoke.roi_bounds_ms(feats, R, 2 * 50 * 84)
     assert bound_ms == pytest.approx(want_bytes / 3.35e12 * 1e3, rel=1e-12)
     assert by == "bytes"
     # 16 multiply-adds (32 flops) per pooled value at S = 2, below the bytes at 67 TFLOP/s
     flops_ms = 32 * R * 14 * 14 * 1024 / 67e12 * 1e3
     assert flops_ms < bound_ms
+
+
+def test_read_map_pixels_are_those_the_plain_backward_reaches():
+    """K1 reads exactly the pixels to which a positive gradient flows back:
+    here ROIs on two of three images, one past every edge of its map."""
+    gen = torch.Generator().manual_seed(0)
+    B, H, W, C, R = 3, 20, 30, 4, 40
+    rois = chip_smoke.random_boxes(gen, R, W * 16 * 0.7, H * 16 * 0.7, "cpu", max_size=150.0)
+    rois[0] = torch.tensor([-50.0, -50.0, 1000.0, 1000.0])
+    bidx = torch.randint(0, 2, (R,), generator=gen, dtype=torch.int32)
+    g = torch.rand((R, 14, 14, C), generator=gen) + 0.1
+    dF = roi_ops.roi_align_backward_plain(g, bidx, rois, (B, H, W, C), (14, 14), 1 / 16, 0, True)
+    want = int((dF[..., 0] > 0).sum())
+    assert 0 < want < 2 * H * W
+    assert chip_smoke.read_map_pixels(torch.empty((B, H, W, C)), bidx, rois) == want
 
 
 def _row_of_boxes(n):
@@ -182,3 +201,45 @@ def test_nms_max_abs_err_compares_each_image_with_the_plain_version(tamper, want
         idx, ok = idx[:, :-1], ok[:, :-1]
     assert chip_smoke.nms_max_abs_err(nms_ops, (idx, ok), boxes, scores, valid, 0.7, 20) == want_err
     assert chip_smoke.nms_equal(nms_ops, boxes, scores, valid, 0.7, 20) is not None
+
+
+@pytest.mark.parametrize("branch", ["image_region", "caption_pl_region"])
+def test_branch_kernel_calls_are_the_region_branchs_own(monkeypatch, branch):
+    """`branch_kernel_calls` rebuilds what the region branch hands to
+    `roi_align_batched` (the source pool, then the translated one) and to
+    the RPN's `nms`, exactly, with the same draws."""
+    cfg = dataclasses.replace(flagship_config(tiny=True), consistency_branch=branch)
+    model = build_model(cfg, device="cpu", training=True)
+    init_random_(model, torch.Generator().manual_seed(6))
+    batch = synthetic_batch(2, 128, 160, seed=4, device="cpu")
+    draw = chip_smoke.site_draw("cpu")
+    nms_call, pool_calls = chip_smoke.branch_kernel_calls(model, batch, draw, branch)
+
+    pools, nmss = [], []
+    pool, nms = roi_heads.roi_align_batched, rpn.nms
+
+    def pool_spy(features, batch_idx, boxes, *args):
+        pools.append((features.detach().clone(), batch_idx.clone(), boxes.clone()))
+        return pool(features, batch_idx, boxes, *args)
+
+    def nms_spy(boxes, scores, iou_threshold, max_out, valid=None):
+        nmss.append((boxes.clone(), scores.clone(), valid.clone(), iou_threshold, max_out))
+        return nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+    monkeypatch.setattr(roi_heads, "roi_align_batched", pool_spy)
+    monkeypatch.setattr(rpn, "nms", nms_spy)
+    with torch.no_grad():
+        if branch == "image_region":
+            model.image_consistency_region(batch, draw)
+        else:
+            model.caption_pl_region_prefixes(batch, draw)
+
+    assert len(nmss) == 1 and len(pools) == len(pool_calls) == 2
+    for x, y in zip(nms_call[:3], nmss[0][:3]):
+        assert torch.equal(x, y)
+    assert nms_call[3:] == nmss[0][3:] == (cfg.rpn_nms_thresh, cfg.rpn_post_nms_topk_train)
+    for (label, *got), want in zip(pool_calls, pools):
+        assert got[2].shape == (2 * cfg.region_consistency_boxes, 4), label
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), label
+    assert torch.equal(pool_calls[0][3], pool_calls[1][3]) and not torch.equal(pool_calls[0][1], pool_calls[1][1])
