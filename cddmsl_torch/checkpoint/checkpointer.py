@@ -4,7 +4,9 @@ cddmsl_tpu/checkpoint/checkpointer.py `DetectionCheckpointer`).
 A checkpoint is one `torch.save` file, `<save_dir>/<name>.pth`, holding the
 training state's `state_dict()` (engine/train_loop.py `Trainer`): the model's
 parameters and buffers, the SGD momentum buffers, the optimizer's own count
-(the LR is read at it) and the iteration. A `last_checkpoint` marker names
+(the LR is read at it) and the iteration; a mean-teacher save
+(engine/mean_teacher.py `MTState`) adds the teacher, the discriminator and
+its optimizer. A `last_checkpoint` marker names
 the newest save, which `resume_or_load` restores. With `max_to_keep` > 0 only
 that many periodic saves stay on disk; `model_final` and the resume target
 are never removed.
@@ -142,17 +144,21 @@ class DetectionCheckpointer:
         model.load_state_dict({k: saved[k] for k in model.state_dict()}, strict=True)
         logger.info("Loaded model weights from %s", path)
 
+    def load_weights(self, weights_path: str, state) -> None:
+        """MODEL.WEIGHTS into `state`: a file this checkpointer wrote
+        restores the whole training state (as the JAX package restores its
+        own checkpoints); a reference checkpoint loads into the model. A
+        missing file raises."""
+        _check_exists(weights_path)
+        saved = self._load_weights(weights_path, state.model)
+        if saved is not None:
+            state.load_state_dict(saved)
+            logger.info("Restored checkpoint from %s", weights_path)
+
     def resume_or_load(self, weights_path: str, state, resume: bool = True) -> None:
         """With `resume` and a marker: the newest save. Otherwise
-        MODEL.WEIGHTS when set: a file this checkpointer wrote restores the
-        whole training state (as the JAX package restores its own
-        checkpoints); a reference checkpoint loads into the model. A path
-        that is set but missing raises."""
+        MODEL.WEIGHTS when set (`load_weights`)."""
         if resume and self.has_checkpoint():
             self.load(self.get_checkpoint_file(), state)
         elif weights_path:
-            _check_exists(weights_path)
-            saved = self._load_weights(weights_path, state.model)
-            if saved is not None:
-                state.load_state_dict(saved)
-                logger.info("Restored checkpoint from %s", weights_path)
+            self.load_weights(weights_path, state)

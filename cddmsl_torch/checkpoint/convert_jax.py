@@ -12,6 +12,10 @@ conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear weights
 embedding, the mapper's prefix and the (K, D) class embeddings copy as they
 are. The offline backbone maps as the backbone does.
 
+`convert_jax_mt_state` carries the mean-teacher trainer's `MTState` across:
+the student and the teacher through `convert_jax_params`, the
+discriminator's convs HWIO -> OIHW.
+
 `convert_jax_caption_params` does the same for the JAX package's
 `ClipCaptionModel` tree (its `clip_project` mapper and its GPT-2) into
 `models.caption.ClipCaptionModel`'s names (`clip_project.*`,
@@ -28,11 +32,6 @@ from torch import nn
 
 from ..models.backbone.clip_resnet import FrozenBatchNorm2d
 from ..models.gpt2 import Conv1D
-
-# the subtree of the JAX model that the port builds only for the
-# language-free consistency branches (MODEL.CONSISTENCY_BRANCH "image" and
-# "image_region"): the JAX model always holds it
-SKIPPED_SUBTREES = ("image_projector",)
 
 _BN = r"(weight|bias|running_mean|running_var)"
 
@@ -87,6 +86,7 @@ _RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"roi_heads/box_predictor/bbox_pred/bias", r"roi_heads.box_predictor.bbox_pred.bias", "copy"),
     *_mapper_rules("v2l_mapper"),
     *_projector_rules("projector"),
+    *_projector_rules("image_projector"),
 )
 _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     *_mapper_rules("clip_project"),
@@ -99,6 +99,10 @@ _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"gpt/h_(\d+)/(c_attn|c_proj)/bias", r"gpt.transformer.h.\1.attn.\2.bias", "copy"),
     (r"gpt/h_(\d+)/mlp_(c_fc|c_proj)/kernel", r"gpt.transformer.h.\1.mlp.\2.weight", "copy"),
     (r"gpt/h_(\d+)/mlp_(c_fc|c_proj)/bias", r"gpt.transformer.h.\1.mlp.\2.bias", "copy"),
+)
+_DISCRIMINATOR_RULES: Tuple[Tuple[str, str, str], ...] = (
+    (r"(conv1|conv2|classifier)/kernel", r"\1.weight", "conv"),
+    (r"(conv1|conv2|classifier)/bias", r"\1.bias", "copy"),
 )
 _OFFLINE = "offline_backbone"
 _LAYOUT = {
@@ -117,14 +121,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, val
 
 
-def _convert(params: Mapping[str, Any], rules, what: str, skip=()) -> Dict[str, torch.Tensor]:
+def _convert(params: Mapping[str, Any], rules, what: str) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     state: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(params):
         tower, _, rest = path.partition("/")
-        if tower in skip:
-            continue
         offline = tower == _OFFLINE  # the backbone's rules, under another name
         for pattern, template, layout in rules:
             m = re.fullmatch(pattern, "backbone/" + rest if offline else path)
@@ -138,13 +140,22 @@ def _convert(params: Mapping[str, Any], rules, what: str, skip=()) -> Dict[str, 
     return state
 
 
-def convert_jax_params(params: Mapping[str, Any], image_projector: bool = False) -> Dict[str, torch.Tensor]:
+def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX GeneralizedRCNN params (with or without the top-level 'params'
-    key) -> state dict. Skips `SKIPPED_SUBTREES` unless `image_projector`
-    (for a model built with an "image" or "image_region" branch); raises on
-    any other key it does not map."""
-    rules = _RULES + (_projector_rules("image_projector") if image_projector else ())
-    return _convert(params, rules, "convert_jax_params", () if image_projector else SKIPPED_SUBTREES)
+    key) -> state dict; raises on a key it does not map."""
+    return _convert(params, _RULES, "convert_jax_params")
+
+
+def convert_jax_mt_state(mt_state) -> Dict[str, Any]:
+    """JAX's MTState (numpy or JAX leaves) -> the weights and iteration of
+    a mean-teacher save: {"model", "teacher", "discriminator", "iteration"}.
+    The optimizer states are not carried across."""
+    return {
+        "model": convert_jax_params(mt_state.params),
+        "teacher": convert_jax_params(mt_state.teacher_params),
+        "discriminator": _convert(mt_state.dis_params, _DISCRIMINATOR_RULES, "convert_jax_mt_state"),
+        "iteration": int(mt_state.step),
+    }
 
 
 def convert_jax_caption_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -12,13 +12,15 @@ The yacs tree itself is `cfg_node.CfgNode` with the defaults of
 `defaults.get_cfg`; `model_config_from_cfg` and `solver_config_from_cfg`
 map it to the two dataclasses, and `check_supported` raises for any value
 the port does not implement. The loaders and the trainer read the data,
-test and loop keys from the tree, as the JAX package's do.
+test and loop keys from the tree, as the JAX package's do;
+`add_ateacher_config` adds the mean-teacher block.
 """
 
 import dataclasses
 import logging
 from typing import Any, Callable, Optional, Tuple
 
+from .ateacher import add_ateacher_config
 from .cfg_node import CfgNode
 from .defaults import get_cfg
 
@@ -76,9 +78,6 @@ class ModelConfig:
     v2l_image_size: int = 224
     v2l_mapper_layers: int = 8
     v2l_mapper_tokens: int = 40
-    # MODEL.CONSISTENCY_BRANCH: "image" and "image_region" build the image
-    # projector of the language-free branches
-    consistency_branch: str = ""
     # TPU.COMPUTE_DTYPE
     compute_dtype: str = "bfloat16"
 
@@ -200,16 +199,26 @@ def _lookup(cfg, key: str):
     return node
 
 
+# the keys of `add_ateacher_config` that the mean-teacher trainer reads, with
+# the values it implements (checked when the tree holds the block)
+_SUPPORTED_SEMISUP: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("SEMISUPNET.Trainer", lambda v: v in ("default", "ateacher")),
+    ("SEMISUPNET.DIS_TYPE", lambda v: v == "res4"),
+    ("SEMISUPNET.PSEUDO_BBOX_SAMPLE", lambda v: v == "thresholding"),
+    ("SEMISUPNET.LOSS_WEIGHT_TYPE", lambda v: v == "standard"),
+    ("MODEL.RPN.LOSS", lambda v: v == "CrossEntropy"),
+    ("MODEL.ROI_HEADS.LOSS", lambda v: v == "CrossEntropy"),
+)
+
+
 def check_supported(cfg) -> None:
     """Raises NotImplementedError naming the first key set to a value the
     port does not implement (on one device: no mesh, no sharding)."""
-    for key, ok in _SUPPORTED:
+    checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
+    for key, ok in checks:
         value = _lookup(cfg, key)
         if not ok(value):
             raise NotImplementedError(f"{key} = {value!r} is not ported")
-    semisup = cfg.get("SEMISUPNET")
-    if semisup is not None and semisup.get("Trainer") == "ateacher":
-        raise NotImplementedError("SEMISUPNET.Trainer = 'ateacher' (the mean-teacher trainer) is not ported")
 
 
 def model_config_from_cfg(cfg) -> ModelConfig:
@@ -255,7 +264,6 @@ def model_config_from_cfg(cfg) -> ModelConfig:
         v2l_image_size=tpu.V2L_IMAGE_SIZE,
         v2l_mapper_layers=tpu.V2L_MAPPER_LAYERS,
         v2l_mapper_tokens=tpu.V2L_MAPPER_TOKENS,
-        consistency_branch=m.CONSISTENCY_BRANCH,
         compute_dtype=tpu.COMPUTE_DTYPE,
     )
 

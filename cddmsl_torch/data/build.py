@@ -9,10 +9,17 @@ a batch equals JAX's bit for bit. Batches are CPU tensors; a background
 thread builds them ahead of the consumer and, with `pin_memory`, pins them,
 so that `to_device` copies them to the card without blocking.
 
+The mean-teacher loader (`build_semisup_train_loader_two_crops`) splits the
+training set into a labeled and an unlabeled part (`divide_label_unlabel`)
+and yields ((label_strong, label_weak), (unlabel_strong, unlabel_weak)):
+two sampler streams, one mapper state serving both, labeled first.
+
 Loaders are closable: `close()` (or leaving a `with` block) stops the
 prefetch thread, which would otherwise run on for an infinite train stream.
 """
 
+import json
+import os
 import queue
 import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
@@ -22,7 +29,7 @@ import torch
 
 from ..models.rcnn import DetBatch
 from .catalog import DatasetCatalog
-from .dataset_mapper import DatasetMapper
+from .dataset_mapper import DatasetMapper, DatasetMapperTwoCropSeparate
 
 
 def get_detection_dataset_dicts(names: Sequence[str], filter_empty: bool = True) -> List[dict]:
@@ -237,3 +244,72 @@ def build_detection_test_loader(
                 yield collate(group + [group[-1]] * (batch_size - len(group))), metas[key]
 
     return _Prefetcher(gen, depth=4), len(dicts)
+
+
+def divide_label_unlabel(
+    dicts: List[dict], sup_percent: float, seed: int, seed_path: Optional[str] = None
+) -> Tuple[List[dict], List[dict]]:
+    """(labeled, unlabeled): int(sup_percent% of len(dicts)) indices from the
+    reference's JSON seed file at `seed_path` where it exists
+    ({sup_percent: {seed: indices}}), else the first of a permutation seeded
+    by `seed`; both parts keep the dataset's order."""
+    n = len(dicts)
+    num_label = int(sup_percent / 100.0 * n)
+    if seed_path and os.path.exists(seed_path):
+        with open(seed_path) as f:
+            idx = json.load(f)[str(sup_percent)][str(seed)][:num_label]
+    else:
+        idx = np.random.RandomState(seed).permutation(n)[:num_label].tolist()
+    labeled = {int(i) for i in idx}
+    return [d for i, d in enumerate(dicts) if i in labeled], [d for i, d in enumerate(dicts) if i not in labeled]
+
+
+def build_semisup_train_loader_two_crops(cfg, seed: int = 0, pin_memory: bool = False) -> _Prefetcher:
+    """Infinite stream of ((label_strong, label_weak), (unlabel_strong,
+    unlabel_weak)) DetBatches of SOLVER.IMG_PER_BATCH_LABEL and
+    IMG_PER_BATCH_UNLABEL images. The parts are DATASETS.TRAIN_LABEL and
+    TRAIN_UNLABEL with DATASETS.CROSS_DATASET, else DATASETS.TRAIN divided
+    by DATALOADER.SUP_PERCENT. The samplers are seeded with `seed` and
+    `seed + 7`; one mapper state (`seed + 1`) maps a whole labeled batch,
+    then a whole unlabeled one, each grouped by orientation into the
+    TPU.PAD_SIZE_TRAIN buckets."""
+    if cfg.DATASETS.CROSS_DATASET:
+        label_dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN_LABEL, True)
+        unlabel_dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN_UNLABEL, False)
+    else:
+        label_dicts, unlabel_dicts = divide_label_unlabel(
+            get_detection_dataset_dicts(cfg.DATASETS.TRAIN, True), cfg.DATALOADER.SUP_PERCENT,
+            cfg.DATALOADER.RANDOM_DATA_SEED, cfg.DATALOADER.RANDOM_DATA_SEED_PATH,
+        )
+    mapper = DatasetMapperTwoCropSeparate(cfg, True)
+    pad_hw = tuple(cfg.TPU.PAD_SIZE_TRAIN)
+    max_gt = cfg.TPU.MAX_GT_BOXES
+
+    def collate(samples, key):
+        batch = pad_and_collate(samples, key, max_gt)
+        return _pinned(batch) if pin_memory else batch
+
+    def gen():
+        rng = np.random.RandomState(seed + 1)
+        lab_it = iter(TrainingSampler(len(label_dicts), seed=seed))
+        unl_it = iter(TrainingSampler(len(unlabel_dicts), seed=seed + 7))
+
+        def take(dicts, it, n, buckets):
+            """(strong, weak) pairs into the orientation buckets until one
+            holds n: (its key, the strong samples, the weak samples)."""
+            while True:
+                s, w = mapper(dicts[next(it)], rng)
+                key = _bucket_for(s, pad_hw)
+                pairs = buckets.setdefault(key, [])
+                pairs.append((s, w))
+                if len(pairs) == n:
+                    del buckets[key]
+                    return key, [p[0] for p in pairs], [p[1] for p in pairs]
+
+        lab_buckets, unl_buckets = {}, {}
+        while True:
+            key_l, ls, lw = take(label_dicts, lab_it, cfg.SOLVER.IMG_PER_BATCH_LABEL, lab_buckets)
+            key_u, us, uw = take(unlabel_dicts, unl_it, cfg.SOLVER.IMG_PER_BATCH_UNLABEL, unl_buckets)
+            yield (collate(ls, key_l), collate(lw, key_l)), (collate(us, key_u), collate(uw, key_u))
+
+    return _Prefetcher(gen, depth=cfg.DATALOADER.NUM_WORKERS)

@@ -1,10 +1,15 @@
 """Dataset dict -> per-image numpy sample (the port's copy of
-cddmsl_tpu/data/dataset_mapper.py `DatasetMapper`, boxes only).
+cddmsl_tpu/data/dataset_mapper.py `DatasetMapper`, boxes only, and
+`DatasetMapperTwoCropSeparate`).
 
 The image and its translated twin `data_dt_file_name` are read and put
 through the same sampled geometric transforms; the boxes follow, are clipped
 to the image and empty ones dropped. Instances marked difficult are dropped
 at train time (the detectron2 VOC convention).
+
+The two-crop mapper of the mean-teacher loader gives (strong, weak) views of
+one image under one geometric transform: the weak view is the plain sample,
+the strong one its photometric augmentation (and its translated twin's).
 """
 
 from typing import Dict, List
@@ -12,7 +17,7 @@ from typing import Dict, List
 import numpy as np
 from PIL import Image
 
-from .transforms import TransformList, apply_augmentations, build_augmentation
+from .transforms import TransformList, apply_augmentations, build_augmentation, build_strong_augmentation_fn
 
 
 def read_image(path: str, fmt: str = "RGB") -> np.ndarray:
@@ -64,3 +69,21 @@ class DatasetMapper:
         annos = [a for a in d.get("annotations", []) if not (self.is_train and a.get("difficult", 0))]
         out.update(transform_boxes(annos, tfms, hw))
         return out
+
+
+class DatasetMapperTwoCropSeparate:
+    """cfg -> callable(dataset_dict, rng) -> (strong, weak) samples: one
+    geometric transform, then the strong augmentation of the image and of
+    its twin, drawn from `rng` after the weak sample's draws."""
+
+    def __init__(self, cfg, is_train: bool = True):
+        self.base = DatasetMapper(cfg, is_train)
+        self.strong_aug = build_strong_augmentation_fn()
+
+    def __call__(self, dataset_dict: dict, rng: np.random.RandomState):
+        weak = self.base(dataset_dict, rng)
+        strong = dict(weak)
+        strong["image"] = self.strong_aug(weak["image"], rng)
+        if "image_trgt" in weak:
+            strong["image_trgt"] = self.strong_aug(weak["image_trgt"], rng)
+        return strong, weak

@@ -1,7 +1,9 @@
 """Host-side geometric transforms of the training recipe (the port's copy of
 the part of cddmsl_tpu/data/transforms.py that `build_augmentation` gives
 the VOC recipe): `ResizeShortestEdge` (a choice of short sides, or a range,
-at train time; one size at test time) and the horizontal `RandomFlip`.
+at train time; one size at test time) and the horizontal `RandomFlip`; and
+the strong photometric augmentation of the mean-teacher loader
+(`build_strong_augmentation_fn`).
 
 Augmentations draw from the caller's `np.random.RandomState` in the JAX
 package's order, so the same state gives the same samples. Each returns a
@@ -12,7 +14,7 @@ on the boxes. Images are resized with PIL's bilinear filter, as in JAX.
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageFilter
 
 
 class Transform:
@@ -149,3 +151,60 @@ def apply_augmentations(
         img = t.apply_image(img)
         tfms.append(t)
     return img, TransformList(tfms)
+
+
+# ---------------- strong (photometric) augmentation ----------------
+def _color_jitter(img: np.ndarray, rng):
+    """ColorJitter(.4, .4, .4, .1): brightness, contrast, saturation and a
+    cheap hue shift (a mix with the channels rotated by one), in an order
+    drawn from `rng`; float32."""
+    x = img.astype(np.float32)
+    for op in rng.permutation(4):
+        if op == 0:  # brightness
+            x = x * rng.uniform(0.6, 1.4)
+        elif op == 1:  # contrast
+            mean = x.mean()
+            x = (x - mean) * rng.uniform(0.6, 1.4) + mean
+        elif op == 2:  # saturation
+            gray = x @ np.array([0.299, 0.587, 0.114], np.float32)
+            f = rng.uniform(0.6, 1.4)
+            x = x * f + gray[..., None] * (1 - f)
+        else:  # hue
+            f = rng.uniform(-0.1, 0.1)
+            if abs(f) > 1e-3:
+                x = x + np.roll(x, 1, axis=-1) * f - x * f
+    return np.clip(x, 0, 255)
+
+
+def build_strong_augmentation_fn():
+    """fn(img_uint8, rng) -> img_uint8: ColorJitter(.4, .4, .4, .1) at p .8,
+    grayscale at .2, PIL's GaussianBlur (radius drawn in [.1, 2)) at .5, then
+    three RandomErasing of random values at p .7 / .5 / .3 (area fractions
+    .05-.2 / .02-.2 / .02-.2, aspect ratios .3-3.3, up to 10 tries each).
+    Every draw comes from `rng` in the JAX package's order."""
+
+    def strong_aug(img: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+        x = img.astype(np.float32)
+        if rng.rand() < 0.8:
+            x = _color_jitter(x, rng)
+        if rng.rand() < 0.2:
+            gray = x @ np.array([0.299, 0.587, 0.114], np.float32)
+            x = np.repeat(gray[..., None], 3, axis=-1)
+        if rng.rand() < 0.5:
+            sigma = rng.uniform(0.1, 2.0)
+            pil = Image.fromarray(np.clip(x, 0, 255).astype(np.uint8))
+            x = np.asarray(pil.filter(ImageFilter.GaussianBlur(radius=sigma))).astype(np.float32)
+        for p, scale in ((0.7, (0.05, 0.2)), (0.5, (0.02, 0.2)), (0.3, (0.02, 0.2))):
+            if rng.rand() < p:
+                h, w = x.shape[:2]
+                for _ in range(10):
+                    area = rng.uniform(*scale) * h * w
+                    ratio = np.exp(rng.uniform(np.log(0.3), np.log(3.3)))
+                    eh, ew = int(round(np.sqrt(area * ratio))), int(round(np.sqrt(area / ratio)))
+                    if eh < h and ew < w:
+                        y0, x0 = rng.randint(0, h - eh), rng.randint(0, w - ew)
+                        x[y0 : y0 + eh, x0 : x0 + ew] = rng.rand(eh, ew, 3) * 255
+                        break
+        return np.clip(x, 0, 255).astype(np.uint8)
+
+    return strong_aug

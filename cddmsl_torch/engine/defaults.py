@@ -156,20 +156,27 @@ class DefaultTrainer:
 
     # ---- weight loading ----
     def resume_or_load(self, resume: bool = True) -> None:
-        """Restores the newest checkpoint (with `resume`) or MODEL.WEIGHTS;
-        on a fresh start also side-loads the text embeddings, the ClipCap
-        mapper and the RegionCLIP offline backbone from the paths set."""
-        cfg = self.cfg
-        resumed = resume and self.checkpointer.has_checkpoint()
-        self.checkpointer.resume_or_load(cfg.MODEL.WEIGHTS, self.state, resume)
-        if not resumed:
-            if cfg.MODEL.CLIP.TEXT_EMB_PATH:
-                load_text_emb_classifier(self.model, cfg.MODEL.CLIP.TEXT_EMB_PATH)
-            if cfg.MODEL.VISION_TO_LANG_PATH:
-                load_clipcap_mapper(self.model, cfg.MODEL.VISION_TO_LANG_PATH)
-            if cfg.MODEL.PRE_TRAINED_RCLIP_PATH:
-                load_offline_backbone(self.model, cfg.MODEL.PRE_TRAINED_RCLIP_PATH)
+        """Restores the newest checkpoint (with `resume`), else
+        `load_weights`."""
+        if resume and self.checkpointer.has_checkpoint():
+            self.checkpointer.load(self.checkpointer.get_checkpoint_file(), self.state)
+        else:
+            self.load_weights(self.state)
         self.start_iter = self.state.iteration
+
+    def load_weights(self, state) -> None:
+        """A fresh start: MODEL.WEIGHTS into `state` where set, then the
+        side-loads of the text embeddings, the ClipCap mapper and the
+        RegionCLIP offline backbone from the paths set."""
+        cfg = self.cfg
+        if cfg.MODEL.WEIGHTS:
+            self.checkpointer.load_weights(cfg.MODEL.WEIGHTS, state)
+        if cfg.MODEL.CLIP.TEXT_EMB_PATH:
+            load_text_emb_classifier(self.model, cfg.MODEL.CLIP.TEXT_EMB_PATH)
+        if cfg.MODEL.VISION_TO_LANG_PATH:
+            load_clipcap_mapper(self.model, cfg.MODEL.VISION_TO_LANG_PATH)
+        if cfg.MODEL.PRE_TRAINED_RCLIP_PATH:
+            load_offline_backbone(self.model, cfg.MODEL.PRE_TRAINED_RCLIP_PATH)
 
     # ---- hooks ----
     def build_hooks(self):
@@ -188,12 +195,12 @@ class DefaultTrainer:
             h.trainer = self
         self._hooks = list(hooks_list)
 
-    def _eval_into_storage(self) -> None:
-        for ds, res in self.test().items():
+    def _eval_into_storage(self, model: Optional[torch.nn.Module] = None, prefix: str = "") -> None:
+        for ds, res in self.test(model=model).items():
             for task, m in res.items():
                 for k, v in m.items():
                     if "-" not in k:  # not the per-class AP50-x
-                        self.storage.put_scalar(f"{ds}/{task}/{k}", v, smoothing_hint=False)
+                        self.storage.put_scalar(f"{prefix}{ds}/{task}/{k}", v, smoothing_hint=False)
 
     # ---- training ----
     def run_step(self, batch) -> Dict[str, torch.Tensor]:
@@ -207,12 +214,20 @@ class DefaultTrainer:
             metrics.update(self.caption_pl_step(batch, self.state.draw))
         return metrics
 
+    def build_train_loader(self):
+        return build_detection_train_loader(self.cfg, seed=max(self.cfg.SEED, 0),
+                                            pin_memory=self.device.type == "cuda")
+
+    def batch_to_device(self, batch):
+        return to_device(batch, self.device)
+
     def train(self) -> Dict[str, dict]:
-        """Iterations start_iter..MAX_ITER-1, then model_final and `test`.
-        Raises FloatingPointError when the loss is not finite at a logging
-        step. The host's wait on the loader is the `data_time` scalar."""
+        """Iterations start_iter..MAX_ITER-1, then model_final and
+        `final_test`. Raises FloatingPointError when the loss is not finite
+        at a logging step. The host's wait on the loader is the `data_time`
+        scalar."""
         cfg = self.cfg
-        loader = build_detection_train_loader(cfg, seed=max(cfg.SEED, 0), pin_memory=self.device.type == "cuda")
+        loader = self.build_train_loader()
         self.register_hooks(self.build_hooks())
         log_period = 20
         logger.info("Starting training from iteration %d", self.start_iter)
@@ -228,7 +243,7 @@ class DefaultTrainer:
                     t0 = time.perf_counter()
                     batch = next(loader)
                     storage.put_scalar("data_time", time.perf_counter() - t0)
-                    metrics = self.run_step(to_device(batch, self.device))
+                    metrics = self.run_step(self.batch_to_device(batch))
                     if (it + 1) % log_period == 0 or it == self.max_iter - 1:
                         host = {k: float(v) for k, v in metrics.items()}  # the loop's sync point
                         if not np.isfinite(host["total_loss"]):
@@ -248,22 +263,28 @@ class DefaultTrainer:
         self.checkpointer.save("model_final", self.state)
         if not cfg.DATASETS.TEST:
             return {}
+        return self.final_test()
+
+    # ---- evaluation ----
+    def final_test(self) -> Dict[str, dict]:
+        """The test after training, checked against TEST.EXPECTED_RESULTS."""
         results = self.test()
         self._verify_final(results)
         return results
 
-    # ---- evaluation ----
-    def test(self, cfg: Optional[CfgNode] = None) -> Dict[str, dict]:
-        """Every DATASETS.TEST set through `inference_on_dataset` in
-        MODEL.CLIP.IMS_PER_BATCH_TEST batches: {dataset: {"bbox": {...}}}."""
+    def test(self, cfg: Optional[CfgNode] = None, model: Optional[torch.nn.Module] = None) -> Dict[str, dict]:
+        """Every DATASETS.TEST set through `inference_on_dataset` of `model`
+        (the trained model by default) in MODEL.CLIP.IMS_PER_BATCH_TEST
+        batches: {dataset: {"bbox": {...}}}."""
         cfg = cfg or self.cfg
+        model = self.model if model is None else model
         results = {}
         for name in cfg.DATASETS.TEST:
             # the loader first: a COCO set names its classes in the metadata when it is read
             loader, n = build_detection_test_loader(cfg, name, pin_memory=self.device.type == "cuda")
             with loader:
                 evaluator = build_evaluator(cfg, name)
-                results[name] = inference_on_dataset(self.model, loader, n, evaluator, self.device)
+                results[name] = inference_on_dataset(model, loader, n, evaluator, self.device)
             logger.info("Results on %s:", name)
             print_csv_format(results[name])
         return results

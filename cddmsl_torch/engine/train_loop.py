@@ -45,6 +45,15 @@ def split_batch(batch: DetBatch, parts: int) -> Sequence[DetBatch]:
     return [DetBatch(*(None if f is None else f[i * m : (i + 1) * m] for f in batch)) for i in range(parts)]
 
 
+def check_state_keys(state: Dict, want) -> None:
+    """Raises ValueError unless the save `state` holds exactly the entries
+    `want`: a save of the plain trainer and one of the mean-teacher trainer
+    do not restore into each other."""
+    if state.keys() != set(want):
+        raise ValueError(f"the save holds {sorted(state)}, this training state {sorted(want)}: a mean-teacher "
+                         f"save restores only into the mean-teacher trainer, and the reverse")
+
+
 class Trainer:
     """The training state (model, optimizer, iteration) and its step: the
     counterpart of the JAX package's `TrainState` with `make_train_step`."""
@@ -127,15 +136,10 @@ class Trainer:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "iteration": self.iteration}
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restores a `state_dict` of the same build. A save made under
-        another MODEL.CONSISTENCY_BRANCH differs by `image_projector` (built
-        for image and image_region only) and raises, where the JAX package,
-        whose tree always holds it, restores it."""
-        mine, saved = self.model.state_dict().keys(), state["model"].keys()
-        if mine != saved:
-            raise KeyError(f"the save's model is another build: it lacks {sorted(mine - saved)[:5]} and adds "
-                           f"{sorted(saved - mine)[:5]}; restore it under the MODEL.CONSISTENCY_BRANCH it was "
-                           f"trained with")
+        """Restores a `state_dict` of a training build, whatever branch it
+        was trained under. A mean-teacher save holds more than this state
+        and raises, as orbax refuses it in the JAX package's `TrainState`."""
+        check_state_keys(state, self.state_dict().keys())
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.iteration = int(state["iteration"])

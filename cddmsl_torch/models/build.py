@@ -11,10 +11,9 @@ from .rcnn import GeneralizedRCNN
 def build_model(config: ModelConfig, device="cuda", training: bool = False) -> GeneralizedRCNN:
     """Builds the detector on `device` (CUDA unless the caller asks for the
     CPU) in eval mode; `training=True` adds the modules that only the CDDMSL
-    losses read (offline backbone, ClipCap mapper, projector, and for the
-    "image" and "image_region" branches the image projector). Its weights
-    are the modules' defaults: load a state dict (checkpoint/convert_jax.py)
-    or call `init_random_` next."""
+    losses read (offline backbone, ClipCap mapper, projector and image
+    projector). Its weights are the modules' defaults: load a state dict
+    (checkpoint/convert_jax.py) or call `init_random_` next."""
     device = resolve_device(device)
     if not config.use_text_emb:
         raise NotImplementedError("only the text-embedding classifier (MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER) is ported")
@@ -52,7 +51,6 @@ def build_model(config: ModelConfig, device="cuda", training: bool = False) -> G
         v2l_image_size=config.v2l_image_size,
         v2l_mapper_layers=config.v2l_mapper_layers,
         v2l_mapper_tokens=config.v2l_mapper_tokens,
-        consistency_branch=config.consistency_branch,
         dtype=compute_dtype(config.compute_dtype),
         training_modules=training,
     )

@@ -1,7 +1,8 @@
 """GeneralizedRCNN with the CDDMSL training branches (counterpart of
 cddmsl_tpu/models/rcnn.py `GeneralizedRCNN`: `_normalize`, `inference`,
-`_v2l_preprocess`, `caption_consistency`, `_random_region_boxes`,
-`image_consistency`, `image_consistency_region`, `caption_pl_prefixes`,
+`extract_res4`, `supervised_losses`, `_v2l_preprocess`,
+`caption_consistency`, `_random_region_boxes`, `image_consistency`,
+`image_consistency_region`, `caption_pl_prefixes`,
 `caption_pl_region_prefixes` and `cddmsl_losses`, and of
 `infonce_bidirectional`).
 
@@ -11,16 +12,18 @@ consistency (224^2 bicubic view -> `global_embed` -> frozen ClipCap mapper
 -> `v2l` -> projector -> InfoNCE) with the KD L1 against the frozen offline
 backbone, and the region-level consistency over random proposals pooled from
 both views. The burn-up gate is a host `if`. The modules only those
-branches read (the offline backbone, the mapper, the projector) are built
+branches read (the offline backbone, the mapper, the projectors) are built
 with `training_modules=True`.
 
 MODEL.CONSISTENCY_BRANCH adds a branch. "image" and "image_region" are the
-language-free InfoNCE over `image_projector` (built only for them): of the
-two views' CLIP embeddings, or of region embeddings of the same random
-proposals pooled from both views' res4 maps. "caption_pl_img" and
-"caption_pl_region" give the prefixes of the pseudo-label caption step
-(engine/train_loop.py `make_caption_pl_step`): the source view's, without a
-gradient, and the target view's. The region branches recompute both views'
+language-free InfoNCE over `image_projector`: of the two views' CLIP
+embeddings, or of region embeddings of the same random proposals pooled from
+both views' res4 maps. The training build holds the image projector whatever
+the branch, as JAX's parameter tree does, so a save of one branch restores
+under any other. "caption_pl_img" and "caption_pl_region" give the prefixes
+of the pseudo-label caption step (engine/train_loop.py
+`make_caption_pl_step`): the source view's, without a gradient, and the
+target view's. The region branches recompute both views'
 res4 and the training proposals (no losses), as the JAX package does, and
 draw their boxes at sites of their own ("image_region",
 "caption_pl_region").
@@ -102,7 +105,6 @@ class GeneralizedRCNN(nn.Module):
         v2l_image_size: int = 224,
         v2l_mapper_layers: int = 8,
         v2l_mapper_tokens: int = 40,
-        consistency_branch: str = "",
         dtype: torch.dtype = torch.float32,
         training_modules: bool = False,
     ):
@@ -163,8 +165,7 @@ class GeneralizedRCNN(nn.Module):
                 num_layers=v2l_mapper_layers,
             ).requires_grad_(False)
             self.projector = Projector(in_dim=768)
-            if consistency_branch in ("image", "image_region"):
-                self.image_projector = Projector(in_dim=embed_dim)
+            self.image_projector = Projector(in_dim=embed_dim)
 
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
         mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=images.device)
@@ -191,17 +192,21 @@ class GeneralizedRCNN(nn.Module):
     @torch.no_grad()
     def proposals(self, batch: DetBatch):
         """Backbone and RPN: (res4 (B, H/16, W/16, C) NHWC, Proposals)."""
-        features = self.backbone(self._normalize(batch.image))["res4"]
+        features = self.extract_res4(batch.image)
         return features, self.proposal_generator(features, batch.image_sizes)[0]
 
     @torch.no_grad()
-    def inference(self, batch: DetBatch) -> DetectionResult:
-        """normalize -> res4 -> RPN -> RoI heads -> rescale to orig_sizes."""
+    def inference(self, batch: DetBatch, do_postprocess: bool = True) -> DetectionResult:
+        """normalize -> res4 -> RPN -> RoI heads -> with `do_postprocess`
+        rescale to orig_sizes; without it the boxes stay in the padded
+        input frame."""
         features, proposals = self.proposals(batch)
         detections = self.roi_heads(
             features, proposals, batch.image_sizes,
             res5_fn=self.backbone.res5_forward, attnpool_fn=self.backbone.attnpool_forward,
         )
+        if not do_postprocess:
+            return detections
         # detector_postprocess: rescale to the original image size
         orig = batch.orig_sizes.to(detections.boxes.device)
         sizes = batch.image_sizes.to(detections.boxes.device)
@@ -210,6 +215,9 @@ class GeneralizedRCNN(nn.Module):
         boxes = box_ops.clip(detections.boxes * sxy[:, None, :], (orig[:, 0, None], orig[:, 1, None]))
         return detections._replace(boxes=boxes)
 
+    def extract_res4(self, images: torch.Tensor) -> torch.Tensor:
+        """Raw images (B, H, W, 3) -> the res4 map (B, H/16, W/16, C)."""
+        return self.backbone(self._normalize(images))["res4"]
 
     # ---------------- training ----------------
     def _student_v2l(self, images224: torch.Tensor) -> torch.Tensor:
@@ -288,6 +296,24 @@ class GeneralizedRCNN(nn.Module):
             r_src = rh._region_embed(f_src, boxes, backbone.res5_forward, backbone.attnpool_forward)
         return r_src, rh._region_embed(f_trgt, boxes, backbone.res5_forward, backbone.attnpool_forward)
 
+    def supervised(self, batch: DetBatch, draw: Draw):
+        """The supervised RPN and RoI losses on the source view, with the
+        res4 map and the training proposals they came from: (losses, res4,
+        Proposals)."""
+        f_src = self.extract_res4(batch.image)
+        proposals, rpn_losses = self.proposal_generator(
+            f_src, batch.image_sizes, training=True, gt_boxes=batch.gt_boxes, gt_valid=batch.gt_valid, draw=draw
+        )
+        det_losses = self.roi_heads(
+            f_src, proposals, batch.image_sizes, self.backbone.res5_forward, self.backbone.attnpool_forward,
+            training=True, gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
+        )
+        return {**det_losses, **rpn_losses}, f_src, proposals
+
+    def supervised_losses(self, batch: DetBatch, draw: Draw) -> Dict[str, torch.Tensor]:
+        """The supervised RPN and RoI losses on the source view."""
+        return self.supervised(batch, draw)[0]
+
     def cddmsl_losses(
         self, batch: DetBatch, draw: Draw, caption_on: bool, kd_regularization: bool = True,
         enable_caption: bool = True,
@@ -298,16 +324,7 @@ class GeneralizedRCNN(nn.Module):
         supervised losses are returned; otherwise the caption branches run
         when `caption_on` (past burn-up) and give zeros before, and
         `kd_loss` is present only with `kd_regularization`, as in JAX."""
-        f_src = self.backbone(self._normalize(batch.image))["res4"]
-        proposals, rpn_losses = self.proposal_generator(
-            f_src, batch.image_sizes, training=True, gt_boxes=batch.gt_boxes, gt_valid=batch.gt_valid, draw=draw
-        )
-        res5_fn, attnpool_fn = self.backbone.res5_forward, self.backbone.attnpool_forward
-        det_losses = self.roi_heads(
-            f_src, proposals, batch.image_sizes, res5_fn, attnpool_fn, training=True,
-            gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
-        )
-        losses = {**det_losses, **rpn_losses}
+        losses, f_src, proposals = self.supervised(batch, draw)
         if not enable_caption:
             return losses
         if not caption_on:
@@ -317,7 +334,8 @@ class GeneralizedRCNN(nn.Module):
         cc = self.caption_consistency(batch, kd_regularization)
         f_trgt = self.backbone(self._normalize(batch.image_trgt))["res4"]
         boxes = self._random_region_boxes(proposals, draw)
-        r_src, r_trgt = self.roi_heads.forward_get_features(f_src, f_trgt, boxes, res5_fn, attnpool_fn)
+        r_src, r_trgt = self.roi_heads.forward_get_features(
+            f_src, f_trgt, boxes, self.backbone.res5_forward, self.backbone.attnpool_forward)
         p_src = self.projector(v2l(self.v2l_mapper(r_src)))
         p_trgt = self.projector(v2l(self.v2l_mapper(r_trgt)))
         losses["cont_loss"] = cc["cont_loss"]

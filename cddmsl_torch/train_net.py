@@ -4,21 +4,28 @@
     python -m cddmsl_torch.train_net --eval-only --config-file ... MODEL.WEIGHTS output/model_final.pth
     python -m cddmsl_torch.train_net --resume --config-file ...
     python -m cddmsl_torch.train_net --device cpu --config-file cddmsl_torch/configs/voc_tiny.yaml
+    python -m cddmsl_torch.train_net --device cpu --config-file cddmsl_torch/configs/mt_tiny.yaml
 
 KEY VALUE pairs after the options override the config. It runs on the CUDA
 card unless `--device cpu` is given, and raises when there is no card. The
 datasets are read from $DETECTRON2_DATASETS (default ./datasets).
+
+The tree holds the mean-teacher block (`add_ateacher_config`); with
+SEMISUPNET.Trainer "ateacher" training runs `MeanTeacherTrainer`, and
+`--eval-only` evaluates through `DefaultTrainer`, as the JAX tool does (a
+mean-teacher save does not restore there: it raises).
 """
 
 import sys
 
-from .config import get_cfg
+from .config import add_ateacher_config, get_cfg
 from .engine.defaults import DefaultTrainer, default_argument_parser, default_setup
 from .evaluation import verify_results
 
 
 def setup(args):
     cfg = get_cfg()
+    add_ateacher_config(cfg)
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
@@ -30,7 +37,12 @@ def setup(args):
 
 def main(args):
     cfg = setup(args)
-    trainer = DefaultTrainer(cfg, device=args.device)
+    if cfg.SEMISUPNET.Trainer == "ateacher" and not args.eval_only:
+        from .engine.mean_teacher import MeanTeacherTrainer
+
+        trainer = MeanTeacherTrainer(cfg, device=args.device)
+    else:
+        trainer = DefaultTrainer(cfg, device=args.device)
     trainer.resume_or_load(resume=args.resume)
     if args.eval_only:
         results = trainer.test()

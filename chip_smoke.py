@@ -95,17 +95,36 @@ Phases, each of which fails the run with a non-zero exit:
      region branches K1, K3 and K4 at the branch's own calls
      (`branch_kernel_calls`), checked and timed as in phase 6; last
      `gen_captions.main` at full width on one fixture image (token ids, ms).
+ 10. the mean-teacher path: the trainer `train_net.main` runs for
+     SEMISUPNET.Trainer "ateacher" (`MeanTeacherTrainer`), on
+     `train_net.setup`'s tree of the VOC recipe (bf16, seeded random
+     weights) with mt_rcnn_instant_test.yaml's keys (8 labeled and 8
+     unlabeled images a step, half of phase 7's 16-image fixture labeled,
+     EMA 0.99) for 6 steps with burn-up 2, then the teacher's test.
+     BBOX_THRESHOLD is 0.8, or the highest of 0.5 and 0.3 at which the
+     teacher keeps some boxes at the first step past burn-up. Per step: the
+     K1/K3/K4 launches of `MT_LAUNCHES`, the losses under JAX's names and
+     finite, the pseudo-box count, the frozen tensors unchanged, the teacher
+     unchanged in burn-up and bit-equal to the student after its last step,
+     the discriminator unchanged in burn-up and moved past it; the final
+     test of the teacher (launches 1/0/2 per batch); then the step on a
+     batch on the card, and K1, K3 and K4 at the step's own calls
+     (`mean_teacher_kernel_calls`: the teacher's pool and two NMS on the
+     weak unlabeled view, each student pass's pool and RPN NMS), checked
+     and timed as in phase 6.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/consistency`). `launches` counts
+(`roi_align_fwd/inference`, ..., `nms/mean_teacher`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
-branches' 5 steps);
+branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
+the teacher's test);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
 eval batch per test set checked, 1 and 2 launches each; for consistency
-the two region branches' calls: K1 4, K3 3, K4 2): the largest error and
-the sums of the times and bounds.
+the two region branches' calls: K1 4, K3 3, K4 2; for mean_teacher one
+step's: K1 3, K3 2, K4 4): the largest error and the sums of the times and
+bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -730,11 +749,15 @@ def training_path(dev, smi, roi_ops, nms_ops):
           f"{n_img / ms_step * 1e3:.3f} images/s, {n_img}x800x1344 bf16, caption+KD on, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {smi}")
     changed = [n for n in frozen if not torch.equal(params[n], before[n])]
-    still = [n for n in trainable if torch.equal(params[n], before[n])]
+    # the image projector is trained by the "image" branches alone; here no
+    # loss reaches it and its decay (lr * 1e-4 of it, at the warmup's LR)
+    # is below float32's resolution
+    reached = [n for n in trainable if not n.startswith("image_projector.")]
+    still = [n for n in reached if torch.equal(params[n], before[n])]
     if changed or still:
         fail(f"after {reps + 3} steps: frozen changed {changed[:5]}, trainable unmoved {still[:5]}")
-    print(f"after {reps + 3} steps: all {len(trainable)} trainable parameters moved, "
-          f"all {len(frozen)} frozen parameters unchanged")
+    print(f"after {reps + 3} steps: all {len(reached)} trainable parameters a loss reaches moved (of "
+          f"{len(trainable)}), all {len(frozen)} frozen parameters unchanged")
 
     return step_kernel_rows(dev, model, batch, trainer.draw, launches, roi_ops, nms_ops, "training")
 
@@ -869,9 +892,10 @@ def first_eval_batch(cfg, name, dev):
     return to_device(batch, dev)
 
 
-def time_device_batch(label, trainer, batch, reps=5):
+def time_device_batch(label, trainer, batch, reps=5, what="caption on"):
     """The loop's step on a batch already on the card (no loader, no
     hooks), after 2 warm-up steps: CUDA events and host wall, printed."""
+    shape = tuple(batch.image.shape) if hasattr(batch, "image") else [tuple(b.image.shape) for p in batch for b in p]
     for _ in range(2):
         trainer.run_step(batch)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -882,7 +906,7 @@ def time_device_batch(label, trainer, batch, reps=5):
         trainer.run_step(batch)
     end.record()
     torch.cuda.synchronize()
-    print(f"{label} step on a batch already on the card ({tuple(batch.image.shape)}, caption on): "
+    print(f"{label} step on a batch already on the card ({shape}, {what}): "
           f"{start.elapsed_time(end) / reps:.3f} ms/step CUDA events, "
           f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall ({reps} steps)")
 
@@ -913,9 +937,9 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
             self.probe = StepProbe(roi_ops, nms_ops)
             return [self.probe] + super().build_hooks()
 
-        def test(self, cfg=None):
+        def test(self, cfg=None, model=None):
             t0 = time.perf_counter()
-            results = super().test(cfg)
+            results = super().test(cfg, model)
             self.test_s = time.perf_counter() - t0
             return results
 
@@ -1434,6 +1458,227 @@ def consistency_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 10: the mean-teacher trainer for 6 steps, burn-up 2 (steps 4-6 past it)
+MT_STEPS, MT_BURNUP = 6, 2
+# the JAX step's loss names (cddmsl_tpu/engine/mean_teacher.py)
+MT_LOSSES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_cls_pseudo", "loss_rpn_cls_pseudo",
+             "loss_D")
+# K1/K3/K4 launches per step, in burn-up and past it: the supervised pass's
+# pool, its backward and the RPN NMS; past burn-up also the teacher's pool
+# and its two NMS (the RPN's and the detections'), and the pseudo-labeled
+# pass's pool, backward and RPN NMS
+MT_LAUNCHES = ((1, 1, 1), (3, 2, 4))
+
+
+@torch.no_grad()
+def mean_teacher_kernel_calls(trainer, batch, draws):
+    """The kernel calls of one mean-teacher step past burn-up, rebuilt
+    outside autograd on the card, in the step's order: the teacher's eval
+    calls on the weak unlabeled view (`eval_kernel_calls`: its pool and its
+    two NMS), then per student pass (the strong labeled view, the strong
+    unlabeled view with the teacher's pseudo-labels) its RPN NMS and its
+    pool of the sampled ROIs. Returns ([(label, features, batch_idx,
+    boxes)], [K4 calls])."""
+    (label_s, _), (unlabel_s, unlabel_w) = batch
+    model, rpn, rh = trainer.model, trainer.model.proposal_generator, trainer.model.roi_heads
+    teacher_pool, nms_calls = eval_kernel_calls(trainer.teacher, unlabel_w)
+    pools = [("teacher", *teacher_pool)]
+    boxes, classes, valid = trainer._pseudo_label(trainer.teacher, unlabel_w)
+    pseudo = unlabel_s._replace(gt_boxes=boxes, gt_classes=classes, gt_valid=valid)
+    for name, b, draw in (("supervised", label_s, draws[0]), ("pseudo", pseudo, draws[1])):
+        f = model.extract_res4(b.image)
+        head = rpn._head(f)
+        nms_calls.append((*rpn._nms_inputs(*head, b.image_sizes, True), rpn.nms_thresh, rpn.post_nms_topk[True]))
+        proposals = rpn._predict_proposals(*head, b.image_sizes, True)
+        sampled = rh.label_and_sample_proposals(proposals, b.gt_boxes, b.gt_classes, b.gt_valid, draw)[0]
+        pools.append((name, *pool_args(f, sampled)))
+    return pools, nms_calls
+
+
+def mean_teacher_path(dev, smi, roi_ops, nms_ops):
+    """SEMISUPNET.Trainer "ateacher" at full width: the trainer
+    `train_net.main` runs for it, on `train_net.setup`'s tree of the VOC
+    recipe with mt_rcnn_instant_test.yaml's keys (8 labeled and 8
+    unlabeled images a step, half of phase 7's fixture labeled, EMA 0.99)
+    for 6 steps with burn-up 2, then the teacher's test. Per step the
+    launches, JAX's loss names, the frozen tensors, the teacher (unchanged
+    in burn-up, the student at its end) and the discriminator (moved past
+    it); then the step on a batch on the card and K1/K3/K4 at the step's
+    own calls. Returns its rows {kernel: row}."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch import train_net
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
+    from cddmsl_torch.data.datasets.voc import register_pascal_voc
+    from cddmsl_torch.engine import mean_teacher
+    from cddmsl_torch.engine.hooks import HookBase
+
+    class Threshold(HookBase):
+        """Before the probe: at the first step past burn-up, BBOX_THRESHOLD
+        0.8, or the highest of 0.5 and 0.3 at which the teacher keeps some
+        boxes of the last step's weak unlabeled view (on the card, outside
+        the step's events and launch counts)."""
+
+        def before_step(self):
+            t = self.trainer
+            if t.state.iteration != MT_BURNUP + 1:
+                return
+            label = mean_teacher.MeanTeacherTrainer._pseudo_label  # not the probe's counting one
+            for thr in (0.8, 0.5, 0.3):
+                t.bbox_threshold = thr
+                t.thresholds.append((thr, int(label(t, t.teacher, t.last_weak)[2].sum())))
+                if t.thresholds[-1][1]:
+                    break
+
+    class MTCheck(HookBase):
+        """After the probe: per step the frozen tensors, the teacher against
+        its start and against the student, the discriminator against its
+        start, one sync outside the step's events."""
+
+        def before_train(self):
+            t = self.trainer
+            self.frozen = {n: (p, p.detach().clone()) for n, p in t.model.named_parameters() if not p.requires_grad}
+            self.teacher0 = {k: v.clone() for k, v in t.teacher.state_dict().items()}
+            self.dis0 = {k: v.clone() for k, v in t.discriminator.state_dict().items()}
+            self.flags = []
+
+        def after_step(self):
+            t = self.trainer
+            teacher, student, dis = t.teacher.state_dict(), t.model.state_dict(), t.discriminator.state_dict()
+            same = lambda a, b: torch.stack([(a[k] == b[k]).all() for k in a]).all()  # noqa: E731
+            flags = torch.stack([torch.stack([(p == v).all() for p, v in self.frozen.values()]).all(),
+                                 same(teacher, self.teacher0), same(teacher, student), same(dis, self.dis0)])
+            self.flags.append(dict(zip(("frozen", "teacher_unchanged", "teacher_is_student", "dis_unchanged"),
+                                       flags.tolist())))
+
+    class ProbedTrainer(mean_teacher.MeanTeacherTrainer):
+        def __init__(self, cfg, device="cuda"):
+            super().__init__(cfg, device)
+            self.step_metrics, self.pseudo_counts, self.thresholds = [], [], []
+
+        def build_hooks(self):
+            self.probe, self.check = StepProbe(roi_ops, nms_ops), MTCheck()
+            return [Threshold(), self.probe] + super().build_hooks() + [self.check]
+
+        def _pseudo_label(self, teacher, weak_batch):
+            out = super()._pseudo_label(teacher, weak_batch)
+            self.pseudo_counts.append(out[2].sum())
+            return out
+
+        def run_step(self, batch):
+            metrics = super().run_step(batch)
+            self.step_metrics.append(metrics)
+            self.last_weak = batch[1][1]
+            return metrics
+
+        def test(self, cfg=None, model=None):
+            t0 = time.perf_counter()
+            results = super().test(cfg, model)
+            self.test_s = time.perf_counter() - t0
+            self.tested = "teacher" if model is self.teacher else "student"
+            return results
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_mean_teacher_")
+    names = ("chip_smoke_mt_trainval", "chip_smoke_mt_test")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    try:
+        voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
+        register_pascal_voc(names[0], voc, "trainval", 2007)
+        register_pascal_voc(names[1], voc, "test", 2007)
+        args = argparse.Namespace(
+            config_file=os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml"),
+            resume=False, eval_only=False, device="cuda", opts=[
+                "OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0",
+                "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
+                "SEMISUPNET.Trainer", "ateacher", "SEMISUPNET.BURN_UP_STEP", str(MT_BURNUP),
+                "SEMISUPNET.EMA_KEEP_RATE", "0.99", "SEMISUPNET.BBOX_THRESHOLD", "0.8",
+                "SEMISUPNET.UNSUP_LOSS_WEIGHT", "0.5", "DATASETS.CROSS_DATASET", "False",
+                "DATASETS.TRAIN", repr((names[0],)), "DATASETS.TEST", repr((names[1],)),
+                "DATALOADER.SUP_PERCENT", "50.0", "SOLVER.IMG_PER_BATCH_LABEL", "8",
+                "SOLVER.IMG_PER_BATCH_UNLABEL", "8", "SOLVER.MAX_ITER", str(MT_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+            ])
+        cfg = train_net.setup(args)  # the tree with the mean-teacher block, as train_net.main builds it
+        trainer = ProbedTrainer(cfg, device="cuda")  # what train_net.main runs for SEMISUPNET.Trainer ateacher
+        trainer.resume_or_load(resume=False)
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        print(f"mean_teacher: train_net's mean-teacher trainer on the VOC recipe with SEMISUPNET.Trainer ateacher "
+              f"({cfg.SOLVER.IMG_PER_BATCH_LABEL} labeled + {cfg.SOLVER.IMG_PER_BATCH_UNLABEL} unlabeled images a "
+              f"step, {cfg.TPU.COMPUTE_DTYPE}, burn-up {MT_BURNUP}, EMA {cfg.SEMISUPNET.EMA_KEEP_RATE}, "
+              f"SUP_PERCENT {cfg.DATALOADER.SUP_PERCENT} of the {TRAIN_NET_IMAGES}-image fixture, seeded random "
+              f"weights); path launches ({MT_STEPS} steps and the teacher's test): {launches}")
+        if min(launches.values()) < 1:
+            fail(f"the mean_teacher path did not go through every kernel: {launches}")
+        print(f"mean_teacher BBOX_THRESHOLD {trainer.bbox_threshold} (boxes kept by the teacher at the first step "
+              f"past burn-up at each threshold tried: {trainer.thresholds})")
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("mean_teacher", trainer.probe, waits, MT_STEPS, MT_BURNUP, MT_LAUNCHES)
+        counts = [int(c) for c in trainer.pseudo_counts]
+        for i, (metrics, flags) in enumerate(zip(trainer.step_metrics, trainer.check.flags)):
+            losses = {k: v.item() for k, v in metrics.items() if k != "total_loss"}
+            past = i > MT_BURNUP
+            want = {"frozen": True, "teacher_unchanged": i < MT_BURNUP, "teacher_is_student": i == MT_BURNUP or None,
+                    "dis_unchanged": not past}
+            bad = {k: v for k, v in flags.items() if want[k] is not None and v != want[k]}
+            if set(losses) != set(MT_LOSSES) or not all(map(math.isfinite, losses.values())) or bad:
+                fail(f"mean_teacher step {i + 1}: losses {losses}, checks {flags} (wrong: {bad})")
+            if past != (losses["loss_D"] > 0):
+                fail(f"mean_teacher step {i + 1}: loss_D {losses['loss_D']}")
+            print(f"mean_teacher step {i + 1}: losses {json.dumps({k: round(v, 6) for k, v in losses.items()})}, "
+                  f"pseudo-boxes {counts[i - MT_BURNUP - 1] if past else 'none (burn-up)'}; {flags}")
+        if len(counts) != MT_STEPS - MT_BURNUP - 1 or not any(counts):
+            fail(f"mean_teacher pseudo-box counts {counts}")
+        warm = per_step[MT_BURNUP + 2:]  # past burn-up, after its first step
+        mean = lambda xs: sum(xs) / len(xs)
+        print(f"mean_teacher loop, steps {MT_BURNUP + 3}-{MT_STEPS} (past burn-up): "
+              f"{mean([p[0] for p in warm]):.3f} ms/iteration CUDA events, {mean([p[1] for p in warm]):.3f} "
+              f"ms/iteration host wall, {mean([p[2] for p in warm]):.3f} ms/iteration waiting on the loader; "
+              f"whole loop {trainer.probe.loop_s * 1e3 / MT_STEPS:.3f} ms/iteration host wall; on {smi}")
+
+        n_test = -(-TRAIN_NET_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple((launches[k] - trainer.probe.loop_launches[k]) / n_test for k in keys)
+        if trainer.tested != "teacher" or per_batch != (1, 0, 2):
+            fail(f"the final test evaluated the {trainer.tested}, launching K1/K3/K4 {per_batch} per batch")
+        ap = {k: round(v, 4) for k, v in results[names[1]]["bbox"].items() if k in ("AP", "AP50", "AP75")}
+        print(f"mean_teacher teacher test: {trainer.test_s * 1e3 / TRAIN_NET_IMAGES:.3f} ms/image, launches per "
+              f"batch K1/K3/K4 {per_batch}; AP (random weights, not judged) {json.dumps(ap)}")
+
+        with trainer.build_train_loader() as loader:
+            batch = trainer.batch_to_device(next(loader))
+        time_device_batch("mean_teacher", trainer, batch, what="past burn-up, EMA every step")
+        # where the step's time goes: the teacher's pseudo-labels on 8 weak
+        # images and the EMA over the teacher's state; the rest is the two
+        # student passes with their backward, the discriminator and the
+        # two optimizer steps
+        teacher_ms = cuda_ms(lambda: trainer._pseudo_label(trainer.teacher, batch[1][1]), 5)
+        ema_ms = cuda_ms(lambda: trainer._update_teacher(MT_BURNUP + 1), 5)
+        n_teacher = sum(v.numel() for v in trainer.teacher.state_dict().values())
+        print(f"mean_teacher step parts (CUDA events): the teacher's pseudo-labels {teacher_ms:.3f} ms, the EMA over "
+              f"{n_teacher} teacher values {ema_ms:.3f} ms; on {smi}")
+        pools, nms_calls = mean_teacher_kernel_calls(trainer, batch, (site_draw(dev), site_draw(dev)))
+        rows = {k: new_row(launches[k]) for k in keys[:2]}
+        add_roi_rows(rows, dev, roi_ops, "mean_teacher", pools, ["supervised", "pseudo"])
+        out = {k: close_row(row) for k, row in rows.items()}
+        out["nms"] = nms_row(nms_ops, "mean_teacher", launches["nms"], nms_calls)
+        print(f"mean_teacher phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return out
+    finally:
+        for name in names:
+            DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1475,6 +1720,8 @@ def main() -> int:
     paths["adverse_weather"] = adverse_weather_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["consistency"] = consistency_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["mean_teacher"] = mean_teacher_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

@@ -4,6 +4,8 @@ cddmsl_torch/checkpoint/convert_jax.py: res4, res5_forward and
 attnpool_forward agree to rtol 1e-4, atol 1e-5 (the two frameworks sum the
 convolutions in different orders)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +13,10 @@ import pytest
 import torch
 
 from cddmsl_tpu.models.backbone.clip_resnet import ModifiedResNet as JaxModifiedResNet
+from cddmsl_torch.checkpoint import convert_jax
 from cddmsl_torch.checkpoint.convert_jax import convert_jax_params
 from cddmsl_torch.models.backbone.clip_resnet import ModifiedResNet
+from cddmsl_torch.models.build import build_model
 
 torch.set_num_threads(1)
 
@@ -41,6 +45,57 @@ def fill_params(shapes, seed=0):
         return r.randn(*s.shape) * s.shape[-1] ** -0.5  # embeddings
 
     return jax.tree_util.tree_map_with_path(lambda p, s: np.asarray(leaf(p, s), np.float32), shapes)
+
+
+def _inverse_rules():
+    """(port key regex, JAX path builder, layout) for each rule of
+    `convert_jax_params`: the template's back-references become named
+    groups, the pattern's groups take their values back."""
+    out = []
+    for pattern, template, layout in convert_jax._RULES:
+        groups = re.findall(r"\(([^()]*)\)", pattern)
+        regex, seen = "", set()
+        for i, part in enumerate(re.split(r"\\(\d)", template)):
+            if i % 2 == 0:
+                regex += re.escape(part)
+            else:
+                regex += f"(?P=g{part})" if part in seen else f"(?P<g{part}>{groups[int(part) - 1]})"
+                seen.add(part)
+        pieces = re.split(r"\([^()]*\)", pattern)  # the literal text around the pattern's groups
+        out.append((re.compile(regex), pieces, layout))
+    return out
+
+
+_INVERSE_LAYOUT = {"conv": lambda s: (s[2], s[3], s[1], s[0]), "dense": lambda s: (s[1], s[0]), "copy": tuple}
+
+
+def jax_param_shapes(model_config):
+    """The JAX GeneralizedRCNN parameter tree (`ShapeDtypeStruct` leaves)
+    of the configuration `model_config` (a port `ModelConfig`), read off the
+    port's training build through the inverse of `convert_jax_params`. It
+    equals `eval_shape` of the JAX model's `init_all`
+    (tests/test_torch_port_train.py holds the two equal) without tracing the
+    JAX model, so `fill_params` fills it with the same values."""
+    rules, tree = _inverse_rules(), {}
+    for key, value in build_model(model_config, device="cpu", training=True).state_dict().items():
+        offline = key.startswith(convert_jax._OFFLINE + ".")
+        name = "backbone" + key[len(convert_jax._OFFLINE):] if offline else key
+        for regex, pieces, layout in rules:
+            m = regex.fullmatch(name)
+            if m:
+                groups = [m.group(f"g{i}") for i in range(1, len(pieces))]
+                path = pieces[0] + "".join(g + p for g, p in zip(groups, pieces[1:]))
+                break
+        else:
+            raise KeyError(key)
+        if offline:
+            path = convert_jax._OFFLINE + path[len("backbone"):]
+        *nodes, leaf = path.split("/")
+        node = tree
+        for n in nodes:
+            node = node.setdefault(n, {})
+        node[leaf] = jax.ShapeDtypeStruct(_INVERSE_LAYOUT[layout](tuple(value.shape)), jnp.float32)
+    return {"params": tree}
 
 
 @pytest.fixture(scope="module")
@@ -115,8 +170,11 @@ def test_converter_rejects_unknown_keys(backbones):
     extra = {"backbone": params["params"], "mystery_head": {"kernel": np.zeros((2, 2), np.float32)}}
     with pytest.raises(KeyError, match="mystery_head"):
         convert_jax_params(extra)
-    skipped = {"backbone": params["params"], "image_projector": {"fc1": {"kernel": np.zeros((2, 2), np.float32)}}}
-    assert convert_jax_params(skipped).keys() == convert_jax_params({"backbone": params["params"]}).keys()
+    # the image projector maps whatever the branch (every training build holds it)
+    projector = {"backbone": params["params"], "image_projector": {"fc1": {"kernel": np.zeros((2, 3), np.float32)}}}
+    got = convert_jax_params(projector)
+    assert got.keys() == convert_jax_params({"backbone": params["params"]}).keys() | {"image_projector.fc1.weight"}
+    assert got["image_projector.fc1.weight"].shape == (3, 2)
     # the offline backbone is the backbone's tree under its own name
     both = convert_jax_params({"backbone": params["params"], "offline_backbone": params["params"]})
     ours = convert_jax_params({"backbone": params["params"]})

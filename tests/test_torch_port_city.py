@@ -19,7 +19,8 @@ load order and `python -m cddmsl_torch.train_net` on the tiny recipe.
   detections of every test batch, fed to JAX's loaders and evaluators,
   give the port's AP dicts.
 
-No JAX step is compiled: the JAX parameters come from `eval_shape`. A test
+No JAX step is compiled: the JAX parameters' shapes come from
+`jax_param_shapes`, those of `eval_shape`. A test
 that reads the builtin names registers them at its fixture's root into empty
 catalogs (`builtins_at`), which are put back after it.
 """
@@ -28,12 +29,10 @@ import json
 import os
 from pathlib import Path
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from __graft_entry__ import _synthetic_batch
 from cddmsl_tpu.checkpoint.convert_torch import detect_dialect as jax_detect_dialect
 from cddmsl_tpu.checkpoint.convert_torch import load_rcnn_weights as jax_load_rcnn_weights
 from cddmsl_tpu.config import get_cfg as jax_get_cfg
@@ -47,7 +46,6 @@ from cddmsl_tpu.data.datasets.synthetic import make_synthetic_coco as jax_make_s
 from cddmsl_tpu.engine.defaults import build_evaluator as jax_build_evaluator
 from cddmsl_tpu.evaluation import COCOEvaluator as JaxCOCOEvaluator
 from cddmsl_tpu.evaluation import inference_on_dataset as jax_inference_on_dataset
-from cddmsl_tpu.models import build_model as jax_build_model
 from cddmsl_tpu.models.fast_rcnn import DetectionResult
 from cddmsl_torch import train_net
 from cddmsl_torch.checkpoint.checkpointer import DetectionCheckpointer, is_port_save
@@ -64,7 +62,7 @@ from cddmsl_torch.evaluation import COCOEvaluator
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.models.rcnn import GeneralizedRCNN
 from cddmsl_torch.solver.build import build_optimizer
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, jax_param_shapes
 
 torch.set_num_threads(1)
 
@@ -112,16 +110,11 @@ def _tiny_cfg(**overrides):
 
 @pytest.fixture(scope="module")
 def tiny_params():
-    """The tiny adverse-weather model's JAX parameters: shapes from
-    `eval_shape`, seeded values."""
+    """The tiny adverse-weather model's JAX parameters: shapes of
+    `jax_param_shapes` (those of `eval_shape`), seeded values."""
     ref = jax_get_cfg()
     ref.merge_from_file(str(CITY_TINY))
-    model = jax_build_model(ref)
-    shapes = jax.eval_shape(
-        lambda r, b: model.init({"params": r}, b, r, method=model.init_all),
-        jax.random.PRNGKey(0), _synthetic_batch(1, 64, 64, g=2),
-    )
-    return fill_params(shapes, seed=11)
+    return fill_params(jax_param_shapes(model_config_from_cfg(ref)), seed=11)
 
 
 def _port_model(params):

@@ -24,13 +24,15 @@ The module compiles one JAX program of steps (the "image_region" step
 chained with the pl step) and one of the four branch methods.
 """
 
+import contextlib
+import copy
 import dataclasses
 import io
-import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from PIL import Image
@@ -46,7 +48,7 @@ from cddmsl_tpu.models.gpt2 import convert_hf_gpt2 as jax_convert_hf_gpt2
 from cddmsl_tpu.solver import build_lr_schedule as jax_build_lr_schedule
 from cddmsl_tpu.solver import build_optimizer as jax_build_optimizer
 from cddmsl_torch import gen_captions
-from cddmsl_torch.checkpoint.convert_jax import convert_jax_caption_params, convert_jax_params
+from cddmsl_torch.checkpoint.convert_jax import convert_jax_caption_params, convert_jax_params, init_random_
 from cddmsl_torch.checkpoint.convert_torch import convert_hf_gpt2, load_gpt2
 from cddmsl_torch.config import check_supported, flagship_config, flagship_solver_config, get_cfg
 from cddmsl_torch.engine.defaults import DefaultTrainer
@@ -57,7 +59,7 @@ from cddmsl_torch.models.caption import ClipCaptionModel
 from cddmsl_torch.models.gpt2 import GPT2Config
 from cddmsl_torch.solver.build import build_optimizer
 from test_consistency_branches import _CASES as JAX_BRANCH_LOSSES
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, jax_param_shapes
 from test_torch_port_engine import TINY_RECIPE, _tiny_cfg, fixture_root  # noqa: F401 (a fixture)
 from test_torch_port_train import _jax_draws, _replay, _torch_batch
 
@@ -246,17 +248,12 @@ def tiny_jax():
     cfg = _flagship_cfg(tiny=True)
     model = jax_build_model(cfg)
     jb = _synthetic_batch(B, H, W, g=G, seed=0)
-    shapes = jax.eval_shape(
-        lambda r, b: model.init({"params": r}, b, r, method=model.init_all), jax.random.PRNGKey(0), jb
-    )
-    return cfg, model, jb, fill_params(shapes, seed=5)
+    return cfg, model, jb, fill_params(jax_param_shapes(flagship_config(tiny=True)), seed=5)
 
 
-def _port_model(params, branch="image_region"):
-    ours = build_model(dataclasses.replace(flagship_config(tiny=True), consistency_branch=branch), device="cpu",
-                       training=True)
-    ours.load_state_dict(convert_jax_params(params, image_projector=branch in ("image", "image_region")),
-                         strict=True)
+def _port_model(params):
+    ours = build_model(flagship_config(tiny=True), device="cpu", training=True)
+    ours.load_state_dict(convert_jax_params(params), strict=True)
     return ours
 
 
@@ -294,27 +291,12 @@ def test_branch_methods_equal_jax(tiny_jax):
 
 
 def test_only_the_language_free_branches_build_the_image_projector():
-    for branch in ("", "caption_pl_img", "caption_pl_region", "image", "image_region"):
-        m = build_model(dataclasses.replace(flagship_config(tiny=True), consistency_branch=branch), device="cpu",
-                        training=True)
-        assert hasattr(m, "image_projector") == (branch in ("image", "image_region")), branch
-    serving = build_model(dataclasses.replace(flagship_config(tiny=True), consistency_branch="image"), device="cpu")
-    assert not hasattr(serving, "image_projector")
-
-
-def test_a_save_restores_only_under_the_branch_it_was_trained_with():
-    """A save of the "" build lacks image_projector and one of the "image"
-    build holds it, so each raises in the other, naming the key."""
-    solver = flagship_solver_config(tiny=True)
-    trainers = {}
-    for branch in ("", "image"):
-        m = build_model(dataclasses.replace(flagship_config(tiny=True), consistency_branch=branch), device="cpu",
-                        training=True)
-        trainers[branch] = Trainer(m, build_optimizer(m, solver), consistency_branch=branch)
-    for src, dst in (("", "image"), ("image", "")):
-        with pytest.raises(KeyError, match="image_projector.*MODEL.CONSISTENCY_BRANCH"):
-            trainers[dst].load_state_dict(trainers[src].state_dict())
-    trainers[""].load_state_dict(trainers[""].state_dict())
+    """Every training build holds the image projector, whatever the branch,
+    as JAX's parameter tree does; only the language-free branches train it.
+    The serving build leaves it out."""
+    training = build_model(flagship_config(tiny=True), device="cpu", training=True)
+    assert isinstance(training.image_projector, torch.nn.Module)
+    assert not hasattr(build_model(flagship_config(tiny=True), device="cpu"), "image_projector")
 
 
 @pytest.fixture(scope="module")
@@ -338,9 +320,9 @@ def step_runs(tiny_jax, captioner):
     def chain(s, b):
         s1, m1 = main.__wrapped__(s, b, rng)
         s2, m2 = pl.__wrapped__(s1, b, rng_pl)
-        return s1.params, m1, s2.params, m2, s2.opt_state
+        return s1.params, m1, s2.params, m2, s1.opt_state
 
-    p1, m1, p2, m2, _ = jax.jit(chain)(TrainState.create(params, optimizer), jb)
+    p1, m1, p2, m2, opt1 = jax.jit(chain)(TrainState.create(params, optimizer), jb)
 
     solver = dataclasses.replace(flagship_solver_config(tiny=True), warmup_iters=1, warmup_factor=0.1)
     ours = _port_model(params)
@@ -353,16 +335,17 @@ def step_runs(tiny_jax, captioner):
     draws = {**_jax_draws(rng, B, anchors, k, G), **_region_draws(jax.random.fold_in(rng, 7), "image_region")}
     got_m1 = trainer.train_step(_torch_batch(jb), _replay(draws))
     got_p1 = {k: v.clone() for k, v in ours.state_dict().items()}
+    region_save = copy.deepcopy(trainer.state_dict())
     got_m2 = make_caption_pl_step(ours, cap, opt, level="region", max_len=MAX_LEN, loss_weight=0.1)(
         _torch_batch(jb), _replay(_region_draws(rng_pl, "caption_pl_region")))
     return dict(want=(p1, m1, p2, m2), got=(got_p1, got_m1, ours.state_dict(), got_m2), before=before,
-                trainer=trainer, schedule=opt.schedule)
+                trainer=trainer, schedule=opt.schedule, region_save=(region_save, p1, opt1), draws=draws, cfg=cfg)
 
 
 def _params_close(got_state, want_params, before, trainable):
     """Every parameter and buffer within 1e-6 of JAX's, the frozen ones
     unchanged bit for bit; returns how many trainable ones moved."""
-    want = convert_jax_params(want_params, image_projector=True)
+    want = convert_jax_params(want_params)
     assert got_state.keys() == want.keys()
     moved = 0
     for name, value in got_state.items():
@@ -397,6 +380,66 @@ def test_pl_step_after_it_equals_jax_with_the_doubled_count(step_runs):
     schedule = step_runs["schedule"]
     assert schedule(1) == pytest.approx(10 * schedule(0))
     assert any(not torch.equal(got_p2[k], got_p1[k]) for k in got_p2 if k.startswith("backbone.layer3"))
+
+
+def _port_momentum(trainer, prefix):
+    """{name: momentum buffer} of the trainer's parameters under `prefix`."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    state = trainer.optimizer.sgd.state
+    return {names[id(p)]: state[p]["momentum_buffer"] for p in trainer.optimizer.params
+            if names[id(p)].startswith(prefix)}
+
+
+def _jax_momentum(opt_state):
+    """The momentum tree (optax.trace's) of a JAX optimizer state."""
+    is_trace = lambda x: isinstance(x, optax.TraceState)  # noqa: E731
+    return next(x for x in jax.tree_util.tree_leaves(opt_state, is_leaf=is_trace) if is_trace(x)).trace
+
+
+def test_a_save_restores_under_any_branch_with_jax_projector_and_momentum(tiny_jax, step_runs):
+    """The training build holds `image_projector` whatever the branch, as
+    JAX's tree does, so a save of one branch restores under another. The
+    "image_region" step of `step_runs` trains the projector; a "" step from
+    the same weights and draws gives it a zero gradient, so it decays and
+    takes the decay as its momentum. In JAX that part of the "" step is its
+    optimizer (clip by value, decay, momentum: leaf by leaf) on the
+    projector's zero gradient. Each save, restored under the other branch,
+    holds JAX's projector and momentum (1e-6)."""
+    _, _, jb, params = tiny_jax
+    cfg = step_runs["cfg"]
+    solver = dataclasses.replace(flagship_solver_config(tiny=True), warmup_iters=1, warmup_factor=0.1)
+    ours = _port_model(params)
+    plain = Trainer(ours, build_optimizer(ours, solver), caption_burnup_iters=solver.caption_burnup_iters)
+    plain.train_step(_torch_batch(jb), _replay(step_runs["draws"]))
+
+    sub = {"params": {"image_projector": params["params"]["image_projector"]}}
+    optimizer = jax_build_optimizer(cfg, sub)
+    zeros = jax.tree_util.tree_map(np.zeros_like, sub)
+    updates, opt0 = jax.jit(optimizer.update)(zeros, optimizer.init(sub), sub)
+    p0 = optax.apply_updates(sub, updates)
+
+    region_save, p1, opt1 = step_runs["region_save"]
+    for save, branch, want_params, want_opt in ((copy.deepcopy(plain.state_dict()), "image_region", p0, opt0),
+                                                 (region_save, "", p1, opt1)):
+        m = build_model(flagship_config(tiny=True), device="cpu", training=True)
+        init_random_(m, torch.Generator().manual_seed(9))
+        restored = Trainer(m, build_optimizer(m, solver), consistency_branch=branch)
+        restored.load_state_dict(save)
+        want = convert_jax_params(want_params)
+        want_momentum = convert_jax_params(_jax_momentum(want_opt))
+        got = {k: v for k, v in m.state_dict().items() if k.startswith("image_projector.")}
+        got_momentum = _port_momentum(restored, "image_projector.")
+        assert len(got) == len(got_momentum) == 4 and restored.optimizer.count == 1
+        for name, value in {**got, **{f"momentum {k}": v for k, v in got_momentum.items()}}.items():
+            key = name.removeprefix("momentum ")
+            ref = want_momentum[key] if name.startswith("momentum") else want[key]
+            np.testing.assert_allclose(_np(value), _np(ref), rtol=0, atol=1e-6, err_msg=f"{branch!r}: {name}")
+    # the "" step's momentum is the decay alone; the "image_region" step's adds the projector's gradient
+    w = params["params"]["image_projector"]["fc1"]["kernel"].T
+    decay = _np(_port_momentum(plain, "image_projector.fc1.weight")["image_projector.fc1.weight"])
+    np.testing.assert_allclose(decay, solver.weight_decay * w, rtol=1e-6, atol=0)
+    trained = convert_jax_params(_jax_momentum(opt1))["image_projector.fc1.weight"]
+    assert np.abs(_np(trained) - decay).max() > 1e-6
 
 
 # ---------------- the trainer ----------------

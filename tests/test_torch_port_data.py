@@ -32,7 +32,7 @@ import optax
 import pytest
 import torch
 
-from __graft_entry__ import _flagship_cfg, _synthetic_batch
+from __graft_entry__ import _flagship_cfg
 from cddmsl_tpu.config import get_cfg as jax_get_cfg
 from cddmsl_tpu.data import DatasetCatalog as JaxDatasetCatalog
 from cddmsl_tpu.data import MetadataCatalog as JaxMetadataCatalog
@@ -53,10 +53,9 @@ from cddmsl_tpu.checkpoint.convert_torch import load_text_emb_classifier as jax_
 from cddmsl_torch.checkpoint.convert_jax import convert_jax_params
 from cddmsl_torch.checkpoint.convert_torch import load_clipcap_mapper, load_offline_backbone, load_text_emb_classifier
 from cddmsl_torch.config import (
-    SolverConfig, check_supported, flagship_config, flagship_solver_config, get_cfg,
+    SolverConfig, add_ateacher_config, check_supported, flagship_config, flagship_solver_config, get_cfg,
     model_config_from_cfg, solver_config_from_cfg,
 )
-from cddmsl_torch.config.cfg_node import CfgNode
 from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, build_detection_train_loader
 from cddmsl_torch.data import register_all
 from cddmsl_torch.data.dataset_mapper import DatasetMapper
@@ -67,7 +66,7 @@ from cddmsl_torch.evaluation import PascalVOCDetectionEvaluator, inference_on_da
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.ops.resize import resize_bilinear_grid
 from cddmsl_torch.solver.build import Optimizer, build_lr_schedule
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, jax_param_shapes
 
 torch.set_num_threads(1)
 
@@ -162,7 +161,8 @@ def test_keys_the_port_does_not_read_raise():
     cfg = _text_emb_cfg()
     with pytest.raises(NotImplementedError, match="TPU.PALLAS_ROI_ALIGN"):
         cfg.merge_from_list(["TPU.PALLAS_ROI_ALIGN", "True"])
-    cfg["SEMISUPNET"] = CfgNode({"Trainer": "ateacher"})
+    add_ateacher_config(cfg)
+    cfg.SEMISUPNET.Trainer = "baseline"  # "ateacher" is ported (tests/test_torch_port_mean_teacher.py)
     with pytest.raises(NotImplementedError, match="SEMISUPNET.Trainer"):
         check_supported(cfg)
     register_all()
@@ -313,13 +313,8 @@ def test_voc_evaluator_equals_jax(dataset, target):
 
 @pytest.fixture(scope="module")
 def tiny_jax_params():
-    _, ref = _both_cfgs(TINY_RECIPE)
-    model = jax_build_model(ref)
-    shapes = jax.eval_shape(
-        lambda r, b: model.init({"params": r}, b, r, method=model.init_all),
-        jax.random.PRNGKey(0), _synthetic_batch(1, 64, 64, g=2),
-    )
-    return model, fill_params(shapes, seed=9)
+    ours, ref = _both_cfgs(TINY_RECIPE)
+    return jax_build_model(ref), fill_params(jax_param_shapes(model_config_from_cfg(ours)), seed=9)
 
 
 def test_inference_on_dataset_equals_jax(fixture_data, tiny_jax_params):

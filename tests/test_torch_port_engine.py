@@ -43,7 +43,7 @@ from cddmsl_torch.engine.defaults import DefaultPredictor, DefaultTrainer
 from cddmsl_torch.engine.train_loop import Trainer
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.solver.build import build_optimizer
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, jax_param_shapes
 from test_torch_port_train import _jax_draws, _replay, _torch_batch
 
 torch.set_num_threads(1)
@@ -59,10 +59,7 @@ def tiny_jax():
     cfg = _flagship_cfg(tiny=True)
     model = jax_build_model(cfg)
     jb = _synthetic_batch(B, H, W, g=G, seed=0)
-    shapes = jax.eval_shape(
-        lambda r, b: model.init({"params": r}, b, r, method=model.init_all), jax.random.PRNGKey(0), jb
-    )
-    return cfg, model, jb, fill_params(shapes, seed=5)
+    return cfg, model, jb, fill_params(jax_param_shapes(flagship_config(tiny=True)), seed=5)
 
 
 def _port_trainer(params, **kwargs):

@@ -34,7 +34,7 @@ from cddmsl_torch.config import flagship_config
 from cddmsl_torch.entry import entry, synthetic_batch
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.models.rcnn import DetBatch
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, jax_param_shapes
 
 torch.set_num_threads(1)
 
@@ -58,11 +58,7 @@ def both_runs():
     image, image_sizes, orig_sizes = _inputs()
     cfg = _flagship_cfg(tiny=True)
     model = jax_build_model(cfg)
-    init_batch = _synthetic_batch(1, 64, 64, g=2)
-    shapes = jax.eval_shape(
-        lambda r, b: model.init({"params": r}, b, r, method=model.init_all), jax.random.PRNGKey(0), init_batch
-    )
-    params = fill_params(shapes, seed=5)
+    params = fill_params(jax_param_shapes(flagship_config(tiny=True)), seed=5)
 
     def run(m, b):
         features = m.backbone(m._normalize(b.image))["res4"]

@@ -15,14 +15,13 @@ the class shift), and a region branch's, rebuilt by `branch_kernel_calls`,
 what the branch hands to them.
 """
 
-import dataclasses
-
 import pytest
 import torch
 
 import chip_smoke
 from cddmsl_torch.checkpoint.convert_jax import init_random_
-from cddmsl_torch.config import flagship_config, flagship_solver_config
+from cddmsl_torch.config import add_ateacher_config, flagship_config, flagship_solver_config, get_cfg
+from cddmsl_torch.engine.mean_teacher import MeanTeacherTrainer
 from cddmsl_torch.engine.train_loop import Trainer
 from cddmsl_torch.entry import synthetic_batch
 from cddmsl_torch.models import roi_heads, rpn
@@ -208,7 +207,7 @@ def test_branch_kernel_calls_are_the_region_branchs_own(monkeypatch, branch):
     """`branch_kernel_calls` rebuilds what the region branch hands to
     `roi_align_batched` (the source pool, then the translated one) and to
     the RPN's `nms`, exactly, with the same draws."""
-    cfg = dataclasses.replace(flagship_config(tiny=True), consistency_branch=branch)
+    cfg = flagship_config(tiny=True)
     model = build_model(cfg, device="cpu", training=True)
     init_random_(model, torch.Generator().manual_seed(6))
     batch = synthetic_batch(2, 128, 160, seed=4, device="cpu")
@@ -243,3 +242,48 @@ def test_branch_kernel_calls_are_the_region_branchs_own(monkeypatch, branch):
         for x, y in zip(got, want):
             assert torch.equal(x, y), label
     assert torch.equal(pool_calls[0][3], pool_calls[1][3]) and not torch.equal(pool_calls[0][1], pool_calls[1][1])
+
+
+def test_mean_teacher_kernel_calls_are_the_steps_own(monkeypatch, tmp_path):
+    """`mean_teacher_kernel_calls` rebuilds what a mean-teacher step past
+    burn-up hands to `roi_align_batched` (the teacher's pool, each student
+    pass's) and to the RPN's `nms` (the teacher's, each student pass's),
+    exactly, with the same draws; the teacher's detection NMS is
+    `eval_kernel_calls`' (held against inference by its own test)."""
+    cfg = get_cfg()
+    add_ateacher_config(cfg)
+    cfg.merge_from_file(str(chip_smoke.__file__).replace("chip_smoke.py", "cddmsl_torch/configs/mt_tiny.yaml"))
+    cfg.OUTPUT_DIR = str(tmp_path)
+    trainer = MeanTeacherTrainer(cfg, device="cpu")
+    trainer.bbox_threshold = 0.0  # every detection a pseudo-label: the pseudo pass samples some
+    trainer.state.iteration = cfg.SEMISUPNET.BURN_UP_STEP + 1
+    views = [synthetic_batch(2, 96, 160, seed=s, device="cpu") for s in range(4)]
+    draws = (chip_smoke.site_draw("cpu"), chip_smoke.site_draw("cpu"))
+    pool_calls, nms_calls = chip_smoke.mean_teacher_kernel_calls(trainer, ((views[0], views[1]),
+                                                                           (views[2], views[3])), draws)
+
+    pools, nmss = [], []
+    pool, nms = roi_heads.roi_align_batched, rpn.nms
+
+    def pool_spy(features, batch_idx, boxes, *args):
+        pools.append((features.detach().clone(), batch_idx.clone(), boxes.detach().clone()))
+        return pool(features, batch_idx, boxes, *args)
+
+    def nms_spy(boxes, scores, iou_threshold, max_out, valid=None):
+        nmss.append((boxes.clone(), scores.clone(), valid.clone(), iou_threshold, max_out))
+        return nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+    monkeypatch.setattr(roi_heads, "roi_align_batched", pool_spy)
+    monkeypatch.setattr(rpn, "nms", nms_spy)
+    trainer.mt_step(*views, *draws)
+    assert [label for label, *_ in pool_calls] == ["teacher", "supervised", "pseudo"]
+    # the step's order: the supervised pass, the teacher, the pseudo-labeled pass
+    for (label, *got), want in zip([pool_calls[1], pool_calls[0], pool_calls[2]], pools, strict=True):
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), label
+    rpn_calls = [nms_calls[0], nms_calls[2], nms_calls[3]]  # the teacher's RPN, then the two student RPNs'
+    for got, want in zip([rpn_calls[1], rpn_calls[0], rpn_calls[2]], nmss, strict=True):
+        for x, y in zip(got[:3], want[:3]):
+            assert torch.equal(x, y)
+        assert got[3:] == want[3:]
+    assert len(nms_calls) == 4 and nms_calls[1][3:] == (0.5, 100)  # the teacher's detection NMS (eval_kernel_calls)

@@ -64,7 +64,7 @@ from cddmsl_torch.models.sampling import gather_selected, subsample_labels
 from cddmsl_torch.ops.box_regression import Box2BoxTransform
 from cddmsl_torch.ops.resize import resize_bicubic
 from cddmsl_torch.solver.build import Optimizer, build_lr_schedule, build_optimizer
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, jax_param_shapes
 
 torch.set_num_threads(1)
 
@@ -325,11 +325,13 @@ def test_optimizer_steps_like_optax():
 
 def test_only_the_training_build_holds_the_caption_modules():
     """Serving leaves out the offline backbone, the ClipCap mapper and the
-    projector; the training build adds exactly those."""
+    projectors; the training build adds exactly those (the image projector
+    whatever MODEL.CONSISTENCY_BRANCH, as JAX's tree holds it)."""
     serve = build_model(flagship_config(tiny=True), device="cpu").state_dict()
     train = build_model(flagship_config(tiny=True), device="cpu", training=True).state_dict()
     assert serve.keys() <= train.keys()
-    assert {k.split(".")[0] for k in train.keys() - serve.keys()} == {"offline_backbone", "v2l_mapper", "projector"}
+    assert {k.split(".")[0] for k in train.keys() - serve.keys()} == {"offline_backbone", "v2l_mapper", "projector",
+                                                                      "image_projector"}
 
 
 def test_caption_branches_are_off_until_burn_up():
@@ -418,7 +420,7 @@ def step_runs():
     trainer = Trainer(ours2, opt2, caption_burnup_iters=solver.caption_burnup_iters, iteration=burnup + 1)
     got_metrics = trainer.train_step(tb, _replay(draws))
     return dict(
-        want_losses=losses, want_grads=convert_jax_params(grads), want_metrics=metrics,
+        shapes=shapes, want_losses=losses, want_grads=convert_jax_params(grads), want_metrics=metrics,
         want_params=convert_jax_params(new_state.params), trainable=convert_jax_params(mask_arrays),
         got_losses=got_losses, got_grads=got_grads, got_metrics=got_metrics, model=ours2, before=before,
         trainer=trainer,
@@ -444,6 +446,9 @@ def test_step_gradients_equal_jax(step_runs):
     floor = 1e-6 * max(np.abs(want[name].numpy()).max() for name in got)
     for name, g in got.items():
         w = want[name].numpy()
+        if name.startswith("image_projector."):  # no loss of this step reaches it: zero in JAX, none here
+            assert g is None and not w.any(), name
+            continue
         scale = np.abs(w).max()
         assert scale > 0, name
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=max(1e-3 * scale, floor), err_msg=name)
@@ -470,3 +475,12 @@ def test_parameters_after_one_step_equal_jax(step_runs):
             assert torch.equal(value, before[name]), f"frozen {name} changed"
     assert moved == sum(p.requires_grad for p in step_runs["model"].parameters())
     assert step_runs["trainer"].iteration == _flagship_cfg(tiny=True).SOLVER.CAPTION_BURNUP_ITERS + 2
+
+
+def test_jax_param_shapes_equal_eval_shape(step_runs):
+    """The shapes the other port tests fill, read off the port's training
+    build, are those of `eval_shape` of JAX's `init_all`, leaf for leaf."""
+    want, got = step_runs["shapes"], jax_param_shapes(flagship_config(tiny=True))
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert (g.shape, g.dtype) == (w.shape, w.dtype)
