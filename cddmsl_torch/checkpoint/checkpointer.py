@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ..parallel import comm
 from .convert_torch import load_rcnn_weights
 
 logger = logging.getLogger(__name__)
@@ -61,21 +62,24 @@ class DetectionCheckpointer:
     def save(self, name: str, state) -> str:
         """Writes `state.state_dict()` to `<name>.pth` (through a temporary
         file, so a cut save leaves the last one whole) and points the
-        marker at it."""
+        marker at it. Under a process group rank 0 writes (every rank holds
+        the same state) and the ranks meet at a barrier after it."""
         path = os.path.join(self.save_dir, name + ".pth")
-        tmp = path + ".tmp"
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, path)
-        with open(os.path.join(self.save_dir, _LAST), "w") as f:
-            f.write(name + ".pth")
-        logger.info("Saved checkpoint to %s", path)
+        if comm.is_main_process():
+            tmp = path + ".tmp"
+            torch.save(state.state_dict(), tmp)
+            os.replace(tmp, path)
+            with open(os.path.join(self.save_dir, _LAST), "w") as f:
+                f.write(name + ".pth")
+            logger.info("Saved checkpoint to %s", path)
         if name not in _PROTECTED:
             self._recent.append(path)
             self._gc()
+        comm.synchronize()
         return path
 
     def _gc(self) -> None:
-        if self.max_to_keep <= 0:
+        if self.max_to_keep <= 0 or not comm.is_main_process():
             return
         while len(self._recent) > self.max_to_keep:
             victim = self._recent.pop(0)
@@ -96,7 +100,8 @@ class DetectionCheckpointer:
     @staticmethod
     def read(path: str) -> Optional[Dict]:
         """A file written by `save`, read on the CPU (restoring copies it onto
-        the model's and the optimizer's devices); None for any other file.
+        the model's and the optimizer's devices, each rank onto its own);
+        None for any other file.
         `save` writes tensors, numbers and strings only, so the file is read
         with `weights_only`; one that needs more is not ours."""
         try:

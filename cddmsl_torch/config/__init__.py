@@ -20,6 +20,7 @@ import dataclasses
 import logging
 from typing import Any, Callable, Optional, Tuple
 
+from ..parallel import comm
 from .ateacher import add_ateacher_config
 from .cfg_node import CfgNode
 from .defaults import get_cfg
@@ -180,7 +181,6 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("SOLVER.CLIP_GRADIENTS.CLIP_TYPE", lambda v: v in ("value", "norm")),
     ("TEST.AUG.ENABLED", _falsy),
     ("TEST.PRECISE_BN.ENABLED", _falsy),
-    ("TPU.MESH_SHAPE", lambda v: list(v) in ([-1], [1])),
     ("TPU.SPATIAL_PARTITION", _falsy),
     ("TPU.FSDP", _falsy),
     ("TPU.PIPELINE_AXIS", _falsy),
@@ -211,14 +211,21 @@ _SUPPORTED_SEMISUP: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 )
 
 
-def check_supported(cfg) -> None:
+def check_supported(cfg, world: Optional[int] = None) -> None:
     """Raises NotImplementedError naming the first key set to a value the
-    port does not implement (on one device: no mesh, no sharding)."""
+    port does not implement. The port's only mesh is data parallelism over
+    the processes: TPU.MESH_SHAPE is [-1] (every rank) or [world], `world`
+    being the process group's size unless given."""
     checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
     for key, ok in checks:
         value = _lookup(cfg, key)
         if not ok(value):
             raise NotImplementedError(f"{key} = {value!r} is not ported")
+    world = comm.get_world_size() if world is None else world
+    mesh = list(cfg.TPU.MESH_SHAPE)
+    if mesh not in ([-1], [world]):
+        raise NotImplementedError(f"TPU.MESH_SHAPE = {mesh!r} is not ported for a world of {world} "
+                                  f"process(es): it is [-1] or [{world}]")
 
 
 def model_config_from_cfg(cfg) -> ModelConfig:

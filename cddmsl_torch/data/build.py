@@ -16,6 +16,15 @@ two sampler streams, one mapper state serving both, labeled first.
 
 Loaders are closable: `close()` (or leaving a `with` block) stops the
 prefetch thread, which would otherwise run on for an infinite train stream.
+
+Under a process group (JAX's `_process_block`) every rank walks the same
+sampler stream and maps every sample of the same global batches, as one
+process does, so all ranks agree on each step's pad bucket and the mapper's
+random stream runs as on one process; then each collates only its rows of
+the batch (`_process_block`: its `local_rows` block, of each microbatch with
+SOLVER.ACCUM_STEPS). The blocks in rank order are the single process's
+batch, row for row. The test loader splits each batch so, and every rank
+receives the whole batch's metadata.
 """
 
 import json
@@ -28,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.rcnn import DetBatch
+from ..parallel import comm
 from .catalog import DatasetCatalog
 from .dataset_mapper import DatasetMapper, DatasetMapperTwoCropSeparate
 
@@ -122,6 +132,22 @@ def _bucket_for(sample: dict, pad_hw: Tuple[int, int]) -> Tuple[int, int]:
     return (H, W) if w >= h else (W, H)
 
 
+def _process_block(samples: List, rank: int, world: int, parts: int = 1) -> List:
+    """This rank's rows of a global batch: its `local_rows` block of each of
+    `parts` equal microbatches, in order. All of them on one process."""
+    if world == 1:
+        return samples
+    m = len(samples) // parts
+    if m * parts != len(samples):
+        raise ValueError(f"a batch of {len(samples)} does not split into {parts} microbatches")
+    lo, hi = comm.local_rows(m, rank, world)
+    return [s for j in range(parts) for s in samples[j * m + lo : j * m + hi]]
+
+
+def _shard(rank: Optional[int], world: Optional[int]) -> Tuple[int, int]:
+    return (comm.get_rank() if rank is None else rank), (comm.get_world_size() if world is None else world)
+
+
 class _Prefetcher:
     """Runs `gen_fn()` on a background thread, `depth` items ahead; an
     iterator that stops with the stream and raises the producer's error."""
@@ -182,14 +208,21 @@ class _Prefetcher:
         self.close()
 
 
-def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False) -> _Prefetcher:
+def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, rank: Optional[int] = None,
+                                 world: Optional[int] = None) -> _Prefetcher:
     """Infinite stream of training DetBatches (with the translated twins)
-    in cfg.SOLVER.IMS_PER_BATCH, grouped by orientation into the
-    TPU.PAD_SIZE_TRAIN buckets."""
+    of cfg.SOLVER.IMS_PER_BATCH images in all, grouped by orientation into
+    the TPU.PAD_SIZE_TRAIN buckets; this rank's rows of each (`rank` and
+    `world` default to the process group's)."""
+    rank, world = _shard(rank, world)
     dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN, cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
     mapper = DatasetMapper(cfg, is_train=True)
     sampler = TrainingSampler(len(dicts), seed=seed)
     batch_size = cfg.SOLVER.IMS_PER_BATCH
+    parts = cfg.SOLVER.ACCUM_STEPS
+    if batch_size % (parts * world):
+        raise ValueError(f"SOLVER.IMS_PER_BATCH {batch_size} does not split into {parts} microbatch(es) over "
+                         f"{world} rank(s)")
     pad_hw = tuple(cfg.TPU.PAD_SIZE_TRAIN)
     max_gt = cfg.TPU.MAX_GT_BOXES
     aspect_grouping = cfg.DATALOADER.ASPECT_RATIO_GROUPING
@@ -203,28 +236,35 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False) -
             buckets.setdefault(key, []).append(sample)
             if len(buckets[key]) == batch_size:
                 group, buckets[key] = buckets[key], []
-                batch = pad_and_collate(group, key, max_gt, with_trgt=True)
+                batch = pad_and_collate(_process_block(group, rank, world, parts), key, max_gt, with_trgt=True)
                 yield _pinned(batch) if pin_memory else batch
 
     return _Prefetcher(gen, depth=cfg.DATALOADER.NUM_WORKERS)
 
 
 def build_detection_test_loader(
-    cfg, dataset_name: str, batch_size: Optional[int] = None, pin_memory: bool = False
+    cfg, dataset_name: str, batch_size: Optional[int] = None, pin_memory: bool = False, rank: Optional[int] = None,
+    world: Optional[int] = None,
 ) -> Tuple[_Prefetcher, int]:
     """(finite stream of (DetBatch, metadata dicts), number of images). A
     batch holds images of one orientation; the last batch of each is padded
     by repeating its last image, and the length of its metadata list says
     how many rows are real. The batch size defaults to
-    MODEL.CLIP.IMS_PER_BATCH_TEST."""
+    MODEL.CLIP.IMS_PER_BATCH_TEST. Under a process group the DetBatch holds
+    this rank's `local_rows` of the batch and the metadata is the whole
+    batch's."""
+    rank, world = _shard(rank, world)
     dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
     mapper = DatasetMapper(cfg, is_train=False)
     batch_size = batch_size or cfg.MODEL.CLIP.IMS_PER_BATCH_TEST
+    if batch_size % world:
+        raise ValueError(f"an eval batch of {batch_size} does not divide over {world} ranks")
     pad_hw = tuple(cfg.TPU.PAD_SIZE_TEST)
     max_gt = cfg.TPU.MAX_GT_BOXES
 
     def collate(group):
-        batch = pad_and_collate(group, _bucket_for(group[0], pad_hw), max_gt, with_trgt=False)
+        key = _bucket_for(group[0], pad_hw)
+        batch = pad_and_collate(_process_block(group, rank, world), key, max_gt, with_trgt=False)
         return _pinned(batch) if pin_memory else batch
 
     def gen():
@@ -264,15 +304,20 @@ def divide_label_unlabel(
     return [d for i, d in enumerate(dicts) if i in labeled], [d for i, d in enumerate(dicts) if i not in labeled]
 
 
-def build_semisup_train_loader_two_crops(cfg, seed: int = 0, pin_memory: bool = False) -> _Prefetcher:
+def build_semisup_train_loader_two_crops(cfg, seed: int = 0, pin_memory: bool = False, rank: Optional[int] = None,
+                                        world: Optional[int] = None) -> _Prefetcher:
     """Infinite stream of ((label_strong, label_weak), (unlabel_strong,
     unlabel_weak)) DetBatches of SOLVER.IMG_PER_BATCH_LABEL and
-    IMG_PER_BATCH_UNLABEL images. The parts are DATASETS.TRAIN_LABEL and
-    TRAIN_UNLABEL with DATASETS.CROSS_DATASET, else DATASETS.TRAIN divided
-    by DATALOADER.SUP_PERCENT. The samplers are seeded with `seed` and
-    `seed + 7`; one mapper state (`seed + 1`) maps a whole labeled batch,
-    then a whole unlabeled one, each grouped by orientation into the
-    TPU.PAD_SIZE_TRAIN buckets."""
+    IMG_PER_BATCH_UNLABEL images in all, this rank's rows of each. The parts
+    are DATASETS.TRAIN_LABEL and TRAIN_UNLABEL with DATASETS.CROSS_DATASET,
+    else DATASETS.TRAIN divided by DATALOADER.SUP_PERCENT. The samplers are
+    seeded with `seed` and `seed + 7`; one mapper state (`seed + 1`) maps a
+    whole labeled batch, then a whole unlabeled one, each grouped by
+    orientation into the TPU.PAD_SIZE_TRAIN buckets."""
+    rank, world = _shard(rank, world)
+    for key in ("IMG_PER_BATCH_LABEL", "IMG_PER_BATCH_UNLABEL"):
+        if cfg.SOLVER[key] % world:
+            raise ValueError(f"SOLVER.{key} {cfg.SOLVER[key]} does not divide over {world} ranks")
     if cfg.DATASETS.CROSS_DATASET:
         label_dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN_LABEL, True)
         unlabel_dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN_UNLABEL, False)
@@ -296,7 +341,7 @@ def build_semisup_train_loader_two_crops(cfg, seed: int = 0, pin_memory: bool = 
 
         def take(dicts, it, n, buckets):
             """(strong, weak) pairs into the orientation buckets until one
-            holds n: (its key, the strong samples, the weak samples)."""
+            holds n: (its key, this rank's strong samples, its weak ones)."""
             while True:
                 s, w = mapper(dicts[next(it)], rng)
                 key = _bucket_for(s, pad_hw)
@@ -304,6 +349,7 @@ def build_semisup_train_loader_two_crops(cfg, seed: int = 0, pin_memory: bool = 
                 pairs.append((s, w))
                 if len(pairs) == n:
                     del buckets[key]
+                    pairs = _process_block(pairs, rank, world)
                     return key, [p[0] for p in pairs], [p[1] for p in pairs]
 
         lab_buckets, unl_buckets = {}, {}

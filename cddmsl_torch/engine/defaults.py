@@ -7,7 +7,16 @@ optimizer and the training state, restores or side-loads weights
 (`resume_or_load`), runs the loop with its hooks, the NaN guard and the
 periodic checkpoints, saves `model_final` and evaluates every
 DATASETS.TEST set (`test`), the Watercolor and Comic sets on their 6
-classes. One process drives one device; there is no mesh.
+classes.
+
+One process drives one device. Under a process group (`launch`,
+`--num-gpus` / `--num-machines`) every rank builds the same model and
+steps its rows of SOLVER.IMS_PER_BATCH (parallel/comm.py says how the step
+stays the global batch's); the losses logged are their means over the
+ranks; only rank 0 writes config.yaml, metrics.json and the checkpoints;
+evaluation splits each batch, rounded up to a multiple of the ranks, over
+them and scores the whole set on rank 0 (JAX's mesh-sharded eval), and
+every rank gets the results.
 
 Each iteration's sampler draws come from a generator seeded by (SEED,
 iteration), as the JAX loop folds the iteration into its key, so a resumed
@@ -48,6 +57,7 @@ from ..evaluation import (
 from ..models.build import build_model
 from ..models.caption import ClipCaptionModel
 from ..models.gpt2 import GPT2Config
+from ..parallel import comm
 from ..solver.build import build_optimizer
 from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter
 from . import hooks as H
@@ -64,19 +74,29 @@ def default_argument_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true", help="restore the newest checkpoint in OUTPUT_DIR")
     parser.add_argument("--eval-only", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--num-gpus", type=int, default=1,
+                        help="processes on this machine, one per GPU (with --device cpu: CPU processes)")
+    parser.add_argument("--num-machines", type=int, default=1)
+    parser.add_argument("--machine-rank", type=int, default=0, help="this machine's index")
+    parser.add_argument("--dist-url", default="auto",
+                        help="the process group's rendezvous, tcp://host:port ('auto': a free local port)")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER, help="KEY VALUE overrides")
     return parser
 
 
 def default_setup(cfg: CfgNode, args=None) -> None:
-    """Creates OUTPUT_DIR, sets up logging, seeds numpy and torch when
-    SEED >= 0 and writes the merged config to OUTPUT_DIR/config.yaml."""
+    """Creates OUTPUT_DIR, sets up logging (INFO on rank 0, warnings on the
+    others), seeds numpy and torch when SEED >= 0 and, on rank 0, writes the
+    merged config to OUTPUT_DIR/config.yaml."""
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s]: %(message)s", datefmt="%m/%d %H:%M:%S")
+    level = logging.INFO if comm.is_main_process() else logging.WARNING
+    logging.basicConfig(level=level, format="[%(asctime)s %(name)s]: %(message)s", datefmt="%m/%d %H:%M:%S")
     if cfg.SEED >= 0:
         np.random.seed(cfg.SEED)
         torch.manual_seed(cfg.SEED)
-    cfg.dump_to_file(os.path.join(cfg.OUTPUT_DIR, "config.yaml"))
+    if comm.is_main_process():
+        cfg.dump_to_file(os.path.join(cfg.OUTPUT_DIR, "config.yaml"))
+    comm.synchronize()
 
 
 def build_evaluator(cfg: CfgNode, dataset_name: str):
@@ -95,6 +115,18 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
                     if cfg.OUTPUT_DIR else None)
         return COCOEvaluator(dataset_name, output_json=out_json)
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
+
+
+def _global_means(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The step's metrics on the host: each loss's mean over the ranks (the
+    global batch's), `lr` as it is (the same on every rank)."""
+    names = [k for k in metrics if k != "lr"]
+    values = torch.stack([metrics[k].detach().float() for k in names])
+    comm.all_reduce_mean_([values])
+    host = dict(zip(names, values.tolist()))
+    if "lr" in metrics:
+        host["lr"] = float(metrics["lr"])
+    return host
 
 
 def _iteration_seed(seed: int, iteration: int, *fold: int) -> int:
@@ -181,7 +213,9 @@ class DefaultTrainer:
     # ---- hooks ----
     def build_hooks(self):
         cfg = self.cfg
-        writers = [CommonMetricPrinter(self.max_iter), JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]
+        writers = []
+        if comm.is_main_process():
+            writers = [CommonMetricPrinter(self.max_iter), JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json"))]
         ret = [H.IterationTimer()]
         if cfg.SOLVER.CHECKPOINT_PERIOD:
             ret.append(H.PeriodicCheckpointer(self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD))
@@ -245,7 +279,7 @@ class DefaultTrainer:
                     storage.put_scalar("data_time", time.perf_counter() - t0)
                     metrics = self.run_step(self.batch_to_device(batch))
                     if (it + 1) % log_period == 0 or it == self.max_iter - 1:
-                        host = {k: float(v) for k, v in metrics.items()}  # the loop's sync point
+                        host = _global_means(metrics)  # the loop's sync point
                         if not np.isfinite(host["total_loss"]):
                             raise FloatingPointError(f"Loss became infinite or NaN at iteration={it}! metrics={host}")
                         now = time.perf_counter()
@@ -275,13 +309,16 @@ class DefaultTrainer:
     def test(self, cfg: Optional[CfgNode] = None, model: Optional[torch.nn.Module] = None) -> Dict[str, dict]:
         """Every DATASETS.TEST set through `inference_on_dataset` of `model`
         (the trained model by default) in MODEL.CLIP.IMS_PER_BATCH_TEST
-        batches: {dataset: {"bbox": {...}}}."""
+        batches, rounded up to a multiple of the ranks: {dataset: {"bbox":
+        {...}}}, on every rank."""
         cfg = cfg or self.cfg
         model = self.model if model is None else model
+        world = comm.get_world_size()
+        batch_size = -(-cfg.MODEL.CLIP.IMS_PER_BATCH_TEST // world) * world
         results = {}
         for name in cfg.DATASETS.TEST:
             # the loader first: a COCO set names its classes in the metadata when it is read
-            loader, n = build_detection_test_loader(cfg, name, pin_memory=self.device.type == "cuda")
+            loader, n = build_detection_test_loader(cfg, name, batch_size, pin_memory=self.device.type == "cuda")
             with loader:
                 evaluator = build_evaluator(cfg, name)
                 results[name] = inference_on_dataset(model, loader, n, evaluator, self.device)

@@ -36,6 +36,13 @@ same sites, so each has its own `Draw`; the trainer seeds two generators by
 student, its optimizer, the iteration, the teacher, the discriminator and
 its optimizer; it restores only into this trainer, and a plain save only
 into `DefaultTrainer`, as orbax refuses the other tree in JAX.
+
+Under a process group each rank takes its rows of the four views (the
+loader splits them alike), labels its own weak unlabeled rows with its
+teacher, and draws its rows of both draws; the student's and the
+discriminator's gradients are averaged over the ranks in their optimizers'
+`step`, so the students stay identical, and so do the teachers, which the
+EMA updates from them on every rank (JAX: one program over the mesh).
 """
 
 import copy
@@ -52,9 +59,10 @@ from ..config import model_config_from_cfg, solver_config_from_cfg
 from ..data import to_device
 from ..data.build import build_semisup_train_loader_two_crops
 from ..models.rcnn import DetBatch, GeneralizedRCNN
-from ..models.sampling import Draw, generator_draw
+from ..models.sampling import Draw, generator_draw, rank_draw
+from ..parallel import comm
 from ..solver.build import Optimizer
-from .defaults import DefaultTrainer, _iteration_seed
+from .defaults import DefaultTrainer, _global_means, _iteration_seed
 from .train_loop import Trainer, check_state_keys
 
 logger = logging.getLogger(__name__)
@@ -246,15 +254,19 @@ class MeanTeacherTrainer(DefaultTrainer):
         it = self.state.iteration
         self.generator.manual_seed(_iteration_seed(self._draw_seed, it, 0))
         self.generator_pseudo.manual_seed(_iteration_seed(self._draw_seed, it, 1))
-        return self.mt_step(ls, lw, us, uw, generator_draw(self.generator), generator_draw(self.generator_pseudo))
+        draw_sup = rank_draw(generator_draw(self.generator), ls.image.shape[0])
+        return self.mt_step(ls, lw, us, uw, draw_sup,
+                            rank_draw(generator_draw(self.generator_pseudo), us.image.shape[0]))
 
     @torch.no_grad()
     def compute_val_loss(self, batch: DetBatch, draw: Optional[Draw] = None) -> Dict[str, float]:
         """The student's supervised losses on a labeled batch, with no step
-        (the samplers draw from a generator seeded 0 unless `draw` is given)."""
+        (the samplers draw from a generator seeded 0 unless `draw` is given).
+        Under a process group a collective: every rank passes its rows of
+        the global batch and gets the global batch's losses."""
         if draw is None:
-            draw = generator_draw(torch.Generator(device=self.device).manual_seed(0))
-        return {k: float(v) for k, v in self.model.supervised_losses(batch, draw).items()}
+            draw = rank_draw(generator_draw(torch.Generator(device=self.device).manual_seed(0)), batch.image.shape[0])
+        return _global_means(self.model.supervised_losses(batch, draw))
 
     # ---- the loop ----
     def build_train_loader(self):
@@ -281,7 +293,8 @@ class MeanTeacherTrainer(DefaultTrainer):
     def pseudo_label_stats(self) -> Tuple[int, float]:
         """(count, precision) of the teacher's pseudo-labels on the first
         weak unlabeled batch, scored against that batch's ground truth (IoU
-        above 0.5 and the same class)."""
+        above 0.5 and the same class); under a process group over every
+        rank's rows."""
         with self.build_train_loader() as loader:
             (_, _), (_, unlabel_w) = next(loader)
         boxes, classes, valid = (t.cpu().numpy() for t in self._pseudo_label(
@@ -303,6 +316,7 @@ class MeanTeacherTrainer(DefaultTrainer):
                 iou = inter / np.maximum(area, 1e-9)
                 if np.any((iou > 0.5) & (gc == cls)):
                     n_correct += 1
+        n_pseudo, n_correct = np.sum(comm.all_gather_objects((n_pseudo, n_correct)), axis=0).tolist()
         return n_pseudo, n_correct / max(n_pseudo, 1)
 
     def _verify_pseudo_labels(self) -> None:

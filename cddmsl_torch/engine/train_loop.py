@@ -5,12 +5,19 @@ One step: `GeneralizedRCNN.cddmsl_losses` with the caption branches on past
 burn-up (`iteration > caption_burnup_iters`, a host comparison), the sum of
 the losses, backward, the optimizer step, iteration + 1. With
 `accum_steps` > 1 the batch is split along its first dimension into that
-many equal microbatches, each with its own draws (JAX splits its key per
-microbatch); their losses and gradients are summed, scaled by
+many equal microbatches; their losses and gradients are summed, scaled by
 1 / accum_steps, and the optimizer steps once: one iteration per call. The
 InfoNCE losses then see microbatch-sized pools, as in JAX. The sampler draws
 come from a `torch.Generator` on the model's device unless the caller hands
-in a `Draw`.
+in a `Draw`; a split step draws each site once for the whole batch and
+gives each microbatch its rows (`rank_draw`).
+
+Under a process group each rank steps its rows of the global batch (its
+block of each global microbatch): the draws are its rows of the global
+draws, the losses divide by global counts and InfoNCE gathers every rank's
+rows (parallel/comm.py), and `Optimizer.step` averages the gradients over
+the ranks once, after the last microbatch, before clipping. The result is
+the single process's step on the global batch.
 
 With `consistency_branch` "image" or "image_region" every step, from step 0
 (no burn-up), adds the language-free InfoNCE of that branch, times
@@ -32,7 +39,7 @@ import torch
 
 from ..models.caption import ClipCaptionModel, pseudo_labeling_loss, unsupervised_kl_loss
 from ..models.rcnn import DetBatch, GeneralizedRCNN
-from ..models.sampling import Draw, generator_draw
+from ..models.sampling import Draw, generator_draw, rank_draw
 from ..solver.build import Optimizer
 
 
@@ -105,6 +112,7 @@ class Trainer:
             raise ValueError("Trainer.train_step needs a draw or a generator")
         n = self.accum_steps
         micro = split_batch(batch, n) if n > 1 else [batch]
+        draw = rank_draw(draw, batch.image.shape[0], n)
         caption_on = self.iteration > self.caption_burnup_iters
         self.optimizer.zero_grad()
         total, losses = None, None
@@ -171,7 +179,7 @@ def make_caption_pl_step(
             if level == "img":
                 p_src, p_trgt = model.caption_pl_prefixes(batch)
             else:
-                p_src, p_trgt = model.caption_pl_region_prefixes(batch, draw)
+                p_src, p_trgt = model.caption_pl_region_prefixes(batch, rank_draw(draw, batch.image.shape[0]))
             loss = loss_fn(caption_model, p_src, p_trgt, max_len=max_len) * loss_weight
             loss.backward()
         optimizer.step()

@@ -16,6 +16,9 @@ the stop token emits it again from then on and is not `live`.
 
 The teacher-forced losses take their logits only at the positions that
 predict the tokens; the full (B, prefix + T, vocab) logits are never formed.
+They average over the live tokens; under a process group over the global
+batch's (`comm.global_normalizer`: each rank's caption stops at its own
+step), so that the ranks' mean is the global loss.
 """
 
 from typing import Optional, Tuple
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
 from .clipcap import TransformerMapper
 from .gpt2 import Cache, GPT2Config, GPT2LMHead, init_cache
 
@@ -62,7 +66,7 @@ class ClipCaptionModel(nn.Module):
         `token_mask` (which the forward does not see)."""
         lp = F.log_softmax(self.token_logits(tokens, prefix), dim=-1)
         nll = -torch.gather(lp, -1, tokens[..., None])[..., 0]
-        return torch.sum(nll * token_mask) / torch.clamp(torch.sum(token_mask), min=1.0)
+        return torch.sum(nll * token_mask) / comm.global_normalizer(torch.sum(token_mask))
 
     def prefill(self, prefix_emb: torch.Tensor, total_len: int) -> Tuple[torch.Tensor, Cache]:
         """Writes the prefix into a fresh cache of `total_len` positions ->
@@ -127,4 +131,4 @@ def unsupervised_kl_loss(model: ClipCaptionModel, prefix_src: torch.Tensor, pref
     lt = model.token_logits(tokens, prefix_trgt)
     kl = torch.sum(torch.softmax(ls, dim=-1) * (F.log_softmax(ls, dim=-1) - F.log_softmax(lt, dim=-1)), dim=-1)
     m = valid.float()
-    return torch.sum(kl * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(kl * m) / comm.global_normalizer(torch.sum(m))

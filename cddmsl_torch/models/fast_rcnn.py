@@ -10,6 +10,7 @@ from torch import nn
 
 from ..ops.box_regression import Box2BoxTransform
 from ..ops.nms import batched_nms
+from ..parallel import comm
 from ..structures import boxes as box_ops
 
 
@@ -60,10 +61,12 @@ def fast_rcnn_losses(
     """Focal-scaled cross-entropy with an optional background weight, and the
     L1 box loss (SMOOTH_L1_BETA = 0) of the ground-truth class over
     foreground rows. Both are means over the valid rows, as the JAX package
-    takes them."""
+    takes them; under a process group over the global batch's valid rows
+    (a sampler that does not fill its quota leaves ranks with different
+    counts), so that the ranks' mean is the global loss."""
     n = scores.shape[0]
     valid_f = valid.float()
-    n_valid = torch.clamp(valid_f.sum(), min=1.0)
+    n_valid = comm.global_normalizer(valid_f.sum())
 
     gt_safe = torch.where(valid, gt_classes, torch.full_like(gt_classes, num_classes)).long()
     ce = -torch.gather(F.log_softmax(scores, dim=-1), 1, gt_safe[:, None])[:, 0]

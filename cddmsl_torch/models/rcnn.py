@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bicubic
+from ..parallel import comm
 from ..structures import boxes as box_ops
 from .backbone.clip_resnet import ModifiedResNet
 from .clipcap import Projector, TransformerMapper, v2l
@@ -60,9 +61,11 @@ class DetBatch(NamedTuple):
 
 def infonce_bidirectional(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """L2-normalize, cosine logits without a temperature, cross-entropy both
-    ways, averaged; in float32."""
-    a = a.float()
-    b = b.float()
+    ways, averaged; in float32. Under a process group over every rank's
+    rows, in rank order (`comm.all_gather_with_grad`): each rank computes the
+    global batch's loss, as JAX's one program over the mesh does."""
+    a = comm.all_gather_with_grad(a.float())
+    b = comm.all_gather_with_grad(b.float())
     a = a / torch.clamp(torch.linalg.vector_norm(a, dim=1, keepdim=True), min=1e-12)
     b = b / torch.clamp(torch.linalg.vector_norm(b, dim=1, keepdim=True), min=1e-12)
     logits = a @ b.T
@@ -235,6 +238,7 @@ class GeneralizedRCNN(nn.Module):
         if kd_regularization:
             with torch.no_grad():
                 teacher = v2l(self.v2l_mapper(self.offline_backbone.global_embed(src)))
+            # a mean over the same count on every rank: the ranks' mean is the global one
             losses["kd_loss"] = torch.mean(torch.abs(teacher.float() - feats_src.float()))
         losses["cont_loss"] = infonce_bidirectional(self.projector(feats_trgt), self.projector(feats_src))
         return losses

@@ -127,6 +127,8 @@ class RPN(nn.Module):
         target = pos_sel.float()
         bce = torch.clamp(logits, min=0) - logits * target + torch.log1p(torch.exp(-torch.abs(logits)))
         cls = (bce * (pos_sel | neg_sel)).sum()
+        # a count per image, the same on every rank: the ranks' mean of this
+        # loss is the global batch's without a global count
         normalizer = self.batch_size_per_image * b
         return {
             "loss_rpn_cls": cls / normalizer * self.loss_weight,

@@ -10,9 +10,11 @@ can hand in the JAX package's own draws and the trainer those of a
 dimensions.
 """
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+
+from ..parallel import comm
 
 # (site name, shape) -> float32 uniforms in [0, 1) on the model's device
 Draw = Callable[[str, Tuple[int, ...]], torch.Tensor]
@@ -26,6 +28,55 @@ def generator_draw(generator: torch.Generator) -> Draw:
         return torch.rand(shape, generator=generator, device=generator.device)
 
     return draw
+
+
+class BlockDraw:
+    """A `Draw` for a step whose rows are rows of a global batch of `total`
+    images: each site draws the global shape (total, ...) from `draw` once,
+    and its k-th call gets the rows blocks[k] of that draw. The k-th call
+    at a site is the k-th microbatch's, so a row of the global batch gets
+    the same uniforms however the step is split, over ranks or
+    microbatches. Every draw site's leading dimension is the batch: "rpn_pos"
+    and "rpn_neg" (B, anchors), "roi_pos", "roi_neg" and "roi_gather" (B,
+    proposals + ground truth), "region", "image_region" and
+    "caption_pl_region" (B, proposals). The pseudo-label decode is greedy
+    and draws nothing, and the mean teacher's strong augmentation draws on
+    the loader, which every rank walks alike."""
+
+    def __init__(self, draw: Draw, total: int, blocks: Sequence[Tuple[int, int]]):
+        self._draw = draw
+        self._total = total
+        self._blocks = list(blocks)
+        self._drawn: Dict[str, torch.Tensor] = {}
+        self._calls: Dict[str, int] = {}
+
+    def __call__(self, site: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        k = self._calls.get(site, 0)
+        self._calls[site] = k + 1
+        if k == 0:
+            self._drawn[site] = self._draw(site, (self._total,) + tuple(shape[1:]))
+        full = self._drawn[site]
+        lo, hi = self._blocks[k]
+        if full.shape[1:] != tuple(shape[1:]) or hi - lo != shape[0]:
+            raise ValueError(f"draw site {site!r}: call {k} asks for {tuple(shape)}, the step's rows are "
+                             f"{(lo, hi)} of {tuple(full.shape)}")
+        return full[lo:hi]
+
+
+def rank_draw(draw: Draw, rows: int, parts: int = 1) -> Draw:
+    """`draw` for a step of this rank's `rows` rows in `parts` microbatches:
+    a `BlockDraw` over the global batch, whose microbatch j is its rows
+    [j * m, (j + 1) * m) and this rank's rows of it its `local_rows` block
+    (as the loader gives them, data/build.py `_process_block`); or `draw`
+    itself for one process stepping its batch whole."""
+    world = comm.get_world_size()
+    if parts == 1 and world == 1:
+        return draw
+    if rows % parts:
+        raise ValueError(f"batch dim {rows} not divisible by accum_steps={parts}")
+    m = rows // parts * world
+    lo, hi = comm.local_rows(m)
+    return BlockDraw(draw, rows * world, [(j * m + lo, j * m + hi) for j in range(parts)])
 
 
 def _select_k_smallest(keys_masked: torch.Tensor, quota_cap: int, count: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,11 @@ same order. Three details follow optax rather than torch's habits:
   `torch.nn.utils.clip_grad_norm_`). Frozen gradients are zero in the JAX
   chain at that point, so the norm is the trainable gradients' alone;
 - a parameter the loss did not reach has a zero gradient, not none.
+
+Under a process group `step` first averages the gradients over the ranks
+(one all-reduce per dtype), so clipping and the update read the global
+batch's gradient, as JAX's chain does; every update goes through it (the
+main step, the caption pl step, the discriminator's).
 """
 
 import math
@@ -26,6 +31,7 @@ import torch
 from torch import nn
 
 from ..config import SolverConfig
+from ..parallel import comm
 
 _ALWAYS_FROZEN = ("offline_backbone.", "v2l_mapper.")
 _STEM = ("conv1", "conv2", "conv3", "bn1", "bn2", "bn3")
@@ -126,6 +132,7 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        comm.all_reduce_mean_([p.grad for p in self.params])
         if self.cfg.clip_enabled:
             self._clip([p.grad for p in self.params])
         lr = self.schedule(self.count)

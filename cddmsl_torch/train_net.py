@@ -5,10 +5,19 @@
     python -m cddmsl_torch.train_net --resume --config-file ...
     python -m cddmsl_torch.train_net --device cpu --config-file cddmsl_torch/configs/voc_tiny.yaml
     python -m cddmsl_torch.train_net --device cpu --config-file cddmsl_torch/configs/mt_tiny.yaml
+    python -m cddmsl_torch.train_net --num-gpus 8 --config-file ...
+    python -m cddmsl_torch.train_net --device cpu --num-gpus 2 --config-file cddmsl_torch/configs/voc_tiny.yaml
 
 KEY VALUE pairs after the options override the config. It runs on the CUDA
 card unless `--device cpu` is given, and raises when there is no card. The
 datasets are read from $DETECTRON2_DATASETS (default ./datasets).
+
+`--num-gpus N` runs N processes data-parallel on this machine, one per
+card (NCCL), or with `--device cpu` N CPU processes (gloo); with
+`--num-machines M --machine-rank i --dist-url tcp://host:port` on each of
+M machines, a world of N * M. The world trains the global batch
+SOLVER.IMS_PER_BATCH as one process would (engine/launch.py,
+parallel/comm.py).
 
 The tree holds the mean-teacher block (`add_ateacher_config`); with
 SEMISUPNET.Trainer "ateacher" training runs `MeanTeacherTrainer`, and
@@ -20,6 +29,7 @@ import sys
 
 from .config import add_ateacher_config, get_cfg
 from .engine.defaults import DefaultTrainer, default_argument_parser, default_setup
+from .engine.launch import launch
 from .evaluation import verify_results
 
 
@@ -53,4 +63,6 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(default_argument_parser().parse_args())
+    args = default_argument_parser().parse_args()
+    launch(main, args.num_gpus, num_machines=args.num_machines, machine_rank=args.machine_rank,
+           dist_url=args.dist_url, device=args.device, args=(args,))

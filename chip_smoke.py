@@ -112,24 +112,52 @@ Phases, each of which fails the run with a non-zero exit:
      (`mean_teacher_kernel_calls`: the teacher's pool and two NMS on the
      weak unlabeled view, each student pass's pool and RPN NMS), checked
      and timed as in phase 6.
+ 11. the data-parallel path, through `cddmsl_torch.engine.launch.launch`
+     (what `train_net --num-gpus N` runs) on phase 7's fixture and recipe:
+     (i) world 1 under NCCL in this process repeats phase 7's 12 steps and
+     must leave its parameters and momentum bit for bit (else the tensors
+     that differ are printed), its ms/step printed beside phase 7's; (ii)
+     world 2 under gloo with both ranks on cuda:0 (4 of the 8 rows each, KD
+     on, the caption branch at step 3 of 3, then the eval split over the
+     ranks): per rank the launches of each step (1/1/1, then 3/3/1) and of
+     the eval (1/0/2 per batch), ms/step, the gradient all-reduce's ms and
+     bytes; before burn-up its parameters after step 2 must be as close to
+     world 1 with ACCUM_STEPS 2 as two repeats of that run are to each
+     other (both printed), and past it the global cont_loss and kd_loss it
+     logs at step 3 must be world 1's at the same weights and batch within
+     rtol 2e-2, and its model_final one world-1 step (ACCUM_STEPS 1) from
+     its save after step 2 within 2e-2 of that step's L2 size, parameters
+     and momentum (two repeats, and step 3 again with the planted fault of
+     `gather_without_all_reduce`, printed beside, with the projector's
+     momentum and what the batch split alone moves the projector's
+     gradient, none of these judged); the gathered
+     InfoNCE's fp32 gradient at both levels' rows (`infonce_grads`) must
+     be one process's within 1e-5, and the planted fault must miss it;
+     (iii) world 2 across two cards under NCCL where the machine
+     has two (else a line says it was not run). Then K1, K3 and K4 at a
+     rank's shapes (rank 0's rows of the first batch and of the first eval
+     batch), checked and timed as in phase 7.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/mean_teacher`). `launches` counts
+(`roi_align_fwd/inference`, ..., `nms/ddp`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
-the teacher's test);
+the teacher's test; for ddp, both ranks of world 2 under gloo);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
 eval batch per test set checked, 1 and 2 launches each; for consistency
 the two region branches' calls: K1 4, K3 3, K4 2; for mean_teacher one
-step's: K1 3, K3 2, K4 4): the largest error and the sums of the times and
-bounds.
+step's: K1 3, K3 2, K4 4; for ddp one rank's step and eval batch: K1 4,
+K3 3, K4 3): the largest error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
 
 import collections
+import contextlib
+import copy
+import io
 import json
 import math
 import subprocess
@@ -831,6 +859,17 @@ def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label,
 # the caption branch runs at iterations past the burn-up (0-based, as in
 # JAX): with 3, steps 5-12 of 12
 TRAIN_NET_STEPS, TRAIN_NET_BURNUP, TRAIN_NET_IMAGES = 12, 3, 16
+# phase 7's state after its 12 steps (parameters, momentum) and its steps'
+# times, which phase 11 holds its world-1 run to
+TRAIN_NET_RUN = {}
+
+
+def host_state(state):
+    """A training state's parameters, buffers and momentum, on the host."""
+    sd = state.state_dict()
+    return {"model": {k: v.detach().cpu().clone() for k, v in sd["model"].items()},
+            "momentum": {i: s["momentum_buffer"].detach().cpu().clone()
+                         for i, s in sd["optimizer"]["sgd"]["state"].items()}}
 
 
 class StepProbe:
@@ -911,6 +950,39 @@ def time_device_batch(label, trainer, batch, reps=5, what="caption on"):
           f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall ({reps} steps)")
 
 
+VOC_NAMES = ("chip_smoke_voc_dg", "chip_smoke_voc_test")
+
+
+def register_voc_fixture(voc, names=VOC_NAMES):
+    """The synthetic VOC fixture at `voc` as (the training pairs, the test set)."""
+    from cddmsl_torch.data.datasets.voc import register_pascal_DG, register_pascal_voc
+
+    register_pascal_DG(names[0], voc, "trainval", 2007, "dt_clipart")
+    register_pascal_voc(names[1], voc, "test", 2007)
+
+
+def voc_recipe_cfg(out_dir, names=VOC_NAMES, *opts):
+    """Phase 7's tree: the VOC recipe (bf16, seeded random weights) on the
+    fixture registered as `names`, 12 steps, the caption branch from step 5,
+    checkpoints at 6 and 12; `opts` override it."""
+    import os
+
+    from cddmsl_torch.config import get_cfg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml"))
+    cfg.merge_from_list([
+        "OUTPUT_DIR", out_dir, "SEED", "0",
+        "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
+        "DATASETS.TRAIN", repr((names[0],)), "DATASETS.TEST", repr((names[1],)),
+        "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS), "SOLVER.CAPTION_BURNUP_ITERS", str(TRAIN_NET_BURNUP),
+        "SOLVER.CHECKPOINT_PERIOD", "6", "TEST.EVAL_PERIOD", "0", *opts,
+    ])
+    cfg.freeze()
+    return cfg
+
+
 def train_net_path(dev, smi, roi_ops, nms_ops):
     """The VOC train-and-evaluate loop at full width: `DefaultTrainer` on the
     VOC recipe with the synthetic fixture, `train()` (12 steps of 8 images,
@@ -923,11 +995,9 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from cddmsl_torch.config import get_cfg
     from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, to_device
     from cddmsl_torch.data import build_detection_train_loader
     from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
-    from cddmsl_torch.data.datasets.voc import register_pascal_DG, register_pascal_voc
     from cddmsl_torch.engine.defaults import DefaultTrainer, build_evaluator
     from cddmsl_torch.evaluation import inference_on_dataset
     from cddmsl_torch.profile_train import busy_and_span_us, device_kernels
@@ -943,23 +1013,12 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
             self.test_s = time.perf_counter() - t0
             return results
 
-    here = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="cddmsl_train_net_")
-    names = ("chip_smoke_voc_dg", "chip_smoke_voc_test")
+    names = VOC_NAMES
     try:
         voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
-        register_pascal_DG(names[0], voc, "trainval", 2007, "dt_clipart")
-        register_pascal_voc(names[1], voc, "test", 2007)
-        cfg = get_cfg()
-        cfg.merge_from_file(os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml"))
-        cfg.merge_from_list([
-            "OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0",
-            "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
-            "DATASETS.TRAIN", repr((names[0],)), "DATASETS.TEST", repr((names[1],)),
-            "SOLVER.MAX_ITER", str(TRAIN_NET_STEPS), "SOLVER.CAPTION_BURNUP_ITERS", str(TRAIN_NET_BURNUP),
-            "SOLVER.CHECKPOINT_PERIOD", "6", "TEST.EVAL_PERIOD", "0",
-        ])
-        cfg.freeze()
+        register_voc_fixture(voc, names)
+        cfg = voc_recipe_cfg(os.path.join(root, "out"), names)
         print(f"train_net: the VOC recipe ({cfg.SOLVER.IMS_PER_BATCH} images a step, {cfg.TPU.COMPUTE_DTYPE}, "
               f"clip by {cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE} {cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE}, "
               f"KD {cfg.MODEL.KD_REGULRAZIATION}) on the synthetic VOC fixture ({TRAIN_NET_IMAGES} images, "
@@ -973,6 +1032,7 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
         results = trainer.train()
         torch.cuda.synchronize()
         launches = read_launches(roi_ops, nms_ops)
+        TRAIN_NET_RUN["state"] = host_state(trainer.state)  # phase 11 repeats these steps under a process group
         print(f"train_net path launches (12 steps and the final test): {launches}")
         if min(launches.values()) < 1:
             fail(f"the train_net path did not go through every kernel: {launches}")
@@ -980,6 +1040,7 @@ def train_net_path(dev, smi, roi_ops, nms_ops):
         probe = trainer.probe
         waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
         per_step = loop_steps("train_net", probe, waits, TRAIN_NET_STEPS, TRAIN_NET_BURNUP)
+        TRAIN_NET_RUN["per_step"] = per_step
         keys = ("roi_align_fwd", "roi_align_bwd", "nms")
         warm = per_step[TRAIN_NET_BURNUP + 2:]  # caption on, past its first step
         mean = lambda xs: sum(xs) / len(xs)
@@ -1679,6 +1740,389 @@ def mean_teacher_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 11: the VOC loop data-parallel. World 2 takes 3 steps, the caption
+# branch (KD on) at the third; its save after step 2 is the pre-burn-up state
+DDP_STEPS, DDP_BURNUP, DDP_WORLD = 3, 1, 2
+# world 2's step past burn-up against world 1's from the same state: the
+# past-burn-up tolerance of the losses, on the step's L2 size; the gathered
+# InfoNCE's gradient in fp32 against one process's
+DDP_STEP_RTOL, INFONCE_RTOL = 2e-2, 1e-5
+DDP_OPTS = ("SOLVER.MAX_ITER", str(DDP_STEPS), "SOLVER.CAPTION_BURNUP_ITERS", str(DDP_BURNUP),
+            "SOLVER.CHECKPOINT_PERIOD", "2", "MODEL.KD_REGULRAZIATION", "True")
+
+
+def probed_trainer(cfg, roi_ops, nms_ops):
+    """A `DefaultTrainer` on the card with a `StepProbe` (`.probe`) first
+    among its hooks."""
+    from cddmsl_torch.engine.defaults import DefaultTrainer
+
+    trainer = DefaultTrainer(cfg, device="cuda")
+    trainer.probe = StepProbe(roi_ops, nms_ops)
+    build_hooks = trainer.build_hooks
+    trainer.build_hooks = lambda: [trainer.probe] + build_hooks()
+    return trainer
+
+
+def ddp_rank_run(voc, out_dir, result_dir):
+    """One rank of a world-2 run of the VOC loop (`launch` runs it in each
+    process): 3 steps of its 4 rows of 8, the eval split over the ranks.
+    Writes its step times and launches, the eval results and the gradient
+    all-reduce's time and bytes to result_dir/rank<r>.json. Then rank 0
+    writes to result_dir/checks.pth: `infonce_grads` with the gather as it
+    is and with the planted fault (`gather_without_all_reduce`), and the
+    state of step 3 taken again from the save after step 2 with the
+    planted fault."""
+    import os
+
+    from cddmsl_torch.data import build_detection_train_loader
+    from cddmsl_torch.ops import _build
+    from cddmsl_torch.ops import nms as nms_ops
+    from cddmsl_torch.ops import roi_align as roi_ops
+    from cddmsl_torch.parallel import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(roi_ops.KERNEL, nms_ops.KERNEL)
+    register_voc_fixture(voc)
+    cfg = voc_recipe_cfg(out_dir, VOC_NAMES, *DDP_OPTS)
+    trainer = probed_trainer(cfg, roi_ops, nms_ops)
+    trainer.resume_or_load(resume=False)
+    torch.cuda.synchronize()
+    comm.synchronize()
+    reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+    results = trainer.train()
+    torch.cuda.synchronize()
+    launches = read_launches(roi_ops, nms_ops)
+    rank = comm.get_rank()
+    waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+    lines = io.StringIO()  # printed by the parent, one rank after the other
+    with contextlib.redirect_stdout(lines):
+        per_step = loop_steps(f"ddp rank {rank}", trainer.probe, waits, DDP_STEPS, DDP_BURNUP)
+    grads = [p.grad for p in trainer.optimizer.params]
+    n_bytes = sum(g.numel() * g.element_size() for g in grads)
+    comm.all_reduce_mean_(grads)  # warm
+    torch.cuda.synchronize()
+    comm.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        comm.all_reduce_mean_(grads)
+    torch.cuda.synchronize()
+    with open(os.path.join(result_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"device": str(torch.cuda.current_device()), "world": comm.get_world_size(),
+                   "per_step": per_step, "lines": lines.getvalue(), "launches": launches, "loop_launches": trainer.probe.loop_launches,
+                   "results": results, "allreduce_ms": (time.perf_counter() - t0) / 3 * 1e3,
+                   "allreduce_bytes": n_bytes, "trainable": sum(g.numel() for g in grads)}, f)
+
+    checks = {"infonce": infonce_grads(trainer.model.projector)}
+    with gather_without_all_reduce():
+        checks["infonce_fault"] = infonce_grads(trainer.model.projector)
+    with build_detection_train_loader(cfg, seed=0, pin_memory=True) as loader:
+        batch = trainer.batch_to_device([next(loader) for _ in range(DDP_STEPS)][-1])
+    trainer.checkpointer.load(os.path.join(out_dir, "model_0000001.pth"), trainer.state)
+    with gather_without_all_reduce():
+        trainer.run_step(batch)
+    checks["fault"] = host_state(trainer.state)
+    if rank == 0:
+        torch.save(checks, os.path.join(result_dir, "checks.pth"))
+    comm.synchronize()
+
+
+def ddp_world1_run(voc, out_dir, roi_ops, nms_ops):
+    """Phase 7's 12 steps again, in this process, under a process group of
+    one (NCCL) through `launch`: -> (per-step rows, host state)."""
+    cfg = voc_recipe_cfg(out_dir, VOC_NAMES, "DATASETS.TEST", "()")
+    trainer = probed_trainer(cfg, roi_ops, nms_ops)
+    trainer.resume_or_load(resume=False)
+    torch.cuda.synchronize()
+    trainer.train()
+    torch.cuda.synchronize()
+    waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+    return loop_steps("ddp world 1", trainer.probe, waits, TRAIN_NET_STEPS, TRAIN_NET_BURNUP), host_state(trainer.state)
+
+
+@contextlib.contextmanager
+def gather_without_all_reduce():
+    """The planted fault: the gathered rows' backward without its
+    all-reduce, so that each rank's rows get only its own copy of the
+    loss's gradient (1 / world of it after the gradient mean)."""
+    from cddmsl_torch.parallel import comm
+
+    backward = comm._AllGatherWithGrad.backward
+    comm._AllGatherWithGrad.backward = staticmethod(lambda ctx, g: g[ctx.rows[0] : ctx.rows[1]])
+    try:
+        yield
+    finally:
+        comm._AllGatherWithGrad.backward = backward
+
+
+# the caption InfoNCE's rows in a global batch of 8: the image level, the
+# region level (16 boxes an image)
+INFONCE_ROWS = (8, 128)
+
+
+def infonce_grads(projector):
+    """The caption InfoNCE's gradient in fp32 (TF32 off) at both levels'
+    rows of a global batch of 8, through an fp32 copy of `projector`: every
+    rank draws the same seeded features of all rows, projects its
+    `local_rows` and gathers; the gradient is averaged over the ranks as
+    `Optimizer.step` averages it. -> {"projector": the weights, "grads":
+    {name: gradient}}; one process without a group projects every row."""
+    from cddmsl_torch.models.rcnn import infonce_bidirectional
+    from cddmsl_torch.parallel import comm
+
+    proj = copy.deepcopy(projector).float()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.enable_grad():
+        for n in INFONCE_ROWS:
+            a, b = torch.randn((2, n, proj.fc1.in_features), generator=gen, device="cuda")
+            lo, hi = comm.local_rows(n)
+            infonce_bidirectional(proj(a[lo:hi]), proj(b[lo:hi])).backward()
+    comm.all_reduce_mean_([p.grad for p in proj.parameters()])
+    return {"projector": {k: v.cpu() for k, v in proj.state_dict().items()},
+            "grads": {k: p.grad.cpu() for k, p in proj.named_parameters()}}
+
+
+def caption_projector_grad(model, batch, parts):
+    """The projector's gradient of the image-level caption InfoNCE on
+    `batch` on one process, the student's features computed over `parts`
+    equal row blocks, a call each (as `parts` ranks compute theirs)."""
+    from cddmsl_torch.models.rcnn import infonce_bidirectional
+
+    with torch.enable_grad():
+        a, b = (model.projector(torch.cat([model._student_v2l(x) for x in model._v2l_preprocess(images).chunk(parts)]))
+                for images in (batch.image_trgt, batch.image))
+        grads = torch.autograd.grad(infonce_bidirectional(a, b), list(model.projector.parameters()))
+    return dict(zip([n for n, _ in model.projector.named_parameters()], grads))
+
+
+def rel_l2(got, want):
+    """|got - want| / |want| in L2 over the tensors of two dicts."""
+    num = sum(float((got[k].double() - w.double()).square().sum()) for k, w in want.items())
+    return math.sqrt(num / sum(float(w.double().square().sum()) for w in want.values()))
+
+
+def saved_state(path):
+    """A save's parameters, buffers and momentum, as `host_state` gives them."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    return {"model": saved["model"],
+            "momentum": {i: s["momentum_buffer"] for i, s in saved["optimizer"]["sgd"]["state"].items()}}
+
+
+def step_errors(got, want, start, names, momentum):
+    """How far the step from `start` to `got` is from the step to `want`, as
+    |got - want| / |want - start| in L2 over the trainable parameters, the
+    same over the momentum buffers (the step's part of a buffer, want -
+    momentum * start, as the denominator), and that over the projector's
+    buffers, whose gradient is the caption InfoNCE's alone."""
+    def rel(triples):
+        return math.sqrt(sum(float((g.double() - w.double()).square().sum()) for g, w, _ in triples)
+                         / sum(float((w.double() - s.double()).square().sum()) for _, w, s in triples))
+
+    mom = [(got["momentum"][i], want["momentum"][i], momentum * start["momentum"][i].double())
+           for i in range(len(names))]
+    return {"parameters": rel([(got["model"][n], want["model"][n], start["model"][n]) for n in names]),
+            "momentum": rel(mom),
+            "projector": rel([m for n, m in zip(names, mom) if n.startswith("projector.")])}
+
+
+def state_diffs(got, want):
+    """[(name, max |got - want|)] of the tensors that differ."""
+    out = [(k, float((got["model"][k].double() - v.double()).abs().max())) for k, v in want["model"].items()
+           if not torch.equal(got["model"][k], v)]
+    return out + [(f"momentum {i}", float((got["momentum"][i] - v).abs().max())) for i, v in want["momentum"].items()
+                  if not torch.equal(got["momentum"][i], v)]
+
+
+def ddp_path(dev, smi, roi_ops, nms_ops):
+    """The VOC loop data-parallel through `launch` (`python -m
+    cddmsl_torch.train_net --num-gpus N`): (i) world 1 under NCCL repeats
+    phase 7's 12 steps, bit for bit; (ii) world 2 on the one card under
+    gloo (both ranks on cuda:0, 4 rows of 8 each) takes 3 steps and
+    evaluates split over the ranks: before burn-up its parameters are held
+    to world 1 with ACCUM_STEPS 2 within the gap two repeats of that run
+    show, past it its global cont_loss and kd_loss to world 1's at the same
+    weights and batch (rtol 2e-2) and its last step to world 1's from the
+    same save (`step_errors`), and the gathered InfoNCE's gradient to one
+    process's (`infonce_grads`), which the planted fault must miss; (iii)
+    world 2 on two cards under NCCL where there are two. Then K1, K3 and K4
+    at a rank's shapes. Returns the rows {kernel: row}; `launches` is world
+    2's, both ranks."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_test_loader
+    from cddmsl_torch.data import build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
+    from cddmsl_torch.engine.defaults import DefaultTrainer, _iteration_seed
+    from cddmsl_torch.engine.launch import launch
+    from cddmsl_torch.models.sampling import generator_draw
+    from cddmsl_torch.parallel import comm
+    from cddmsl_torch.solver.build import split_parameters
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cddmsl_ddp_")
+    try:
+        voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
+        register_voc_fixture(voc)
+
+        # (i) world 1 under NCCL, in this process
+        per_step, state = launch(ddp_world1_run, 1, dist_url=f"tcp://127.0.0.1:{free_port()}", device="cuda",
+                                 args=(voc, os.path.join(root, "w1"), roi_ops, nms_ops))
+        if comm.get_world_size() != 1 or torch.distributed.is_initialized():
+            fail("launch left the process group of world 1 open")
+        diffs = state_diffs(state, TRAIN_NET_RUN["state"])
+        if diffs:
+            fail(f"world 1 under NCCL differs from phase 7's run in {len(diffs)} tensors, the first "
+                 f"{diffs[:8]}")
+        warm = lambda rows: sum(p[0] for p in rows[TRAIN_NET_BURNUP + 2:]) / len(rows[TRAIN_NET_BURNUP + 2:])
+        print(f"ddp world 1 (NCCL, launch in this process): {TRAIN_NET_STEPS} steps, parameters and momentum "
+              f"bit-equal to phase 7's run ({len(state['model'])} tensors, {len(state['momentum'])} momentum "
+              f"buffers); steps {TRAIN_NET_BURNUP + 3}-{TRAIN_NET_STEPS}: {warm(per_step):.3f} ms/step CUDA events "
+              f"with the process group, {warm(TRAIN_NET_RUN['per_step']):.3f} without (phase 7); on {smi}")
+
+        # (ii) world 2 on one card under gloo; (iii) on two cards under NCCL
+        runs = [("gloo, both ranks on cuda:0", "gloo", "w2")]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("NCCL, cuda:0 and cuda:1", "nccl", "w2nccl"))
+        else:
+            print(f"ddp world 2 under NCCL across two cards: not run, this machine has "
+                  f"{torch.cuda.device_count()} card (NCCL needs a card per rank)")
+        torch.cuda.empty_cache()
+        ranks = {}
+        for label, backend, sub in runs:
+            out, res = os.path.join(root, sub), os.path.join(root, sub + "_ranks")
+            os.makedirs(res)
+            t0 = time.perf_counter()
+            launch(ddp_rank_run, DDP_WORLD, dist_url=f"tcp://127.0.0.1:{free_port()}", device="cuda",
+                   backend=backend, args=(voc, out, res))
+            wall = time.perf_counter() - t0
+            ranks[sub] = [json.load(open(p)) for p in sorted(glob.glob(os.path.join(res, "rank*.json")))]
+            rs = ranks[sub]
+            if len(rs) != DDP_WORLD or any(r["world"] != DDP_WORLD for r in rs):
+                fail(f"world 2 ({label}) wrote {len(rs)} rank results")
+            if rs[0]["results"] != rs[1]["results"]:
+                fail(f"the ranks of world 2 ({label}) returned different eval results")
+            for r, x in enumerate(rs):
+                steps = x["per_step"]
+                print(x["lines"], end="")
+                print(f"ddp world 2 ({label}) rank {r} on cuda:{x['device']}: {DDP_STEPS} steps of 4 rows, CUDA "
+                      f"events {steps[0][0]:.3f} ms the first step, {steps[1][0]:.3f} ms the second (before "
+                      f"burn-up), {steps[2][0]:.3f} ms the third (caption and KD on); two processes share the card: "
+                      f"not a speedup; gradient all-reduce {x['allreduce_ms']:.3f} ms for {x['allreduce_bytes']} "
+                      f"bytes ({x['trainable']} trainable values x 4); launches {x['launches']}")
+            print(f"ddp world 2 ({label}): {wall:.1f} s wall for the launch (process start, build, 3 steps, the "
+                  f"eval of {TRAIN_NET_IMAGES} images split over the ranks); eval results (random weights, not "
+                  f"judged) AP50 {rs[0]['results'][VOC_NAMES[1]]['bbox']['AP50']:.4f}")
+        launches = {k: sum(r["launches"][k] for r in ranks["w2"]) for k in ("roi_align_fwd", "roi_align_bwd", "nms")}
+        if min(launches.values()) < 1:
+            fail(f"world 2 did not go through every kernel: {launches}")
+        eval_launches = [{k: r["launches"][k] - r["loop_launches"][k] for k in launches} for r in ranks["w2"]]
+        if any(tuple(e.values()) != (2, 0, 4) for e in eval_launches):
+            fail(f"world 2's eval launched K1/K3/K4 {eval_launches} per rank, expected 1/0/2 per batch of 2")
+
+        # (ii) before burn-up: world 1 with ACCUM_STEPS 2, twice, against world 2's save after step 2
+        cfg = voc_recipe_cfg(os.path.join(root, "w1a"), VOC_NAMES, *DDP_OPTS, "SOLVER.ACCUM_STEPS", "2",
+                             "DATASETS.TEST", "()")
+        trainer = DefaultTrainer(cfg, device="cuda")
+        trainer.resume_or_load(resume=False)
+        start = copy.deepcopy(trainer.state.state_dict())
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as loader:
+            batches = [to_device(next(loader), dev) for _ in range(DDP_STEPS)]
+        repeats = []
+        for _ in range(2):
+            trainer.state.load_state_dict(start)
+            for b in batches[:DDP_BURNUP + 1]:
+                trainer.run_step(b)
+            repeats.append({k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()})
+        saved = torch.load(os.path.join(root, "w2", "model_0000001.pth"), map_location="cpu", weights_only=True)
+        gap = max(float((repeats[0][k].double() - repeats[1][k].double()).abs().max()) for k in repeats[0])
+        got = max(float((saved["model"][k].double() - repeats[0][k].double()).abs().max()) for k in repeats[0])
+        print(f"ddp world 2 before burn-up (2 steps) against world 1 with ACCUM_STEPS 2: max |parameter "
+              f"difference| {got:.6g}; two repeats of that world-1 run differ by {gap:.6g}")
+        if got > gap:
+            fail(f"world 2 before burn-up is {got:.6g} from world 1 with ACCUM_STEPS 2, beyond its repeat gap {gap:.6g}")
+
+        # (ii) past burn-up: world 2's step 3 against world 1 at the same weights and batch
+        save_2 = os.path.join(root, "w2", "model_0000001.pth")
+        trainer.checkpointer.load(save_2, trainer.state)
+        trainer.generator.manual_seed(_iteration_seed(trainer._draw_seed, DDP_BURNUP + 1))
+        losses = trainer.model.cddmsl_losses(batches[DDP_BURNUP + 1], generator_draw(trainer.generator), True, True,
+                                             True)
+        logged = json.loads(open(os.path.join(root, "w2", "metrics.json")).read().splitlines()[-1])
+        for k in ("cont_loss", "kd_loss"):
+            w1, w2 = float(losses[k]), logged[k]
+            print(f"ddp step {DDP_STEPS} past burn-up: global {k} {w2:.6f} at world 2, {w1:.6f} at world 1 on the "
+                  f"same weights and batch (rel. diff {abs(w2 - w1) / abs(w1):.3g}, rtol 2e-2)")
+            if not math.isfinite(w2) or abs(w2 - w1) > 2e-2 * abs(w1):
+                fail(f"world 2's global {k} {w2} is not world 1's {w1} within rtol 2e-2")
+        # the step itself: world 2's model_final, and the planted fault's, against one world-1 step (ACCUM_STEPS 1:
+        # the InfoNCE over all 8 rows) from that save on batch 3, twice
+        checks = torch.load(os.path.join(root, "w2_ranks", "checks.pth"), weights_only=True)
+        trainer.state.accum_steps = 1
+        trainer.checkpointer.load(save_2, trainer.state)
+        split = rel_l2(*(caption_projector_grad(trainer.model, batches[DDP_BURNUP + 1], n) for n in (DDP_WORLD, 1)))
+        repeats = []
+        for _ in range(2):
+            trainer.checkpointer.load(save_2, trainer.state)
+            trainer.run_step(batches[DDP_BURNUP + 1])
+            repeats.append(host_state(trainer.state))
+        names = split_parameters(trainer.model)[0]
+        errs = {k: step_errors(v, repeats[0], saved_state(save_2), names, trainer.cfg.SOLVER.MOMENTUM) for k, v in (
+            ("a repeat", repeats[1]), ("world 2", saved_state(os.path.join(root, "w2", "model_final.pth"))),
+            ("the planted fault", checks["fault"]))}
+        for k, e in errs.items():
+            print(f"ddp step {DDP_STEPS} past burn-up, {k} against one world-1 step (ACCUM_STEPS 1) from world 2's save "
+                  f"after step {DDP_BURNUP + 1}: |difference| / |world 1's step| (L2) parameters {e['parameters']:.6g}, "
+                  f"momentum {e['momentum']:.6g} (tolerance {DDP_STEP_RTOL:g}); the projector's momentum (the caption "
+                  f"InfoNCE's gradient alone, not judged) {e['projector']:.6g}")
+        print(f"ddp step {DDP_STEPS}: on one process, the image-level caption InfoNCE's projector gradient with the "
+              f"student's bf16 features computed 4 rows a call moves by {split:.6g} (L2, relative) from 8 rows a call")
+        for k in ("a repeat", "world 2"):
+            if max(errs[k]["parameters"], errs[k]["momentum"]) > DDP_STEP_RTOL:
+                fail(f"{k}'s step {DDP_STEPS} is not world 1's within {DDP_STEP_RTOL:g}: {errs[k]}")
+
+        # the gathered InfoNCE's gradient on the card in fp32, with the gather as it is and with the planted fault
+        projector = copy.deepcopy(trainer.model.projector)
+        projector.load_state_dict(checks["infonce"]["projector"])
+        want = infonce_grads(projector)["grads"]
+        got, fault = (rel_l2(checks[k]["grads"], want) for k in ("infonce", "infonce_fault"))
+        print(f"ddp gathered InfoNCE (fp32, {'+'.join(map(str, INFONCE_ROWS))} rows, gloo on cuda:0): the projector's "
+              f"gradient averaged over world 2 against one process on all rows, |difference| / |gradient| (L2) "
+              f"{got:.6g}; with the planted fault (the gather's backward without its all-reduce) {fault:.6g}; "
+              f"tolerance {INFONCE_RTOL:g}")
+        if got > INFONCE_RTOL:
+            fail(f"world 2's gathered InfoNCE gradient is {got:.6g} from one process's, beyond {INFONCE_RTOL:g}")
+        if fault <= INFONCE_RTOL:
+            fail(f"the planted fault passes the gathered InfoNCE check ({fault:.6g} <= {INFONCE_RTOL:g})")
+
+        # K1, K3 and K4 at a rank's shapes: rank 0's rows of the first batch and of the first eval batch
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True, rank=0, world=DDP_WORLD) as loader:
+            rank_batch = to_device(next(loader), dev)
+        eval_loader, _ = build_detection_test_loader(cfg, VOC_NAMES[1], 8, pin_memory=True, rank=0, world=DDP_WORLD)
+        with eval_loader:
+            rank_eval = to_device(next(eval_loader)[0], dev)
+        rows = step_kernel_rows(dev, trainer.model, rank_batch, trainer.state.draw, launches, roi_ops, nms_ops,
+                                "ddp", {VOC_NAMES[1]: rank_eval})
+        print(f"ddp path launches (world 2 under gloo, both ranks: 3 steps and the eval): {launches}")
+        print(f"ddp phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        for name in VOC_NAMES:
+            DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1722,6 +2166,8 @@ def main() -> int:
     paths["consistency"] = consistency_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["mean_teacher"] = mean_teacher_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["ddp"] = ddp_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

@@ -17,7 +17,6 @@ accumulation, checkpoint resume, the trainer end to end and the CLI.
 Every catalog name a test registers is removed again.
 """
 
-import collections
 import os
 import subprocess
 import sys
@@ -70,14 +69,14 @@ def _port_trainer(params, **kwargs):
 
 
 def _replay_per_microbatch(draws):
-    """One `Draw` for a step of len(draws) microbatches: the k-th call at a
-    site replays microbatch k's draws (each microbatch draws once per site)."""
-    calls = collections.Counter()
+    """One `Draw` for a step of len(draws) microbatches: the step asks each
+    site once for the rows of the whole batch and hands microbatch k its
+    rows, which replay JAX's microbatch k (each JAX microbatch draws with a
+    key of its own)."""
 
     def draw(site, shape):
-        k = calls[site]
-        calls[site] += 1
-        return draws[k](site, shape)
+        rows = (shape[0] // len(draws),) + tuple(shape[1:])
+        return torch.cat([d(site, rows) for d in draws])
 
     return draw
 
