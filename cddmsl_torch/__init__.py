@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of cddmsl_tpu's inference path, CDDMSL training step
-and VOC train-and-evaluate loop (`python -m cddmsl_torch.train_net`) for an
-NVIDIA H100.
+and train-and-evaluate loops (`python -m cddmsl_torch.train_net`), and of
+RegionCLIP's pretraining and language tools (`pretrain_net`,
+`extract_concept_features`, `extract_region_features`), for an NVIDIA H100.
 
 The JAX package `cddmsl_tpu` stays the reference; this package imports
 nothing of it. Module paths mirror the JAX package's. Entry points run on

@@ -12,6 +12,13 @@ conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear weights
 embedding, the mapper's prefix and the (K, D) class embeddings copy as they
 are. The offline backbone maps as the backbone does.
 
+`convert_jax_text_params` and `convert_jax_pretrain_params` do the same
+for a JAX `CLIPTextEncoder` tree and a `PretrainFastRCNN` tree (the
+student and teacher backbones, the text tower `lang_encoder`, the concept
+pool and the logit scale): the text tower's Dense kernels (out_proj, the
+MLP) are transposed, `resblocks_{i}` becomes `transformer.resblocks.{i}`,
+`mlp_c_fc` becomes `mlp.c_fc`; `in_proj_weight` is (3C, C) in both.
+
 `convert_jax_mt_state` carries the mean-teacher trainer's `MTState` across:
 the student and the teacher through `convert_jax_params`, the
 discriminator's convs HWIO -> OIHW.
@@ -23,6 +30,7 @@ discriminator's convs HWIO -> OIHW.
 are, (in, out).
 """
 
+import math
 import re
 from typing import Any, Dict, Mapping, Tuple
 
@@ -60,8 +68,27 @@ def _projector_rules(name: str):
     )
 
 
+def _text_rules(name: str):
+    """A CLIPTextEncoder under `name` ("" for the bare tower), in both trees."""
+    j, t = (f"{name}/", f"{name}.") if name else ("", "")
+    block = rf"{j}resblocks_(\d+)"
+    return (
+        (rf"{j}token_embedding", rf"{t}token_embedding.weight", "copy"),
+        (rf"{j}(positional_embedding|text_projection)", rf"{t}\1", "copy"),
+        (rf"{j}ln_final/scale", rf"{t}ln_final.weight", "copy"),
+        (rf"{j}ln_final/bias", rf"{t}ln_final.bias", "copy"),
+        (rf"{block}/attn/in_proj_(weight|bias)", rf"{t}transformer.resblocks.\1.attn.in_proj_\2", "copy"),
+        (rf"{block}/attn/out_proj/kernel", rf"{t}transformer.resblocks.\1.attn.out_proj.weight", "dense"),
+        (rf"{block}/attn/out_proj/bias", rf"{t}transformer.resblocks.\1.attn.out_proj.bias", "copy"),
+        (rf"{block}/(ln_[12])/scale", rf"{t}transformer.resblocks.\1.\2.weight", "copy"),
+        (rf"{block}/(ln_[12])/bias", rf"{t}transformer.resblocks.\1.\2.bias", "copy"),
+        (rf"{block}/mlp_(c_fc|c_proj)/kernel", rf"{t}transformer.resblocks.\1.mlp.\2.weight", "dense"),
+        (rf"{block}/mlp_(c_fc|c_proj)/bias", rf"{t}transformer.resblocks.\1.mlp.\2.bias", "copy"),
+    )
+
+
 # (JAX path regex, torch key template, layout)
-_RULES: Tuple[Tuple[str, str, str], ...] = (
+_BACKBONE_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"backbone/(conv[123])/kernel", r"backbone.\1.weight", "conv"),
     (rf"backbone/(bn[123])/{_BN}", r"backbone.\1.\2", "copy"),
     (r"backbone/layer(\d)_(\d+)/(conv[123])/kernel", r"backbone.layer\1.\2.\3.weight", "conv"),
@@ -71,6 +98,9 @@ _RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"backbone/attnpool/positional_embedding", r"backbone.attnpool.positional_embedding", "copy"),
     (r"backbone/attnpool/([qkvc]_proj)/kernel", r"backbone.attnpool.\1.weight", "dense"),
     (r"backbone/attnpool/([qkvc]_proj)/bias", r"backbone.attnpool.\1.bias", "copy"),
+)
+_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_BACKBONE_RULES,
     (
         r"proposal_generator/head/(conv|objectness_logits|anchor_deltas)/kernel",
         r"proposal_generator.rpn_head.\1.weight",
@@ -100,11 +130,18 @@ _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"gpt/h_(\d+)/mlp_(c_fc|c_proj)/kernel", r"gpt.transformer.h.\1.mlp.\2.weight", "copy"),
     (r"gpt/h_(\d+)/mlp_(c_fc|c_proj)/bias", r"gpt.transformer.h.\1.mlp.\2.bias", "copy"),
 )
+_PRETRAIN_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_BACKBONE_RULES,
+    *_text_rules("lang_encoder"),
+    (r"(concept_emb|logit_scale)", r"\1", "copy"),
+)
 _DISCRIMINATOR_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"(conv1|conv2|classifier)/kernel", r"\1.weight", "conv"),
     (r"(conv1|conv2|classifier)/bias", r"\1.bias", "copy"),
 )
 _OFFLINE = "offline_backbone"
+# towers that take the backbone's rules under their own name
+_BACKBONE_TWINS = (_OFFLINE, "teacher_backbone")
 _LAYOUT = {
     "conv": lambda a: np.transpose(a, (3, 2, 0, 1)),  # HWIO -> OIHW
     "dense": np.transpose,  # (in, out) -> (out, in)
@@ -127,13 +164,13 @@ def _convert(params: Mapping[str, Any], rules, what: str) -> Dict[str, torch.Ten
     state: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(params):
         tower, _, rest = path.partition("/")
-        offline = tower == _OFFLINE  # the backbone's rules, under another name
+        twin = tower in _BACKBONE_TWINS  # the backbone's rules, under another name
         for pattern, template, layout in rules:
-            m = re.fullmatch(pattern, "backbone/" + rest if offline else path)
+            m = re.fullmatch(pattern, "backbone/" + rest if twin else path)
             if m:
                 arr = _LAYOUT[layout](np.asarray(val, dtype=np.float32))
                 key = m.expand(template)
-                state[_OFFLINE + key[len("backbone"):] if offline else key] = torch.tensor(np.ascontiguousarray(arr))
+                state[tower + key[len("backbone"):] if twin else key] = torch.tensor(np.ascontiguousarray(arr))
                 break
         else:
             raise KeyError(f"{what}: no mapping for JAX parameter {path!r}")
@@ -144,6 +181,19 @@ def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX GeneralizedRCNN params (with or without the top-level 'params'
     key) -> state dict; raises on a key it does not map."""
     return _convert(params, _RULES, "convert_jax_params")
+
+
+def convert_jax_text_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX CLIPTextEncoder params (with or without 'params') -> the state
+    dict of `models.backbone.text_encoder.CLIPTextEncoder`."""
+    return _convert(params, _text_rules(""), "convert_jax_text_params")
+
+
+def convert_jax_pretrain_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX PretrainFastRCNN params (with or without 'params') -> the state
+    dict of `models.clip_rcnn.PretrainFastRCNN`: both backbones, the text
+    tower under `lang_encoder.`, `concept_emb` and `logit_scale`."""
+    return _convert(params, _PRETRAIN_RULES, "convert_jax_pretrain_params")
 
 
 def convert_jax_mt_state(mt_state) -> Dict[str, Any]:
@@ -172,7 +222,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     running_var in [0.5, 1.5], LayerNorm scales in [0.5, 1.5], small
     RPN/box-regression heads, a unit-normal mapper prefix; for GPT-2,
     1/sqrt(fan_in) Conv1D weights and normal token (0.02) and position
-    (0.01) embeddings, as the JAX package initialises them. For runs that
+    (0.01) embeddings, as the JAX package initialises them; for the text
+    tower 1/sqrt(fan_in) attention and projection weights and normal (0.02)
+    token embeddings; a normal (0.01) concept pool and a logit scale of
+    log(1 / 0.07). For runs that
     have no JAX checkpoint at hand; the model may live on any device."""
 
     def normal(t: torch.Tensor, std: float) -> None:
@@ -200,7 +253,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal(mod.weight, mod.weight.shape[0] ** -0.5)
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
-            normal(mod.weight, 0.02 if name.endswith("wte") else 0.01)
+            normal(mod.weight, 0.02 if name.endswith(("wte", "token_embedding")) else 0.01)
         elif isinstance(mod, nn.Linear):
             regressor = name.endswith("bbox_pred")
             normal(mod.weight, 0.001 if regressor else mod.in_features ** -0.5)
@@ -211,4 +264,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal(p, p.shape[1] ** -0.5)
         elif name.endswith("prefix_const"):
             normal(p, 1.0)
+        elif name.endswith(("in_proj_weight", "text_projection")):
+            normal(p, p.shape[1 if name.endswith("in_proj_weight") else 0] ** -0.5)
+        elif name == "concept_emb":
+            normal(p, 0.01)
+        elif name == "logit_scale":
+            p.fill_(math.log(1 / 0.07))
     return model

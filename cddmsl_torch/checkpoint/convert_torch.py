@@ -1,7 +1,8 @@
 """The reference's `.pth` files (counterpart of `load_rcnn_weights`,
 `detect_dialect`, `load_offline_backbone`, `load_clipcap_mapper` and
-`load_text_emb_classifier` in cddmsl_tpu/checkpoint/convert_torch.py, and of
-`convert_hf_gpt2` in cddmsl_tpu/models/gpt2.py).
+`load_text_emb_classifier` in cddmsl_tpu/checkpoint/convert_torch.py, of
+`convert_clip_text` there (`load_text_tower`), and of `convert_hf_gpt2` in
+cddmsl_tpu/models/gpt2.py).
 
 The port's modules carry the reference checkpoint keys, so each load is a
 prefix swap into the model's own state: the RegionCLIP visual tower
@@ -10,7 +11,12 @@ mapper ("clip_project.*") into `v2l_mapper`, and the text-embedding tensor
 into the classifier rows. A detector checkpoint (MODEL.WEIGHTS) loads by its
 dialect: "d2_rcnn" (backbone into both backbones, RPN head, box predictor
 without its background row), "oai_clip" (the visual tower into both
-backbones) or "clipcap" (the mapper). Only the keys the JAX converters take
+backbones), "clipcap" (the mapper) or "lang" (the CLIP text tower,
+"lang_encoder.*", into a model that has one: the pretraining model); a
+model with a text tower also takes an oai_clip file's "transformer.*" text
+tensors and a d2_rcnn file's "lang_encoder.*" ones. The text tower's keys
+are OpenAI-CLIP's, so `load_text_tower` strips a prefix ("" or
+"lang_encoder.") and copies. Only the keys the JAX converters take
 are read: the rest of the file, and every tensor of the model it names no
 key for, is left as it is. A key whose shape differs raises, where the JAX
 package skips it with a warning.
@@ -56,6 +62,11 @@ _MAPPER = re.compile(
 )
 _GPT2 = re.compile(
     r"(wte|wpe)\.weight|ln_f\.(weight|bias)|h\.\d+\.(ln_[12]\.(weight|bias)|attn\.c_(attn|proj)\.(weight|bias)|"
+    r"mlp\.c_(fc|proj)\.(weight|bias))"
+)
+_TEXT = re.compile(
+    r"token_embedding\.weight|positional_embedding|text_projection|ln_final\.(weight|bias)|"
+    r"transformer\.resblocks\.\d+\.(attn\.in_proj_(weight|bias)|attn\.out_proj\.(weight|bias)|ln_[12]\.(weight|bias)|"
     r"mlp\.c_(fc|proj)\.(weight|bias))"
 )
 _RPN_HEAD = re.compile(r"(conv|objectness_logits|anchor_deltas)\.(weight|bias)")
@@ -116,10 +127,14 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
     sd = load_torch_state_dict(path)
     dialect = detect_dialect(sd)
     backbones = [model.backbone] + ([model.offline_backbone] if hasattr(model, "offline_backbone") else [])
+    text = getattr(model, "lang_encoder", None)
     if dialect in ("oai_clip", "d2_rcnn"):
         prefix = "visual." if dialect == "oai_clip" else "backbone."
         for tower in backbones:
             _load_prefixed(tower, sd, prefix, f"{path}: {dialect} visual tower", _VISUAL)
+        text_prefix, marker = ("", "transformer.") if dialect == "oai_clip" else ("lang_encoder.", "lang_encoder.")
+        if text is not None and any(k.startswith(marker) for k in sd):
+            load_text_tower(text, sd, text_prefix, f"{path}: text tower")
         if dialect == "d2_rcnn":
             _load_prefixed(model.proposal_generator.rpn_head, sd, "proposal_generator.rpn_head.",
                            f"{path}: RPN head", _RPN_HEAD)
@@ -129,7 +144,12 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
                            f"{path}: box predictor", _BOX_PREDICTOR)
     elif dialect == "clipcap":
         _load_prefixed(model.v2l_mapper, sd, "clip_project.", f"{path}: ClipCap mapper", _MAPPER)
-    elif dialect in ("d2_fpn", "d2_retinanet", "lang"):
+    elif dialect == "lang":
+        if text is None:
+            raise NotImplementedError(f"{path}: a 'lang' checkpoint holds a text tower, which this model does not "
+                                      "have (JAX's loader refuses it too)")
+        load_text_tower(text, sd, "lang_encoder.", f"{path}: text tower")
+    elif dialect in ("d2_fpn", "d2_retinanet"):
         raise NotImplementedError(f"{path}: loading a {dialect!r} checkpoint is not ported")
     else:
         raise ValueError(f"Cannot detect checkpoint dialect of {path}")
@@ -139,6 +159,12 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
 def load_visual_tower(tower: nn.Module, sd: Dict[str, torch.Tensor], prefix: str, what: str) -> int:
     """The CLIP visual tensors of `sd` under `prefix` into a ModifiedResNet."""
     return _load_prefixed(tower, sd, prefix, what, _VISUAL)
+
+
+def load_text_tower(tower: nn.Module, sd: Dict[str, torch.Tensor], prefix: str, what: str) -> int:
+    """The CLIP text tensors of `sd` under `prefix` into a CLIPTextEncoder;
+    returns how many were loaded."""
+    return _load_prefixed(tower, sd, prefix, what, _TEXT)
 
 
 def load_offline_backbone(model: nn.Module, path: str) -> None:

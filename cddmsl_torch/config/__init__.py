@@ -13,7 +13,9 @@ The yacs tree itself is `cfg_node.CfgNode` with the defaults of
 map it to the two dataclasses, and `check_supported` raises for any value
 the port does not implement. The loaders and the trainer read the data,
 test and loop keys from the tree, as the JAX package's do;
-`add_ateacher_config` adds the mean-teacher block.
+`add_ateacher_config` adds the mean-teacher block. `check_pretrain_supported`
+is the pretraining entry's check (MODEL.META_ARCHITECTURE PretrainFastRCNN,
+which `check_supported` refuses).
 """
 
 import dataclasses
@@ -151,12 +153,22 @@ def _falsy(v) -> bool:
 
 
 # (key, the values the port implements); every other value raises
-_SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
-    ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
+_SUPPORTED_BACKBONE: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.BACKBONE.NAME", lambda v: v == "build_clip_resnet_backbone"),
     ("MODEL.RESNETS.DEPTH", lambda v: v in RESNET_SPECS),
     ("MODEL.RESNETS.OUT_FEATURES", lambda v: list(v) == ["res4"]),
     ("MODEL.RESNETS.NORM", lambda v: v == "FrozenBN"),
+)
+_SUPPORTED_SOLVER: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("SOLVER.NESTEROV", _falsy),
+    ("SOLVER.LR_SCHEDULER_NAME", lambda v: v in ("WarmupMultiStepLR", "WarmupCosineLR")),
+    ("SOLVER.WARMUP_METHOD", lambda v: v in ("linear", "constant")),
+    ("SOLVER.CLIP_GRADIENTS.CLIP_TYPE", lambda v: v in ("value", "norm")),
+)
+_SUPPORTED_DTYPE = (("TPU.COMPUTE_DTYPE", lambda v: v in ("bfloat16", "float32")),)
+_SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
+    *_SUPPORTED_BACKBONE,
     ("MODEL.MASK_ON", _falsy),
     ("MODEL.KEYPOINT_ON", _falsy),
     ("MODEL.LOAD_PROPOSALS", _falsy),
@@ -175,10 +187,7 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("INPUT.CROP.ENABLED", _falsy),
     ("INPUT.FORMAT", lambda v: v in ("RGB", "BGR")),
     ("DATALOADER.SAMPLER_TRAIN", lambda v: v == "TrainingSampler"),
-    ("SOLVER.NESTEROV", _falsy),
-    ("SOLVER.LR_SCHEDULER_NAME", lambda v: v in ("WarmupMultiStepLR", "WarmupCosineLR")),
-    ("SOLVER.WARMUP_METHOD", lambda v: v in ("linear", "constant")),
-    ("SOLVER.CLIP_GRADIENTS.CLIP_TYPE", lambda v: v in ("value", "norm")),
+    *_SUPPORTED_SOLVER,
     ("TEST.AUG.ENABLED", _falsy),
     ("TEST.PRECISE_BN.ENABLED", _falsy),
     ("TPU.SPATIAL_PARTITION", _falsy),
@@ -188,7 +197,7 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("TPU.QUANT_EVAL", _falsy),
     ("TPU.ASYNC_CHECKPOINT", _falsy),
     ("TPU.PAD_BUCKETS", _falsy),
-    ("TPU.COMPUTE_DTYPE", lambda v: v in ("bfloat16", "float32")),
+    *_SUPPORTED_DTYPE,
 )
 
 
@@ -226,6 +235,35 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
     if mesh not in ([-1], [world]):
         raise NotImplementedError(f"TPU.MESH_SHAPE = {mesh!r} is not ported for a world of {world} "
                                   f"process(es): it is [-1] or [{world}]")
+
+
+# what the pretraining entry (pretrain_net) reads, with the values it
+# implements. JAX's tools/pretrain_net.py never reads MODEL.WEIGHTS or
+# MODEL.CLIP.CONCEPT_POOL_EMB (the student, the teacher and the concept pool
+# start from random) nor SOLVER.ACCUM_STEPS, and always pools grid regions:
+# the port raises where those are set otherwise. Pipelining the text tower
+# (TPU.PIPELINE_AXIS) is not ported.
+_SUPPORTED_PRETRAIN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.META_ARCHITECTURE", lambda v: v == "PretrainFastRCNN"),
+    *_SUPPORTED_BACKBONE,
+    ("MODEL.WEIGHTS", _falsy),
+    ("MODEL.CLIP.CONCEPT_POOL_EMB", _falsy),
+    ("MODEL.CLIP.CROP_REGION_TYPE", lambda v: v == "GRID"),
+    ("SOLVER.ACCUM_STEPS", lambda v: v == 1),
+    *_SUPPORTED_SOLVER,
+    ("TPU.PIPELINE_AXIS", _falsy),
+    *_SUPPORTED_DTYPE,
+)
+
+
+def check_pretrain_supported(cfg) -> None:
+    """Raises NotImplementedError naming the first key the pretraining
+    entry does not implement at its value (MODEL.META_ARCHITECTURE must be
+    PretrainFastRCNN)."""
+    for key, ok in _SUPPORTED_PRETRAIN:
+        value = _lookup(cfg, key)
+        if not ok(value):
+            raise NotImplementedError(f"{key} = {value!r} is not ported for pretraining")
 
 
 def model_config_from_cfg(cfg) -> ModelConfig:

@@ -88,6 +88,27 @@ def get_cfg() -> CfgNode:
     _C.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES = None
     _C.MODEL.CLIP.CLSS_TEMP = 0.01
     _C.MODEL.CLIP.FOCAL_SCALED_LOSS = None
+    # region-language pretraining (PretrainFastRCNN, read by pretrain_net):
+    # the concept pool, the grid regions' unused count, the distillation
+    # threshold and the caption tower's dims
+    _C.MODEL.CLIP.PRETRAIN_NUM_CONCEPTS = 1000
+    _C.MODEL.CLIP.PRETRAIN_SAMPLE_REGIONS = None
+    _C.MODEL.CLIP.CONCEPT_THRES = None
+    _C.MODEL.CLIP.CONCEPT_POOL_EMB = None
+    _C.MODEL.CLIP.TEXT_VOCAB_SIZE = 49408
+    _C.MODEL.CLIP.TEXT_CONTEXT_LENGTH = 77
+    _C.MODEL.CLIP.TEXT_WIDTH = 512
+    _C.MODEL.CLIP.TEXT_HEADS = 8
+    _C.MODEL.CLIP.TEXT_LAYERS = 12
+
+    # the text tower of extract_concept_features (its width and heads
+    # follow MODEL.RESNETS.DEPTH: WIDTH and HEADS are not read)
+    _C.MODEL.TEXT_ENCODER = CfgNode()
+    _C.MODEL.TEXT_ENCODER.CONTEXT_LENGTH = 77
+    _C.MODEL.TEXT_ENCODER.VOCAB_SIZE = 49408
+    _C.MODEL.TEXT_ENCODER.WIDTH = 512
+    _C.MODEL.TEXT_ENCODER.HEADS = 8
+    _C.MODEL.TEXT_ENCODER.LAYERS = 12
 
     _C.INPUT = CfgNode()
     _C.INPUT.MIN_SIZE_TRAIN = (800,)

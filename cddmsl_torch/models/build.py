@@ -1,10 +1,11 @@
 """Config -> model (counterpart of cddmsl_tpu/models/build.py
-`build_generalized_rcnn`)."""
+`build_generalized_rcnn` and `build_pretrain_fast_rcnn`)."""
 
 import torch
 
-from ..config import ModelConfig
+from ..config import EMBED_DIMS, RESNET_SPECS, ModelConfig, check_pretrain_supported
 from ..device import compute_dtype, resolve_device
+from .clip_rcnn import PretrainFastRCNN
 from .rcnn import GeneralizedRCNN
 
 
@@ -53,5 +54,38 @@ def build_model(config: ModelConfig, device="cuda", training: bool = False) -> G
         v2l_mapper_tokens=config.v2l_mapper_tokens,
         dtype=compute_dtype(config.compute_dtype),
         training_modules=training,
+    )
+    return model.to(device).eval()
+
+
+def build_pretrain_fast_rcnn(cfg, device="cuda") -> PretrainFastRCNN:
+    """The pretraining model from the yacs tree, as the JAX build reads it:
+    the CLIP ResNet of MODEL.RESNETS.DEPTH (TPU.BACKBONE_LAYERS,
+    BACKBONE_WIDTH and EMBED_DIM override it) for the student and the
+    teacher, MODEL.CLIP.PRETRAIN_NUM_CONCEPTS concepts of the embedding
+    width, CONCEPT_THRES (0.1 when unset), the caption tower of
+    MODEL.CLIP.TEXT_* (not MODEL.TEXT_ENCODER), TPU.COMPUTE_DTYPE; after
+    `check_pretrain_supported`. Its weights are the modules' defaults: call
+    `init_random_` or load a state dict next."""
+    check_pretrain_supported(cfg)
+    device = resolve_device(device)
+    depth = cfg.MODEL.RESNETS.DEPTH
+    layers, width = RESNET_SPECS[depth]
+    embed_dim = cfg.TPU.EMBED_DIM or EMBED_DIMS[depth]
+    clip = cfg.MODEL.CLIP
+    model = PretrainFastRCNN(
+        backbone_layers=tuple(cfg.TPU.BACKBONE_LAYERS) or layers,
+        backbone_width=cfg.TPU.BACKBONE_WIDTH or width,
+        embed_dim=embed_dim,
+        concept_dim=embed_dim,
+        num_concepts=clip.PRETRAIN_NUM_CONCEPTS,
+        num_regions=clip.PRETRAIN_SAMPLE_REGIONS or 36,
+        concept_thresh=clip.CONCEPT_THRES or 0.1,
+        text_vocab_size=clip.TEXT_VOCAB_SIZE,
+        text_context_length=clip.TEXT_CONTEXT_LENGTH,
+        text_width=clip.TEXT_WIDTH,
+        text_heads=clip.TEXT_HEADS,
+        text_layers=clip.TEXT_LAYERS,
+        dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
     )
     return model.to(device).eval()

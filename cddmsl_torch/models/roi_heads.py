@@ -21,6 +21,18 @@ from .rpn import Proposals
 from .sampling import Draw, gather_selected, subsample_labels
 
 
+def pool_boxes(features: torch.Tensor, boxes: torch.Tensor, resolution: int = 14, scale: float = 1.0 / 16,
+               sampling_ratio: int = 0) -> torch.Tensor:
+    """Aligned RoIAlign of each image's boxes from its own map: features
+    (B, H, W, C), boxes (B, S, 4) -> (B*S, P, P, C), image-major."""
+    b, s = boxes.shape[:2]
+    batch_idx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(s)
+    return roi_align_batched(
+        features.contiguous(), batch_idx, boxes.reshape(b * s, 4).float().contiguous(),
+        (resolution, resolution), scale, sampling_ratio, True,
+    )
+
+
 class CLIPRes5ROIHeads(nn.Module):
     def __init__(
         self,
@@ -88,13 +100,7 @@ class CLIPRes5ROIHeads(nn.Module):
 
     def pool(self, features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """features (B, H, W, C), boxes (B, S, 4) -> (B*S, P, P, C)."""
-        b, s = boxes.shape[:2]
-        batch_idx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(s)
-        p = self.pooler_resolution
-        return roi_align_batched(
-            features.contiguous(), batch_idx, boxes.reshape(b * s, 4).float().contiguous(),
-            (p, p), self.pooler_scale, self.pooler_sampling_ratio, True,
-        )
+        return pool_boxes(features, boxes, self.pooler_resolution, self.pooler_scale, self.pooler_sampling_ratio)
 
     def _region_embed(self, features, boxes, res5_fn: Callable, attnpool_fn: Callable) -> torch.Tensor:
         """(B,H,W,C) x (B,S,4) -> (B*S, emb): pool -> res5 -> attention pool."""

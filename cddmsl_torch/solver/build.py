@@ -33,7 +33,10 @@ from torch import nn
 from ..config import SolverConfig
 from ..parallel import comm
 
-_ALWAYS_FROZEN = ("offline_backbone.", "v2l_mapper.")
+# the offline backbone and the mapper; in pretraining the distillation
+# teacher, the caption tower and the concept pool
+_ALWAYS_FROZEN = ("offline_backbone.", "v2l_mapper.", "teacher_backbone.", "lang_encoder.")
+_ALWAYS_FROZEN_NAMES = ("concept_emb",)
 _STEM = ("conv1", "conv2", "conv3", "bn1", "bn2", "bn3")
 
 
@@ -79,11 +82,14 @@ def build_lr_schedule(cfg: SolverConfig) -> Callable[[int], float]:
 
 
 def parameter_is_frozen(name: str, freeze_at: int = 2) -> bool:
-    """`path_is_frozen` on the port's parameter names: the offline backbone
-    and the mapper always, the text-embedding classifier rows, and the
-    backbone's stem (freeze_at >= 1) and first freeze_at - 1 stages.
-    FrozenBN statistics are buffers, not parameters."""
-    if name.startswith(_ALWAYS_FROZEN):
+    """`path_is_frozen` on the port's parameter names: the offline backbone,
+    the mapper, the pretraining teacher, text tower and concept pool always,
+    the text-embedding classifier rows, and the student `backbone`'s stem
+    (freeze_at >= 1) and first freeze_at - 1 stages (the part named exactly
+    `backbone`: never the teacher's). FrozenBN statistics are buffers, not
+    parameters. A frozen parameter gets neither an update nor weight decay,
+    as JAX's masked chain gives it none."""
+    if name.startswith(_ALWAYS_FROZEN) or name in _ALWAYS_FROZEN_NAMES:
         return True
     if name == "roi_heads.box_predictor.cls_score.weight":
         return True

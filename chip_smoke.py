@@ -137,19 +137,42 @@ Phases, each of which fails the run with a non-zero exit:
      has two (else a line says it was not run). Then K1, K3 and K4 at a
      rank's shapes (rank 0's rows of the first batch and of the first eval
      batch), checked and timed as in phase 7.
+ 12. the pretraining path: `pretrain_net.main` on
+     configs/pretrain/RegionCLIP_RN50.yaml at full width (CLIP-RN50 student
+     and frozen teacher, 4764 concepts, the 12-layer text tower, batch 96,
+     bf16, seeded random weights) over a seeded corpus of 192 JPEG-caption
+     pairs, cut to 6 steps: per step K1/K3/K4 launches (2/1/0, or the run
+     fails), CUDA events, the host's inline loader time; the losses finite;
+     the teacher, text tower and concept pool (and the stem and layer1)
+     bit-equal, every trainable parameter moved; `pretrain_final` reloaded
+     bit-equal; the step on a batch already on the card (ms/step,
+     images/s); then K1 at both pools and K3 at the student's, at the
+     step's shapes, checked and timed as in phase 6;
+ 13. the language tools: `extract_concept_features` on VOC's 20 classes x
+     80 templates with a seeded full-width text tower saved under
+     `lang_encoder.`, in bf16 (the default) and fp32, held against the CPU
+     in fp32 on the first 2 classes (fp32 to 1e-4, bf16 to 5e-3), its
+     encode timed; the written file loaded as MODEL.CLIP.TEXT_EMB_PATH into
+     the flagship for one inference; `extract_region_features` on phase
+     7's fixture test set in batches of 8 (K1/K3/K4 1/0/1 a batch, one
+     .npz of (k, 1024) features an image, ms/image); K1 and K4 at the
+     first batch's shapes, checked and timed as in phase 6.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/ddp`). `launches` counts
+(`roi_align_fwd/inference`, ..., `nms/language_tools`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
-the teacher's test; for ddp, both ranks of world 2 under gloo);
+the teacher's test; for ddp, both ranks of world 2 under gloo; for
+pretrain, 6 steps; for language_tools, the region features' batches);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
 eval batch per test set checked, 1 and 2 launches each; for consistency
 the two region branches' calls: K1 4, K3 3, K4 2; for mean_teacher one
 step's: K1 3, K3 2, K4 4; for ddp one rank's step and eval batch: K1 4,
-K3 3, K4 3): the largest error and the sums of the times and bounds.
+K3 3, K4 3; for pretrain one step's: K1 2, K3 1; for language_tools the
+first region-feature batch: K1 1, K4 1): the largest error and the sums of
+the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -2115,6 +2138,368 @@ def ddp_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 12: RegionCLIP pretraining on the recipe, 6 steps of 96 pairs from a
+# corpus of 192; per step the student's and the teacher's pools (K1) and the
+# student's backward (K3), no NMS (grid regions)
+PRETRAIN_STEPS, PRETRAIN_PAIRS = 6, 192
+PRETRAIN_LAUNCHES = (2, 1, 0)
+
+
+def write_pretrain_corpus(root, n, seed):
+    """`n` seeded image-caption pairs as the corpus's two TSV files: smooth
+    random 320x240 JPEGs (base64) and captions of a few words, every third
+    one a JSON dict of captions. Returns (image TSV, text TSV)."""
+    import base64
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    adjectives = ("red", "small", "wooden", "old", "bright", "striped", "wet", "empty")
+    nouns = ("dog", "car", "boat", "chair", "bird", "tree", "house", "bicycle", "bus", "sheep")
+    places = ("street", "beach", "table", "field", "river", "road", "kitchen")
+    img_tsv, txt_tsv = os.path.join(root, "images.tsv"), os.path.join(root, "texts.tsv")
+    with open(img_tsv, "w") as fi, open(txt_tsv, "w") as ft:
+        for i in range(n):
+            small = Image.fromarray((rng.rand(6, 8, 3) * 255).astype(np.uint8))
+            buf = io.BytesIO()
+            small.resize((320, 240), Image.BILINEAR).save(buf, format="JPEG", quality=90)
+            fi.write(f"pair{i}\t{base64.b64encode(buf.getvalue()).decode()}\n")
+            caption = (f"a {adjectives[rng.randint(len(adjectives))]} {nouns[rng.randint(len(nouns))]} "
+                       f"by the {places[rng.randint(len(places))]}")
+            ft.write(f"pair{i}\t{json.dumps({'captions': [caption, 'unused']}) if i % 3 == 0 else caption}\n")
+    return img_tsv, txt_tsv
+
+
+def pretrain_path(dev, smi, roi_ops, nms_ops):
+    """Region-language pretraining through `pretrain_net.main` on
+    configs/pretrain/RegionCLIP_RN50.yaml at full width (CLIP-RN50 student
+    and teacher, 4764 concepts, the 12-layer text tower, batch 96, bf16),
+    cut to 6 steps: per step the launches (2/1/0), the host's loader time
+    and CUDA events; the losses finite; the teacher, text tower and concept
+    pool bit-equal and every trainable parameter moved; the save reloaded
+    bit-equal; the step on a batch already on the card; K1 (both pools) and
+    K3 at the step's shapes. Returns its rows {kernel: row}."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cddmsl_torch import pretrain_net
+    from cddmsl_torch.checkpoint.checkpointer import DetectionCheckpointer
+    from cddmsl_torch.data.clip_datasets import CLIPImgTxtPairTSVDataset
+    from cddmsl_torch.data.clip_tokenizer import tokenize
+    from cddmsl_torch.engine.pretrain import grid_region_boxes, make_pretrain_step
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_pretrain_")
+    build_state, loop = pretrain_net.build_state, pretrain_net.pretrain_loop
+    probe = {}
+
+    def probed_build_state(cfg, device):
+        state = build_state(cfg, device)
+        probe["initial"] = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        probe["marks"] = [(e, time.perf_counter(), read_launches(roi_ops, nms_ops), 0.0, None)]
+        return state
+
+    def on_step(it, metrics, loader_s):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        probe["marks"].append((e, time.perf_counter(), read_launches(roi_ops, nms_ops), loader_s, metrics))
+
+    try:
+        img_tsv, txt_tsv = write_pretrain_corpus(root, PRETRAIN_PAIRS, seed=0)
+        out = os.path.join(root, "out")
+        argv = ["--config-file", os.path.join(here, "configs", "pretrain", "RegionCLIP_RN50.yaml"),
+                "--image-tsv", img_tsv, "--text-tsv", txt_tsv, "--device", "cuda",
+                "OUTPUT_DIR", out, "SEED", "0", "SOLVER.MAX_ITER", str(PRETRAIN_STEPS)]
+        cfg = pretrain_net.setup(pretrain_net.parser().parse_args(argv))
+        print(f"pretrain: {os.path.basename(argv[1])} (CLIP-RN50 student and teacher, "
+              f"{cfg.MODEL.CLIP.PRETRAIN_NUM_CONCEPTS} concepts, text tower {cfg.MODEL.CLIP.TEXT_LAYERS}x"
+              f"{cfg.MODEL.CLIP.TEXT_WIDTH} over {cfg.MODEL.CLIP.TEXT_VOCAB_SIZE} tokens, batch "
+              f"{cfg.SOLVER.IMS_PER_BATCH}, {cfg.TPU.COMPUTE_DTYPE}, seeded random weights) on a seeded corpus of "
+              f"{PRETRAIN_PAIRS} 320x240 JPEG-caption pairs; cut to {PRETRAIN_STEPS} steps of the recipe's 600000")
+        pretrain_net.build_state, pretrain_net.pretrain_loop = probed_build_state, (
+            lambda *a, **k: loop(*a, on_step=on_step, **k))
+        try:
+            t0 = time.perf_counter()
+            state, final = pretrain_net.main(argv)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+        finally:
+            pretrain_net.build_state, pretrain_net.pretrain_loop = build_state, loop
+        launches = read_launches(roi_ops, nms_ops)
+        print(f"pretrain path launches ({PRETRAIN_STEPS} steps): {launches}")
+
+        marks = probe["marks"]
+        if len(marks) != PRETRAIN_STEPS + 1:
+            fail(f"pretraining ran {len(marks) - 1} steps, expected {PRETRAIN_STEPS}")
+        keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+        losses = []
+        for i in range(1, len(marks)):
+            (e0, h0, l0, _, _), (e1, h1, l1, loader_s, metrics) = marks[i - 1], marks[i]
+            counts = tuple(l1[k] - l0[k] for k in keys)
+            if counts != PRETRAIN_LAUNCHES:
+                fail(f"pretrain step {i} launched K1/K3/K4 {counts}, expected {PRETRAIN_LAUNCHES}")
+            step_losses = {k: v.item() for k, v in metrics.items()}
+            losses.append(step_losses)
+            print(f"pretrain step {i}: {e0.elapsed_time(e1):.3f} ms CUDA events, {(h1 - h0) * 1e3:.3f} ms host wall, "
+                  f"{loader_s * 1e3:.3f} ms in the loader (decode, resize, normalise, tokenize, copy), "
+                  f"K1/K3/K4 launches {counts}, losses {json.dumps(step_losses)}")
+        if not all(np.isfinite(v) for step in losses for v in step.values()):
+            fail(f"non-finite pretraining losses: {losses}")
+        warm = marks[2:]
+        mean_ms = sum(marks[i - 1][0].elapsed_time(marks[i][0]) for i in range(2, len(marks))) / len(warm)
+        mean_loader = sum(m[3] for m in warm) / len(warm) * 1e3
+        print(f"pretrain loop, steps 2-{PRETRAIN_STEPS}: {mean_ms:.3f} ms/step CUDA events, "
+              f"{cfg.SOLVER.IMS_PER_BATCH / mean_ms * 1e3:.3f} images/s, {mean_loader:.3f} ms/step in the inline "
+              f"loader; main() {main_s:.1f} s wall (build, {PRETRAIN_STEPS} steps, save); on {smi}")
+
+        model = state.model
+        initial = probe["initial"]
+        params = dict(model.named_parameters())
+        trainable = [n for n, p in params.items() if p.requires_grad]
+        frozen = [n for n, p in params.items() if not p.requires_grad]
+        towers = [n for n in frozen if n.startswith(("teacher_backbone.", "lang_encoder.")) or n == "concept_emb"]
+        changed = [n for n in frozen if not torch.equal(params[n], initial[n])]
+        unmoved = [n for n in trainable if torch.equal(params[n], initial[n])]
+        if changed or unmoved or len(towers) < len(frozen) // 2:
+            fail(f"after {PRETRAIN_STEPS} steps: frozen changed {changed[:5]}, trainable unmoved {unmoved[:5]}")
+        print(f"after {PRETRAIN_STEPS} steps: all {len(trainable)} trainable parameters moved; all {len(frozen)} "
+              f"frozen ones bit-equal ({len(towers)} of them the teacher, the text tower and the concept pool, "
+              f"the rest the student's stem and layer1)")
+
+        fresh = pretrain_net.build_state(cfg, dev)
+        path = os.path.join(out, "pretrain_final.pth")
+        DetectionCheckpointer(out).load(path, fresh)
+        saved, got = state.state_dict(), fresh.state_dict()
+        bad = [k for k, v in saved["model"].items() if not torch.equal(got["model"][k], v)]
+        momentum = saved["optimizer"]["sgd"]["state"]
+        bad += [f"momentum {i}" for i, m in momentum.items()
+                if not torch.equal(got["optimizer"]["sgd"]["state"][i]["momentum_buffer"], m["momentum_buffer"])]
+        if bad or not momentum or got["iteration"] != PRETRAIN_STEPS or got["optimizer"]["count"] != PRETRAIN_STEPS:
+            fail(f"pretrain_final reloads differently: {bad[:5]}, iteration {got['iteration']}")
+        print(f"pretrain save: pretrain_final.pth ({os.path.getsize(path) / 2**20:.1f} MiB) reloads bit-equal: "
+              f"{len(saved['model'])} tensors, {len(momentum)} momentum buffers, iteration {got['iteration']}")
+        del fresh, saved, got
+
+        ds = CLIPImgTxtPairTSVDataset([img_tsv], [txt_tsv])
+        images_u8, captions = next(ds.batches(cfg.SOLVER.IMS_PER_BATCH, image_size=224, seed=1))
+        mean = np.asarray(cfg.MODEL.PIXEL_MEAN, np.float32)
+        std = np.asarray(cfg.MODEL.PIXEL_STD, np.float32)
+        images = torch.from_numpy((images_u8.astype(np.float32) / 255.0 - mean) / std).to(dev)
+        tokens = torch.from_numpy(tokenize(captions, context_length=model.text_context_length)).to(dev)
+        grid = torch.from_numpy(grid_region_boxes(224, 3)).to(dev)
+        boxes = grid.expand(images.shape[0], -1, -1)
+        step = make_pretrain_step(state)
+        for _ in range(2):
+            step(images, boxes, tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = 3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            step(images, boxes, tokens)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        print(f"pretrain step on a batch already on the card ({tuple(images.shape)}, {grid.shape[0]} regions an "
+              f"image): {ms:.3f} ms/step CUDA events, {(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host "
+              f"wall, {images.shape[0] / ms * 1e3:.3f} images/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {smi}")
+
+        with torch.no_grad():
+            f_student = model.backbone(images.to(model.dtype))["res4"]
+            f_teacher = model.teacher_backbone(images.to(model.dtype))["res4"]
+        rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+        add_roi_rows(rows, dev, roi_ops, "pretrain", [("student", *pool_args(f_student, boxes)),
+                                                       ("teacher", *pool_args(f_teacher, boxes))], ["student"])
+        print(f"pretrain phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return {name: close_row(row) for name, row in rows.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 13: the language tools. The card's concept embeddings are held
+# against the CPU's fp32 on the first CONCEPT_CPU_CLASSES classes: float32
+# (TF32 off) to 1e-4, bfloat16 (the tool's default) to 5e-3, on unit rows
+# of 1024 (bf16 against fp32 on the CPU gave ~6e-4)
+CONCEPT_CPU_CLASSES = 2
+CONCEPT_FP32_TOL, CONCEPT_BF16_TOL = 1e-4, 5e-3
+REGION_LAUNCHES = (1, 0, 1)
+
+
+def language_tools_path(dev, smi, roi_ops, nms_ops):
+    """`extract_concept_features` on VOC's 20 classes x 80 templates with a
+    seeded full-width text tower written under lang_encoder. (the 'lang'
+    keys), on the card in bf16 and fp32 against the CPU in fp32; its file
+    loaded as MODEL.CLIP.TEXT_EMB_PATH into the full-width flagship for one
+    inference; then `extract_region_features` on phase 7's fixture test
+    set in batches of 8 (1/0/1 launches a batch, one .npz of (k, 1024)
+    features an image). Returns its rows {kernel: row}: K1 and K4 at the
+    first batch's shapes."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cddmsl_torch import extract_concept_features as ecf
+    from cddmsl_torch import extract_region_features as erf
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.checkpoint.convert_torch import load_text_emb_classifier
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog
+    from cddmsl_torch.data.clip_tokenizer import pre_tokenize
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc
+    from cddmsl_torch.data.datasets.voc import CLASS_NAMES
+    from cddmsl_torch.entry import entry
+    from cddmsl_torch.models.backbone.text_encoder import CLIPTextEncoder
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_lang_")
+    names = VOC_NAMES
+    registered = False
+    try:
+        tower = CLIPTextEncoder(1024, 77, 49408, 512, 8, 12)
+        init_random_(tower, torch.Generator().manual_seed(21))
+        weights = os.path.join(root, "regionclip_lang.pth")
+        torch.save({"model": {"lang_encoder." + k: v for k, v in tower.state_dict().items()}}, weights)
+        fp32_yaml = os.path.join(root, "fp32.yaml")
+        with open(fp32_yaml, "w") as f:
+            f.write('TPU:\n  COMPUTE_DTYPE: "float32"\n')
+        emb_path = os.path.join(root, "voc_20_cls_emb.pth")
+        t0 = time.perf_counter()
+        emb = ecf.main(["--weights", weights, "--out", emb_path])
+        tool_s = time.perf_counter() - t0
+        emb32 = ecf.main(["--config-file", fp32_yaml, "--weights", weights, "--out", os.path.join(root, "fp32.pth")])
+        if emb.shape != (20, 1024) or not np.isfinite(emb).all():
+            fail(f"concept embeddings of shape {emb.shape}, finite {np.isfinite(emb).all()}")
+
+        cfg32 = get_cfg()
+        cfg32.merge_from_file(fp32_yaml)
+        tokens = pre_tokenize(CLASS_NAMES)
+        cpu = ecf.build_encoder(cfg32, weights, torch.device("cpu"))
+        t0 = time.perf_counter()
+        want = ecf.encode_classes(cpu, tokens[:CONCEPT_CPU_CLASSES], torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        err32 = float(np.abs(emb32[:CONCEPT_CPU_CLASSES] - want).max())
+        err16 = float(np.abs(emb[:CONCEPT_CPU_CLASSES] - want).max())
+        if err32 > CONCEPT_FP32_TOL or err16 > CONCEPT_BF16_TOL:
+            fail(f"concept embeddings on the card differ from the CPU's fp32: fp32 {err32}, bf16 {err16}")
+        timed = {}
+        for label, cfg_t in (("bfloat16", get_cfg()), ("float32", cfg32)):
+            enc = ecf.build_encoder(cfg_t, weights, dev)
+            ecf.encode_classes(enc, tokens, dev)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ecf.encode_classes(enc, tokens, dev)
+            timed[label] = (time.perf_counter() - t0) / 3 * 1e3
+            del enc
+        print(f"extract_concept_features: VOC's 20 classes x 80 templates through the 12-layer text tower of a "
+              f"seeded lang_encoder. file: main() {tool_s:.2f} s wall (load, encode, save); encode "
+              f"{timed['bfloat16']:.3f} ms for the 20 classes in bf16, {timed['float32']:.3f} ms in fp32 (host "
+              f"wall, one copy back per class); against the CPU's fp32 on {CONCEPT_CPU_CLASSES} classes "
+              f"({cpu_s:.1f} s there): fp32 max abs err {err32:.3g} (tol {CONCEPT_FP32_TOL}), bf16 {err16:.3g} "
+              f"(tol {CONCEPT_BF16_TOL}); on {smi}")
+
+        model, batch = entry("cuda")
+        load_text_emb_classifier(model, emb_path)
+        if not np.array_equal(model.roi_heads.box_predictor.cls_score.weight.detach().cpu().numpy(), emb):
+            fail("MODEL.CLIP.TEXT_EMB_PATH did not load the written embeddings")
+        dets = model.inference(batch)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all()):
+            fail("non-finite detections with the written text embeddings")
+        print(f"the written file as MODEL.CLIP.TEXT_EMB_PATH: the flagship's 20 classifier rows bit-equal to it, "
+              f"one inference on {tuple(batch.image.shape)}: {int(dets.valid.sum())} valid detections, finite")
+        del model, batch, dets
+
+        voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
+        register_voc_fixture(voc, names)
+        registered = True
+        calls = []
+        region_features = erf.region_features
+
+        def probed(model, batch):
+            l0, t0 = read_launches(roi_ops, nms_ops), time.perf_counter()
+            result = region_features(model, batch)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0, l0, read_launches(roi_ops, nms_ops),
+                          (model, batch) if not calls else None))
+            return result
+
+        feats_dir = os.path.join(root, "region_feats")
+        argv = ["--config-file", os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_CLIP_R_50_C4.yaml"),
+                "--dataset", names[1], "--out", feats_dir, "OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0",
+                "MODEL.PRE_TRAINED_RCLIP_PATH", "", "MODEL.VISION_TO_LANG_PATH", "",
+                "MODEL.CLIP.TEXT_EMB_PATH", emb_path]
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        erf.region_features = probed
+        try:
+            t0 = time.perf_counter()
+            seen = erf.main(argv)
+            main_s = time.perf_counter() - t0
+        finally:
+            erf.region_features = region_features
+        launches = read_launches(roi_ops, nms_ops)
+        keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+        for i, (_, l0, l1, _) in enumerate(calls):
+            counts = tuple(l1[k] - l0[k] for k in keys)
+            if counts != REGION_LAUNCHES:
+                fail(f"region-feature batch {i + 1} launched K1/K3/K4 {counts}, expected {REGION_LAUNCHES}")
+        files = sorted(os.listdir(feats_dir))
+        n_images = len(DatasetCatalog.get(names[1]))
+        if not calls or seen != n_images or len(files) != n_images:
+            fail(f"region features: {seen} images written, {len(files)} files, {n_images} in the set")
+        ks = []
+        for name in files:
+            saved = np.load(os.path.join(feats_dir, name))
+            k = saved["boxes"].shape[0]
+            if (k < 1 or saved["boxes"].shape != (k, 4) or saved["features"].shape != (k, 1024)
+                    or not np.isfinite(saved["features"]).all()):
+                fail(f"{name}: boxes {saved['boxes'].shape}, features {saved['features'].shape}")
+            ks.append(k)
+        batch_s = sum(c[0] for c in calls)
+        batch_size = calls[0][3][1].image.shape[0]
+        print(f"extract_region_features on the fixture's test set ({n_images} images, {len(calls)} batches of "
+              f"{batch_size}, "
+              f"bf16): launches {launches}, K1/K3/K4 {REGION_LAUNCHES} per batch; one .npz per image, (k, 1024) "
+              f"features for k in {min(ks)}-{max(ks)}; {batch_s * 1e3 / n_images:.3f} ms/image in the batches "
+              f"(host wall, synchronised), main() {main_s:.1f} s wall (build, load, loader, save); on {smi}")
+
+        model, batch = calls[0][3]
+        rpn = model.proposal_generator
+        with torch.no_grad():
+            features = model.backbone(model._normalize(batch.image))["res4"]
+            head = rpn._head(features)
+            rpn_call = (*rpn._nms_inputs(*head, batch.image_sizes, False), rpn.nms_thresh, rpn.post_nms_topk[False])
+            proposals = rpn._predict_proposals(*head, batch.image_sizes, False)
+        rows = {"roi_align_fwd": new_row(launches["roi_align_fwd"])}
+        add_roi_rows(rows, dev, roi_ops, "region_features", [("rpn_proposals", *pool_args(features, proposals.boxes))],
+                     [])
+        rows = {"roi_align_fwd": close_row(rows["roi_align_fwd"]),
+                "nms": nms_row(nms_ops, "region_features", launches["nms"], [rpn_call])}
+        print(f"language_tools phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        if registered:
+            for name in names:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -2168,6 +2553,10 @@ def main() -> int:
     paths["mean_teacher"] = mean_teacher_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["ddp"] = ddp_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["pretrain"] = pretrain_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["language_tools"] = language_tools_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),
