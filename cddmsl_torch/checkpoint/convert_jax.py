@@ -10,7 +10,11 @@ names are the OpenAI-CLIP / detectron2 / ClipCap checkpoint keys
 conv kernels HWIO -> OIHW, Dense kernels (in, out) -> Linear weights
 (out, in), LayerNorm scale -> weight; FrozenBN buffers, the positional
 embedding, the mapper's prefix and the (K, D) class embeddings copy as they
-are. The offline backbone maps as the backbone does.
+are. The offline backbone maps as the backbone does. The plain tower
+(`D2ResNet`: stem_conv1, stem_bn1, res{s}_{i}/conv{1,2,3}, bn{1,2,3},
+shortcut, shortcut_bn) maps to detectron2's names (backbone.stem.conv1,
+its .norm, backbone.res{s}.{i}.conv{1,2,3}, .shortcut and their .norm);
+the linear classifier's cls_score Dense to `cls_score.weight` and `.bias`.
 
 `convert_jax_text_params` and `convert_jax_pretrain_params` do the same
 for a JAX `CLIPTextEncoder` tree and a `PretrainFastRCNN` tree (the
@@ -99,8 +103,17 @@ _BACKBONE_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"backbone/attnpool/([qkvc]_proj)/kernel", r"backbone.attnpool.\1.weight", "dense"),
     (r"backbone/attnpool/([qkvc]_proj)/bias", r"backbone.attnpool.\1.bias", "copy"),
 )
+# the plain tower, D2ResNet: detectron2's names, each norm under its conv
+_D2_BACKBONE_RULES: Tuple[Tuple[str, str, str], ...] = (
+    (r"backbone/stem_conv1/kernel", r"backbone.stem.conv1.weight", "conv"),
+    (rf"backbone/stem_bn1/{_BN}", r"backbone.stem.conv1.norm.\1", "copy"),
+    (r"backbone/res(\d)_(\d+)/(conv[123]|shortcut)/kernel", r"backbone.res\1.\2.\3.weight", "conv"),
+    (rf"backbone/res(\d)_(\d+)/bn([123])/{_BN}", r"backbone.res\1.\2.conv\3.norm.\4", "copy"),
+    (rf"backbone/res(\d)_(\d+)/shortcut_bn/{_BN}", r"backbone.res\1.\2.shortcut.norm.\3", "copy"),
+)
 _RULES: Tuple[Tuple[str, str, str], ...] = (
     *_BACKBONE_RULES,
+    *_D2_BACKBONE_RULES,
     (
         r"proposal_generator/head/(conv|objectness_logits|anchor_deltas)/kernel",
         r"proposal_generator.rpn_head.\1.weight",
@@ -112,6 +125,8 @@ _RULES: Tuple[Tuple[str, str, str], ...] = (
         "copy",
     ),
     (r"roi_heads/box_predictor/cls_score_weight", r"roi_heads.box_predictor.cls_score.weight", "copy"),
+    (r"roi_heads/box_predictor/cls_score/kernel", r"roi_heads.box_predictor.cls_score.weight", "dense"),
+    (r"roi_heads/box_predictor/cls_score/bias", r"roi_heads.box_predictor.cls_score.bias", "copy"),
     (r"roi_heads/box_predictor/bbox_pred/kernel", r"roi_heads.box_predictor.bbox_pred.weight", "dense"),
     (r"roi_heads/box_predictor/bbox_pred/bias", r"roi_heads.box_predictor.bbox_pred.bias", "copy"),
     *_mapper_rules("v2l_mapper"),

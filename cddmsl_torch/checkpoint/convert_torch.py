@@ -9,8 +9,9 @@ prefix swap into the model's own state: the RegionCLIP visual tower
 ("backbone.*", else "visual.*") into the frozen offline backbone, the ClipCap
 mapper ("clip_project.*") into `v2l_mapper`, and the text-embedding tensor
 into the classifier rows. A detector checkpoint (MODEL.WEIGHTS) loads by its
-dialect: "d2_rcnn" (backbone into both backbones, RPN head, box predictor
-without its background row), "oai_clip" (the visual tower into both
+dialect: "d2_rcnn" (backbone into both backbones, or detectron2's ResNet
+keys into the plain tower, RPN head, box predictor: the text classifier
+without its background row, the linear one as it is), "oai_clip" (the visual tower into both
 backbones), "clipcap" (the mapper) or "lang" (the CLIP text tower,
 "lang_encoder.*", into a model that has one: the pretraining model); a
 model with a text tower also takes an oai_clip file's "transformer.*" text
@@ -34,6 +35,8 @@ from typing import Dict
 
 import torch
 from torch import nn
+
+from ..models.backbone.resnet import D2ResNet
 
 logger = logging.getLogger(__name__)
 
@@ -71,6 +74,11 @@ _TEXT = re.compile(
 )
 _RPN_HEAD = re.compile(r"(conv|objectness_logits|anchor_deltas)\.(weight|bias)")
 _BOX_PREDICTOR = re.compile(r"cls_score\.weight|bbox_pred\.(weight|bias)")
+_LINEAR_BOX_PREDICTOR = re.compile(r"cls_score\.(weight|bias)|bbox_pred\.(weight|bias)")
+# `convert_d2_resnet`'s keys without the deformable ones
+_D2_RESNET = re.compile(
+    r"(stem\.conv1|res\d\.\d+\.(conv[123]|shortcut))\.(weight|norm\.(weight|bias|running_mean|running_var))"
+)
 
 
 @torch.no_grad()
@@ -123,25 +131,34 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
     """A reference detector checkpoint (MODEL.WEIGHTS ending in .pth, .pt or
     .pkl) into `model`, by its dialect; returns the dialect. The offline
     backbone and the mapper are loaded when the model has them (the
-    training build)."""
+    training build). A plain tower takes detectron2's ResNet keys under
+    "backbone." (stem.conv1, res{s}.{i}.conv{1,2,3} and shortcut, each with
+    its norm), and a linear classifier the file's cls_score weight and bias
+    as they are (K + 1 rows, background last, as detectron2 writes them)."""
     sd = load_torch_state_dict(path)
     dialect = detect_dialect(sd)
     backbones = [model.backbone] + ([model.offline_backbone] if hasattr(model, "offline_backbone") else [])
     text = getattr(model, "lang_encoder", None)
+    plain = isinstance(model.backbone, D2ResNet)
     if dialect in ("oai_clip", "d2_rcnn"):
         prefix = "visual." if dialect == "oai_clip" else "backbone."
         for tower in backbones:
-            _load_prefixed(tower, sd, prefix, f"{path}: {dialect} visual tower", _VISUAL)
+            if plain:
+                _load_prefixed(tower, sd, prefix, f"{path}: {dialect} plain ResNet", _D2_RESNET)
+            else:
+                _load_prefixed(tower, sd, prefix, f"{path}: {dialect} visual tower", _VISUAL)
         text_prefix, marker = ("", "transformer.") if dialect == "oai_clip" else ("lang_encoder.", "lang_encoder.")
         if text is not None and any(k.startswith(marker) for k in sd):
             load_text_tower(text, sd, text_prefix, f"{path}: text tower")
         if dialect == "d2_rcnn":
             _load_prefixed(model.proposal_generator.rpn_head, sd, "proposal_generator.rpn_head.",
                            f"{path}: RPN head", _RPN_HEAD)
-            box = "roi_heads.box_predictor."
-            num_classes = model.roi_heads.box_predictor.cls_score.weight.shape[0]
-            _load_prefixed(model.roi_heads.box_predictor, _drop_background(sd, box, num_classes), box,
-                           f"{path}: box predictor", _BOX_PREDICTOR)
+            box, head = "roi_heads.box_predictor.", model.roi_heads.box_predictor
+            if head.use_text_emb:
+                _load_prefixed(head, _drop_background(sd, box, head.num_classes), box, f"{path}: box predictor",
+                               _BOX_PREDICTOR)
+            else:  # the linear classifier has the file's K + 1 rows
+                _load_prefixed(head, sd, box, f"{path}: box predictor", _LINEAR_BOX_PREDICTOR)
     elif dialect == "clipcap":
         _load_prefixed(model.v2l_mapper, sd, "clip_project.", f"{path}: ClipCap mapper", _MAPPER)
     elif dialect == "lang":

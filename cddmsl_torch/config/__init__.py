@@ -16,6 +16,12 @@ test and loop keys from the tree, as the JAX package's do;
 `add_ateacher_config` adds the mean-teacher block. `check_pretrain_supported`
 is the pretraining entry's check (MODEL.META_ARCHITECTURE PretrainFastRCNN,
 which `check_supported` refuses).
+
+MODEL.BACKBONE.NAME picks the tower as the JAX build does:
+build_clip_resnet_backbone is CLIP's ModifiedResNet, build_resnet_backbone
+the plain detectron2 ResNet (`D2ResNet`) of the R50-C4 baselines, built
+from RESNETS.DEPTH alone with a res5 of 2048 channels, no offline backbone
+and no caption branches.
 """
 
 import dataclasses
@@ -35,6 +41,11 @@ CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
 RESNET_SPECS = {50: ((3, 4, 6, 3), 64), 101: ((3, 4, 23, 3), 64), 200: ((4, 6, 10, 6), 80)}
 EMBED_DIMS = {50: 1024, 101: 512, 200: 640}
 IMAGE_RESOLUTIONS = {50: 224, 101: 224, 200: 288}
+# MODEL.RESNETS.DEPTH -> bottleneck blocks per stage of the plain tower
+# (cddmsl_tpu/models/backbone/resnet.py; 10 is the tests' depth). Depths 18
+# and 34 take BasicBlocks, which are not ported.
+D2_RESNET_SPECS = {10: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+CLIP_TOWER, D2_TOWER = "build_clip_resnet_backbone", "build_resnet_backbone"
 # MODEL.CONSISTENCY_BRANCH values, as the JAX DefaultTrainer asserts them
 CONSISTENCY_BRANCHES = ("", "image", "image_region", "caption_pl_img", "caption_pl_region")
 
@@ -42,7 +53,10 @@ CONSISTENCY_BRANCHES = ("", "image", "image_region", "caption_pl_img", "caption_
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     # backbone: CLIP RN50 (MODEL.RESNETS.DEPTH=50; TPU.BACKBONE_LAYERS,
-    # TPU.BACKBONE_WIDTH and TPU.EMBED_DIM override it)
+    # TPU.BACKBONE_WIDTH and TPU.EMBED_DIM override it), or with
+    # backbone_type "d2_resnet" the plain ResNet of backbone_depth
+    backbone_type: str = "clip"
+    backbone_depth: int = 50
     backbone_layers: Tuple[int, ...] = (3, 4, 6, 3)
     backbone_width: int = 64
     embed_dim: int = 1024
@@ -72,7 +86,11 @@ class ModelConfig:
     score_thresh_test: float = 0.05
     nms_thresh_test: float = 0.5
     detections_per_image: int = 100
+    cls_agnostic_bbox_reg: bool = False
     soft_nms_enabled: bool = False
+    soft_nms_method: str = "gaussian"
+    soft_nms_sigma: float = 0.5
+    soft_nms_prune: float = 0.001
     # MODEL.PIXEL_MEAN / PIXEL_STD (detectron2 BGR defaults)
     pixel_mean: Tuple[float, ...] = (103.530, 116.280, 123.675)
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -154,10 +172,39 @@ def _falsy(v) -> bool:
 
 # (key, the values the port implements); every other value raises
 _SUPPORTED_BACKBONE: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
-    ("MODEL.BACKBONE.NAME", lambda v: v == "build_clip_resnet_backbone"),
+    ("MODEL.BACKBONE.NAME", lambda v: v == CLIP_TOWER),
     ("MODEL.RESNETS.DEPTH", lambda v: v in RESNET_SPECS),
     ("MODEL.RESNETS.OUT_FEATURES", lambda v: list(v) == ["res4"]),
     ("MODEL.RESNETS.NORM", lambda v: v == "FrozenBN"),
+)
+# the detector's towers. The detector reads res4 alone (the C4 head runs res5
+# on the crops), so OUT_FEATURES [res4, res5] changes nothing it computes, as
+# in JAX. The shape keys hold the one value either tower is built with (the
+# JAX build reads none of them); deformable stages wait on a port of
+# ops/deform_conv.py.
+_SUPPORTED_TOWERS: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.BACKBONE.NAME", lambda v: v in (CLIP_TOWER, D2_TOWER)),
+    ("MODEL.RESNETS.OUT_FEATURES", lambda v: list(v) in (["res4"], ["res4", "res5"])),
+    ("MODEL.RESNETS.NORM", lambda v: v == "FrozenBN"),
+    ("MODEL.RESNETS.STEM_OUT_CHANNELS", lambda v: v == 64),
+    ("MODEL.RESNETS.RES2_OUT_CHANNELS", lambda v: v == 256),
+    ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True),
+    ("MODEL.RESNETS.NUM_GROUPS", lambda v: v == 1),
+    ("MODEL.RESNETS.WIDTH_PER_GROUP", lambda v: v == 64),
+    ("MODEL.RESNETS.RES5_DILATION", lambda v: v == 1),
+    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
+)
+# what the plain tower does not have or take: its depth's own widths, no
+# attention pool, no CLIP embedding, no offline copy
+_SUPPORTED_D2: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
+    ("TPU.BACKBONE_LAYERS", _falsy),
+    ("TPU.BACKBONE_WIDTH", _falsy),
+    ("TPU.EMBED_DIM", _falsy),
+    ("TPU.ENABLE_CAPTION_CONSISTENCY", _falsy),
+    ("MODEL.CONSISTENCY_BRANCH", _falsy),
+    ("MODEL.PRE_TRAINED_RCLIP_PATH", _falsy),
+    ("MODEL.VISION_TO_LANG_PATH", _falsy),
 )
 _SUPPORTED_SOLVER: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("SOLVER.NESTEROV", _falsy),
@@ -168,18 +215,16 @@ _SUPPORTED_SOLVER: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 _SUPPORTED_DTYPE = (("TPU.COMPUTE_DTYPE", lambda v: v in ("bfloat16", "float32")),)
 _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
-    *_SUPPORTED_BACKBONE,
+    *_SUPPORTED_TOWERS,
     ("MODEL.MASK_ON", _falsy),
     ("MODEL.KEYPOINT_ON", _falsy),
     ("MODEL.LOAD_PROPOSALS", _falsy),
     ("MODEL.CONSISTENCY_BRANCH", lambda v: v in CONSISTENCY_BRANCHES),
     ("MODEL.CAPTION_PL_LOSS", lambda v: v in ("pseudo_label", "kl")),
     ("MODEL.ROI_HEADS.NAME", lambda v: v == "CLIPRes5ROIHeads"),
-    ("MODEL.ROI_HEADS.SOFT_NMS_ENABLED", _falsy),
-    ("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", _falsy),
+    ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", lambda v: v in ("gaussian", "linear", "hard")),
     ("MODEL.CLIP.CROP_REGION_TYPE", lambda v: v == "RPN"),
     ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
-    ("MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER", bool),
     ("MODEL.CLIP.NO_BOX_DELTA", _falsy),
     ("MODEL.CLIP.MULTIPLY_RPN_SCORE", _falsy),
     ("MODEL.CLIP.OPENSET_TEST_NUM_CLASSES", _falsy),
@@ -220,21 +265,39 @@ _SUPPORTED_SEMISUP: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 )
 
 
+def _global_batches(cfg) -> Tuple[Tuple[str, int], ...]:
+    """The global batches a step splits over the ranks: the mean teacher's
+    labeled and unlabeled batches, else SOLVER.IMS_PER_BATCH."""
+    if "SEMISUPNET" in cfg and cfg.SEMISUPNET.Trainer == "ateacher":
+        return tuple((k, cfg.SOLVER[k]) for k in ("IMG_PER_BATCH_LABEL", "IMG_PER_BATCH_UNLABEL"))
+    return (("IMS_PER_BATCH", cfg.SOLVER.IMS_PER_BATCH),)
+
+
 def check_supported(cfg, world: Optional[int] = None) -> None:
     """Raises NotImplementedError naming the first key set to a value the
-    port does not implement. The port's only mesh is data parallelism over
-    the processes: TPU.MESH_SHAPE is [-1] (every rank) or [world], `world`
-    being the process group's size unless given."""
+    port does not implement (the plain tower's own refusals after the
+    shared ones). The port's only mesh is data parallelism over the
+    processes: TPU.MESH_SHAPE is one data axis, [-1] or [k] for any k, since
+    a JAX mesh of k devices computes the global batch's step as one process
+    does; it is refused unless the world (the process group's size unless
+    given) divides every global batch of the step."""
     checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
+    if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
+        checks += _SUPPORTED_D2
+    else:
+        checks += (("MODEL.RESNETS.DEPTH", lambda v: v in RESNET_SPECS),)
     for key, ok in checks:
         value = _lookup(cfg, key)
         if not ok(value):
             raise NotImplementedError(f"{key} = {value!r} is not ported")
     world = comm.get_world_size() if world is None else world
     mesh = list(cfg.TPU.MESH_SHAPE)
-    if mesh not in ([-1], [world]):
-        raise NotImplementedError(f"TPU.MESH_SHAPE = {mesh!r} is not ported for a world of {world} "
-                                  f"process(es): it is [-1] or [{world}]")
+    if len(mesh) != 1 or not (mesh[0] == -1 or mesh[0] >= 1):
+        raise NotImplementedError(f"TPU.MESH_SHAPE = {mesh!r} is not ported: one data axis, [-1] or [k]")
+    for key, batch in _global_batches(cfg):
+        if batch % world:
+            raise NotImplementedError(f"TPU.MESH_SHAPE = {mesh!r} is not ported for a world of {world} "
+                                      f"process(es): it does not divide SOLVER.{key} = {batch}")
 
 
 # what the pretraining entry (pretrain_net) reads, with the values it
@@ -274,13 +337,20 @@ def model_config_from_cfg(cfg) -> ModelConfig:
     check_supported(cfg)
     m, tpu = cfg.MODEL, cfg.TPU
     depth = m.RESNETS.DEPTH
-    layers, width = RESNET_SPECS[depth]
+    if m.BACKBONE.NAME == D2_TOWER:
+        # res5 has 2048 channels, mean-pooled by the linear head
+        tower, layers, width, embed_dim, resolution = "d2_resnet", D2_RESNET_SPECS[depth], 64, 2048, 224
+    else:
+        (layers, width), embed_dim, resolution = RESNET_SPECS[depth], EMBED_DIMS[depth], IMAGE_RESOLUTIONS[depth]
+        tower = "clip"
     sizes = tuple(s for group in m.ANCHOR_GENERATOR.SIZES for s in (group if isinstance(group, (list, tuple)) else [group]))
     return ModelConfig(
+        backbone_type=tower,
+        backbone_depth=depth,
         backbone_layers=tuple(tpu.BACKBONE_LAYERS) or layers,
         backbone_width=tpu.BACKBONE_WIDTH or width,
-        embed_dim=tpu.EMBED_DIM or EMBED_DIMS[depth],
-        input_resolution=IMAGE_RESOLUTIONS[depth],
+        embed_dim=tpu.EMBED_DIM or embed_dim,
+        input_resolution=resolution,
         anchor_sizes=sizes,
         anchor_aspect_ratios=tuple(m.ANCHOR_GENERATOR.ASPECT_RATIOS[0]),
         rpn_batch_size_per_image=m.RPN.BATCH_SIZE_PER_IMAGE,
@@ -302,7 +372,11 @@ def model_config_from_cfg(cfg) -> ModelConfig:
         score_thresh_test=m.ROI_HEADS.SCORE_THRESH_TEST,
         nms_thresh_test=m.ROI_HEADS.NMS_THRESH_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
+        cls_agnostic_bbox_reg=m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG,
         soft_nms_enabled=m.ROI_HEADS.SOFT_NMS_ENABLED,
+        soft_nms_method=m.ROI_HEADS.SOFT_NMS_METHOD,
+        soft_nms_sigma=m.ROI_HEADS.SOFT_NMS_SIGMA,
+        soft_nms_prune=m.ROI_HEADS.SOFT_NMS_PRUNE,
         pixel_mean=tuple(m.PIXEL_MEAN),
         pixel_std=tuple(m.PIXEL_STD),
         region_consistency_boxes=tpu.REGION_CONSISTENCY_BOXES,

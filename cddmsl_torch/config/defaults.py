@@ -48,6 +48,16 @@ def get_cfg() -> CfgNode:
     _C.MODEL.RESNETS.DEPTH = 50
     _C.MODEL.RESNETS.OUT_FEATURES = ["res4"]
     _C.MODEL.RESNETS.NORM = "FrozenBN"
+    # the plain tower's (build_resnet_backbone) shape keys: JAX's
+    # GeneralizedRCNN builds D2ResNet from DEPTH alone, so each is accepted
+    # only at the value that tower has
+    _C.MODEL.RESNETS.STEM_OUT_CHANNELS = 64
+    _C.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
+    _C.MODEL.RESNETS.STRIDE_IN_1X1 = True
+    _C.MODEL.RESNETS.NUM_GROUPS = 1
+    _C.MODEL.RESNETS.WIDTH_PER_GROUP = 64
+    _C.MODEL.RESNETS.RES5_DILATION = 1
+    _C.MODEL.RESNETS.DEFORM_ON_PER_STAGE = [False, False, False, False]
 
     _C.MODEL.ANCHOR_GENERATOR = CfgNode()
     _C.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
@@ -71,6 +81,9 @@ def get_cfg() -> CfgNode:
     _C.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
     _C.MODEL.ROI_HEADS.NMS_THRESH_TEST = 0.5
     _C.MODEL.ROI_HEADS.SOFT_NMS_ENABLED = False
+    _C.MODEL.ROI_HEADS.SOFT_NMS_METHOD = "gaussian"  # or "linear", "hard"
+    _C.MODEL.ROI_HEADS.SOFT_NMS_SIGMA = 0.5
+    _C.MODEL.ROI_HEADS.SOFT_NMS_PRUNE = 0.001
 
     _C.MODEL.ROI_BOX_HEAD = CfgNode()
     _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14

@@ -138,7 +138,8 @@ class AttentionPool2d(nn.Module):
 
 class ModifiedResNet(nn.Module):
     """The CLIP ResNet as a C4 detection backbone: `forward` runs the stem
-    and res2..res4 and returns the NHWC res4 map; the RoI head runs layer4
+    and res2..res4 and returns the NHWC res4 map, and layer4's full-image
+    res5 only when the call asks for it; the RoI head runs layer4
     (`res5_forward`) and the attention pool on pooled crops."""
 
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int, width: int = 64, input_resolution: int = 224):
@@ -171,10 +172,14 @@ class ModifiedResNet(nn.Module):
         x = F.relu(self.bn3(self.conv3(x)))
         return self.avgpool(x)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (N, H, W, 3) in the compute dtype -> {"res4": (N, H/16, W/16, C4)}."""
+    def forward(self, x: torch.Tensor, out_features: Sequence[str] = ("res4",)) -> Dict[str, torch.Tensor]:
+        """x: (N, H, W, 3) in the compute dtype -> the maps `out_features`
+        names of {"res4": (N, H/16, W/16, C4), "res5": (N, H/32, W/32, C5)}."""
         x = self.layer3(self.layer2(self.layer1(self._stem(_nchw(x)))))
-        return {"res4": _nhwc(x)}
+        out = {"res4": _nhwc(x)} if "res4" in out_features else {}
+        if "res5" in out_features:
+            out["res5"] = _nhwc(self.layer4(x))
+        return out
 
     def res5_forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, P, P, C4) pooled crops -> (N, P/2, P/2, C5), NHWC."""

@@ -11,16 +11,15 @@ from .rcnn import GeneralizedRCNN
 
 def build_model(config: ModelConfig, device="cuda", training: bool = False) -> GeneralizedRCNN:
     """Builds the detector on `device` (CUDA unless the caller asks for the
-    CPU) in eval mode; `training=True` adds the modules that only the CDDMSL
-    losses read (offline backbone, ClipCap mapper, projector and image
-    projector). Its weights are the modules' defaults: load a state dict
+    CPU) in eval mode; `training=True` adds, on the CLIP tower, the modules
+    that only the CDDMSL losses read (offline backbone, ClipCap mapper,
+    projector and image projector). Its weights are the modules' defaults: load a state dict
     (checkpoint/convert_jax.py) or call `init_random_` next."""
     device = resolve_device(device)
-    if not config.use_text_emb:
-        raise NotImplementedError("only the text-embedding classifier (MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER) is ported")
-    if config.soft_nms_enabled:
-        raise NotImplementedError("soft-NMS (MODEL.ROI_HEADS.SOFT_NMS_ENABLED) is not ported")
+    soft_nms = (config.soft_nms_method, config.soft_nms_sigma, config.soft_nms_prune)
     model = GeneralizedRCNN(
+        backbone_type=config.backbone_type,
+        backbone_depth=config.backbone_depth,
         backbone_layers=tuple(config.backbone_layers),
         backbone_width=config.backbone_width,
         embed_dim=config.embed_dim,
@@ -43,9 +42,12 @@ def build_model(config: ModelConfig, device="cuda", training: bool = False) -> G
         temperature=config.temperature,
         focal_gamma=config.focal_gamma,
         bg_loss_weight=config.bg_loss_weight,
+        use_text_emb=config.use_text_emb,
+        cls_agnostic_bbox_reg=config.cls_agnostic_bbox_reg,
         score_thresh_test=config.score_thresh_test,
         nms_thresh_test=config.nms_thresh_test,
         detections_per_image=config.detections_per_image,
+        soft_nms=soft_nms if config.soft_nms_enabled else None,
         pixel_mean=tuple(config.pixel_mean),
         pixel_std=tuple(config.pixel_std),
         region_consistency_boxes=config.region_consistency_boxes,

@@ -1,8 +1,16 @@
 """Fast R-CNN output layers, losses and static-shape inference (counterpart
 of cddmsl_tpu/models/fast_rcnn.py `FastRCNNOutputLayers`, `fast_rcnn_losses`,
-`DetectionResult` and `fast_rcnn_inference_single_image`)."""
+`DetectionResult` and `fast_rcnn_inference_single_image`).
 
-from typing import Dict, NamedTuple, Optional
+The classifier is the cosine against frozen text embeddings
+(MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER) or a trainable linear layer of K + 1
+logits, background last. The box regressor gives K boxes, or one that every
+class shares (MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG). Inference ends in
+the class-aware NMS (kernel K4), or with MODEL.ROI_HEADS.SOFT_NMS_ENABLED in
+the class-aware soft-NMS, whose decayed scores are the detections'.
+"""
+
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -10,6 +18,7 @@ from torch import nn
 
 from ..ops.box_regression import Box2BoxTransform
 from ..ops.nms import batched_nms
+from ..ops.soft_nms import batched_soft_nms
 from ..parallel import comm
 from ..structures import boxes as box_ops
 
@@ -22,28 +31,43 @@ class DetectionResult(NamedTuple):
 
 
 class FastRCNNOutputLayers(nn.Module):
-    """Cosine classifier against frozen text embeddings plus the per-class
-    box regressor (detectron2 `box_predictor.cls_score` / `bbox_pred` keys).
-    The background logit is a zero embedding, so it is 0 before /T."""
+    """The classifier and the box regressor (detectron2 `box_predictor.
+    cls_score` / `bbox_pred` keys). With `use_text_emb` the classifier is the
+    cosine against frozen text embeddings, (K, D) without a bias, and the
+    background logit is a zero embedding, so it is 0 before /T; otherwise a
+    trainable linear layer of K + 1 logits. `bbox_pred` gives 4 deltas per
+    class, or 4 in all with `cls_agnostic_bbox_reg`."""
 
-    def __init__(self, num_classes: int, input_size: int, temperature: float = 0.01):
+    def __init__(self, num_classes: int, input_size: int, temperature: float = 0.01, use_text_emb: bool = True,
+                 cls_agnostic_bbox_reg: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.temperature = temperature
-        self.cls_score = nn.Linear(input_size, num_classes, bias=False)
-        self.bbox_pred = nn.Linear(input_size, num_classes * 4)
+        self.use_text_emb = use_text_emb
+        if use_text_emb:
+            self.cls_score = nn.Linear(input_size, num_classes, bias=False)
+        else:
+            self.cls_score = nn.Linear(input_size, num_classes + 1)
+        self.bbox_pred = nn.Linear(input_size, 4 if cls_agnostic_bbox_reg else num_classes * 4)
+
+    @staticmethod
+    def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype)).float()
 
     def forward(self, x: torch.Tensor):
-        """x (N, D) region features -> scores (N, K+1) fp32, deltas (N, K*4) fp32."""
+        """x (N, D) region features -> scores (N, K+1) fp32, deltas (N, K*4)
+        or (N, 4) fp32."""
         x = x.reshape(x.shape[0], -1)
-        xn = x / torch.clamp(torch.linalg.vector_norm(x.float(), dim=1, keepdim=True), min=1e-12)
-        w = self.cls_score.weight
-        wn = w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True), min=1e-12)
-        cls_scores = xn @ wn.T
-        bg = torch.zeros((x.shape[0], 1), dtype=cls_scores.dtype, device=x.device)
-        scores = torch.cat([cls_scores, bg], dim=1) / self.temperature
-        deltas = F.linear(x, self.bbox_pred.weight.to(x.dtype), self.bbox_pred.bias.to(x.dtype)).float()
-        return scores, deltas
+        if self.use_text_emb:
+            xn = x / torch.clamp(torch.linalg.vector_norm(x.float(), dim=1, keepdim=True), min=1e-12)
+            w = self.cls_score.weight
+            wn = w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True), min=1e-12)
+            cls_scores = xn @ wn.T
+            bg = torch.zeros((x.shape[0], 1), dtype=cls_scores.dtype, device=x.device)
+            scores = torch.cat([cls_scores, bg], dim=1) / self.temperature
+        else:
+            scores = self._linear(self.cls_score, x)
+        return scores, self._linear(self.bbox_pred, x)
 
 
 def fast_rcnn_losses(
@@ -59,8 +83,8 @@ def fast_rcnn_losses(
     bg_loss_weight: Optional[float] = None,
 ) -> Dict[str, torch.Tensor]:
     """Focal-scaled cross-entropy with an optional background weight, and the
-    L1 box loss (SMOOTH_L1_BETA = 0) of the ground-truth class over
-    foreground rows. Both are means over the valid rows, as the JAX package
+    L1 box loss (SMOOTH_L1_BETA = 0) of the ground-truth class (of the one
+    box when `deltas` has 4 columns) over foreground rows. Both are means over the valid rows, as the JAX package
     takes them; under a process group over the global batch's valid rows
     (a sampler that does not fill its quota leaves ranks with different
     counts), so that the ranks' mean is the global loss."""
@@ -77,8 +101,11 @@ def fast_rcnn_losses(
     loss_cls = (ce * valid_f).sum() / n_valid
 
     fg = valid & (gt_classes >= 0) & (gt_classes < num_classes)
-    fg_cls = torch.clamp(gt_classes, 0, num_classes - 1).long()
-    fg_deltas = torch.gather(deltas.reshape(n, num_classes, 4), 1, fg_cls[:, None, None].expand(-1, 1, 4))[:, 0]
+    if deltas.shape[1] == 4:  # class-agnostic: one box for every class
+        fg_deltas = deltas
+    else:
+        fg_cls = torch.clamp(gt_classes, 0, num_classes - 1).long()
+        fg_deltas = torch.gather(deltas.reshape(n, num_classes, 4), 1, fg_cls[:, None, None].expand(-1, 1, 4))[:, 0]
     gt_deltas = box2box.get_deltas(proposal_boxes, gt_boxes)
     reg = torch.abs(fg_deltas - gt_deltas).sum(dim=1)
     loss_box = (reg * fg.float()).sum() / n_valid
@@ -87,7 +114,7 @@ def fast_rcnn_losses(
 
 def detection_candidates(
     scores: torch.Tensor,  # (B, R, K+1) logits
-    deltas: torch.Tensor,  # (B, R, K*4)
+    deltas: torch.Tensor,  # (B, R, K*4) or (B, R, 4)
     proposal_boxes: torch.Tensor,  # (B, R, 4)
     proposal_valid: torch.Tensor,  # (B, R)
     image_hw: torch.Tensor,  # (B, 2)
@@ -102,8 +129,10 @@ def detection_candidates(
     (B, M)."""
     b, r = scores.shape[:2]
     probs = torch.softmax(scores, dim=-1)[..., :-1]  # (B, R, K)
-    d = deltas.reshape(b, r, num_classes, 4)
-    boxes = box2box.apply_deltas(d, proposal_boxes[:, :, None, :])  # (B, R, K, 4)
+    if deltas.shape[-1] == 4:  # class-agnostic: one box, given to each class
+        boxes = box2box.apply_deltas(deltas, proposal_boxes)[:, :, None, :].expand(b, r, num_classes, 4)
+    else:
+        boxes = box2box.apply_deltas(deltas.reshape(b, r, num_classes, 4), proposal_boxes[:, :, None, :])
     hw = image_hw.to(boxes.device)
     boxes = box_ops.clip(boxes, (hw[:, 0, None, None], hw[:, 1, None, None]))
 
@@ -121,7 +150,7 @@ def detection_candidates(
 
 def fast_rcnn_inference(
     scores: torch.Tensor,  # (B, R, K+1) logits
-    deltas: torch.Tensor,  # (B, R, K*4)
+    deltas: torch.Tensor,  # (B, R, K*4) or (B, R, 4)
     proposal_boxes: torch.Tensor,  # (B, R, 4)
     proposal_valid: torch.Tensor,  # (B, R)
     image_hw: torch.Tensor,  # (B, 2)
@@ -131,17 +160,26 @@ def fast_rcnn_inference(
     nms_thresh: float = 0.5,
     topk_per_image: int = 100,
     max_candidates: int = 2048,
+    soft_nms: Optional[Tuple[str, float, float]] = None,
 ) -> DetectionResult:
     """`fast_rcnn_inference_single_image` over a batch: the candidates of
     `detection_candidates`, class-aware NMS through the coordinate shift,
-    top `topk_per_image`."""
+    top `topk_per_image`. With `soft_nms` = (method, sigma, prune) the
+    class-aware soft-NMS replaces the NMS, `nms_thresh` as its linear
+    threshold, and the detections carry its decayed scores."""
     top_boxes, top_scores, top_classes, top_valid = detection_candidates(
         scores, deltas, proposal_boxes, proposal_valid, image_hw, box2box, num_classes, score_thresh, max_candidates
     )
-    keep_idx, keep_valid = batched_nms(
-        top_boxes, top_scores, top_classes, nms_thresh, max_out=topk_per_image, valid=top_valid
-    )
-    kept_scores = torch.gather(top_scores, 1, keep_idx)
+    if soft_nms is not None:
+        method, sigma, prune = soft_nms
+        keep_idx, kept_scores, keep_valid = batched_soft_nms(
+            top_boxes, top_scores, top_classes, method, sigma, nms_thresh, prune, topk_per_image, top_valid
+        )
+    else:
+        keep_idx, keep_valid = batched_nms(
+            top_boxes, top_scores, top_classes, nms_thresh, max_out=topk_per_image, valid=top_valid
+        )
+        kept_scores = torch.gather(top_scores, 1, keep_idx)
     return DetectionResult(
         boxes=torch.gather(top_boxes, 1, keep_idx[..., None].expand(-1, -1, 4)),
         scores=torch.where(keep_valid, kept_scores, torch.zeros_like(kept_scores)),

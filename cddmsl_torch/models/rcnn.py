@@ -6,6 +6,14 @@ cddmsl_tpu/models/rcnn.py `GeneralizedRCNN`: `_normalize`, `inference`,
 `caption_pl_region_prefixes` and `cddmsl_losses`, and of
 `infonce_bidirectional`).
 
+The tower is CLIP's ModifiedResNet or, with `backbone_type` "d2_resnet",
+the plain detectron2 ResNet of the R50-C4 baselines; the classifier is the
+cosine against text embeddings (`use_text_emb`), whose box head pools res5
+with the attention pool, or a linear layer on res5 mean-pooled over the
+crop. The region branches keep the attention pool, as JAX's do. The plain
+tower has no attention pool, CLIP embedding or offline copy, so its
+training build is the detector alone and only the supervised losses run.
+
 `cddmsl_losses` is the training step's loss set: the supervised RPN and RoI
 losses on the source view and, past burn-up, the image-level caption
 consistency (224^2 bicubic view -> `global_embed` -> frozen ClipCap mapper
@@ -29,7 +37,7 @@ draw their boxes at sites of their own ("image_region",
 "caption_pl_region").
 """
 
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +47,7 @@ from ..ops.resize import resize_bicubic
 from ..parallel import comm
 from ..structures import boxes as box_ops
 from .backbone.clip_resnet import ModifiedResNet
+from .backbone.resnet import D2ResNet
 from .clipcap import Projector, TransformerMapper, v2l
 from .fast_rcnn import DetectionResult
 from .roi_heads import CLIPRes5ROIHeads
@@ -77,6 +86,8 @@ def infonce_bidirectional(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class GeneralizedRCNN(nn.Module):
     def __init__(
         self,
+        backbone_type: str = "clip",
+        backbone_depth: int = 50,
         backbone_layers: Sequence[int] = (3, 4, 6, 3),
         backbone_width: int = 64,
         embed_dim: int = 1024,
@@ -99,9 +110,12 @@ class GeneralizedRCNN(nn.Module):
         temperature: float = 0.01,
         focal_gamma: Optional[float] = None,
         bg_loss_weight: Optional[float] = None,
+        use_text_emb: bool = True,
+        cls_agnostic_bbox_reg: bool = False,
         score_thresh_test: float = 0.05,
         nms_thresh_test: float = 0.5,
         detections_per_image: int = 100,
+        soft_nms: Optional[Tuple[str, float, float]] = None,
         pixel_mean: Sequence[float] = (0.48145466, 0.4578275, 0.40821073),
         pixel_std: Sequence[float] = (0.26862954, 0.26130258, 0.27577711),
         region_consistency_boxes: int = 16,
@@ -112,11 +126,14 @@ class GeneralizedRCNN(nn.Module):
         training_modules: bool = False,
     ):
         super().__init__()
+        if backbone_type not in ("clip", "d2_resnet"):
+            raise ValueError(f"backbone_type {backbone_type!r}: 'clip' or 'd2_resnet'")
         self.dtype = dtype
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
         self.region_consistency_boxes = region_consistency_boxes
         self.v2l_image_size = v2l_image_size
+        self.use_text_emb = use_text_emb
 
         def clip_resnet():
             return ModifiedResNet(
@@ -127,7 +144,7 @@ class GeneralizedRCNN(nn.Module):
                 input_resolution=input_resolution,
             )
 
-        self.backbone = clip_resnet()
+        self.backbone = clip_resnet() if backbone_type == "clip" else D2ResNet(backbone_depth)
         self.proposal_generator = RPN(
             in_channels=backbone_width * 16,
             stride=16,
@@ -146,7 +163,7 @@ class GeneralizedRCNN(nn.Module):
             num_classes=num_classes,
             batch_size_per_image=roi_batch_size_per_image,
             positive_fraction=roi_positive_fraction,
-            emb_dim=embed_dim,
+            emb_dim=embed_dim if use_text_emb else backbone_width * 32,  # the linear head reads res5
             temperature=temperature,
             pooler_resolution=pooler_resolution,
             pooler_sampling_ratio=pooler_sampling_ratio,
@@ -155,8 +172,11 @@ class GeneralizedRCNN(nn.Module):
             score_thresh_test=score_thresh_test,
             nms_thresh_test=nms_thresh_test,
             detections_per_image=detections_per_image,
+            use_text_emb=use_text_emb,
+            cls_agnostic_bbox_reg=cls_agnostic_bbox_reg,
+            soft_nms=soft_nms,
         )
-        if training_modules:
+        if training_modules and backbone_type == "clip":
             # frozen second copy: the KD teacher of the caption branch
             self.offline_backbone = clip_resnet().requires_grad_(False)
             # frozen ClipCap mapper: its parameters do not train, but
@@ -192,6 +212,16 @@ class GeneralizedRCNN(nn.Module):
         std = torch.tensor(self.pixel_std, dtype=torch.float32, device=images.device)
         return ((x - mean) / std).to(self.dtype)
 
+    def _res4(self, x: torch.Tensor) -> torch.Tensor:
+        # res5 runs on the crops alone: XLA drops JAX's unread full-image res5 too
+        return self.backbone(x)["res4"]
+
+    @property
+    def _box_pool(self) -> Optional[Callable]:
+        """The box head's pool over res5: the attention pool with the text
+        classifier, none (the mean) with the linear one."""
+        return self.backbone.attnpool_forward if self.use_text_emb else None
+
     @torch.no_grad()
     def proposals(self, batch: DetBatch):
         """Backbone and RPN: (res4 (B, H/16, W/16, C) NHWC, Proposals)."""
@@ -205,8 +235,7 @@ class GeneralizedRCNN(nn.Module):
         input frame."""
         features, proposals = self.proposals(batch)
         detections = self.roi_heads(
-            features, proposals, batch.image_sizes,
-            res5_fn=self.backbone.res5_forward, attnpool_fn=self.backbone.attnpool_forward,
+            features, proposals, batch.image_sizes, res5_fn=self.backbone.res5_forward, attnpool_fn=self._box_pool,
         )
         if not do_postprocess:
             return detections
@@ -220,7 +249,7 @@ class GeneralizedRCNN(nn.Module):
 
     def extract_res4(self, images: torch.Tensor) -> torch.Tensor:
         """Raw images (B, H, W, 3) -> the res4 map (B, H/16, W/16, C)."""
-        return self.backbone(self._normalize(images))["res4"]
+        return self._res4(self._normalize(images))
 
     # ---------------- training ----------------
     def _student_v2l(self, images224: torch.Tensor) -> torch.Tensor:
@@ -273,8 +302,8 @@ class GeneralizedRCNN(nn.Module):
         """InfoNCE of region embeddings of the same random proposals (site
         "image_region") pooled from both views' res4 maps, through the image
         projector."""
-        f_src = self.backbone(self._normalize(batch.image))["res4"]
-        f_trgt = self.backbone(self._normalize(batch.image_trgt))["res4"]
+        f_src = self._res4(self._normalize(batch.image))
+        f_trgt = self._res4(self._normalize(batch.image_trgt))
         boxes = self._branch_region_boxes(f_src, batch, draw, "image_region")
         r_src, r_trgt = self.roi_heads.forward_get_features(
             f_src, f_trgt, boxes, self.backbone.res5_forward, self.backbone.attnpool_forward)
@@ -293,8 +322,8 @@ class GeneralizedRCNN(nn.Module):
         random proposals (site "caption_pl_region") from both views."""
         backbone, rh = self.backbone, self.roi_heads
         with torch.no_grad():
-            f_src = backbone(self._normalize(batch.image))["res4"]
-        f_trgt = backbone(self._normalize(batch.image_trgt))["res4"]
+            f_src = self._res4(self._normalize(batch.image))
+        f_trgt = self._res4(self._normalize(batch.image_trgt))
         boxes = self._branch_region_boxes(f_src, batch, draw, "caption_pl_region")
         with torch.no_grad():
             r_src = rh._region_embed(f_src, boxes, backbone.res5_forward, backbone.attnpool_forward)
@@ -309,8 +338,8 @@ class GeneralizedRCNN(nn.Module):
             f_src, batch.image_sizes, training=True, gt_boxes=batch.gt_boxes, gt_valid=batch.gt_valid, draw=draw
         )
         det_losses = self.roi_heads(
-            f_src, proposals, batch.image_sizes, self.backbone.res5_forward, self.backbone.attnpool_forward,
-            training=True, gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
+            f_src, proposals, batch.image_sizes, self.backbone.res5_forward, self._box_pool, training=True,
+            gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
         )
         return {**det_losses, **rpn_losses}, f_src, proposals
 
@@ -336,7 +365,7 @@ class GeneralizedRCNN(nn.Module):
             off = {"cont_loss": zero, "kd_loss": zero} if kd_regularization else {"cont_loss": zero}
             return {**losses, **off, "cont_loss_region": zero}
         cc = self.caption_consistency(batch, kd_regularization)
-        f_trgt = self.backbone(self._normalize(batch.image_trgt))["res4"]
+        f_trgt = self._res4(self._normalize(batch.image_trgt))
         boxes = self._random_region_boxes(proposals, draw)
         r_src, r_trgt = self.roi_heads.forward_get_features(
             f_src, f_trgt, boxes, self.backbone.res5_forward, self.backbone.attnpool_forward)

@@ -1,8 +1,9 @@
-"""C4 RoI heads for the CLIP ResNet (counterpart of
-cddmsl_tpu/models/roi_heads.py `CLIPRes5ROIHeads`): RoIAlign 14x14 at 1/16
-on res4 (kernels K1 and, for its gradient, K3 on the card) -> the backbone's
-res5 on every crop -> AttentionPool2d -> cosine classifier. Inference ends
-in class-aware NMS (kernel K4); training matches and samples the proposals
+"""C4 RoI heads (counterpart of cddmsl_tpu/models/roi_heads.py
+`CLIPRes5ROIHeads`): RoIAlign 14x14 at 1/16 on res4 (kernels K1 and, for its
+gradient, K3 on the card) -> the backbone's res5 on every crop -> the
+attention pool and the cosine classifier, or with the linear classifier
+(`attnpool_fn` None) the mean over the crop. Inference ends in class-aware
+NMS (kernel K4) or soft-NMS; training matches and samples the proposals
 (with the ground truth appended) and returns the Fast R-CNN losses.
 `forward_get_features` pools the same boxes from two maps for the
 region-level consistency loss."""
@@ -50,7 +51,13 @@ class CLIPRes5ROIHeads(nn.Module):
         score_thresh_test: float = 0.05,
         nms_thresh_test: float = 0.5,
         detections_per_image: int = 100,
+        use_text_emb: bool = True,
+        cls_agnostic_bbox_reg: bool = False,
+        soft_nms: Optional[Tuple[str, float, float]] = None,
     ):
+        """`emb_dim` is the width of the classifier's input: the attention
+        pool's output with `use_text_emb`, else res5's channels. `soft_nms`
+        = (method, sigma, prune) replaces the detection NMS."""
         super().__init__()
         self.num_classes = num_classes
         self.batch_size_per_image = batch_size_per_image
@@ -63,7 +70,9 @@ class CLIPRes5ROIHeads(nn.Module):
         self.score_thresh_test = score_thresh_test
         self.nms_thresh_test = nms_thresh_test
         self.detections_per_image = detections_per_image
-        self.box_predictor = FastRCNNOutputLayers(num_classes, emb_dim, temperature)
+        self.soft_nms = soft_nms
+        self.box_predictor = FastRCNNOutputLayers(num_classes, emb_dim, temperature, use_text_emb,
+                                                  cls_agnostic_bbox_reg)
         self.box2box = Box2BoxTransform(bbox_reg_weights)
         self.matcher = Matcher((0.5,), (0, 1), allow_low_quality_matches=False)
 
@@ -102,9 +111,11 @@ class CLIPRes5ROIHeads(nn.Module):
         """features (B, H, W, C), boxes (B, S, 4) -> (B*S, P, P, C)."""
         return pool_boxes(features, boxes, self.pooler_resolution, self.pooler_scale, self.pooler_sampling_ratio)
 
-    def _region_embed(self, features, boxes, res5_fn: Callable, attnpool_fn: Callable) -> torch.Tensor:
-        """(B,H,W,C) x (B,S,4) -> (B*S, emb): pool -> res5 -> attention pool."""
-        return attnpool_fn(res5_fn(self.pool(features, boxes)))
+    def _region_embed(self, features, boxes, res5_fn: Callable, attnpool_fn: Optional[Callable]) -> torch.Tensor:
+        """(B,H,W,C) x (B,S,4) -> (B*S, emb): pool -> res5 -> the attention
+        pool, or without one the mean over the crop."""
+        x = res5_fn(self.pool(features, boxes))
+        return attnpool_fn(x) if attnpool_fn is not None else x.mean(dim=(1, 2))
 
     def forward_get_features(
         self, features_src: torch.Tensor, features_trgt: torch.Tensor, boxes: torch.Tensor,
@@ -123,7 +134,7 @@ class CLIPRes5ROIHeads(nn.Module):
         proposals: Proposals,
         image_sizes: torch.Tensor,
         res5_fn: Callable,
-        attnpool_fn: Callable,
+        attnpool_fn: Optional[Callable],
         training: bool = False,
         gt_boxes: Optional[torch.Tensor] = None,
         gt_classes: Optional[torch.Tensor] = None,
@@ -159,4 +170,5 @@ class CLIPRes5ROIHeads(nn.Module):
             score_thresh=self.score_thresh_test,
             nms_thresh=self.nms_thresh_test,
             topk_per_image=self.detections_per_image,
+            soft_nms=self.soft_nms,
         )

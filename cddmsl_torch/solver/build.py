@@ -81,17 +81,19 @@ def build_lr_schedule(cfg: SolverConfig) -> Callable[[int], float]:
     return schedule
 
 
-def parameter_is_frozen(name: str, freeze_at: int = 2) -> bool:
+def parameter_is_frozen(name: str, freeze_at: int = 2, use_text_emb: bool = True) -> bool:
     """`path_is_frozen` on the port's parameter names: the offline backbone,
     the mapper, the pretraining teacher, text tower and concept pool always,
-    the text-embedding classifier rows, and the student `backbone`'s stem
-    (freeze_at >= 1) and first freeze_at - 1 stages (the part named exactly
-    `backbone`: never the teacher's). FrozenBN statistics are buffers, not
-    parameters. A frozen parameter gets neither an update nor weight decay,
-    as JAX's masked chain gives it none."""
+    the text-embedding classifier rows (`use_text_emb`; the linear
+    classifier trains), and the student `backbone`'s stem (freeze_at >= 1)
+    and first freeze_at - 1 stages (the part named exactly `backbone`: never
+    the teacher's). The stem and stages are the CLIP tower's names, as in
+    JAX: FREEZE_AT freezes nothing of the plain tower (stem, res2, ...).
+    FrozenBN statistics are buffers, not parameters. A frozen parameter gets
+    neither an update nor weight decay, as JAX's masked chain gives it none."""
     if name.startswith(_ALWAYS_FROZEN) or name in _ALWAYS_FROZEN_NAMES:
         return True
-    if name == "roi_heads.box_predictor.cls_score.weight":
+    if use_text_emb and name == "roi_heads.box_predictor.cls_score.weight":
         return True
     parts = name.split(".")
     if parts[0] == "backbone" and len(parts) > 1:
@@ -159,9 +161,10 @@ class Optimizer:
 def build_optimizer(model: nn.Module, cfg: SolverConfig) -> Optimizer:
     """Marks the frozen parameters `requires_grad=False` and returns the
     optimizer of the others."""
+    use_text_emb = getattr(model, "use_text_emb", True)  # the detector's classifier
     trainable = []
     for name, p in model.named_parameters():
-        frozen = parameter_is_frozen(name, cfg.freeze_at)
+        frozen = parameter_is_frozen(name, cfg.freeze_at, use_text_emb)
         p.requires_grad_(not frozen)
         if not frozen:
             trainable.append(p)

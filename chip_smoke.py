@@ -157,13 +157,29 @@ Phases, each of which fails the run with a non-zero exit:
      7's fixture test set in batches of 8 (K1/K3/K4 1/0/1 a batch, one
      .npz of (k, 1024) features an image, ms/image); K1 and K4 at the
      first batch's shapes, checked and timed as in phase 6.
+ 14. the plain R50-C4 baseline: `DefaultTrainer` on
+     configs/VOC-Experiments/faster_rcnn_R_50_C4.yaml (the detectron2
+     ResNet-50 tower, the linear classifier, batch 8 at the 800x1344 pad,
+     bf16, seeded random weights) over phase 7's fixture: 12 steps (K1/K3/K4
+     1/1/1 a step or the run fails, CUDA events, host wall, loader wait),
+     every loss finite, the FrozenBN statistics bit-equal, the final test
+     (1/0/2 a batch); the step on a batch on the card; one eval batch with
+     class-specific boxes and NMS (1/0/2) and one with CLS_AGNOSTIC_BBOX_REG
+     and soft-NMS (1/0/1); the soft-NMS on the card against the same call on
+     the CPU (the kept boxes exactly, the scores to 1e-6) and its time; K1
+     and K3 at the step's pool, K4 at its RPN NMS and K1 and K4 at the eval
+     batch, checked and timed as in phase 7. Then
+     configs/quick_schedules/rcnn_training_acc_test.yaml (the linear head
+     on the tiny CLIP tower, fp32, TF32 off) through `train_net.main`, its
+     AP50 printed beside the golden, not judged.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/language_tools`). `launches` counts
+(`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
 the teacher's test; for ddp, both ranks of world 2 under gloo; for
-pretrain, 6 steps; for language_tools, the region features' batches);
+pretrain, 6 steps; for language_tools, the region features' batches; for
+plain_r50, 12 steps and the final test);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -171,8 +187,9 @@ eval batch per test set checked, 1 and 2 launches each; for consistency
 the two region branches' calls: K1 4, K3 3, K4 2; for mean_teacher one
 step's: K1 3, K3 2, K4 4; for ddp one rank's step and eval batch: K1 4,
 K3 3, K4 3; for pretrain one step's: K1 2, K3 1; for language_tools the
-first region-feature batch: K1 1, K4 1): the largest error and the sums of
-the times and bounds.
+first region-feature batch: K1 1, K4 1; for plain_r50 one step and one
+eval batch: K1 2, K3 1, K4 3): the largest error and the sums of the times
+and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -703,14 +720,24 @@ def pool_args(features, boxes):
     return features.contiguous(), bidx, boxes.reshape(b * s, 4).float().contiguous()
 
 
+def seeded_candidates(det_scores, valid, seed):
+    """Detection candidates' scores replaced by seeded uniforms in
+    [0.05, 1), every candidate valid: a few steps from random weights leave
+    every class but the background below the test threshold, which would
+    hand the detection stage an empty problem."""
+    gen = torch.Generator(device=det_scores.device).manual_seed(seed)
+    return 0.05 + 0.95 * torch.rand(det_scores.shape, generator=gen, device=det_scores.device), torch.ones_like(valid)
+
+
 @torch.no_grad()
-def eval_kernel_calls(model, batch):
+def eval_kernel_calls(model, batch, candidates_seed=None):
     """The kernel calls of `model.inference` on one eval batch, rebuilt on
     the model's device: K1's (features, batch_idx, boxes), the RoI heads'
     pool over the batch's proposals, and K4's (boxes, scores, valid,
     threshold, max_out) of the RPN NMS and of the detection NMS (its
     candidates shifted apart by class, as `batched_nms` shifts them), in
-    the order inference makes them."""
+    the order inference makes them. With `candidates_seed`, the detection
+    NMS gets `seeded_candidates`."""
     from cddmsl_torch.models.fast_rcnn import detection_candidates
     from cddmsl_torch.ops.nms import class_shifted
 
@@ -721,10 +748,12 @@ def eval_kernel_calls(model, batch):
     proposals = rpn._predict_proposals(*head, batch.image_sizes, False)
     b, s = proposals.boxes.shape[:2]
     scores, deltas = rh.box_predictor(rh._region_embed(features, proposals.boxes, backbone.res5_forward,
-                                                       backbone.attnpool_forward))
+                                                       model._box_pool))
     boxes, det_scores, classes, valid = detection_candidates(
         scores.reshape(b, s, -1), deltas.reshape(b, s, -1), proposals.boxes, proposals.valid, batch.image_sizes,
         rh.box2box, rh.num_classes, rh.score_thresh_test)
+    if candidates_seed is not None:
+        det_scores, valid = seeded_candidates(det_scores, valid, candidates_seed)
     det_call = (class_shifted(boxes, classes, valid), det_scores, valid, rh.nms_thresh_test, rh.detections_per_image)
     return pool_args(features, proposals.boxes), [rpn_call, det_call]
 
@@ -843,25 +872,28 @@ def add_roi_rows(rows, dev, roi_ops, label, calls, k3_calls):
                   f"bound {bound:.5f} ms ({by}; {map_pixels} of {feats[..., 0].numel()} map pixels in its bytes)")
 
 
-def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label, eval_batches=None):
+def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label, eval_batches=None,
+                     roi_calls=None, candidates_seed=None):
     """K1, K3 and K4 at one training step's own shapes: K1 and K3 at each of
-    its three RoIAlign calls, K4 at its RPN NMS; then, for each of
+    its RoIAlign calls (`roi_calls`, by default the CDDMSL step's three of
+    `training_roi_align_calls`), K4 at its RPN NMS; then, for each of
     `eval_batches` ({name: batch on the card}), K1 and K4 at that eval
     batch's shapes (`eval_kernel_calls`: the RoI heads' pool, the RPN NMS
-    and the detection NMS). Each is held against its plain version on the
-    same inputs (K1 and K3 in bf16 to rtol 2e-2 with the same zeros, K4
-    exactly), then timed beside the plain version and its bound. Returns
-    the path's rows, with its `launches`; the times, bounds and errors are
-    summed or maxed over the launches checked (`launches_timed`)."""
+    and the detection NMS, on `seeded_candidates` with `candidates_seed`).
+    Each is held against its plain version on the same inputs (K1 and K3
+    in bf16 to rtol 2e-2 with the same zeros, K4 exactly), then timed
+    beside the plain version and its bound. Returns the path's rows, with
+    its `launches`; the times, bounds and errors are summed or maxed over
+    the launches checked (`launches_timed`)."""
     rpn = model.proposal_generator
     f_src = model.backbone(model._normalize(batch.image))["res4"]
     nms_inputs = rpn._nms_inputs(*rpn._head(f_src), batch.image_sizes, True)
     rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
     nms_calls = [(*nms_inputs, rpn.nms_thresh, rpn.post_nms_topk[True])]
-    calls = training_roi_align_calls(model, batch, draw)
+    calls = (roi_calls or training_roi_align_calls)(model, batch, draw)
     add_roi_rows(rows, dev, roi_ops, label, calls, [call for call, *_ in calls])
     for set_name, eval_batch in (eval_batches or {}).items():
-        (feats, bidx, rois), calls = eval_kernel_calls(model, eval_batch)
+        (feats, bidx, rois), calls = eval_kernel_calls(model, eval_batch, candidates_seed)
         R = rois.shape[0]
         args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
         err = bf16_max_abs_err(f"roi_align_fwd {label} eval {set_name}", roi_ops.roi_align_forward(*args),
@@ -2500,6 +2532,231 @@ def language_tools_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 14: the plain R50-C4 baseline, 12 steps of 8 images
+PLAIN_STEPS = 12
+PLAIN_NAMES = ("chip_smoke_plain_train", "chip_smoke_plain_test")
+GOLDEN = "rcnn_training_acc_test.yaml"
+# the seed of the detection candidates' scores that phase 14's soft-NMS
+# check and its detection K4 row share (`seeded_candidates`)
+PLAIN_CANDIDATES_SEED = 14
+
+
+def supervised_roi_align_calls(model, batch, draw):
+    """The one RoIAlign call of a supervised step (the plain tower's step),
+    rebuilt outside autograd: the pool of the B x batch_size_per_image
+    sampled ROIs on the res4 map."""
+    rpn, rh = model.proposal_generator, model.roi_heads
+    features = model.extract_res4(batch.image)
+    proposals = rpn._predict_proposals(*rpn._head(features), batch.image_sizes, True)
+    sampled = rh.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)[0]
+    return [("supervised", *pool_args(features, sampled))]
+
+
+@torch.no_grad()
+def soft_nms_on_card_and_cpu(model, batch, label, smi):
+    """The class-aware soft-NMS of `model` (SOFT_NMS_ENABLED) on the
+    candidates of one eval batch (their boxes and classes, with
+    `seeded_candidates` at PLAIN_CANDIDATES_SEED, as phase 14's detection
+    K4 row has them), on the card against the same call on the CPU: the
+    kept indices and validity exactly, the decayed scores to 1e-6; its time
+    on the card beside the CPU's. Plain PyTorch, not a kernel."""
+    from cddmsl_torch.models.fast_rcnn import detection_candidates
+    from cddmsl_torch.ops.soft_nms import batched_soft_nms
+
+    rh = model.roi_heads
+    features, proposals = model.proposals(batch)
+    b, s = proposals.boxes.shape[:2]
+    scores, deltas = rh.box_predictor(rh._region_embed(features, proposals.boxes, model.backbone.res5_forward,
+                                                       model._box_pool))
+    boxes, det_scores, classes, valid = detection_candidates(
+        scores.reshape(b, s, -1), deltas.reshape(b, s, -1), proposals.boxes, proposals.valid, batch.image_sizes,
+        rh.box2box, rh.num_classes, rh.score_thresh_test)
+    det_scores, valid = seeded_candidates(det_scores, valid, PLAIN_CANDIDATES_SEED)
+    method, sigma, prune = rh.soft_nms
+
+    def call(b, s, c, v):
+        return batched_soft_nms(b, s, c, method, sigma, rh.nms_thresh_test, prune, rh.detections_per_image, v)
+
+    got = call(boxes, det_scores, classes, valid)
+    cpu_args = [t.cpu() for t in (boxes, det_scores, classes, valid)]
+    t0 = time.perf_counter()
+    want = call(*cpu_args)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(got[0].cpu(), want[0]) and torch.equal(got[2].cpu(), want[2])):
+        fail(f"soft-NMS {label}: the card keeps other boxes than the CPU")
+    err = float((got[1].cpu() - want[1]).abs().max())
+    if err > 1e-6:
+        fail(f"soft-NMS {label}: decayed scores {err} from the CPU's (tol 1e-6)")
+    ms = cuda_ms(lambda: call(boxes, det_scores, classes, valid), 5)
+    print(f"soft-NMS {label} ({method}, sigma {sigma}, linear threshold {rh.nms_thresh_test}, prune {prune}) on "
+          f"{b}x{boxes.shape[1]} candidates -> {rh.detections_per_image}: kept {got[2].sum(1).tolist()}, equal to "
+          f"the CPU's (scores max abs err {err:.3g}, tol 1e-6); {ms:.4f} ms on the card (plain PyTorch, "
+          f"{rh.detections_per_image} selection rounds), {cpu_ms:.4f} ms on the host CPU; on {smi}")
+
+
+def plain_r50_path(dev, smi, roi_ops, nms_ops):
+    """Phase 14: the plain R50-C4 baseline (VOC-Experiments/
+    faster_rcnn_R_50_C4.yaml: the detectron2 ResNet-50 C4 with the linear
+    classifier, batch 8 at the recipe's 800x1344 pad, bf16, seeded random
+    weights: the ImageNet R-50 is not in the repository) through
+    `DefaultTrainer.train()` on phase 7's fixture: 12 steps, K1/K3/K4 1/1/1
+    a step, every loss finite, the FrozenBN statistics unchanged bit for
+    bit; the final test (1/0/2 a batch); the step on a batch on the card;
+    one eval batch with the class-specific boxes (1/0/2) and one with
+    CLS_AGNOSTIC_BBOX_REG and soft-NMS (1/0/1) and the soft-NMS on the card
+    against the CPU; K1, K3 and K4 at the path's shapes. Then
+    rcnn_training_acc_test.yaml (the linear head on the tiny CLIP tower,
+    fp32, TF32 off) through `train_net.main` on the card, its AP50 printed
+    beside the golden and not judged (the port's own init and draws).
+    Returns the path's rows {kernel: row}."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch import train_net
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.config import get_cfg, model_config_from_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_voc, register_synthetic_quick
+    from cddmsl_torch.data.datasets.voc import register_pascal_voc
+    from cddmsl_torch.engine.defaults import DefaultTrainer, default_argument_parser
+    from cddmsl_torch.models.build import build_model
+
+    class ProbedTrainer(DefaultTrainer):
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            return [self.probe] + super().build_hooks()
+
+        def run_step(self, batch):
+            metrics = super().run_step(batch)
+            self.step_losses.append({k: v.detach() for k, v in metrics.items() if k.startswith("loss")})
+            return metrics
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_plain_")
+    names = PLAIN_NAMES
+    quick = ("synthetic_voc_trainval", "synthetic_voc_trainval_plain", "synthetic_voc_test")
+    try:
+        voc = make_synthetic_voc(os.path.join(root, "datasets"), n=TRAIN_NET_IMAGES, seed=0)
+        register_pascal_voc(names[0], voc, "trainval", 2007)
+        register_pascal_voc(names[1], voc, "test", 2007)
+        def plain_cfg(*opts):
+            cfg = get_cfg()
+            cfg.merge_from_file(os.path.join(here, "configs", "VOC-Experiments", "faster_rcnn_R_50_C4.yaml"))
+            cfg.merge_from_list(["OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0", "DATASETS.TRAIN",
+                                 repr((names[0],)), "DATASETS.TEST", repr((names[1],)), "SOLVER.MAX_ITER",
+                                 str(PLAIN_STEPS), "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0", *opts])
+            cfg.freeze()
+            return cfg
+
+        cfg = plain_cfg()
+        config = model_config_from_cfg(cfg)
+        print(f"plain_r50: {os.path.join('configs', 'VOC-Experiments', 'faster_rcnn_R_50_C4.yaml')} "
+              f"({config.backbone_type} depth {config.backbone_depth}, linear classifier, {cfg.SOLVER.IMS_PER_BATCH} "
+              f"images a step padded to {tuple(cfg.TPU.PAD_SIZE_TRAIN)}, {cfg.TPU.COMPUTE_DTYPE}, FREEZE_AT "
+              f"{cfg.MODEL.BACKBONE.FREEZE_AT}) on the synthetic VOC fixture ({TRAIN_NET_IMAGES} images); the "
+              "ImageNet R-50 is not in the repository, so every weight is seeded random")
+
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.step_losses = []
+        trainer.resume_or_load(resume=False)
+        model = trainer.model
+        buffers = {n: (b, b.clone()) for n, b in model.named_buffers()}
+        frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        print(f"plain_r50 path launches ({PLAIN_STEPS} steps and the final test): {launches}")
+        if min(launches.values()) < 1:
+            fail(f"the plain_r50 path did not go through every kernel: {launches}")
+        probe = trainer.probe
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("plain_r50", probe, waits, PLAIN_STEPS, PLAIN_STEPS, ((1, 1, 1), (1, 1, 1)))
+        losses = [{k: v.item() for k, v in step.items()} for step in trainer.step_losses]
+        if len(losses) != PLAIN_STEPS or not all(math.isfinite(v) for step in losses for v in step.values()):
+            fail(f"plain_r50: non-finite losses {losses}")
+        for i in (0, PLAIN_STEPS - 1):
+            print(f"plain_r50 step {i + 1} losses: {json.dumps({k: round(v, 6) for k, v in losses[i].items()})}")
+        changed = [n for n, (b, b0) in buffers.items() if not torch.equal(b, b0)]
+        if changed:
+            fail(f"plain_r50: FrozenBN statistics changed: {changed[:5]}")
+        print(f"plain_r50: all {len(buffers)} FrozenBN statistics bit-equal after {PLAIN_STEPS} steps; "
+              f"{len(frozen)} frozen parameters (FREEZE_AT {cfg.MODEL.BACKBONE.FREEZE_AT} names the CLIP tower's "
+              f"stages, as in JAX), {sum(p.requires_grad for p in model.parameters())} trainable, the linear "
+              f"cls_score among them")
+        warm = per_step[2:]
+        mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+        print(f"plain_r50 loop, steps 3-{PLAIN_STEPS}: {mean([p[0] for p in warm]):.3f} ms/step CUDA events, "
+              f"{mean([p[1] for p in warm]):.3f} ms/step host wall, {mean([p[2] for p in warm]):.3f} ms/step waiting "
+              f"on the loader; whole loop {probe.loop_s * 1e3 / PLAIN_STEPS:.3f} ms/step host wall; on {smi}")
+        keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+        n_test_batches = -(-TRAIN_NET_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple((launches[k] - probe.loop_launches[k]) / n_test_batches for k in keys)
+        if per_batch != (1, 0, 2):
+            fail(f"the plain_r50 final test launched K1/K3/K4 {per_batch} per batch, expected (1, 0, 2)")
+        ap = {k: round(v, 4) for k, v in results[names[1]]["bbox"].items() if k in ("AP", "AP50", "AP75")}
+        print(f"plain_r50 final test: launches per batch K1/K3/K4 {per_batch}; AP (random weights, not judged) "
+              f"{json.dumps(ap)}")
+
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        time_device_batch("plain_r50", trainer, batch, what="supervised")
+
+        eval_batch = first_eval_batch(cfg, names[1], dev)
+        soft_cfg = plain_cfg("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", "True",
+                             "MODEL.ROI_HEADS.SOFT_NMS_ENABLED", "True")
+        soft = init_random_(build_model(model_config_from_cfg(soft_cfg), device="cpu"),
+                            torch.Generator().manual_seed(1))
+        trained, own = model.state_dict(), soft.state_dict()
+        # the trained weights; bbox_pred, 4 wide now, stays seeded random
+        soft.load_state_dict({k: trained[k] if trained[k].shape == v.shape else v for k, v in own.items()})
+        soft = soft.to(dev).eval()
+        for label, m, want in (("class-specific boxes, NMS", model, (1, 0, 2)),
+                               ("class-agnostic boxes, soft-NMS", soft, (1, 0, 1))):
+            torch.cuda.synchronize()
+            reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+            det = m.inference(eval_batch)
+            torch.cuda.synchronize()
+            got = tuple(read_launches(roi_ops, nms_ops)[k] for k in keys)
+            if got != want or not bool(torch.isfinite(det.scores).all()):
+                fail(f"plain_r50 eval batch ({label}): launches {got}, expected {want}")
+            ms = cuda_ms(lambda: m.inference(eval_batch), 3, warmup=1)
+            print(f"plain_r50 eval batch {tuple(eval_batch.image.shape)} ({label}): K1/K3/K4 {got}, "
+                  f"{ms / eval_batch.image.shape[0]:.3f} ms/image, {det.valid.sum(1).tolist()} detections an image")
+        soft_nms_on_card_and_cpu(soft, eval_batch, "plain_r50 eval", smi)
+        rows = step_kernel_rows(dev, model, batch, trainer.state.draw, launches, roi_ops, nms_ops, "plain_r50",
+                                {names[1]: eval_batch}, roi_calls=supervised_roi_align_calls,
+                                candidates_seed=PLAIN_CANDIDATES_SEED)
+        del trainer, model, soft
+
+        # the linear CLIP head's golden schedule, at its tiny width on the card
+        register_synthetic_quick(os.path.join(root, "quick"))
+        args = default_argument_parser().parse_args([
+            "--config-file", os.path.join(here, "configs", "quick_schedules", GOLDEN),
+            "OUTPUT_DIR", os.path.join(root, "golden"), "TEST.EXPECTED_RESULTS", "[]"])
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            golden = train_net.main(args)["synthetic_voc_test"]["bbox"]
+        torch.cuda.synchronize()
+        print(f"plain_r50: {GOLDEN} (linear head, tiny CLIP tower, fp32, TF32 off) through train_net on the card: "
+              f"AP50 {golden['AP50']:.4f} beside the golden 7.211 +/- 0.1 (not judged: the port's own init and "
+              f"draws; the CPU tests hold the golden from JAX's), AP {golden['AP']:.4f}, "
+              f"{time.perf_counter() - t0:.1f} s, launches {read_launches(roi_ops, nms_ops)}")
+        print(f"plain_r50 phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        for name in names + quick:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -2557,6 +2814,8 @@ def main() -> int:
     paths["pretrain"] = pretrain_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["language_tools"] = language_tools_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["plain_r50"] = plain_r50_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

@@ -77,11 +77,15 @@ def jax_param_shapes(model_config):
     (tests/test_torch_port_train.py holds the two equal) without tracing the
     JAX model, so `fill_params` fills it with the same values."""
     rules, tree = _inverse_rules(), {}
+    # the two classifiers share the torch name `cls_score.weight`
+    other_head = "roi_heads/box_predictor/cls_score" + ("/kernel" if model_config.use_text_emb else "_weight")
     for key, value in build_model(model_config, device="cpu", training=True).state_dict().items():
         offline = key.startswith(convert_jax._OFFLINE + ".")
         name = "backbone" + key[len(convert_jax._OFFLINE):] if offline else key
         for regex, pieces, layout in rules:
             m = regex.fullmatch(name)
+            if m and pieces[0] == other_head:
+                continue
             if m:
                 groups = [m.group(f"g{i}") for i in range(1, len(pieces))]
                 path = pieces[0] + "".join(g + p for g, p in zip(groups, pieces[1:]))

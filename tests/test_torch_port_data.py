@@ -146,7 +146,7 @@ def _text_emb_cfg():
 
 @pytest.mark.parametrize("key, value", [
     ("MODEL.MASK_ON", True), ("MODEL.KEYPOINT_ON", True), ("MODEL.LOAD_PROPOSALS", True),
-    ("MODEL.ROI_HEADS.SOFT_NMS_ENABLED", True), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
+    ("MODEL.CLIP.MULTIPLY_RPN_SCORE", True), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
     ("TPU.MOE.NUM_EXPERTS", 4), ("TEST.PRECISE_BN.ENABLED", True), ("TPU.QUANT_EVAL", True),
     ("TPU.PAD_BUCKETS", [[800, 1088], [800, 1344]]),
 ])

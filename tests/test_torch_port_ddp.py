@@ -374,27 +374,31 @@ def test_the_mean_teacher_at_world_2_equals_world_1(session):
 
 # ---------------- the config and the launcher ----------------
 def test_the_mesh_shape_is_the_world():
-    """TPU.MESH_SHAPE [2] runs at world 2 and not at world 1; [-1] at
-    both; mt_rcnn_training_acc_test.yaml ([4]) at world 4 and not at
-    world 2 (a check of the config, no run)."""
+    """TPU.MESH_SHAPE [k] is a data axis of any k: a JAX mesh of k devices
+    computes the global batch's step, as world N does. It runs wherever the
+    world divides the global batch: [2] and [8] and [-1] at worlds 1 and 2
+    on a batch of 2, and at no world of 3; mt_rcnn_training_acc_test.yaml
+    ([4], 4 + 4 images) at worlds 1, 2 and 4 and not at world 3; a mesh of
+    two axes nowhere (a check of the config, no run)."""
     cfg = get_cfg()
     cfg.merge_from_file(str(VOC_TINY))
-    cfg.TPU.MESH_SHAPE = [2]
-    check_supported(cfg, world=2)
+    for mesh in ([2], [8], [-1]):
+        cfg.TPU.MESH_SHAPE = mesh
+        check_supported(cfg)
+        check_supported(cfg, world=1)
+        check_supported(cfg, world=2)
+        with pytest.raises(NotImplementedError, match=r"TPU\.MESH_SHAPE.*SOLVER\.IMS_PER_BATCH = 2"):
+            check_supported(cfg, world=3)
+    cfg.TPU.MESH_SHAPE = [2, 2]
     with pytest.raises(NotImplementedError, match=r"TPU\.MESH_SHAPE"):
         check_supported(cfg, world=1)
-    with pytest.raises(NotImplementedError, match=r"TPU\.MESH_SHAPE"):
-        check_supported(cfg)
-    cfg.TPU.MESH_SHAPE = [-1]
-    check_supported(cfg, world=1)
-    check_supported(cfg, world=2)
     acc = get_cfg()
     add_ateacher_config(acc)
     acc.merge_from_file(str(REPO / "configs" / "quick_schedules" / "mt_rcnn_training_acc_test.yaml"))
-    acc.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER = True  # the schedule's linear head is not ported, and refused first
-    check_supported(acc, world=4)
-    with pytest.raises(NotImplementedError, match=r"TPU\.MESH_SHAPE"):
-        check_supported(acc, world=2)
+    for world in (1, 2, 4):
+        check_supported(acc, world=world)
+    with pytest.raises(NotImplementedError, match=r"TPU\.MESH_SHAPE.*SOLVER\.IMG_PER_BATCH_LABEL = 4"):
+        check_supported(acc, world=3)
 
 
 def test_launch_runs_one_process_in_place_and_checks_its_arguments():

@@ -539,11 +539,14 @@ def test_unimplemented_mean_teacher_values_raise_naming_their_key(key, value):
 
 
 def test_the_accuracy_schedule_stays_refused_on_one_device():
-    """mt_rcnn_training_acc_test.yaml shards its batch over 4 devices."""
+    """mt_rcnn_training_acc_test.yaml shards its 4 + 4 images over 4
+    devices, the same step as one process on them: it runs on one device
+    and at any world that divides 4, and is refused at a world of 3."""
     cfg = get_cfg()
     add_ateacher_config(cfg)
     cfg.merge_from_file(str(REPO / "configs" / "quick_schedules" / "mt_rcnn_training_acc_test.yaml"))
-    cfg.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER = True  # the schedule's linear head is refused first
-    assert list(cfg.TPU.MESH_SHAPE) == [4]
+    assert list(cfg.TPU.MESH_SHAPE) == [4] and not cfg.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER
+    check_supported(cfg)
+    check_supported(cfg, world=2)
     with pytest.raises(NotImplementedError, match=r"TPU\.MESH_SHAPE"):
-        check_supported(cfg)
+        check_supported(cfg, world=3)

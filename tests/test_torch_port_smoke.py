@@ -12,8 +12,12 @@ name alone). Likewise the eval batch's calls, rebuilt by
 `eval_kernel_calls`, must equal what `model.inference` hands to
 `roi_align_batched` and to `nms` (the RPN's and the detection NMS's, after
 the class shift), and a region branch's, rebuilt by `branch_kernel_calls`,
-what the branch hands to them.
+what the branch hands to them; on the plain tower with the linear head
+(phase 14), the supervised step's one pool (`supervised_roi_align_calls`)
+and the eval batch's calls.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -103,6 +107,71 @@ def test_eval_kernel_calls_are_the_inference_batchs_own(monkeypatch, score_thres
     if score_thresh == 0.0:  # every candidate kept: several classes, shifted apart past the image
         det_boxes, _, det_valid = nms_calls[1][:3]
         assert det_valid.all() and det_boxes.amax() > 160
+
+
+def test_plain_tower_kernel_calls_are_its_steps_and_eval_batchs_own(monkeypatch):
+    """Phase 14's rebuilt calls on the plain tower with the linear head: the
+    supervised step's one pool (`supervised_roi_align_calls`), then the eval
+    batch's pool and two NMS calls (`eval_kernel_calls`: the box head
+    mean-pools res5, with no attention pool)."""
+    cfg = dataclasses.replace(flagship_config(tiny=True), backbone_type="d2_resnet", backbone_depth=10,
+                              backbone_width=64, embed_dim=2048, use_text_emb=False)
+    solver = flagship_solver_config(tiny=True)
+    model = init_random_(build_model(cfg, device="cpu", training=True), torch.Generator().manual_seed(6))
+    trainer = Trainer(model, build_optimizer(model, solver), enable_caption=False)
+    batch = synthetic_batch(2, 128, 160, seed=2, device="cpu")
+    draw = chip_smoke.site_draw("cpu")
+    with torch.no_grad():
+        rebuilt = chip_smoke.supervised_roi_align_calls(model, batch, draw)
+    pools, nmss = [], []
+    pool, nms = roi_heads.roi_align_batched, nms_ops.nms
+
+    def pool_spy(features, batch_idx, boxes, *args):
+        pools.append((features.detach().clone(), batch_idx.clone(), boxes.detach().clone()))
+        return pool(features, batch_idx, boxes, *args)
+
+    def nms_spy(boxes, scores, iou_threshold, max_out, valid=None):
+        nmss.append((boxes.clone(), scores.clone(), valid.clone(), iou_threshold, max_out))
+        return nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+    monkeypatch.setattr(roi_heads, "roi_align_batched", pool_spy)
+    trainer.train_step(batch, draw)
+    assert [label for label, *_ in rebuilt] == ["supervised"] and len(pools) == 1
+    for got, want in zip(rebuilt[0][1:], pools[0]):
+        assert torch.equal(got, want)
+    assert rebuilt[0][1].shape == (2, 8, 10, 1024) and len(rebuilt[0][3]) == 2 * cfg.roi_batch_size_per_image
+
+    (features, batch_idx, boxes), nms_calls = chip_smoke.eval_kernel_calls(model, batch)
+    pools.clear()  # the rebuild's own pool
+    monkeypatch.setattr(rpn, "nms", nms_spy)
+    monkeypatch.setattr(nms_ops, "nms", nms_spy)
+    model.inference(batch)
+    assert len(pools) == 1 and len(nmss) == len(nms_calls) == 2
+    for got, want in zip((features, batch_idx, boxes), pools[0]):
+        assert torch.equal(got, want)
+    for got, want in zip(nms_calls, nmss):
+        assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])) and got[3:] == want[3:]
+
+
+def test_seeded_candidates_replace_only_the_detection_nms_scores():
+    """With `candidates_seed`, `eval_kernel_calls` hands the detection NMS
+    every candidate, valid, with the scores `soft_nms_on_card_and_cpu`
+    draws (seeded uniforms in [0.05, 1)); the boxes, the RPN's call and the
+    pool stay the batch's own."""
+    cfg = dataclasses.replace(flagship_config(tiny=True), backbone_type="d2_resnet", backbone_depth=10,
+                              backbone_width=64, embed_dim=2048, use_text_emb=False)
+    model = init_random_(build_model(cfg, device="cpu"), torch.Generator().manual_seed(6))
+    batch = synthetic_batch(2, 128, 160, seed=2, device="cpu")
+    pool, (rpn_call, det_call) = chip_smoke.eval_kernel_calls(model, batch)
+    seeded_pool, (seeded_rpn, seeded_det) = chip_smoke.eval_kernel_calls(model, batch, candidates_seed=14)
+    assert all(torch.equal(x, y) for x, y in zip(pool, seeded_pool))
+    assert all(torch.equal(x, y) for x, y in zip(rpn_call[:3], seeded_rpn[:3])) and rpn_call[3:] == seeded_rpn[3:]
+    boxes, scores, valid = seeded_det[:3]
+    want_scores, want_valid = chip_smoke.seeded_candidates(det_call[1], det_call[2], 14)
+    assert torch.equal(scores, want_scores) and valid.all() and torch.equal(valid, want_valid)
+    assert float(scores.min()) >= 0.05 and float(scores.max()) < 1.0 and seeded_det[3:] == det_call[3:]
+    # every candidate valid: the class shift now moves the rows the test threshold dropped too
+    assert torch.equal(boxes[det_call[2]], det_call[0][det_call[2]])
 
 
 @pytest.mark.parametrize("R, want_bytes", [
