@@ -16,6 +16,12 @@ shortcut, shortcut_bn) maps to detectron2's names (backbone.stem.conv1,
 its .norm, backbone.res{s}.{i}.conv{1,2,3}, .shortcut and their .norm);
 the linear classifier's cls_score Dense to `cls_score.weight` and `.bias`.
 
+A JAX `CLIPFastRCNN` tree (it has `offline_proposal_generator`) converts
+by its own rules, chosen by the module and not by a tower's name: its
+`offline_backbone` is the plain `D2ResNet` (detectron2's names under
+`offline_backbone.`), not the CLIP copy `GeneralizedRCNN` keeps there, and
+its offline RPN head goes to `offline_proposal_generator.rpn_head.`.
+
 `convert_jax_text_params` and `convert_jax_pretrain_params` do the same
 for a JAX `CLIPTextEncoder` tree and a `PretrainFastRCNN` tree (the
 student and teacher backbones, the text tower `lang_encoder`, the concept
@@ -103,35 +109,50 @@ _BACKBONE_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"backbone/attnpool/([qkvc]_proj)/kernel", r"backbone.attnpool.\1.weight", "dense"),
     (r"backbone/attnpool/([qkvc]_proj)/bias", r"backbone.attnpool.\1.bias", "copy"),
 )
-# the plain tower, D2ResNet: detectron2's names, each norm under its conv
-_D2_BACKBONE_RULES: Tuple[Tuple[str, str, str], ...] = (
-    (r"backbone/stem_conv1/kernel", r"backbone.stem.conv1.weight", "conv"),
-    (rf"backbone/stem_bn1/{_BN}", r"backbone.stem.conv1.norm.\1", "copy"),
-    (r"backbone/res(\d)_(\d+)/(conv[123]|shortcut)/kernel", r"backbone.res\1.\2.\3.weight", "conv"),
-    (rf"backbone/res(\d)_(\d+)/bn([123])/{_BN}", r"backbone.res\1.\2.conv\3.norm.\4", "copy"),
-    (rf"backbone/res(\d)_(\d+)/shortcut_bn/{_BN}", r"backbone.res\1.\2.shortcut.norm.\3", "copy"),
-)
-_RULES: Tuple[Tuple[str, str, str], ...] = (
-    *_BACKBONE_RULES,
-    *_D2_BACKBONE_RULES,
-    (
-        r"proposal_generator/head/(conv|objectness_logits|anchor_deltas)/kernel",
-        r"proposal_generator.rpn_head.\1.weight",
-        "conv",
-    ),
-    (
-        r"proposal_generator/head/(conv|objectness_logits|anchor_deltas)/bias",
-        r"proposal_generator.rpn_head.\1.bias",
-        "copy",
-    ),
+def _d2_tower_rules(name: str):
+    """The plain tower, D2ResNet, under `name`: detectron2's names, each norm
+    under its conv."""
+    return (
+        (rf"{name}/stem_conv1/kernel", rf"{name}.stem.conv1.weight", "conv"),
+        (rf"{name}/stem_bn1/{_BN}", rf"{name}.stem.conv1.norm.\1", "copy"),
+        (rf"{name}/res(\d)_(\d+)/(conv[123]|shortcut)/kernel", rf"{name}.res\1.\2.\3.weight", "conv"),
+        (rf"{name}/res(\d)_(\d+)/bn([123])/{_BN}", rf"{name}.res\1.\2.conv\3.norm.\4", "copy"),
+        (rf"{name}/res(\d)_(\d+)/shortcut_bn/{_BN}", rf"{name}.res\1.\2.shortcut.norm.\3", "copy"),
+    )
+
+
+def _rpn_rules(name: str):
+    """A StandardRPNHead under `name`/head -> `name`.rpn_head."""
+    return (
+        (rf"{name}/head/(conv|objectness_logits|anchor_deltas)/kernel", rf"{name}.rpn_head.\1.weight", "conv"),
+        (rf"{name}/head/(conv|objectness_logits|anchor_deltas)/bias", rf"{name}.rpn_head.\1.bias", "copy"),
+    )
+
+
+_D2_BACKBONE_RULES = _d2_tower_rules("backbone")
+_BOX_PREDICTOR_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"roi_heads/box_predictor/cls_score_weight", r"roi_heads.box_predictor.cls_score.weight", "copy"),
     (r"roi_heads/box_predictor/cls_score/kernel", r"roi_heads.box_predictor.cls_score.weight", "dense"),
     (r"roi_heads/box_predictor/cls_score/bias", r"roi_heads.box_predictor.cls_score.bias", "copy"),
     (r"roi_heads/box_predictor/bbox_pred/kernel", r"roi_heads.box_predictor.bbox_pred.weight", "dense"),
     (r"roi_heads/box_predictor/bbox_pred/bias", r"roi_heads.box_predictor.bbox_pred.bias", "copy"),
+)
+_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_BACKBONE_RULES,
+    *_D2_BACKBONE_RULES,
+    *_rpn_rules("proposal_generator"),
+    *_BOX_PREDICTOR_RULES,
     *_mapper_rules("v2l_mapper"),
     *_projector_rules("projector"),
     *_projector_rules("image_projector"),
+)
+# CLIPFastRCNN: the CLIP tower, the offline plain tower and its RPN, the box
+# predictor; no tower takes another's rules
+_CLIP_FAST_RCNN_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_BACKBONE_RULES,
+    *_d2_tower_rules("offline_backbone"),
+    *_rpn_rules("offline_proposal_generator"),
+    *_BOX_PREDICTOR_RULES,
 )
 _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     *_mapper_rules("clip_project"),
@@ -173,13 +194,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, val
 
 
-def _convert(params: Mapping[str, Any], rules, what: str) -> Dict[str, torch.Tensor]:
+def _convert(params: Mapping[str, Any], rules, what: str, twins=_BACKBONE_TWINS) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     state: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(params):
         tower, _, rest = path.partition("/")
-        twin = tower in _BACKBONE_TWINS  # the backbone's rules, under another name
+        twin = tower in twins  # the backbone's rules, under another name
         for pattern, template, layout in rules:
             m = re.fullmatch(pattern, "backbone/" + rest if twin else path)
             if m:
@@ -193,9 +214,13 @@ def _convert(params: Mapping[str, Any], rules, what: str) -> Dict[str, torch.Ten
 
 
 def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GeneralizedRCNN params (with or without the top-level 'params'
-    key) -> state dict; raises on a key it does not map."""
-    return _convert(params, _RULES, "convert_jax_params")
+    """JAX GeneralizedRCNN or CLIPFastRCNN params (with or without the
+    top-level 'params' key) -> state dict; raises on a key it does not
+    map."""
+    tree = params["params"] if set(params) == {"params"} else params
+    if "offline_proposal_generator" in tree:
+        return _convert(tree, _CLIP_FAST_RCNN_RULES, "convert_jax_params (CLIPFastRCNN)", twins=())
+    return _convert(tree, _RULES, "convert_jax_params")
 
 
 def convert_jax_text_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -257,7 +282,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             uniform(mod.running_var, 0.5, 1.5)
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
-            head = name.startswith("proposal_generator")
+            head = name.startswith(("proposal_generator", "offline_proposal_generator"))
             normal(mod.weight, 0.01 if head else (2.0 / fan_in) ** 0.5)
             if mod.bias is not None:
                 mod.bias.zero_()

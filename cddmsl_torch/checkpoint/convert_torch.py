@@ -1,6 +1,7 @@
 """The reference's `.pth` files (counterpart of `load_rcnn_weights`,
-`detect_dialect`, `load_offline_backbone`, `load_clipcap_mapper` and
-`load_text_emb_classifier` in cddmsl_tpu/checkpoint/convert_torch.py, of
+`detect_dialect`, `load_offline_backbone`, `load_clipcap_mapper`,
+`load_bb_rpn_weights` and `load_text_emb_classifier` in
+cddmsl_tpu/checkpoint/convert_torch.py, of
 `convert_clip_text` there (`load_text_tower`), and of `convert_hf_gpt2` in
 cddmsl_tpu/models/gpt2.py).
 
@@ -17,7 +18,14 @@ backbones), "clipcap" (the mapper) or "lang" (the CLIP text tower,
 model with a text tower also takes an oai_clip file's "transformer.*" text
 tensors and a d2_rcnn file's "lang_encoder.*" ones. The text tower's keys
 are OpenAI-CLIP's, so `load_text_tower` strips a prefix ("" or
-"lang_encoder.") and copies. Only the keys the JAX converters take
+"lang_encoder.") and copies. Into `CLIPFastRCNN` an oai_clip file loads
+the CLIP tower and leaves the offline detectron2 tower as it was (JAX
+merges the CLIP names into that tower, where nothing reads them); a
+d2_rcnn file raises, as JAX's loader does (KeyError there): the arch has no
+trainable RPN. Its offline tower and RPN head come from
+MODEL.CLIP.BB_RPN_WEIGHTS (`load_bb_rpn_weights`): detectron2's
+"backbone.*" ResNet keys and "proposal_generator.rpn_head.*".
+Only the keys the JAX converters take
 are read: the rest of the file, and every tensor of the model it names no
 key for, is left as it is. A key whose shape differs raises, where the JAX
 package skips it with a warning.
@@ -137,7 +145,14 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
     as they are (K + 1 rows, background last, as detectron2 writes them)."""
     sd = load_torch_state_dict(path)
     dialect = detect_dialect(sd)
-    backbones = [model.backbone] + ([model.offline_backbone] if hasattr(model, "offline_backbone") else [])
+    # CLIPFastRCNN's offline tower is a plain ResNet that only BB_RPN_WEIGHTS fills
+    clip_fast = hasattr(model, "offline_proposal_generator")
+    if clip_fast and dialect == "d2_rcnn":
+        raise ValueError(f"{path}: a d2_rcnn detector file does not load into CLIPFastRCNN: its "
+                         "proposal_generator.* has no trainable RPN to go to (the offline RPN comes from "
+                         "MODEL.CLIP.BB_RPN_WEIGHTS); JAX's load_rcnn_weights raises KeyError on it")
+    has_offline = hasattr(model, "offline_backbone") and not clip_fast
+    backbones = [model.backbone] + ([model.offline_backbone] if has_offline else [])
     text = getattr(model, "lang_encoder", None)
     plain = isinstance(model.backbone, D2ResNet)
     if dialect in ("oai_clip", "d2_rcnn"):
@@ -171,6 +186,21 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
     else:
         raise ValueError(f"Cannot detect checkpoint dialect of {path}")
     return dialect
+
+
+def load_bb_rpn_weights(model: nn.Module, path: str) -> int:
+    """MODEL.CLIP.BB_RPN_WEIGHTS, a detectron2 R-CNN file, into
+    CLIPFastRCNN's frozen offline RPN: "backbone.*" (detectron2's ResNet
+    names) into `offline_backbone`, "proposal_generator.rpn_head.*" into
+    `offline_proposal_generator.rpn_head`. Returns how many tensors were
+    loaded. A model without the offline detectron2 tower raises, as JAX's
+    loader asserts."""
+    if not hasattr(model, "offline_proposal_generator") or not isinstance(model.offline_backbone, D2ResNet):
+        raise ValueError(f"{path}: BB_RPN_WEIGHTS needs CLIPFastRCNN's offline detectron2 tower and RPN")
+    sd = load_torch_state_dict(path)
+    n = _load_prefixed(model.offline_backbone, sd, "backbone.", f"{path}: offline ResNet", _D2_RESNET)
+    return n + _load_prefixed(model.offline_proposal_generator.rpn_head, sd, "proposal_generator.rpn_head.",
+                              f"{path}: offline RPN head", _RPN_HEAD)
 
 
 def load_visual_tower(tower: nn.Module, sd: Dict[str, torch.Tensor], prefix: str, what: str) -> int:

@@ -15,7 +15,10 @@ the port does not implement. The loaders and the trainer read the data,
 test and loop keys from the tree, as the JAX package's do;
 `add_ateacher_config` adds the mean-teacher block. `check_pretrain_supported`
 is the pretraining entry's check (MODEL.META_ARCHITECTURE PretrainFastRCNN,
-which `check_supported` refuses).
+which `check_supported` refuses), and `check_clip_fast_rcnn_supported` the
+check of `models.build.build_clip_fast_rcnn` (MODEL.META_ARCHITECTURE
+CLIPFastRCNN, the open-vocabulary detector, which `check_supported` refuses
+too: JAX's trainer cannot build it).
 
 MODEL.BACKBONE.NAME picks the tower as the JAX build does:
 build_clip_resnet_backbone is CLIP's ModifiedResNet, build_resnet_backbone
@@ -91,6 +94,10 @@ class ModelConfig:
     soft_nms_method: str = "gaussian"
     soft_nms_sigma: float = 0.5
     soft_nms_prune: float = 0.001
+    # MODEL.CLIP.NO_BOX_DELTA (the proposal box for every class) and
+    # MULTIPLY_RPN_SCORE (score sqrt(prob * objectness logit))
+    no_box_delta: bool = False
+    multiply_rpn_score: bool = False
     # MODEL.PIXEL_MEAN / PIXEL_STD (detectron2 BGR defaults)
     pixel_mean: Tuple[float, ...] = (103.530, 116.280, 123.675)
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -224,10 +231,9 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.ROI_HEADS.NAME", lambda v: v == "CLIPRes5ROIHeads"),
     ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", lambda v: v in ("gaussian", "linear", "hard")),
     ("MODEL.CLIP.CROP_REGION_TYPE", lambda v: v == "RPN"),
+    ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v == 0),
+    # JAX's loader asserts an offline detectron2 tower, which this arch lacks
     ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
-    ("MODEL.CLIP.NO_BOX_DELTA", _falsy),
-    ("MODEL.CLIP.MULTIPLY_RPN_SCORE", _falsy),
-    ("MODEL.CLIP.OPENSET_TEST_NUM_CLASSES", _falsy),
     ("INPUT.MIN_SIZE_TRAIN_SAMPLING", lambda v: v in ("choice", "range")),
     ("INPUT.CROP.ENABLED", _falsy),
     ("INPUT.FORMAT", lambda v: v in ("RGB", "BGR")),
@@ -281,6 +287,11 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
     a JAX mesh of k devices computes the global batch's step as one process
     does; it is refused unless the world (the process group's size unless
     given) divides every global batch of the step."""
+    if cfg.MODEL.META_ARCHITECTURE == "CLIPFastRCNN":
+        raise NotImplementedError(
+            "MODEL.META_ARCHITECTURE = 'CLIPFastRCNN' is not ported for training or the tools: JAX's trainer "
+            "cannot build this arch either (the module has no init_all or cddmsl_losses); build it with "
+            "models.build.build_clip_fast_rcnn")
     checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
     if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
         checks += _SUPPORTED_D2
@@ -290,6 +301,11 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
         value = _lookup(cfg, key)
         if not ok(value):
             raise NotImplementedError(f"{key} = {value!r} is not ported")
+    openset = cfg.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES
+    if openset and not (cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and cfg.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER):
+        # JAX asserts the first; the open-set rows replace the text classifier's
+        raise NotImplementedError(f"MODEL.CLIP.OPENSET_TEST_NUM_CLASSES = {openset!r} is not ported without "
+                                  "MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER")
     world = comm.get_world_size() if world is None else world
     mesh = list(cfg.TPU.MESH_SHAPE)
     if len(mesh) != 1 or not (mesh[0] == -1 or mesh[0] >= 1):
@@ -327,6 +343,60 @@ def check_pretrain_supported(cfg) -> None:
         value = _lookup(cfg, key)
         if not ok(value):
             raise NotImplementedError(f"{key} = {value!r} is not ported for pretraining")
+
+
+# what `build_clip_fast_rcnn` reads (JAX's models/build.py `build_clip_fast_rcnn`)
+# and the keys the loaders read; every other MODEL key, and the tower's TPU
+# overrides, must hold the value JAX's CLIPFastRCNN computes with: its
+# default, or the one of `_CLIP_FAST_RCNN_FIXED`
+_CLIP_FAST_RCNN_READ = (
+    "MODEL.RESNETS.DEPTH", "MODEL.ROI_HEADS.NUM_CLASSES", "MODEL.CLIP.OFFLINE_RPN_NMS_THRESH", "MODEL.CLIP.CLSS_TEMP",
+    "MODEL.CLIP.FOCAL_SCALED_LOSS", "MODEL.CLIP.BG_CLS_LOSS_WEIGHT", "MODEL.CLIP.NO_BOX_DELTA",
+    "MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "MODEL.ROI_HEADS.NMS_THRESH_TEST",
+    "MODEL.PIXEL_MEAN", "MODEL.PIXEL_STD",
+    # the loaders': the weights, the offline tower's file, the classifier rows, the eval batch
+    "MODEL.WEIGHTS", "MODEL.CLIP.BB_RPN_WEIGHTS", "MODEL.CLIP.TEXT_EMB_PATH", "MODEL.CLIP.IMS_PER_BATCH_TEST",
+)
+_CLIP_FAST_RCNN_FIXED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.META_ARCHITECTURE", lambda v: v == "CLIPFastRCNN"),
+    ("MODEL.RESNETS.DEPTH", lambda v: v in RESNET_SPECS),
+    # the module's classifier is always the text embeddings'
+    ("MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER", lambda v: v is True),
+    ("TPU.BACKBONE_LAYERS", _falsy),
+    ("TPU.BACKBONE_WIDTH", _falsy),
+    ("TPU.EMBED_DIM", _falsy),
+    *_SUPPORTED_DTYPE,
+)
+
+
+def _leaves(node, prefix: str):
+    for key, val in node.items():
+        if isinstance(val, CfgNode):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def check_clip_fast_rcnn_supported(cfg) -> None:
+    """Raises NotImplementedError naming the first key that JAX's
+    CLIPFastRCNN would not compute with at its value: the builder's keys
+    are taken as they are; every other MODEL key (JAX ignores
+    MULTIPLY_RPN_SCORE, SOFT_NMS_ENABLED, ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+    RPN.* and the rest on this arch), TPU.BACKBONE_LAYERS / BACKBONE_WIDTH /
+    EMBED_DIM and TPU.COMPUTE_DTYPE only at the value the module uses: its
+    default, a text-embedding classifier, a CLIP tower of a ported depth."""
+    fixed = dict(_CLIP_FAST_RCNN_FIXED)
+    for key, ok in _CLIP_FAST_RCNN_FIXED:
+        value = _lookup(cfg, key)
+        if not ok(value):
+            raise NotImplementedError(f"{key} = {value!r} is not ported for CLIPFastRCNN")
+    for key, default in _leaves(get_cfg().MODEL, "MODEL."):
+        if key in _CLIP_FAST_RCNN_READ or key in fixed:
+            continue
+        value = _lookup(cfg, key)
+        if value != default and not (isinstance(default, (list, tuple)) and list(value) == list(default)):
+            raise NotImplementedError(f"{key} = {value!r} is not ported for CLIPFastRCNN: JAX's module ignores "
+                                      f"it and computes as with {default!r}")
 
 
 def model_config_from_cfg(cfg) -> ModelConfig:
@@ -377,6 +447,8 @@ def model_config_from_cfg(cfg) -> ModelConfig:
         soft_nms_method=m.ROI_HEADS.SOFT_NMS_METHOD,
         soft_nms_sigma=m.ROI_HEADS.SOFT_NMS_SIGMA,
         soft_nms_prune=m.ROI_HEADS.SOFT_NMS_PRUNE,
+        no_box_delta=m.CLIP.NO_BOX_DELTA,
+        multiply_rpn_score=m.CLIP.MULTIPLY_RPN_SCORE,
         pixel_mean=tuple(m.PIXEL_MEAN),
         pixel_std=tuple(m.PIXEL_STD),
         region_consistency_boxes=tpu.REGION_CONSISTENCY_BOXES,

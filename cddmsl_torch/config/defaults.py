@@ -88,6 +88,7 @@ def get_cfg() -> CfgNode:
     _C.MODEL.ROI_BOX_HEAD = CfgNode()
     _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
     _C.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = False
+    _C.MODEL.ROI_BOX_HEAD.NUM_FC = 0  # the C4 head has none: only 0 is accepted
 
     _C.MODEL.CLIP = CfgNode()
     _C.MODEL.CLIP.CROP_REGION_TYPE = "RPN"
@@ -98,9 +99,14 @@ def get_cfg() -> CfgNode:
     _C.MODEL.CLIP.NO_BOX_DELTA = False
     _C.MODEL.CLIP.BG_CLS_LOSS_WEIGHT = None
     _C.MODEL.CLIP.MULTIPLY_RPN_SCORE = False
+    # the open-set test head: evaluate with this many classes, their text
+    # embeddings from OPENSET_TEST_TEXT_EMB_PATH (class-agnostic boxes only)
     _C.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES = None
+    _C.MODEL.CLIP.OPENSET_TEST_TEXT_EMB_PATH = None
     _C.MODEL.CLIP.CLSS_TEMP = 0.01
     _C.MODEL.CLIP.FOCAL_SCALED_LOSS = None
+    # CLIPFastRCNN's frozen offline RPN: its NMS threshold
+    _C.MODEL.CLIP.OFFLINE_RPN_NMS_THRESH = 0.9
     # region-language pretraining (PretrainFastRCNN, read by pretrain_net):
     # the concept pool, the grid regions' unused count, the distillation
     # threshold and the caption tower's dims

@@ -12,9 +12,14 @@
                     leftImg8bit_foggy twins), cityscapes_foggy_{train,val}
                     (the clear images when leftImg8bit_foggy/<split> is
                     missing) and bdd_100k_val (COCO json, evaluator "coco")
+  * COCO:           coco_2017_{train,val} and the open-vocabulary splits
+                    coco_2017_ovd_{all,b,t}_{train,test} (COCO json of the
+                    65 / 48 base / 17 novel classes)
+  * LVIS:           lvis_{v1,v0.5}_{train,val} (LVIS json over the COCO
+                    images, evaluator "lvis")
 
-The COCO, panoptic and LVIS names of the JAX package are not ported. The
-dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
+The panoptic, semantic and Cityscapes-instance names of the JAX package are
+not ported. The dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
 from disk until a dataset is requested.
 """
 
@@ -22,6 +27,7 @@ import os
 
 from .cityscapes import register_cityscapes, register_cityscapes_DG
 from .coco import register_coco_instances
+from .lvis import register_lvis_instances
 from .voc import ARTISTIC_6_CLASSES, register_pascal_DG, register_pascal_voc
 
 _REGISTERED = False
@@ -68,3 +74,20 @@ def register_all(root: str = None) -> None:
         os.path.join(root, "bdd100k", "labels", "bdd100k_labels_images_det_coco_val.json"),
         os.path.join(root, "bdd100k", "images", "100k", "val"),
     )
+
+    coco = os.path.join(root, "coco")
+    for split in ("train", "val"):
+        register_coco_instances(f"coco_2017_{split}", os.path.join(coco, "annotations", f"instances_{split}2017.json"),
+                                os.path.join(coco, f"{split}2017"))
+    for ovd_split, img_split in (("ovd_all_train", "train"), ("ovd_b_train", "train"), ("ovd_t_train", "train"),
+                                 ("ovd_all_test", "val"), ("ovd_b_test", "val"), ("ovd_t_test", "val")):
+        register_coco_instances(
+            f"coco_2017_{ovd_split}",
+            os.path.join(coco, "annotations", f"ovd_ins_{img_split}2017_{ovd_split.split('_')[1]}.json"),
+            os.path.join(coco, f"{img_split}2017"),
+        )
+    for version in ("v1", "v0.5"):
+        for split in ("train", "val"):
+            # LVIS images live in the COCO folders
+            register_lvis_instances(f"lvis_{version}_{split}",
+                                    os.path.join(root, "lvis", f"lvis_{version}_{split}.json"), coco)

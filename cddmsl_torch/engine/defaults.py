@@ -18,6 +18,11 @@ evaluation splits each batch, rounded up to a multiple of the ranks, over
 them and scores the whole set on rank 0 (JAX's mesh-sharded eval), and
 every rank gets the results.
 
+With MODEL.CLIP.OPENSET_TEST_NUM_CLASSES (class-agnostic boxes and the text
+classifier only) `test` evaluates the open-set head: a model of that many
+classes whose classifier rows are MODEL.CLIP.OPENSET_TEST_TEXT_EMB_PATH's
+and whose every other tensor is the evaluated model's.
+
 Each iteration's sampler draws come from a generator seeded by (SEED,
 iteration), as the JAX loop folds the iteration into its key, so a resumed
 run draws what an uninterrupted one would.
@@ -31,6 +36,7 @@ folds 1 into the step's key.
 """
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
@@ -52,7 +58,7 @@ from ..data.datasets.voc import ARTISTIC_6_CLASSES
 from ..data.transforms import ResizeShortestEdge, apply_augmentations
 from ..device import resolve_device
 from ..evaluation import (
-    COCOEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
+    COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
 )
 from ..models.build import build_model
 from ..models.caption import ClipCaptionModel
@@ -101,9 +107,10 @@ def default_setup(cfg: CfgNode, args=None) -> None:
 
 def build_evaluator(cfg: CfgNode, dataset_name: str):
     """The VOC evaluator (Watercolor and Comic scored on the 6 classes they
-    annotate), or for a "coco" set the COCO bbox evaluator, which writes its
-    detections to OUTPUT_DIR/inference/coco_instances_results_<name>.json.
-    Other evaluator types, and COCO segm and keypoints, are not ported."""
+    annotate), for a "coco" set the COCO bbox evaluator, which writes its
+    detections to OUTPUT_DIR/inference/coco_instances_results_<name>.json,
+    or for an "lvis" set the LVIS evaluator. Other evaluator types, and
+    COCO segm and keypoints, are not ported."""
     ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "pascal_voc")
     if ev_type == "pascal_voc":
         target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
@@ -114,6 +121,8 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
         out_json = (os.path.join(cfg.OUTPUT_DIR, "inference", f"coco_instances_results_{dataset_name}.json")
                     if cfg.OUTPUT_DIR else None)
         return COCOEvaluator(dataset_name, output_json=out_json)
+    if ev_type == "lvis":
+        return LVISEvaluator(dataset_name)
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
 
 
@@ -182,6 +191,11 @@ class DefaultTrainer:
                 loss_weight=cfg.MODEL.CONSISTENCY_LOSS_WEIGHT,
             )
         self.checkpointer = DetectionCheckpointer(cfg.OUTPUT_DIR, max_to_keep=cfg.SOLVER.CHECKPOINT_MAX_TO_KEEP)
+        self.openset_model = None
+        if cfg.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES:
+            config = model_config_from_cfg(cfg)
+            self.openset_model = build_model(
+                dataclasses.replace(config, num_classes=cfg.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES), device=self.device)
         self.start_iter = 0
         self.max_iter = cfg.SOLVER.MAX_ITER
         self._hooks = []
@@ -313,6 +327,8 @@ class DefaultTrainer:
         {...}}}, on every rank."""
         cfg = cfg or self.cfg
         model = self.model if model is None else model
+        if self.openset_model is not None:
+            model = self._openset(cfg, model)
         world = comm.get_world_size()
         batch_size = -(-cfg.MODEL.CLIP.IMS_PER_BATCH_TEST // world) * world
         results = {}
@@ -325,6 +341,20 @@ class DefaultTrainer:
             logger.info("Results on %s:", name)
             print_csv_format(results[name])
         return results
+
+    @torch.no_grad()
+    def _openset(self, cfg: CfgNode, model: torch.nn.Module) -> torch.nn.Module:
+        """The open-set eval model: `model`'s tensors, and the classifier
+        rows of OPENSET_TEST_TEXT_EMB_PATH (one per open-set class)."""
+        path = cfg.MODEL.CLIP.OPENSET_TEST_TEXT_EMB_PATH
+        if not path:
+            raise ValueError("MODEL.CLIP.OPENSET_TEST_NUM_CLASSES needs MODEL.CLIP.OPENSET_TEST_TEXT_EMB_PATH: the "
+                             "open-set classifier's rows")
+        rows, trained = "roi_heads.box_predictor.cls_score.weight", model.state_dict()
+        self.openset_model.load_state_dict({k: trained[k] for k in self.openset_model.state_dict() if k != rows},
+                                           strict=False)
+        load_text_emb_classifier(self.openset_model, path)
+        return self.openset_model
 
     def _verify_final(self, results) -> None:
         """TEST.EXPECTED_RESULTS, checked on the final results of a single

@@ -3,9 +3,11 @@ cddmsl_tpu/evaluation/coco_eval.py `COCOEvaluator`).
 
 101-point interpolated AP averaged over IoU .50:.95, AP50 and AP75, the
 small/medium/large area splits and the per-class AP, with crowd boxes as
-ignored ground truth (pycocotools' `COCOeval` rules). The matcher is the
-numpy one; segm, keypoints and the open-vocabulary split metrics are not
-ported.
+ignored ground truth (pycocotools' `COCOeval` rules). On a set of the 65
+open-vocabulary classes it reports first the AP50 over the novel, the base
+and all classes (`AP50_split_target`, `_base`, `_all`; -1 where no class of
+the split has ground truth). The matcher is the numpy one; segm and
+keypoints are not ported.
 """
 
 import json
@@ -137,6 +139,7 @@ class COCOEvaluator:
     def _evaluate_bbox(self) -> Dict[str, float]:
         ap_per_class = {area: [] for area in AREA_RANGES}
         ap50, ap75 = [], []
+        ap50_by_class = {}
         named = {}
         for c in range(self.num_classes):
             if not any(len(v) for v in self._gts.get(c, {}).values()):
@@ -151,7 +154,9 @@ class COCOEvaluator:
                     if precisions is not None:
                         ap50.append(float(np.mean(precisions[0])))
                         ap75.append(float(np.mean(precisions[5])))
+                        ap50_by_class[c] = ap50[-1]
         return {
+            **self._ovd_splits(ap50_by_class),
             "AP": 100 * float(np.nanmean(ap_per_class["all"])) if ap_per_class["all"] else float("nan"),
             "AP50": 100 * float(np.mean(ap50)) if ap50 else float("nan"),
             "AP75": 100 * float(np.mean(ap75)) if ap75 else float("nan"),
@@ -160,6 +165,19 @@ class COCOEvaluator:
             "APl": 100 * float(np.nanmean(ap_per_class["large"])) if ap_per_class["large"] else float("nan"),
             **named,
         }
+
+    def _ovd_splits(self, ap50_by_class: Dict[int, float]) -> Dict[str, float]:
+        """{AP50_split_target, _base, _all} over the classes with ground
+        truth, where the set names the 65 open-vocabulary classes."""
+        if not self.class_names or len(self.class_names) != 65:
+            return {}
+        from ..data.datasets.coco_zeroshot_categories import COCO_OVD_ALL_CLS, COCO_SEEN_CLS, COCO_UNSEEN_CLS
+
+        out = {}
+        for split, names in (("target", COCO_UNSEEN_CLS), ("base", COCO_SEEN_CLS), ("all", COCO_OVD_ALL_CLS)):
+            vals = [v for c, v in ap50_by_class.items() if self.class_names[c] in set(names)]
+            out[f"AP50_split_{split}"] = 100 * float(np.mean(vals)) if vals else -1.0
+        return out
 
     def _class_pr(self, c: int, area_lo: float, area_hi: float) -> Optional[np.ndarray]:
         """(T, 101) interpolated precision of class `c` in an area range;

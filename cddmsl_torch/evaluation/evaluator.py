@@ -17,14 +17,20 @@ def _feed(evaluator, meta: dict, det) -> None:
     """One image's detections (boxes, scores, classes) and ground truth. The
     ground truth's `difficult` flags (0 where a record has none) go in
     third, as in the JAX package, where `COCOEvaluator.process_gt` takes
-    them as `iscrowd`."""
+    them as `iscrowd`. An LVIS record's `neg_category_ids` and
+    `not_exhaustive_category_ids` go to an evaluator that says it takes
+    them (`accepts_lvis_ignore`)."""
     evaluator.process(meta["image_id"], *det)
     if "annotations" in meta:
         annos = meta["annotations"]
         gb = np.array([a["bbox"] for a in annos], np.float32).reshape(-1, 4)
         gc = np.array([a["category_id"] for a in annos], np.int32).reshape(-1)
         gd = np.array([a.get("difficult", 0) for a in annos], bool).reshape(-1)
-        evaluator.process_gt(meta["image_id"], gb, gc, gd)
+        ignore = {}
+        if "neg_category_ids" in meta and getattr(evaluator, "accepts_lvis_ignore", False):
+            ignore = {"neg_category_ids": meta["neg_category_ids"],
+                      "not_exhaustive_category_ids": meta.get("not_exhaustive_category_ids", ())}
+        evaluator.process_gt(meta["image_id"], gb, gc, gd, **ignore)
 
 
 def inference_on_dataset(model, data_loader, num_images: int, evaluator, device=None) -> dict:

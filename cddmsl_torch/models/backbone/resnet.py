@@ -65,13 +65,14 @@ class Stem(nn.Module):
 class D2ResNet(nn.Module):
     """The stem and res2..res5 of MODEL.RESNETS.DEPTH. `forward` stops after
     res4 unless the call asks for res5; the C4 head runs res5 on the
-    pooled crops (`res5_forward`)."""
+    pooled crops (`res5_forward`). Without `res5` the tower ends at res4,
+    as CLIPFastRCNN's offline tower does (JAX's tree holds no res5 there)."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, res5: bool = True):
         super().__init__()
         self.stem = Stem(64)
         cin, bottleneck, cout = 64, 64, 256
-        for i, n in enumerate(D2_RESNET_SPECS[depth]):
+        for i, n in enumerate(D2_RESNET_SPECS[depth][:4 if res5 else 3]):
             stride = 1 if i == 0 else 2
             blocks = [D2Bottleneck(cin, bottleneck, cout, stride)]
             blocks += [D2Bottleneck(cout, bottleneck, cout) for _ in range(1, n)]

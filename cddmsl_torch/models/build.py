@@ -1,11 +1,16 @@
 """Config -> model (counterpart of cddmsl_tpu/models/build.py
-`build_generalized_rcnn` and `build_pretrain_fast_rcnn`)."""
+`build_generalized_rcnn`, `build_clip_fast_rcnn` and
+`build_pretrain_fast_rcnn`)."""
+
+from typing import Any, Dict
 
 import torch
 
-from ..config import EMBED_DIMS, RESNET_SPECS, ModelConfig, check_pretrain_supported
+from ..config import (
+    EMBED_DIMS, RESNET_SPECS, ModelConfig, check_clip_fast_rcnn_supported, check_pretrain_supported,
+)
 from ..device import compute_dtype, resolve_device
-from .clip_rcnn import PretrainFastRCNN
+from .clip_rcnn import CLIPFastRCNN, PretrainFastRCNN
 from .rcnn import GeneralizedRCNN
 
 
@@ -48,6 +53,8 @@ def build_model(config: ModelConfig, device="cuda", training: bool = False) -> G
         nms_thresh_test=config.nms_thresh_test,
         detections_per_image=config.detections_per_image,
         soft_nms=soft_nms if config.soft_nms_enabled else None,
+        no_box_delta=config.no_box_delta,
+        multiply_rpn_score=config.multiply_rpn_score,
         pixel_mean=tuple(config.pixel_mean),
         pixel_std=tuple(config.pixel_std),
         region_consistency_boxes=config.region_consistency_boxes,
@@ -91,3 +98,44 @@ def build_pretrain_fast_rcnn(cfg, device="cuda") -> PretrainFastRCNN:
         dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
     )
     return model.to(device).eval()
+
+
+def clip_fast_rcnn_fields(cfg) -> Dict[str, Any]:
+    """The fields JAX's `build_clip_fast_rcnn` gives `CLIPFastRCNN`, from
+    the yacs tree, after `check_clip_fast_rcnn_supported`: the CLIP tower of
+    MODEL.RESNETS.DEPTH (TPU.BACKBONE_* are not read; the offline tower is
+    always a ResNet-50), the classes, the offline RPN's NMS, the classifier's
+    temperature, focal and background weights, the box options, the test
+    thresholds, the pixel statistics and the compute dtype."""
+    check_clip_fast_rcnn_supported(cfg)
+    m = cfg.MODEL
+    layers, width = RESNET_SPECS[m.RESNETS.DEPTH]
+    return dict(
+        backbone_layers=tuple(layers),
+        backbone_width=width,
+        embed_dim=EMBED_DIMS[m.RESNETS.DEPTH],
+        num_classes=m.ROI_HEADS.NUM_CLASSES,
+        offline_rpn_nms_thresh=m.CLIP.OFFLINE_RPN_NMS_THRESH,
+        temperature=m.CLIP.CLSS_TEMP,
+        focal_gamma=m.CLIP.FOCAL_SCALED_LOSS,
+        bg_loss_weight=m.CLIP.BG_CLS_LOSS_WEIGHT,
+        no_box_delta=m.CLIP.NO_BOX_DELTA,
+        cls_agnostic_bbox_reg=m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG,
+        score_thresh_test=m.ROI_HEADS.SCORE_THRESH_TEST,
+        nms_thresh_test=m.ROI_HEADS.NMS_THRESH_TEST,
+        detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
+        pixel_mean=tuple(m.PIXEL_MEAN),
+        pixel_std=tuple(m.PIXEL_STD),
+        dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
+    )
+
+
+def build_clip_fast_rcnn(cfg, device="cuda") -> CLIPFastRCNN:
+    """The open-vocabulary detector (MODEL.META_ARCHITECTURE CLIPFastRCNN)
+    from the yacs tree, as JAX's builder reads it (`clip_fast_rcnn_fields`),
+    on `device` (CUDA unless the caller asks for the CPU) in eval mode. Its
+    weights are the modules' defaults: call `init_random_`, or load
+    MODEL.CLIP.BB_RPN_WEIGHTS (`load_bb_rpn_weights`), MODEL.WEIGHTS and
+    MODEL.CLIP.TEXT_EMB_PATH next."""
+    device = resolve_device(device)
+    return CLIPFastRCNN(**clip_fast_rcnn_fields(cfg)).to(device).eval()

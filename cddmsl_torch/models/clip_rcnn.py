@@ -1,6 +1,17 @@
-"""RegionCLIP's region-language pretraining model (counterpart of
-cddmsl_tpu/models/clip_rcnn.py: `soft_target_cross_entropy`,
+"""RegionCLIP's two meta-architectures (counterpart of
+cddmsl_tpu/models/clip_rcnn.py: `CLIPFastRCNN`, `soft_target_cross_entropy`,
 `mil_cross_entropy` and `PretrainFastRCNN`).
+
+`CLIPFastRCNN` is the open-vocabulary detector: a frozen offline RPN (a
+plain detectron2 ResNet that ends at res4, `D2ResNet`, on BGR 0..255 inputs minus the
+detectron2 means, and its own single-level RPN at NMS
+`offline_rpn_nms_thresh`, kernel K4) proposes the regions; the CLIP tower
+pools them from its res4 map (K1, and K3 for the gradient), runs res5 and
+the attention pool on the crops and classifies them against frozen text
+embeddings. Training (`supervised_losses`) samples the proposals with the
+ground truth and returns the Fast R-CNN losses of the recognition branch
+alone: the offline modules run without a gradient and hold no trainable
+parameter. Its RPN takes JAX's module defaults, never MODEL.RPN.
 
 A student CLIP ResNet and a frozen teacher of the same shape each pool the
 same regions of a batch of 224x224 images from their res4 maps (RoIAlign
@@ -20,19 +31,132 @@ losses, in this order, all in float32:
   (at least 1).
 
 The teacher and the text tower run without a gradient, as JAX's
-`stop_gradient` has them. `CLIPFastRCNN` is not ported.
+`stop_gradient` has them.
 """
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
+from ..structures import boxes as box_ops
 from .backbone.clip_resnet import ModifiedResNet
+from .backbone.resnet import D2ResNet
 from .backbone.text_encoder import CLIPTextEncoder
-from .roi_heads import pool_boxes
+from .fast_rcnn import DetectionResult
+from .rcnn import DetBatch
+from .roi_heads import CLIPRes5ROIHeads, pool_boxes
+from .rpn import RPN, Proposals
+from .sampling import Draw
+
+D2_PIXEL_MEAN = (103.53, 116.28, 123.675)
+
+
+class CLIPFastRCNN(nn.Module):
+    """The offline RPN and the CLIP recognition branch. The constructor
+    takes the fields of JAX's module, with their defaults."""
+
+    def __init__(
+        self,
+        backbone_layers: Sequence[int] = (3, 4, 6, 3),
+        backbone_width: int = 64,
+        embed_dim: int = 1024,
+        num_classes: int = 80,
+        offline_depth: int = 50,
+        rpn_post_nms_topk: Tuple[int, int] = (2000, 1000),
+        offline_rpn_nms_thresh: float = 0.9,
+        temperature: float = 0.01,
+        focal_gamma: Optional[float] = None,
+        bg_loss_weight: Optional[float] = None,
+        no_box_delta: bool = False,
+        cls_agnostic_bbox_reg: bool = False,
+        score_thresh_test: float = 0.05,
+        nms_thresh_test: float = 0.5,
+        detections_per_image: int = 100,
+        pixel_mean: Sequence[float] = CLIP_PIXEL_MEAN,
+        pixel_std: Sequence[float] = CLIP_PIXEL_STD,
+        offline_pixel_mean: Sequence[float] = D2_PIXEL_MEAN,
+        offline_pixel_std: Sequence[float] = (1.0, 1.0, 1.0),
+        offline_input_bgr: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.offline_rpn_nms_thresh = offline_rpn_nms_thresh
+        self.pixel_mean, self.pixel_std = tuple(pixel_mean), tuple(pixel_std)
+        self.offline_pixel_mean, self.offline_pixel_std = tuple(offline_pixel_mean), tuple(offline_pixel_std)
+        self.offline_input_bgr = offline_input_bgr
+        self.dtype = dtype
+        self.offline_backbone = D2ResNet(offline_depth, res5=False).requires_grad_(False)
+        self.offline_proposal_generator = RPN(
+            in_channels=1024, stride=16, nms_thresh=offline_rpn_nms_thresh,
+            post_nms_topk_train=rpn_post_nms_topk[0], post_nms_topk_test=rpn_post_nms_topk[1],
+        ).requires_grad_(False)
+        self.backbone = ModifiedResNet(backbone_layers, embed_dim, backbone_width * 32 // 64, backbone_width)
+        self.roi_heads = CLIPRes5ROIHeads(
+            num_classes=num_classes, emb_dim=embed_dim, temperature=temperature, focal_gamma=focal_gamma,
+            bg_loss_weight=bg_loss_weight, score_thresh_test=score_thresh_test, nms_thresh_test=nms_thresh_test,
+            detections_per_image=detections_per_image, use_text_emb=True,
+            cls_agnostic_bbox_reg=cls_agnostic_bbox_reg, no_box_delta=no_box_delta,
+        )
+
+    def _norm(self, images: torch.Tensor, mean, std, bgr: bool = False) -> torch.Tensor:
+        """(B, H, W, 3) RGB 0..255 -> channels flipped to BGR with `bgr`,
+        /255 where the means are CLIP's (their sum below 3), normalised, in
+        the compute dtype."""
+        x = images.float()
+        if bgr:
+            x = x.flip(-1)
+        if float(sum(mean)) < 3.0:
+            x = x / 255.0
+        m = torch.tensor(mean, dtype=torch.float32, device=x.device)
+        s = torch.tensor(std, dtype=torch.float32, device=x.device)
+        return ((x - m) / s).to(self.dtype)
+
+    @torch.no_grad()
+    def offline_proposals(self, batch: DetBatch, training: bool = False) -> Proposals:
+        """The frozen offline RPN's proposals: the training or the test
+        top-k, NMS at `offline_rpn_nms_thresh`."""
+        x = self._norm(batch.image, self.offline_pixel_mean, self.offline_pixel_std, self.offline_input_bgr)
+        rpn = self.offline_proposal_generator
+        return rpn._predict_proposals(*rpn._head(self.offline_backbone(x)["res4"]), batch.image_sizes, training)
+
+    def _features(self, batch: DetBatch) -> torch.Tensor:
+        return self.backbone(self._norm(batch.image, self.pixel_mean, self.pixel_std))["res4"]
+
+    def supervised_losses(self, batch: DetBatch, draw: Draw) -> Dict[str, torch.Tensor]:
+        """{"loss_cls", "loss_box_reg"} of the recognition branch on the
+        offline RPN's training proposals. `draw` gives the RoI heads' sites
+        ("roi_pos", "roi_neg", "roi_gather"); JAX hands this arch's key to
+        the RoI heads whole, without the split `cddmsl_losses` makes."""
+        proposals = self.offline_proposals(batch, training=True)
+        return self.roi_heads(
+            self._features(batch), proposals, batch.image_sizes, self.backbone.res5_forward,
+            self.backbone.attnpool_forward, training=True, gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes,
+            gt_valid=batch.gt_valid, draw=draw,
+        )
+
+    @torch.no_grad()
+    def inference(self, batch: DetBatch, do_postprocess: bool = True) -> DetectionResult:
+        """Offline proposals -> CLIP res4 -> RoI heads; with
+        `do_postprocess` the boxes rescaled to orig_sizes, as
+        `GeneralizedRCNN.inference` rescales them (JAX's CLIPFastRCNN leaves
+        them in the padded input frame: the same where the two sizes are
+        equal)."""
+        detections = self.roi_heads(
+            self._features(batch), self.offline_proposals(batch), batch.image_sizes, self.backbone.res5_forward,
+            self.backbone.attnpool_forward,
+        )
+        if not do_postprocess:
+            return detections
+        orig = batch.orig_sizes.to(detections.boxes.device)
+        scale = (orig / torch.clamp(batch.image_sizes.to(orig.device), min=1)).float()
+        sxy = torch.stack([scale[:, 1], scale[:, 0], scale[:, 1], scale[:, 0]], dim=-1)
+        boxes = box_ops.clip(detections.boxes * sxy[:, None, :], (orig[:, 0, None], orig[:, 1, None]))
+        return detections._replace(boxes=boxes)
 
 
 def soft_target_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:

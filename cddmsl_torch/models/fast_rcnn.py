@@ -7,7 +7,12 @@ The classifier is the cosine against frozen text embeddings
 logits, background last. The box regressor gives K boxes, or one that every
 class shares (MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG). Inference ends in
 the class-aware NMS (kernel K4), or with MODEL.ROI_HEADS.SOFT_NMS_ENABLED in
-the class-aware soft-NMS, whose decayed scores are the detections'.
+the class-aware soft-NMS, whose decayed scores are the detections'. Two
+options of the open-vocabulary recipes change the candidates: with
+MODEL.CLIP.NO_BOX_DELTA every class keeps the proposal's own box, and with
+MULTIPLY_RPN_SCORE a class's score is sqrt(prob * the proposal's raw
+objectness logit), NaN where the logit is negative, and such a candidate
+drops out before the ranking, as in JAX.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -122,14 +127,24 @@ def detection_candidates(
     num_classes: int,
     score_thresh: float = 0.05,
     max_candidates: int = 2048,
+    no_box_delta: bool = False,
+    rpn_scores: Optional[torch.Tensor] = None,  # (B, R) objectness logits
+    multiply_rpn_score: bool = False,
 ):
     """What `fast_rcnn_inference` hands to the class-aware NMS: softmax, drop
-    the background, per-class score threshold, the top `max_candidates`
+    the background (then with `multiply_rpn_score` the geometric mean with
+    `rpn_scores`), per-class score threshold, the top `max_candidates`
     candidates -> boxes (B, M, 4), scores (B, M), classes (B, M), valid
-    (B, M)."""
+    (B, M). With `no_box_delta` the boxes are the proposals'."""
     b, r = scores.shape[:2]
     probs = torch.softmax(scores, dim=-1)[..., :-1]  # (B, R, K)
-    if deltas.shape[-1] == 4:  # class-agnostic: one box, given to each class
+    if multiply_rpn_score and rpn_scores is not None:
+        # the raw logit, not a probability: a negative one gives NaN, which
+        # fails the threshold below and is zeroed before the sort
+        probs = torch.sqrt(probs * rpn_scores.float()[:, :, None])
+    if no_box_delta:
+        boxes = proposal_boxes[:, :, None, :].expand(b, r, num_classes, 4)
+    elif deltas.shape[-1] == 4:  # class-agnostic: one box, given to each class
         boxes = box2box.apply_deltas(deltas, proposal_boxes)[:, :, None, :].expand(b, r, num_classes, 4)
     else:
         boxes = box2box.apply_deltas(deltas.reshape(b, r, num_classes, 4), proposal_boxes[:, :, None, :])
@@ -161,14 +176,19 @@ def fast_rcnn_inference(
     topk_per_image: int = 100,
     max_candidates: int = 2048,
     soft_nms: Optional[Tuple[str, float, float]] = None,
+    no_box_delta: bool = False,
+    rpn_scores: Optional[torch.Tensor] = None,
+    multiply_rpn_score: bool = False,
 ) -> DetectionResult:
     """`fast_rcnn_inference_single_image` over a batch: the candidates of
     `detection_candidates`, class-aware NMS through the coordinate shift,
     top `topk_per_image`. With `soft_nms` = (method, sigma, prune) the
     class-aware soft-NMS replaces the NMS, `nms_thresh` as its linear
-    threshold, and the detections carry its decayed scores."""
+    threshold, and the detections carry its decayed scores. `no_box_delta`,
+    `rpn_scores` and `multiply_rpn_score` go to `detection_candidates`."""
     top_boxes, top_scores, top_classes, top_valid = detection_candidates(
-        scores, deltas, proposal_boxes, proposal_valid, image_hw, box2box, num_classes, score_thresh, max_candidates
+        scores, deltas, proposal_boxes, proposal_valid, image_hw, box2box, num_classes, score_thresh, max_candidates,
+        no_box_delta, rpn_scores, multiply_rpn_score,
     )
     if soft_nms is not None:
         method, sigma, prune = soft_nms

@@ -116,6 +116,8 @@ class GeneralizedRCNN(nn.Module):
         nms_thresh_test: float = 0.5,
         detections_per_image: int = 100,
         soft_nms: Optional[Tuple[str, float, float]] = None,
+        no_box_delta: bool = False,
+        multiply_rpn_score: bool = False,
         pixel_mean: Sequence[float] = (0.48145466, 0.4578275, 0.40821073),
         pixel_std: Sequence[float] = (0.26862954, 0.26130258, 0.27577711),
         region_consistency_boxes: int = 16,
@@ -175,6 +177,8 @@ class GeneralizedRCNN(nn.Module):
             use_text_emb=use_text_emb,
             cls_agnostic_bbox_reg=cls_agnostic_bbox_reg,
             soft_nms=soft_nms,
+            no_box_delta=no_box_delta,
+            multiply_rpn_score=multiply_rpn_score,
         )
         if training_modules and backbone_type == "clip":
             # frozen second copy: the KD teacher of the caption branch

@@ -54,10 +54,14 @@ class CLIPRes5ROIHeads(nn.Module):
         use_text_emb: bool = True,
         cls_agnostic_bbox_reg: bool = False,
         soft_nms: Optional[Tuple[str, float, float]] = None,
+        no_box_delta: bool = False,
+        multiply_rpn_score: bool = False,
     ):
         """`emb_dim` is the width of the classifier's input: the attention
         pool's output with `use_text_emb`, else res5's channels. `soft_nms`
-        = (method, sigma, prune) replaces the detection NMS."""
+        = (method, sigma, prune) replaces the detection NMS. `no_box_delta`
+        keeps the proposal boxes; `multiply_rpn_score` folds each
+        proposal's objectness logit into its class scores."""
         super().__init__()
         self.num_classes = num_classes
         self.batch_size_per_image = batch_size_per_image
@@ -71,6 +75,8 @@ class CLIPRes5ROIHeads(nn.Module):
         self.nms_thresh_test = nms_thresh_test
         self.detections_per_image = detections_per_image
         self.soft_nms = soft_nms
+        self.no_box_delta = no_box_delta
+        self.multiply_rpn_score = multiply_rpn_score
         self.box_predictor = FastRCNNOutputLayers(num_classes, emb_dim, temperature, use_text_emb,
                                                   cls_agnostic_bbox_reg)
         self.box2box = Box2BoxTransform(bbox_reg_weights)
@@ -171,4 +177,7 @@ class CLIPRes5ROIHeads(nn.Module):
             nms_thresh=self.nms_thresh_test,
             topk_per_image=self.detections_per_image,
             soft_nms=self.soft_nms,
+            no_box_delta=self.no_box_delta,
+            rpn_scores=proposals.scores,
+            multiply_rpn_score=self.multiply_rpn_score,
         )

@@ -33,9 +33,11 @@ from torch import nn
 from ..config import SolverConfig
 from ..parallel import comm
 
-# the offline backbone and the mapper; in pretraining the distillation
-# teacher, the caption tower and the concept pool
-_ALWAYS_FROZEN = ("offline_backbone.", "v2l_mapper.", "teacher_backbone.", "lang_encoder.")
+# the offline backbone and the mapper; CLIPFastRCNN's offline RPN (JAX's
+# rules miss it, and its optimizer would decay it); in pretraining the
+# distillation teacher, the caption tower and the concept pool
+_ALWAYS_FROZEN = ("offline_backbone.", "offline_proposal_generator.", "v2l_mapper.", "teacher_backbone.",
+                  "lang_encoder.")
 _ALWAYS_FROZEN_NAMES = ("concept_emb",)
 _STEM = ("conv1", "conv2", "conv3", "bn1", "bn2", "bn3")
 
@@ -83,7 +85,8 @@ def build_lr_schedule(cfg: SolverConfig) -> Callable[[int], float]:
 
 def parameter_is_frozen(name: str, freeze_at: int = 2, use_text_emb: bool = True) -> bool:
     """`path_is_frozen` on the port's parameter names: the offline backbone,
-    the mapper, the pretraining teacher, text tower and concept pool always,
+    the offline RPN (which JAX's rules miss), the mapper, the pretraining
+    teacher, text tower and concept pool always,
     the text-embedding classifier rows (`use_text_emb`; the linear
     classifier trains), and the student `backbone`'s stem (freeze_at >= 1)
     and first freeze_at - 1 stages (the part named exactly `backbone`: never

@@ -172,14 +172,35 @@ Phases, each of which fails the run with a non-zero exit:
      configs/quick_schedules/rcnn_training_acc_test.yaml (the linear head
      on the tiny CLIP tower, fp32, TF32 off) through `train_net.main`, its
      AP50 printed beside the golden, not judged.
+ 15. RegionCLIP's open-vocabulary detector (`ovd_path`), bf16, batch 8 at
+     the 800x1344 pad, seeded random weights: (a) the LVIS zero-shot recipe
+     (CLIP_fast_rcnn_R_50_C4_zsinf.yaml: 1203 classes, NO_BOX_DELTA, the
+     offline RPN's NMS at 0.9) through `build_clip_fast_rcnn`, its offline
+     ResNet-50 and RPN head from a seeded detectron2 file (BB_RPN_WEIGHTS,
+     `load_bb_rpn_weights`, every tensor bit-equal to the file) and its
+     1203x1024 text rows from a seeded file, over 8 LVIS-format images at
+     $DETECTRON2_DATASETS (lvis_v1_val) through the test loader,
+     `inference_on_dataset` and `LVISEvaluator`: K1/K3/K4 1/0/2 a batch,
+     ms/image, detections an image, the offline modules and text rows
+     bit-equal after; (b) the COCO OVD recipe's `supervised_losses` (48
+     classes, focal 0.5, background 0.2) forward and backward on a device
+     batch, 5 steps timed after 3: finite losses, 1/1/1 a step, no gradient
+     on the offline modules, every trainable parameter with one; (c) the VOC
+     recipe's open-set head (class-agnostic boxes, MULTIPLY_RPN_SCORE, 1203
+     open-set classes) through `train_net.main --eval-only` on lvis_v1_val,
+     1/0/2 a batch. Then K1 and K3 at (b)'s pool, K1 at (a)'s, and K4 at
+     (b)'s offline RPN and (a)'s offline RPN and detection NMS (on
+     `seeded_candidates` where the batch leaves it none), as in phase 7.
 The line before the last is the kernels' JSON, one row per kernel and path
-(`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`). `launches` counts
+(`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
+`.../ovd`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
 the teacher's test; for ddp, both ranks of world 2 under gloo; for
 pretrain, 6 steps; for language_tools, the region features' batches; for
-plain_r50, 12 steps and the final test);
+plain_r50, 12 steps and the final test; for ovd, (a)'s and (c)'s eval
+batches and (b)'s 9 steps);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -188,8 +209,8 @@ the two region branches' calls: K1 4, K3 3, K4 2; for mean_teacher one
 step's: K1 3, K3 2, K4 4; for ddp one rank's step and eval batch: K1 4,
 K3 3, K4 3; for pretrain one step's: K1 2, K3 1; for language_tools the
 first region-feature batch: K1 1, K4 1; for plain_r50 one step and one
-eval batch: K1 2, K3 1, K4 3): the largest error and the sums of the times
-and bounds.
+eval batch: K1 2, K3 1, K4 3; for ovd one step and one eval batch: K1 2,
+K3 1, K4 3): the largest error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -736,22 +757,30 @@ def eval_kernel_calls(model, batch, candidates_seed=None):
     pool over the batch's proposals, and K4's (boxes, scores, valid,
     threshold, max_out) of the RPN NMS and of the detection NMS (its
     candidates shifted apart by class, as `batched_nms` shifts them), in
-    the order inference makes them. With `candidates_seed`, the detection
+    the order inference makes them. A CLIPFastRCNN's RPN is the offline
+    one, on the offline tower's res4. With `candidates_seed`, the detection
     NMS gets `seeded_candidates`."""
     from cddmsl_torch.models.fast_rcnn import detection_candidates
     from cddmsl_torch.ops.nms import class_shifted
 
-    rpn, rh, backbone = model.proposal_generator, model.roi_heads, model.backbone
-    features = backbone(model._normalize(batch.image))["res4"]
-    head = rpn._head(features)
+    rh, backbone = model.roi_heads, model.backbone
+    if hasattr(model, "offline_proposal_generator"):  # CLIPFastRCNN
+        rpn, box_pool = model.offline_proposal_generator, backbone.attnpool_forward
+        x = model._norm(batch.image, model.offline_pixel_mean, model.offline_pixel_std, model.offline_input_bgr)
+        head = rpn._head(model.offline_backbone(x)["res4"])
+        features = model._features(batch)
+    else:
+        rpn, box_pool = model.proposal_generator, model._box_pool
+        features = backbone(model._normalize(batch.image))["res4"]
+        head = rpn._head(features)
     rpn_call = (*rpn._nms_inputs(*head, batch.image_sizes, False), rpn.nms_thresh, rpn.post_nms_topk[False])
     proposals = rpn._predict_proposals(*head, batch.image_sizes, False)
     b, s = proposals.boxes.shape[:2]
-    scores, deltas = rh.box_predictor(rh._region_embed(features, proposals.boxes, backbone.res5_forward,
-                                                       model._box_pool))
+    scores, deltas = rh.box_predictor(rh._region_embed(features, proposals.boxes, backbone.res5_forward, box_pool))
     boxes, det_scores, classes, valid = detection_candidates(
         scores.reshape(b, s, -1), deltas.reshape(b, s, -1), proposals.boxes, proposals.valid, batch.image_sizes,
-        rh.box2box, rh.num_classes, rh.score_thresh_test)
+        rh.box2box, rh.num_classes, rh.score_thresh_test, no_box_delta=rh.no_box_delta, rpn_scores=proposals.scores,
+        multiply_rpn_score=rh.multiply_rpn_score)
     if candidates_seed is not None:
         det_scores, valid = seeded_candidates(det_scores, valid, candidates_seed)
     det_call = (class_shifted(boxes, classes, valid), det_scores, valid, rh.nms_thresh_test, rh.detections_per_image)
@@ -2552,6 +2581,20 @@ def supervised_roi_align_calls(model, batch, draw):
     return [("supervised", *pool_args(features, sampled))]
 
 
+def soft_nms_bound_ms(b, n, max_out):
+    """(bound ms, bound_by) of the class-aware soft-NMS of b images of n
+    candidates keeping max_out. Bytes: the boxes (16), scores (4), classes
+    (4) and validity (1) read once, the kept indices (8), scores (4) and
+    validity (1) written once. Operations: per image, each of the max_out
+    rounds takes one row of the (n, n) IoU block: the argmax over the n
+    scores (1 flop a candidate), the chosen box's IoU with each (14) and
+    its decay (4: square, scale, exp, multiply)."""
+    bytes_ = b * n * (16 + 4 + 4 + 1) + b * max_out * (8 + 4 + 1)
+    ops = b * max_out * n * (1 + 14 + 4)
+    t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, ops / H100_FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 @torch.no_grad()
 def soft_nms_on_card_and_cpu(model, batch, label, smi):
     """The class-aware soft-NMS of `model` (SOFT_NMS_ENABLED) on the
@@ -2588,10 +2631,12 @@ def soft_nms_on_card_and_cpu(model, batch, label, smi):
     if err > 1e-6:
         fail(f"soft-NMS {label}: decayed scores {err} from the CPU's (tol 1e-6)")
     ms = cuda_ms(lambda: call(boxes, det_scores, classes, valid), 5)
+    bound, by = soft_nms_bound_ms(b, boxes.shape[1], rh.detections_per_image)
     print(f"soft-NMS {label} ({method}, sigma {sigma}, linear threshold {rh.nms_thresh_test}, prune {prune}) on "
           f"{b}x{boxes.shape[1]} candidates -> {rh.detections_per_image}: kept {got[2].sum(1).tolist()}, equal to "
           f"the CPU's (scores max abs err {err:.3g}, tol 1e-6); {ms:.4f} ms on the card (plain PyTorch, "
-          f"{rh.detections_per_image} selection rounds), {cpu_ms:.4f} ms on the host CPU; on {smi}")
+          f"{rh.detections_per_image} selection rounds), bound {bound:.5f} ms ({by}), {cpu_ms:.4f} ms on the host "
+          f"CPU; on {smi}")
 
 
 def plain_r50_path(dev, smi, roi_ops, nms_ops):
@@ -2757,6 +2802,325 @@ def plain_r50_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 15: RegionCLIP's open-vocabulary detector. (a) zero-shot inference
+# of the LVIS recipe over 8 LVIS-format images, (b) the OVD recipe's loss on
+# a device batch, 5 steps timed after 3, (c) the open-set head of the VOC
+# recipe through `train_net --eval-only` on the same images
+OVD_IMAGES, OVD_HW = 8, (600, 1000)
+OVD_STEPS, OVD_WARMUP = 5, 3
+LVIS_CLASSES = 1203
+# the seed of the detection candidates' scores where the eval batch leaves
+# the detection NMS none (`seeded_candidates`)
+OVD_CANDIDATES_SEED = 15
+OVD_CONFIGS = ("LVISv1-InstanceSegmentation/CLIP_fast_rcnn_R_50_C4_zsinf.yaml",
+               "COCO-InstanceSegmentation/CLIP_fast_rcnn_R_50_C4_ovd.yaml")
+
+
+def write_lvis_fixture(root, n, seed):
+    """An LVIS v1 val set at `root` as $DETECTRON2_DATASETS lays it out:
+    lvis/lvis_v1_val.json (1203 categories with image counts over the rare,
+    common and frequent buckets; per image a few boxes, negative and
+    not-exhaustive ids; images named by coco_url) and n seeded JPEGs of
+    OVD_HW under coco/val2017. Returns the json's path."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    r = np.random.RandomState(seed)
+    h, w = OVD_HW
+    os.makedirs(os.path.join(root, "coco", "val2017"), exist_ok=True)
+    os.makedirs(os.path.join(root, "lvis"), exist_ok=True)
+    cats = [{"id": c + 1, "name": f"lvis_class_{c}", "image_count": int(r.choice([5, 50, 500]))}
+            for c in range(LVIS_CLASSES)]
+    images, annos = [], []
+    for i in range(n):
+        image_id = 1 + i
+        name = f"{image_id:012d}.jpg"
+        Image.fromarray((r.rand(h, w, 3) * 255).astype(np.uint8)).save(os.path.join(root, "coco", "val2017", name))
+        pos = [int(c) for c in r.choice(LVIS_CLASSES, 3, replace=False) + 1]
+        images.append({"id": image_id, "height": h, "width": w, "coco_url": f"http://images.cocodataset.org/val2017/{name}",
+                       "neg_category_ids": [int(c) for c in r.choice(LVIS_CLASSES, 5) + 1],
+                       "not_exhaustive_category_ids": pos[:1]})
+        for k in range(int(r.randint(2, 6))):
+            bw, bh = 40 + r.rand() * 400, 40 + r.rand() * 300
+            x, y = r.rand() * (w - bw), r.rand() * (h - bh)
+            annos.append({"id": len(annos) + 1, "image_id": image_id, "category_id": pos[k % 3], "area": bw * bh,
+                          "bbox": [x, y, bw, bh]})
+    path = os.path.join(root, "lvis", "lvis_v1_val.json")
+    with open(path, "w") as f:
+        json.dump({"categories": cats, "images": images, "annotations": annos}, f)
+    return path
+
+
+def write_bb_rpn_file(path, seed):
+    """MODEL.CLIP.BB_RPN_WEIGHTS: a seeded plain ResNet-50 tower and RPN head
+    (`init_random_`) under detectron2's names (backbone.stem.*,
+    backbone.res{s}.*, proposal_generator.rpn_head.*) in a detectron2-style
+    file. The stem's kernel is divided by 58, the pixels' standard
+    deviation in 0..255 units: the offline tower takes BGR minus the means
+    unscaled (PIXEL_STD 1, as detectron2's R-50 does), and a He-normal stem
+    on those inputs sends every proposal off the image. Returns its
+    tensors."""
+    from torch import nn
+
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.models.backbone.resnet import D2ResNet
+    from cddmsl_torch.models.rpn import StandardRPNHead
+
+    holder = nn.Module()
+    holder.backbone = D2ResNet(50)
+    holder.proposal_generator = nn.Module()
+    holder.proposal_generator.rpn_head = StandardRPNHead(1024, 15)
+    sd = init_random_(holder, torch.Generator().manual_seed(seed)).state_dict()
+    sd["backbone.stem.conv1.weight"] /= 58.0
+    torch.save({"model": sd, "iteration": 0}, path)
+    return sd
+
+
+def ovd_model(cfg_file, dev, bb_path, emb_path, seed, *opts):
+    """`build_clip_fast_rcnn` of a CLIP_fast_rcnn config on the card: seeded
+    random weights, then the offline tower and RPN from `bb_path` and, with
+    `emb_path`, the classifier rows. Returns (cfg, model)."""
+    import os
+
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.checkpoint.convert_torch import load_bb_rpn_weights, load_text_emb_classifier
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.models.build import build_clip_fast_rcnn
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", cfg_file))
+    cfg.merge_from_list(["MODEL.CLIP.BB_RPN_WEIGHTS", bb_path, *opts])
+    cfg.freeze()
+    model = init_random_(build_clip_fast_rcnn(cfg, device="cpu"), torch.Generator().manual_seed(seed))
+    n = load_bb_rpn_weights(model, cfg.MODEL.CLIP.BB_RPN_WEIGHTS)
+    if emb_path:
+        load_text_emb_classifier(model, emb_path)
+    return cfg, model.to(dev).eval(), n
+
+
+def offline_state(model):
+    """The offline tower, the offline RPN and the classifier rows, cloned."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.startswith(("offline_", "roi_heads.box_predictor.cls_score."))}
+
+
+@torch.no_grad()
+def ovd_training_calls(model, batch, draw):
+    """The kernel calls of one CLIPFastRCNN `supervised_losses` step,
+    rebuilt outside autograd on the model's device: K1's and K3's
+    ("train_pool", features, batch_idx, boxes), the B x 512 sampled ROIs on
+    the CLIP tower's res4 map, and K4's (boxes, scores, valid, threshold,
+    max_out), the offline RPN's NMS at the training top-k."""
+    rpn = model.offline_proposal_generator
+    x = model._norm(batch.image, model.offline_pixel_mean, model.offline_pixel_std, model.offline_input_bgr)
+    head = rpn._head(model.offline_backbone(x)["res4"])
+    rpn_call = (*rpn._nms_inputs(*head, batch.image_sizes, True), rpn.nms_thresh, rpn.post_nms_topk[True])
+    proposals = rpn._predict_proposals(*head, batch.image_sizes, True)
+    sampled = model.roi_heads.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes,
+                                                         batch.gt_valid, draw)[0]
+    return ("train_pool", *pool_args(model._features(batch), sampled)), rpn_call
+
+
+def ovd_path(dev, smi, roi_ops, nms_ops):
+    """Phase 15: RegionCLIP's open-vocabulary detector at full width (bf16,
+    batch 8 at the 800x1344 pad, seeded random weights: RegionCLIP's
+    checkpoint, rpn_lvis_866.pth and the concept embeddings are not in the
+    repository). (a) LVIS zero-shot inference (CLIP_fast_rcnn_R_50_C4_zsinf:
+    1203 classes, NO_BOX_DELTA, the offline RPN's NMS at 0.9) with
+    BB_RPN_WEIGHTS a seeded detectron2 file through `load_bb_rpn_weights`
+    and seeded text rows, over 8 LVIS-format images through the test loader,
+    `model.inference` and `LVISEvaluator` (K1/K3/K4 1/0/2 a batch), the
+    offline modules and the text rows bit-equal after; (b) the OVD recipe's
+    `supervised_losses` (48 classes, focal 0.5, background 0.2) forward and
+    backward on a device batch, 5 steps timed after 3: finite losses,
+    1/1/1 a step, no gradient on the offline modules; (c) the VOC recipe's
+    open-set head (class-agnostic boxes, MULTIPLY_RPN_SCORE, 1203 open-set
+    classes from a seeded file) through `train_net.main --eval-only` on
+    lvis_v1_val over the same images ($DETECTRON2_DATASETS), 1/0/2 a batch.
+    Then K1, K3 and K4 at the path's shapes. Returns its rows."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch import train_net
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, to_device
+    from cddmsl_torch.data.datasets import builtin
+    from cddmsl_torch.engine.defaults import build_evaluator, default_argument_parser
+    from cddmsl_torch.entry import synthetic_batch
+    from cddmsl_torch.evaluation import inference_on_dataset
+    from cddmsl_torch.models.sampling import generator_draw
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cddmsl_ovd_")
+    env = os.environ.get("DETECTRON2_DATASETS")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    try:
+        write_lvis_fixture(root, OVD_IMAGES, seed=15)
+        # the builtin names again, at the fixture's root
+        for name in DatasetCatalog.list():
+            DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+        builtin._REGISTERED = False
+        os.environ["DETECTRON2_DATASETS"] = root
+        builtin.register_all()
+        bb_path, emb_path = os.path.join(root, "bb_rpn.pth"), os.path.join(root, "lvis_emb.pth")
+        bb_sd = write_bb_rpn_file(bb_path, seed=151)
+        torch.save(torch.randn((LVIS_CLASSES, 1024), generator=torch.Generator().manual_seed(152)), emb_path)
+
+        # (a) zero-shot inference
+        cfg, model, n_loaded = ovd_model(OVD_CONFIGS[0], dev, bb_path, emb_path, 150, "OUTPUT_DIR",
+                                         os.path.join(root, "zsinf"))
+        state = model.state_dict()
+        res5 = [k for k in bb_sd if k.startswith("backbone.res5.")]
+        for k, v in bb_sd.items():  # backbone.* -> offline_backbone.*, proposal_generator.* -> offline_...
+            if k not in res5 and not torch.equal(state["offline_" + k].cpu(), v):
+                fail(f"ovd: offline_{k} is not the BB_RPN_WEIGHTS file's {k}")
+        if n_loaded != len(bb_sd) - len(res5):
+            fail(f"ovd: load_bb_rpn_weights loaded {n_loaded} tensors, expected {len(bb_sd) - len(res5)}")
+        print(f"ovd (a): {OVD_CONFIGS[0]} through build_clip_fast_rcnn ({model.num_classes} classes, NO_BOX_DELTA "
+              f"{model.roi_heads.no_box_delta}, offline RPN NMS {model.offline_rpn_nms_thresh}, {model.dtype}); "
+              f"BB_RPN_WEIGHTS: {n_loaded} tensors bit-equal to the file (its {len(res5)} res5 tensors have no home: "
+              "the offline tower ends at res4), the 1203x1024 text rows from a seeded file")
+        frozen = offline_state(model)
+        name = "lvis_v1_val"
+        evaluator_type = MetadataCatalog.get(name).evaluator_type
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        t0 = time.perf_counter()
+        loader, n = build_detection_test_loader(cfg, name, pin_memory=True)
+        with loader:
+            evaluator = build_evaluator(cfg, name)
+            results = inference_on_dataset(model, loader, n, evaluator, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_a = read_launches(roi_ops, nms_ops)
+        n_batches = -(-n // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple(launches_a[k] / n_batches for k in keys)
+        if per_batch != (1, 0, 2) or type(evaluator).__name__ != "LVISEvaluator" or evaluator_type != "lvis":
+            fail(f"ovd (a): launches per batch {per_batch} (expected (1, 0, 2)), evaluator {type(evaluator).__name__}")
+        eval_batch = first_eval_batch(cfg, name, dev)
+        det = model.inference(eval_batch)
+        if not bool(torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()) or det.boxes.shape != (
+                OVD_IMAGES, cfg.TEST.DETECTIONS_PER_IMAGE, 4):
+            fail(f"ovd (a): detections of shape {tuple(det.boxes.shape)} or not finite")
+        ms = cuda_ms(lambda: model.inference(eval_batch), 3, warmup=1)
+        after = offline_state(model)
+        changed = [k for k in frozen if not torch.equal(frozen[k], after[k])]
+        if changed:
+            fail(f"ovd (a): the offline modules or the text rows changed: {changed[:5]}")
+        ap = {k: round(v, 4) for k, v in results["bbox"].items()}
+        print(f"ovd (a) zero-shot inference on {name} ({n} images of {OVD_HW}, batch {tuple(eval_batch.image.shape)}): "
+              f"{ms / OVD_IMAGES:.3f} ms/image CUDA events ({wall * 1e3 / n:.3f} ms/image host wall through the "
+              f"loader, inference_on_dataset and LVISEvaluator), {det.valid.sum(1).tolist()} detections an image; "
+              f"K1/K3/K4 {per_batch} a batch; the {len(frozen)} offline and text tensors bit-equal after; LVIS AP "
+              f"(random weights, not judged) {json.dumps(ap)}; on {smi}")
+        zs_pool, zs_calls = eval_kernel_calls(model, eval_batch)
+        seeded = not bool(zs_calls[1][2].any())
+        if seeded:
+            zs_pool, zs_calls = eval_kernel_calls(model, eval_batch, OVD_CANDIDATES_SEED)
+        print(f"ovd (a): the detection NMS of the eval batch has {int(zs_calls[1][2].sum())} candidates"
+              + (f" (seeded: the model's own were none; seed {OVD_CANDIDATES_SEED})" if seeded else ""))
+        del model
+
+        # (b) the OVD training loss on a device batch
+        cfg_b, model, _ = ovd_model(OVD_CONFIGS[1], dev, bb_path, "", 160)
+        batch = synthetic_batch(8, 800, 1344, g=8, seed=16, with_trgt=False, device=dev)
+        gen = torch.Generator(device=dev)
+        frozen = offline_state(model)
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        offline = [(n_, p) for n_, p in model.named_parameters() if n_.startswith("offline_")]
+
+        def step():
+            for p in trainable:
+                p.grad = None
+            with torch.enable_grad():
+                losses = model.supervised_losses(batch, generator_draw(gen))
+                sum(losses.values()).backward()
+            return losses
+
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        gen.manual_seed(0)
+        losses = {k: v.item() for k, v in step().items()}
+        torch.cuda.synchronize()
+        launches_b = read_launches(roi_ops, nms_ops)
+        if tuple(launches_b[k] for k in keys) != (1, 1, 1):
+            fail(f"ovd (b): a step launched K1/K3/K4 {launches_b}, expected 1/1/1")
+        if set(losses) != {"loss_cls", "loss_box_reg"} or not all(math.isfinite(v) for v in losses.values()):
+            fail(f"ovd (b): losses {losses}")
+        if any(p.requires_grad or p.grad is not None for _, p in offline) or not all(
+                p.grad is not None for p in trainable):
+            fail("ovd (b): a gradient reached an offline module, or a trainable parameter got none")
+        for _ in range(OVD_WARMUP):
+            step()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(OVD_STEPS):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        launches_b = read_launches(roi_ops, nms_ops)
+        steps = 1 + OVD_WARMUP + OVD_STEPS
+        if tuple(launches_b[k] for k in keys) != (steps, steps, steps):
+            fail(f"ovd (b): {steps} steps launched K1/K3/K4 {launches_b}")
+        after = offline_state(model)
+        if any(not torch.equal(frozen[k], after[k]) for k in frozen):
+            fail("ovd (b): an offline tensor changed")
+        print(f"ovd (b) {OVD_CONFIGS[1]} ({model.num_classes} classes, focal {model.roi_heads.focal_gamma}, "
+              f"background weight {model.roi_heads.bg_loss_weight}): supervised_losses forward and backward on a "
+              f"device batch {tuple(batch.image.shape)}: {start.elapsed_time(end) / OVD_STEPS:.3f} ms/step CUDA "
+              f"events, {(time.perf_counter() - t0) / OVD_STEPS * 1e3:.3f} ms/step host wall ({OVD_STEPS} steps "
+              f"after {OVD_WARMUP}); first losses {json.dumps({k: round(v, 6) for k, v in losses.items()})}; "
+              f"K1/K3/K4 1/1/1 a step; {len(offline)} offline parameters frozen, no gradient, bit-equal after; "
+              f"{len(trainable)} trainable parameters all with a gradient; no optimizer step (JAX has no trainer "
+              "for this arch)")
+        train_pool, train_rpn_call = ovd_training_calls(model, batch, generator_draw(gen))
+        del model
+
+        # (c) the open-set head through train_net --eval-only
+        here = os.path.dirname(os.path.abspath(__file__))
+        args = default_argument_parser().parse_args([
+            "--eval-only", "--config-file", os.path.join(here, "configs", "VOC-Experiments",
+                                                         "faster_rcnn_CLIP_R_50_C4.yaml"),
+            "OUTPUT_DIR", os.path.join(root, "openset"), "SEED", "0", "MODEL.PRE_TRAINED_RCLIP_PATH", "",
+            "MODEL.VISION_TO_LANG_PATH", "", "MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", "True",
+            "MODEL.CLIP.MULTIPLY_RPN_SCORE", "True", "MODEL.CLIP.OPENSET_TEST_NUM_CLASSES", str(LVIS_CLASSES),
+            "MODEL.CLIP.OPENSET_TEST_TEXT_EMB_PATH", emb_path, "DATASETS.TEST", "('lvis_v1_val',)"])
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        t0 = time.perf_counter()
+        open_results = train_net.main(args)["lvis_v1_val"]["bbox"]
+        torch.cuda.synchronize()
+        launches_c = read_launches(roi_ops, nms_ops)
+        per_batch = tuple(launches_c[k] / n_batches for k in keys)
+        if per_batch != (1, 0, 2):
+            fail(f"ovd (c): the open-set eval launched K1/K3/K4 {per_batch} a batch, expected (1, 0, 2)")
+        print(f"ovd (c) the VOC recipe's open-set head (CLS_AGNOSTIC_BBOX_REG, MULTIPLY_RPN_SCORE, "
+              f"OPENSET_TEST_NUM_CLASSES {LVIS_CLASSES}) through train_net --eval-only on lvis_v1_val: "
+              f"{time.perf_counter() - t0:.1f} s with the build, K1/K3/K4 {per_batch} a batch; LVIS AP (random "
+              f"weights, not judged) {json.dumps({k: round(v, 4) for k, v in open_results.items()})}")
+        launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in keys}
+        print(f"ovd path launches ((a) {n_batches} eval batches, (b) {steps} steps, (c) {n_batches} eval batches): "
+              f"{launches}")
+
+        rows = {name_: new_row(launches[name_]) for name_ in ("roi_align_fwd", "roi_align_bwd")}
+        add_roi_rows(rows, dev, roi_ops, "ovd", [train_pool, ("zero_shot_pool", *zs_pool)], ["train_pool"])
+        rows = {name_: close_row(row) for name_, row in rows.items()}
+        rows["nms"] = nms_row(nms_ops, "ovd", launches["nms"], [train_rpn_call, *zs_calls])
+        print(f"ovd phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        if env is None:
+            os.environ.pop("DETECTRON2_DATASETS", None)
+        else:
+            os.environ["DETECTRON2_DATASETS"] = env
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -2816,6 +3180,8 @@ def main() -> int:
     paths["language_tools"] = language_tools_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["plain_r50"] = plain_r50_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["ovd"] = ovd_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

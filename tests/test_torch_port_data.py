@@ -146,7 +146,7 @@ def _text_emb_cfg():
 
 @pytest.mark.parametrize("key, value", [
     ("MODEL.MASK_ON", True), ("MODEL.KEYPOINT_ON", True), ("MODEL.LOAD_PROPOSALS", True),
-    ("MODEL.CLIP.MULTIPLY_RPN_SCORE", True), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
+    ("MODEL.ROI_BOX_HEAD.NUM_FC", 2), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
     ("TPU.MOE.NUM_EXPERTS", 4), ("TEST.PRECISE_BN.ENABLED", True), ("TPU.QUANT_EVAL", True),
     ("TPU.PAD_BUCKETS", [[800, 1088], [800, 1344]]),
 ])
@@ -167,11 +167,14 @@ def test_keys_the_port_does_not_read_raise():
         check_supported(cfg)
     register_all()
     MetadataCatalog.get("port_test_lvis_like").set(evaluator_type="lvis", thing_classes=["a"])
+    MetadataCatalog.get("port_test_sem_seg_like").set(evaluator_type="sem_seg", thing_classes=["a"])
     try:
-        with pytest.raises(NotImplementedError, match="lvis"):
-            build_evaluator(cfg, "port_test_lvis_like")
+        assert type(build_evaluator(cfg, "port_test_lvis_like")).__name__ == "LVISEvaluator"  # ported
+        with pytest.raises(NotImplementedError, match="sem_seg"):
+            build_evaluator(cfg, "port_test_sem_seg_like")
     finally:
         MetadataCatalog.remove("port_test_lvis_like")
+        MetadataCatalog.remove("port_test_sem_seg_like")
 
 
 # ---------------- fixture and loaders ----------------

@@ -462,7 +462,7 @@ def _plain():
     ("MODEL.RESNETS.RES2_OUT_CHANNELS", 64), ("MODEL.RESNETS.NORM", "GN"), ("MODEL.RESNETS.OUT_FEATURES", ["res5"]),
     ("TPU.ENABLE_CAPTION_CONSISTENCY", True), ("MODEL.CONSISTENCY_BRANCH", "image"), ("TPU.BACKBONE_WIDTH", 16),
     ("TPU.EMBED_DIM", 1024), ("MODEL.PRE_TRAINED_RCLIP_PATH", "rclip.pth"), ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", "box"),
-    ("MODEL.CLIP.MULTIPLY_RPN_SCORE", True), ("MODEL.BACKBONE.NAME", "build_resnet_fpn_backbone"),
+    ("MODEL.CLIP.BB_RPN_WEIGHTS", "rpn.pth"), ("MODEL.BACKBONE.NAME", "build_resnet_fpn_backbone"),
 ])
 def test_the_plain_tower_refuses_what_it_does_not_compute_naming_the_key(key, value):
     cfg = _plain()

@@ -14,7 +14,9 @@ name alone). Likewise the eval batch's calls, rebuilt by
 the class shift), and a region branch's, rebuilt by `branch_kernel_calls`,
 what the branch hands to them; on the plain tower with the linear head
 (phase 14), the supervised step's one pool (`supervised_roi_align_calls`)
-and the eval batch's calls.
+and the eval batch's calls; on the open-vocabulary detector (phase 15), its
+step's pool and offline RPN NMS (`ovd_training_calls`) and its eval batch's
+calls (the offline RPN's NMS, the pool on the CLIP map, the detection NMS).
 """
 
 import dataclasses
@@ -30,6 +32,7 @@ from cddmsl_torch.engine.train_loop import Trainer
 from cddmsl_torch.entry import synthetic_batch
 from cddmsl_torch.models import roi_heads, rpn
 from cddmsl_torch.models.build import build_model
+from cddmsl_torch.models.clip_rcnn import CLIPFastRCNN
 from cddmsl_torch.ops import nms as nms_ops
 from cddmsl_torch.ops import roi_align as roi_ops
 from cddmsl_torch.solver.build import build_optimizer
@@ -151,6 +154,54 @@ def test_plain_tower_kernel_calls_are_its_steps_and_eval_batchs_own(monkeypatch)
         assert torch.equal(got, want)
     for got, want in zip(nms_calls, nmss):
         assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])) and got[3:] == want[3:]
+
+
+def test_ovd_kernel_calls_are_the_clip_fast_rcnn_steps_and_eval_batchs_own(monkeypatch):
+    """Phase 15's rebuilt calls on a tiny CLIPFastRCNN (NO_BOX_DELTA, the
+    offline RPN at 0.9): the step's pool and its offline RPN NMS
+    (`ovd_training_calls`), then the eval batch's pool and two NMS calls
+    (`eval_kernel_calls`), equal to what `supervised_losses` and
+    `inference` hand to the kernels."""
+    model = init_random_(CLIPFastRCNN((1, 1, 1, 1), 16, 64, 20, 10, (64, 32), no_box_delta=True,
+                                      offline_pixel_std=(57.375, 57.12, 58.395)), torch.Generator().manual_seed(8))
+    model.roi_heads.score_thresh_test = 0.0
+    batch = synthetic_batch(2, 128, 160, seed=5, with_trgt=False, device="cpu")
+    draw = chip_smoke.site_draw("cpu")
+    train_pool, train_rpn = chip_smoke.ovd_training_calls(model, batch, draw)
+    (features, batch_idx, boxes), nms_calls = chip_smoke.eval_kernel_calls(model, batch)
+    pools, nmss = [], []
+    pool, nms = roi_heads.roi_align_batched, nms_ops.nms
+
+    def pool_spy(features, batch_idx, boxes, *args):
+        pools.append((features.detach().clone(), batch_idx.clone(), boxes.detach().clone()))
+        return pool(features, batch_idx, boxes, *args)
+
+    def nms_spy(boxes, scores, iou_threshold, max_out, valid=None):
+        nmss.append((boxes.clone(), scores.clone(), valid.clone(), iou_threshold, max_out))
+        return nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+    monkeypatch.setattr(roi_heads, "roi_align_batched", pool_spy)
+    monkeypatch.setattr(rpn, "nms", nms_spy)
+    monkeypatch.setattr(nms_ops, "nms", nms_spy)
+    with torch.enable_grad():
+        model.supervised_losses(batch, draw)
+    model.inference(batch)
+    assert len(pools) == 2 and len(nmss) == 3
+    assert train_pool[0] == "train_pool" and len(train_pool[3]) == 2 * 512
+    for got, want in zip((*train_pool[1:], features, batch_idx, boxes), (*pools[0], *pools[1])):
+        assert torch.equal(got, want)
+    assert train_rpn[3:] == (0.9, 64) and nms_calls[0][3:] == (0.9, 32) and nms_calls[1][3:] == (0.5, 100)
+    for got, want in zip((train_rpn, *nms_calls), nmss):
+        assert all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])) and got[3:] == want[3:]
+
+
+def test_soft_nms_bound_counts_each_byte_once_and_each_rounds_row():
+    """Phase 14's soft-NMS: 8 images of 2048 candidates keeping 100. Bytes:
+    8 x 2048 x (16 + 4 + 4 + 1) read, 8 x 100 x 13 written; operations: 100
+    rounds of one IoU row of 2048 a image, 19 flops a candidate."""
+    bound_ms, by = chip_smoke.soft_nms_bound_ms(8, 2048, 100)
+    t_bytes, t_ops = (8 * 2048 * 25 + 8 * 100 * 13) / 3.35e12, 8 * 100 * 2048 * 19 / 67e12
+    assert by == "operations" and bound_ms == pytest.approx(t_ops * 1e3, rel=1e-12) and t_bytes < t_ops
 
 
 def test_seeded_candidates_replace_only_the_detection_nms_scores():
