@@ -16,6 +16,15 @@ shortcut, shortcut_bn) maps to detectron2's names (backbone.stem.conv1,
 its .norm, backbone.res{s}.{i}.conv{1,2,3}, .shortcut and their .norm);
 the linear classifier's cls_score Dense to `cls_score.weight` and `.bias`.
 
+A JAX `FPNRCNN` or `FPNProposalNetwork` tree (it has `fpn`, or for DC5 a
+`roi_heads` with `box_head_fc1`) converts by the FPN family's rules: the
+tower under `backbone.bottom_up.` (`backbone.` under DC5),
+fpn/lateral_res{l} and output_res{l} to `backbone.fpn_lateral{l}` and
+`backbone.fpn_output{l}`, `box_head_fc{i}` to `roi_heads.box_head.fc{i}`
+(fc1's rows in JAX's HWC order of the pooled map, as the port's head reads
+it). A JAX `ProposalNetwork` tree is the plain tower and an RPN head, which
+the default rules map.
+
 A JAX `CLIPFastRCNN` tree (it has `offline_proposal_generator`) converts
 by its own rules, chosen by the module and not by a tower's name: its
 `offline_backbone` is the plain `D2ResNet` (detectron2's names under
@@ -154,6 +163,25 @@ _CLIP_FAST_RCNN_RULES: Tuple[Tuple[str, str, str], ...] = (
     *_rpn_rules("offline_proposal_generator"),
     *_BOX_PREDICTOR_RULES,
 )
+
+
+
+def _fpn_family_rules(tower: str):
+    """FPNRCNN and FPNProposalNetwork with the tower under `tower`."""
+    return (
+        *((pattern, template.replace("backbone", tower, 1), layout)
+          for pattern, template, layout in _d2_tower_rules("backbone")),
+        (r"fpn/(lateral|output)_res(\d)/kernel", r"backbone.fpn_\1\2.weight", "conv"),
+        (r"fpn/(lateral|output)_res(\d)/bias", r"backbone.fpn_\1\2.bias", "copy"),
+        *_rpn_rules("proposal_generator"),
+        (r"roi_heads/box_head_fc([12])/kernel", r"roi_heads.box_head.fc\1.weight", "dense"),
+        (r"roi_heads/box_head_fc([12])/bias", r"roi_heads.box_head.fc\1.bias", "copy"),
+        *_BOX_PREDICTOR_RULES,
+    )
+
+
+_FPN_RULES = _fpn_family_rules("backbone.bottom_up")
+_DC5_RULES = _fpn_family_rules("backbone")
 _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     *_mapper_rules("clip_project"),
     (r"gpt/(wte|wpe)", r"gpt.transformer.\1.weight", "copy"),
@@ -214,12 +242,17 @@ def _convert(params: Mapping[str, Any], rules, what: str, twins=_BACKBONE_TWINS)
 
 
 def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GeneralizedRCNN or CLIPFastRCNN params (with or without the
+    """JAX GeneralizedRCNN, FPNRCNN, ProposalNetwork, FPNProposalNetwork or
+    CLIPFastRCNN params (with or without the
     top-level 'params' key) -> state dict; raises on a key it does not
     map."""
     tree = params["params"] if set(params) == {"params"} else params
     if "offline_proposal_generator" in tree:
         return _convert(tree, _CLIP_FAST_RCNN_RULES, "convert_jax_params (CLIPFastRCNN)", twins=())
+    if "fpn" in tree:
+        return _convert(tree, _FPN_RULES, "convert_jax_params (FPN)", twins=())
+    if "box_head_fc1" in tree.get("roi_heads", {}):
+        return _convert(tree, _DC5_RULES, "convert_jax_params (DC5)", twins=())
     return _convert(tree, _RULES, "convert_jax_params")
 
 

@@ -12,7 +12,8 @@ mapper ("clip_project.*") into `v2l_mapper`, and the text-embedding tensor
 into the classifier rows. A detector checkpoint (MODEL.WEIGHTS) loads by its
 dialect: "d2_rcnn" (backbone into both backbones, or detectron2's ResNet
 keys into the plain tower, RPN head, box predictor: the text classifier
-without its background row, the linear one as it is), "oai_clip" (the visual tower into both
+without its background row, the linear one as it is), "d2_fpn" (an FPN
+detector's: `load_d2_fpn`), "oai_clip" (the visual tower into both
 backbones), "clipcap" (the mapper) or "lang" (the CLIP text tower,
 "lang_encoder.*", into a model that has one: the pretraining model); a
 model with a text tower also takes an oai_clip file's "transformer.*" text
@@ -44,7 +45,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ..models.backbone.resnet import D2ResNet
+from ..models.backbone.resnet import FPN, D2ResNet
 
 logger = logging.getLogger(__name__)
 
@@ -87,6 +88,10 @@ _LINEAR_BOX_PREDICTOR = re.compile(r"cls_score\.(weight|bias)|bbox_pred\.(weight
 _D2_RESNET = re.compile(
     r"(stem\.conv1|res\d\.\d+\.(conv[123]|shortcut))\.(weight|norm\.(weight|bias|running_mean|running_var))"
 )
+# `convert_d2_fpn_rcnn`'s FPN convs and fc box head (no GN variants: FPN.NORM
+# and ROI_BOX_HEAD.NORM are refused)
+_FPN_CONVS = re.compile(r"fpn_(lateral|output)\d\.(weight|bias)")
+_BOX_HEAD = re.compile(r"fc[12]\.(weight|bias)")
 
 
 @torch.no_grad()
@@ -181,11 +186,46 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
             raise NotImplementedError(f"{path}: a 'lang' checkpoint holds a text tower, which this model does not "
                                       "have (JAX's loader refuses it too)")
         load_text_tower(text, sd, "lang_encoder.", f"{path}: text tower")
-    elif dialect in ("d2_fpn", "d2_retinanet"):
+    elif dialect == "d2_fpn":
+        load_d2_fpn(model, sd, path)
+    elif dialect == "d2_retinanet":
         raise NotImplementedError(f"{path}: loading a {dialect!r} checkpoint is not ported")
     else:
         raise ValueError(f"Cannot detect checkpoint dialect of {path}")
     return dialect
+
+
+def fc1_from_chw(weight: torch.Tensor, channels: int, resolution: int) -> torch.Tensor:
+    """detectron2's box_head.fc1 weight (out, C*P*P), which reads the pooled
+    map flattened CHW, -> the port's (out, P*P*C), which reads it HWC."""
+    out = weight.shape[0]
+    return weight.reshape(out, channels, resolution, resolution).permute(0, 2, 3, 1).reshape(out, -1).contiguous()
+
+
+def load_d2_fpn(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int:
+    """A detectron2 FPN-family file (JAX's `convert_d2_fpn_rcnn`) into an FPN
+    detector or FPN ProposalNetwork: "backbone.bottom_up.*" (detectron2's
+    ResNet names) into the tower, backbone.fpn_lateral{l} / fpn_output{l},
+    the RPN head, roi_heads.box_head.fc1 (permuted from CHW to HWC where it
+    reads the pooled map) and fc2, and the linear box predictor as it is
+    (background last). Returns how many tensors were loaded."""
+    if not isinstance(getattr(model, "backbone", None), FPN):
+        raise NotImplementedError(f"{path}: loading a 'd2_fpn' checkpoint into a model without an FPN is not "
+                                  "ported (it loads into MODEL.BACKBONE.NAME build_resnet_fpn_backbone)")
+    n = _load_prefixed(model.backbone.bottom_up, sd, "backbone.bottom_up.", f"{path}: FPN bottom-up", _D2_RESNET)
+    n += _load_prefixed(model.backbone, sd, "backbone.", f"{path}: FPN convs", _FPN_CONVS)
+    if hasattr(model, "proposal_generator"):
+        n += _load_prefixed(model.proposal_generator.rpn_head, sd, "proposal_generator.rpn_head.",
+                            f"{path}: RPN head", _RPN_HEAD)
+    if hasattr(model, "roi_heads"):
+        rh, fc1 = model.roi_heads, "roi_heads.box_head.fc1.weight"
+        c, r = model.backbone.out_channels, rh.pooler_resolution
+        if fc1 in sd and sd[fc1].shape[1] == c * r * r:
+            sd = {**sd, fc1: fc1_from_chw(sd[fc1], c, r)}
+        n += _load_prefixed(rh.box_head, sd, "roi_heads.box_head.", f"{path}: box head", _BOX_HEAD)
+        n += _load_prefixed(rh.box_predictor, sd, "roi_heads.box_predictor.", f"{path}: box predictor",
+                            _LINEAR_BOX_PREDICTOR)
+    return n
 
 
 def load_bb_rpn_weights(model: nn.Module, path: str) -> int:

@@ -25,6 +25,13 @@ build_clip_resnet_backbone is CLIP's ModifiedResNet, build_resnet_backbone
 the plain detectron2 ResNet (`D2ResNet`) of the R50-C4 baselines, built
 from RESNETS.DEPTH alone with a res5 of 2048 channels, no offline backbone
 and no caption branches.
+
+`model_family` names the detector JAX's `build_model` assembles: the C4
+GeneralizedRCNN above (`ModelConfig`), or the FPN family, which
+`models.build.build_detector` builds from the tree: FPNRCNN on
+build_resnet_fpn_backbone, its DC5 form at RESNETS.RES5_DILATION 2, and
+MODEL.META_ARCHITECTURE ProposalNetwork on res4 or on the FPN.
+`check_supported` holds that family to `_family_checks`.
 """
 
 import dataclasses
@@ -220,20 +227,9 @@ _SUPPORTED_SOLVER: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("SOLVER.CLIP_GRADIENTS.CLIP_TYPE", lambda v: v in ("value", "norm")),
 )
 _SUPPORTED_DTYPE = (("TPU.COMPUTE_DTYPE", lambda v: v in ("bfloat16", "float32")),)
-_SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
-    ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
-    *_SUPPORTED_TOWERS,
-    ("MODEL.MASK_ON", _falsy),
-    ("MODEL.KEYPOINT_ON", _falsy),
-    ("MODEL.LOAD_PROPOSALS", _falsy),
-    ("MODEL.CONSISTENCY_BRANCH", lambda v: v in CONSISTENCY_BRANCHES),
-    ("MODEL.CAPTION_PL_LOSS", lambda v: v in ("pseudo_label", "kl")),
-    ("MODEL.ROI_HEADS.NAME", lambda v: v == "CLIPRes5ROIHeads"),
-    ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", lambda v: v in ("gaussian", "linear", "hard")),
-    ("MODEL.CLIP.CROP_REGION_TYPE", lambda v: v == "RPN"),
-    ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v == 0),
-    # JAX's loader asserts an offline detectron2 tower, which this arch lacks
-    ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
+# the keys of a run whatever the detector: the loaders, the solver, the test
+# and the TPU switches
+_SUPPORTED_RUN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("INPUT.MIN_SIZE_TRAIN_SAMPLING", lambda v: v in ("choice", "range")),
     ("INPUT.CROP.ENABLED", _falsy),
     ("INPUT.FORMAT", lambda v: v in ("RGB", "BGR")),
@@ -250,6 +246,139 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("TPU.PAD_BUCKETS", _falsy),
     *_SUPPORTED_DTYPE,
 )
+_SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
+    *_SUPPORTED_TOWERS,
+    ("MODEL.MASK_ON", _falsy),
+    ("MODEL.KEYPOINT_ON", _falsy),
+    ("MODEL.LOAD_PROPOSALS", _falsy),
+    ("MODEL.CONSISTENCY_BRANCH", lambda v: v in CONSISTENCY_BRANCHES),
+    ("MODEL.CAPTION_PL_LOSS", lambda v: v in ("pseudo_label", "kl")),
+    ("MODEL.ROI_HEADS.NAME", lambda v: v == "CLIPRes5ROIHeads"),
+    ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", lambda v: v in ("gaussian", "linear", "hard")),
+    ("MODEL.CLIP.CROP_REGION_TYPE", lambda v: v == "RPN"),
+    ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v == 0),
+    # JAX's loader asserts an offline detectron2 tower, which this arch lacks
+    ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
+    *_SUPPORTED_RUN,
+)
+
+
+FPN_TOWER = "build_resnet_fpn_backbone"
+FPN_IN_FEATURES = ["res2", "res3", "res4", "res5"]
+FPN_RPN_FEATURES = ["p2", "p3", "p4", "p5", "p6"]
+FPN_HEAD_FEATURES = ["p2", "p3", "p4", "p5"]
+
+
+def model_family(cfg) -> str:
+    """The detector JAX's `build_model` assembles from the tree: "c4"
+    (GeneralizedRCNN, every other meta-architecture too, which
+    `check_supported` refuses), "fpn" (FPNRCNN: BACKBONE.NAME names an
+    fpn_backbone), "dc5" (FPNRCNN on the one dilated res5 map:
+    RESNETS.RES5_DILATION 2), "proposal_fpn" or "proposal_c4"
+    (ProposalNetwork on the FPN or on res4)."""
+    m = cfg.MODEL
+    fpn = "fpn_backbone" in m.BACKBONE.NAME
+    if m.META_ARCHITECTURE == "ProposalNetwork":
+        return "proposal_fpn" if fpn else "proposal_c4"
+    if m.META_ARCHITECTURE == "GeneralizedRCNN" and not (m.ROI_HEADS.NAME == "CascadeROIHeads" and not fpn):
+        if fpn:
+            return "fpn"
+        if m.RESNETS.RES5_DILATION == 2:
+            return "dc5"
+    return "c4"
+
+
+def _describe(cfg, family: str) -> str:
+    m = cfg.MODEL
+    return {
+        "fpn": f"the FPN detector (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r}: JAX's FPNRCNN)",
+        "dc5": "the DC5 detector (MODEL.RESNETS.RES5_DILATION = 2: JAX's FPNRCNN on the one res5 map)",
+        "proposal_fpn": f"ProposalNetwork on the FPN (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r})",
+        "proposal_c4": f"ProposalNetwork on res4 (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r})",
+    }[family]
+
+
+def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """What the FPN family (`models.build.fpn_rcnn_fields`,
+    `proposal_network_fields`) implements: the keys JAX's builders read, at
+    any value or at the ones ported, and the keys they leave unread at the
+    value JAX's modules compute with. ProposalNetwork on res4 builds its
+    tower and RPN from RESNETS.DEPTH and the RPN's module defaults alone
+    (MODEL.RPN.*, ANCHOR_GENERATOR.* and BACKBONE.NAME are not read), as
+    JAX's does. The feature lists, ROI_HEADS.NAME and POOLER_RESOLUTION,
+    which JAX's modules do not read either, are taken at the family's value
+    or at the tree's default (the quick schedules leave them unset)."""
+    fpn, proposal = family in ("fpn", "proposal_fpn"), family.startswith("proposal")
+
+    def eq(*wants):
+        return lambda v: (list(v) if isinstance(v, (list, tuple)) else v) in wants
+
+    tower = {"fpn": eq(FPN_TOWER), "proposal_fpn": eq(FPN_TOWER), "dc5": eq(D2_TOWER),
+             "proposal_c4": lambda v: "fpn_backbone" not in v}[family]
+    checks = [
+        ("MODEL.BACKBONE.NAME", tower),
+        ("MODEL.MASK_ON", _falsy),
+        ("MODEL.KEYPOINT_ON", _falsy),
+        ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
+        ("MODEL.RESNETS.NORM", eq("FrozenBN")),
+        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
+        ("MODEL.RESNETS.STEM_OUT_CHANNELS", eq(64)),
+        ("MODEL.RESNETS.RES2_OUT_CHANNELS", eq(256)),
+        ("MODEL.RESNETS.RES5_DILATION", eq(2 if family == "dc5" else 1)),
+        ("MODEL.RESNETS.OUT_FEATURES", eq(FPN_IN_FEATURES if fpn else ["res5"] if family == "dc5" else ["res4"],
+                                          ["res4"])),
+        ("MODEL.RPN.IN_FEATURES", eq(FPN_RPN_FEATURES if fpn else ["res5"] if family == "dc5" else ["res4"],
+                                     ["res4"])),
+        ("MODEL.RPN.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
+        ("MODEL.CONSISTENCY_BRANCH", _falsy),
+        ("MODEL.PRE_TRAINED_RCLIP_PATH", _falsy),
+        ("MODEL.VISION_TO_LANG_PATH", _falsy),
+        ("MODEL.ROI_HEADS.SOFT_NMS_ENABLED", _falsy),
+        ("MODEL.CLIP.FOCAL_SCALED_LOSS", lambda v: v is None),
+        ("MODEL.CLIP.BG_CLS_LOSS_WEIGHT", lambda v: v is None),
+        ("MODEL.CLIP.NO_BOX_DELTA", _falsy),
+        ("MODEL.CLIP.MULTIPLY_RPN_SCORE", _falsy),
+        ("MODEL.CLIP.OPENSET_TEST_NUM_CLASSES", lambda v: v is None),
+        ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
+        ("MODEL.CLIP.CROP_REGION_TYPE", eq("RPN")),
+        ("TPU.BACKBONE_LAYERS", _falsy),
+        ("TPU.EMBED_DIM", _falsy),
+    ]
+    if fpn:
+        checks += [("MODEL.FPN.IN_FEATURES", eq(FPN_IN_FEATURES, [])), ("MODEL.FPN.NORM", _falsy),
+                   ("MODEL.FPN.FUSE_TYPE", eq("sum"))]
+    if proposal:
+        checks += [("MODEL.PROPOSAL_GENERATOR.NAME", eq("RPN")), ("MODEL.LOAD_PROPOSALS", _falsy),
+                   ("MODEL.RESNETS.NUM_GROUPS", eq(1)), ("MODEL.RESNETS.WIDTH_PER_GROUP", eq(64)),
+                   ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True)]
+        checks += [("MODEL.FPN.OUT_CHANNELS", eq(256))] if fpn else [("TPU.BACKBONE_WIDTH", _falsy)]
+    else:
+        checks += [
+            ("MODEL.ROI_HEADS.NAME", eq("StandardROIHeads", "CLIPStandardROIHeads", "CLIPRes5ROIHeads")),
+            ("MODEL.ROI_HEADS.IN_FEATURES", eq(FPN_HEAD_FEATURES if fpn else ["res5"], ["res4"])),
+            ("MODEL.ROI_BOX_HEAD.NAME", eq("", "FastRCNNConvFCHead")),
+            ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", eq(7, 14)),
+            ("MODEL.ROI_BOX_HEAD.NUM_CONV", eq(0)),
+            ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v in (0, 2)),
+            ("MODEL.ROI_BOX_HEAD.NORM", _falsy),
+            ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
+            ("MODEL.PROPOSAL_GENERATOR.NAME", lambda v: v in ("RPN", "PrecomputedProposals")),
+        ]
+    return tuple(checks)
+
+
+def _check_family(cfg, family: str) -> None:
+    checks = _family_checks(family) + _SUPPORTED_RUN
+    if "SEMISUPNET" in cfg:  # the mean teacher builds the C4 detector only
+        checks += (("SEMISUPNET.Trainer", lambda v: v == "default"),)
+    for key, ok in checks:
+        value = _lookup(cfg, key)
+        if not ok(value):
+            raise NotImplementedError(f"{key} = {value!r} is not ported for {_describe(cfg, family)}")
+    if cfg.MODEL.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals" and not cfg.MODEL.LOAD_PROPOSALS:
+        raise NotImplementedError("MODEL.LOAD_PROPOSALS = False is not ported with PROPOSAL_GENERATOR.NAME "
+                                  "'PrecomputedProposals': the batches would carry no proposals")
 
 
 def _lookup(cfg, key: str):
@@ -282,7 +411,7 @@ def _global_batches(cfg) -> Tuple[Tuple[str, int], ...]:
 def check_supported(cfg, world: Optional[int] = None) -> None:
     """Raises NotImplementedError naming the first key set to a value the
     port does not implement (the plain tower's own refusals after the
-    shared ones). The port's only mesh is data parallelism over the
+    shared ones; for the FPN family `_family_checks`). The port's only mesh is data parallelism over the
     processes: TPU.MESH_SHAPE is one data axis, [-1] or [k] for any k, since
     a JAX mesh of k devices computes the global batch's step as one process
     does; it is refused unless the world (the process group's size unless
@@ -292,20 +421,24 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
             "MODEL.META_ARCHITECTURE = 'CLIPFastRCNN' is not ported for training or the tools: JAX's trainer "
             "cannot build this arch either (the module has no init_all or cddmsl_losses); build it with "
             "models.build.build_clip_fast_rcnn")
-    checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
-    if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
-        checks += _SUPPORTED_D2
+    family = model_family(cfg)
+    if family != "c4":
+        _check_family(cfg, family)
     else:
-        checks += (("MODEL.RESNETS.DEPTH", lambda v: v in RESNET_SPECS),)
-    for key, ok in checks:
-        value = _lookup(cfg, key)
-        if not ok(value):
-            raise NotImplementedError(f"{key} = {value!r} is not ported")
-    openset = cfg.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES
-    if openset and not (cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and cfg.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER):
-        # JAX asserts the first; the open-set rows replace the text classifier's
-        raise NotImplementedError(f"MODEL.CLIP.OPENSET_TEST_NUM_CLASSES = {openset!r} is not ported without "
-                                  "MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER")
+        checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
+        if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
+            checks += _SUPPORTED_D2
+        else:
+            checks += (("MODEL.RESNETS.DEPTH", lambda v: v in RESNET_SPECS),)
+        for key, ok in checks:
+            value = _lookup(cfg, key)
+            if not ok(value):
+                raise NotImplementedError(f"{key} = {value!r} is not ported")
+        openset = cfg.MODEL.CLIP.OPENSET_TEST_NUM_CLASSES
+        if openset and not (cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and cfg.MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER):
+            # JAX asserts the first; the open-set rows replace the text classifier's
+            raise NotImplementedError(f"MODEL.CLIP.OPENSET_TEST_NUM_CLASSES = {openset!r} is not ported without "
+                                      "MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG and MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER")
     world = comm.get_world_size() if world is None else world
     mesh = list(cfg.TPU.MESH_SHAPE)
     if len(mesh) != 1 or not (mesh[0] == -1 or mesh[0] >= 1):
@@ -405,6 +538,9 @@ def model_config_from_cfg(cfg) -> ModelConfig:
     depth's spec), after `check_supported`. It reads the JAX package's tree
     as well as the port's."""
     check_supported(cfg)
+    if model_family(cfg) != "c4":
+        raise ValueError(f"{_describe(cfg, model_family(cfg))} is not a GeneralizedRCNN: build it with "
+                         "models.build.build_detector")
     m, tpu = cfg.MODEL, cfg.TPU
     depth = m.RESNETS.DEPTH
     if m.BACKBONE.NAME == D2_TOWER:

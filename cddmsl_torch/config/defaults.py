@@ -59,6 +59,18 @@ def get_cfg() -> CfgNode:
     _C.MODEL.RESNETS.RES5_DILATION = 1
     _C.MODEL.RESNETS.DEFORM_ON_PER_STAGE = [False, False, False, False]
 
+    # the FPN family (build_resnet_fpn_backbone): the lateral and output
+    # convs' width; JAX's FPNRCNN always takes res2..res5 and adds p6
+    _C.MODEL.FPN = CfgNode()
+    _C.MODEL.FPN.IN_FEATURES = []
+    _C.MODEL.FPN.OUT_CHANNELS = 256
+    _C.MODEL.FPN.NORM = ""
+    _C.MODEL.FPN.FUSE_TYPE = "sum"
+
+    # "RPN", or "PrecomputedProposals" (proposals from DATASETS.PROPOSAL_FILES_*)
+    _C.MODEL.PROPOSAL_GENERATOR = CfgNode()
+    _C.MODEL.PROPOSAL_GENERATOR.NAME = "RPN"
+
     _C.MODEL.ANCHOR_GENERATOR = CfgNode()
     _C.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
     _C.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS = [[0.5, 1.0, 2.0]]
@@ -72,9 +84,14 @@ def get_cfg() -> CfgNode:
     _C.MODEL.RPN.POST_NMS_TOPK_TRAIN = 2000
     _C.MODEL.RPN.POST_NMS_TOPK_TEST = 1000
     _C.MODEL.RPN.NMS_THRESH = 0.7
+    _C.MODEL.RPN.IN_FEATURES = ["res4"]
+    _C.MODEL.RPN.SMOOTH_L1_BETA = 0.0
+    _C.MODEL.RPN.BBOX_REG_LOSS_TYPE = "smooth_l1"
+    _C.MODEL.RPN.BBOX_REG_LOSS_WEIGHT = 1.0
 
     _C.MODEL.ROI_HEADS = CfgNode()
     _C.MODEL.ROI_HEADS.NAME = "CLIPRes5ROIHeads"
+    _C.MODEL.ROI_HEADS.IN_FEATURES = ["res4"]
     _C.MODEL.ROI_HEADS.NUM_CLASSES = 80
     _C.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 512
     _C.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.25
@@ -88,7 +105,27 @@ def get_cfg() -> CfgNode:
     _C.MODEL.ROI_BOX_HEAD = CfgNode()
     _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
     _C.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = False
-    _C.MODEL.ROI_BOX_HEAD.NUM_FC = 0  # the C4 head has none: only 0 is accepted
+    # the C4 head has no fc (NUM_FC 0); the FPN family's box head has
+    # NUM_FC fcs (0 meaning 2, as JAX's builder reads it) of FC_DIM, then
+    # one of 1024
+    _C.MODEL.ROI_BOX_HEAD.NUM_FC = 0
+    _C.MODEL.ROI_BOX_HEAD.NAME = ""
+    _C.MODEL.ROI_BOX_HEAD.FC_DIM = 1024
+    _C.MODEL.ROI_BOX_HEAD.NUM_CONV = 0
+    _C.MODEL.ROI_BOX_HEAD.CONV_DIM = 256
+    _C.MODEL.ROI_BOX_HEAD.NORM = ""
+    _C.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA = 0.0
+    _C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE = "smooth_l1"
+    _C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT = 1.0
+
+    # the mask head: MODEL.MASK_ON is refused, so these change nothing
+    _C.MODEL.ROI_MASK_HEAD = CfgNode()
+    _C.MODEL.ROI_MASK_HEAD.NAME = "MaskRCNNConvUpsampleHead"
+    _C.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+    _C.MODEL.ROI_MASK_HEAD.NUM_CONV = 0
+    _C.MODEL.ROI_MASK_HEAD.CONV_DIM = 256
+    _C.MODEL.ROI_MASK_HEAD.NORM = ""
+    _C.MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK = False
 
     _C.MODEL.CLIP = CfgNode()
     _C.MODEL.CLIP.CROP_REGION_TYPE = "RPN"
@@ -143,6 +180,12 @@ def get_cfg() -> CfgNode:
     _C.DATASETS = CfgNode()
     _C.DATASETS.TRAIN = ()
     _C.DATASETS.TEST = ()
+    # precomputed proposals (MODEL.LOAD_PROPOSALS): one file per set, and
+    # the top-k by objectness each image keeps
+    _C.DATASETS.PROPOSAL_FILES_TRAIN = ()
+    _C.DATASETS.PROPOSAL_FILES_TEST = ()
+    _C.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 2000
+    _C.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST = 1000
 
     _C.DATALOADER = CfgNode()
     _C.DATALOADER.NUM_WORKERS = 4  # the prefetch depth of the train loader

@@ -14,6 +14,11 @@ training set into a labeled and an unlabeled part (`divide_label_unlabel`)
 and yields ((label_strong, label_weak), (unlabel_strong, unlabel_weak)):
 two sampler streams, one mapper state serving both, labeled first.
 
+With MODEL.LOAD_PROPOSALS each set's dicts take the proposals of its
+DATASETS.PROPOSAL_FILES_* file (`proposals.py`), the mapper moves them with
+the image, and the batch carries the top DATASETS.PRECOMPUTED_PROPOSAL_TOPK_*
+of each image (`DetBatch.proposal_*`).
+
 Loaders are closable: `close()` (or leaving a `with` block) stops the
 prefetch thread, which would otherwise run on for an infinite train stream.
 
@@ -40,6 +45,7 @@ from ..models.rcnn import DetBatch
 from ..parallel import comm
 from .catalog import DatasetCatalog
 from .dataset_mapper import DatasetMapper, DatasetMapperTwoCropSeparate
+from .proposals import load_proposals_into_dataset
 
 
 def get_detection_dataset_dicts(names: Sequence[str], filter_empty: bool = True) -> List[dict]:
@@ -80,10 +86,13 @@ class InferenceSampler:
         return iter(range(self.size))
 
 
-def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 100, with_trgt: bool = True) -> DetBatch:
+def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 100, with_trgt: bool = True,
+                    max_proposals: int = 0) -> DetBatch:
     """Samples -> a DetBatch of CPU tensors: images zero-padded to `pad_hw`
     at the top left, the true and original sizes, the first `max_gt` boxes
-    and classes of each image with a validity mask."""
+    and classes of each image with a validity mask; with `max_proposals`
+    the first that many precomputed proposals of each image (scores -inf
+    and not valid past them)."""
     b = len(samples)
     H, W = pad_hw
     images = np.zeros((b, H, W, 3), np.float32)
@@ -93,6 +102,9 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
     gt_boxes = np.zeros((b, max_gt, 4), np.float32)
     gt_classes = np.zeros((b, max_gt), np.int32)
     gt_valid = np.zeros((b, max_gt), bool)
+    prop_boxes = np.zeros((b, max_proposals, 4), np.float32)
+    prop_scores = np.full((b, max_proposals), -np.inf, np.float32)
+    prop_valid = np.zeros((b, max_proposals), bool)
     for i, s in enumerate(samples):
         img = s["image"]
         h, w = img.shape[:2]
@@ -108,10 +120,17 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
             gt_boxes[i, :n] = s["boxes"][:n]
             gt_classes[i, :n] = s["classes"][:n]
             gt_valid[i, :n] = True
+        p = min(len(s.get("proposal_boxes", ())), max_proposals)
+        if p:
+            prop_boxes[i, :p] = s["proposal_boxes"][:p]
+            prop_scores[i, :p] = s["proposal_objectness"][:p]
+            prop_valid[i, :p] = True
     t = torch.from_numpy
+    proposals = (t(prop_boxes), t(prop_scores), t(prop_valid)) if max_proposals else (None, None, None)
     return DetBatch(
         image=t(images), image_sizes=t(sizes), orig_sizes=t(orig), gt_boxes=t(gt_boxes),
         gt_classes=t(gt_classes), gt_valid=t(gt_valid), image_trgt=t(images_t) if with_trgt else None,
+        proposal_boxes=proposals[0], proposal_scores=proposals[1], proposal_valid=proposals[2],
     )
 
 
@@ -216,6 +235,10 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
     `world` default to the process group's)."""
     rank, world = _shard(rank, world)
     dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN, cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+    if cfg.MODEL.LOAD_PROPOSALS:
+        for path in cfg.DATASETS.PROPOSAL_FILES_TRAIN:
+            dicts = load_proposals_into_dataset(dicts, path)
+    max_props = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if cfg.MODEL.LOAD_PROPOSALS else 0
     mapper = DatasetMapper(cfg, is_train=True)
     sampler = TrainingSampler(len(dicts), seed=seed)
     batch_size = cfg.SOLVER.IMS_PER_BATCH
@@ -236,7 +259,8 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
             buckets.setdefault(key, []).append(sample)
             if len(buckets[key]) == batch_size:
                 group, buckets[key] = buckets[key], []
-                batch = pad_and_collate(_process_block(group, rank, world, parts), key, max_gt, with_trgt=True)
+                batch = pad_and_collate(_process_block(group, rank, world, parts), key, max_gt, with_trgt=True,
+                                        max_proposals=max_props)
                 yield _pinned(batch) if pin_memory else batch
 
     return _Prefetcher(gen, depth=cfg.DATALOADER.NUM_WORKERS)
@@ -255,6 +279,13 @@ def build_detection_test_loader(
     batch's."""
     rank, world = _shard(rank, world)
     dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
+    if cfg.MODEL.LOAD_PROPOSALS:
+        # the file at the set's place in DATASETS.TEST (the first for another set)
+        names, files = list(cfg.DATASETS.TEST), list(cfg.DATASETS.PROPOSAL_FILES_TEST)
+        k = names.index(dataset_name) if dataset_name in names else 0
+        if k < len(files):
+            dicts = load_proposals_into_dataset(dicts, files[k])
+    max_props = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST if cfg.MODEL.LOAD_PROPOSALS else 0
     mapper = DatasetMapper(cfg, is_train=False)
     batch_size = batch_size or cfg.MODEL.CLIP.IMS_PER_BATCH_TEST
     if batch_size % world:
@@ -264,7 +295,8 @@ def build_detection_test_loader(
 
     def collate(group):
         key = _bucket_for(group[0], pad_hw)
-        batch = pad_and_collate(_process_block(group, rank, world), key, max_gt, with_trgt=False)
+        batch = pad_and_collate(_process_block(group, rank, world), key, max_gt, with_trgt=False,
+                                max_proposals=max_props)
         return _pinned(batch) if pin_memory else batch
 
     def gen():

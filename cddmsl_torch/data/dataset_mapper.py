@@ -4,7 +4,9 @@ cddmsl_tpu/data/dataset_mapper.py `DatasetMapper`, boxes only, and
 
 The image and its translated twin `data_dt_file_name` are read and put
 through the same sampled geometric transforms; the boxes follow, are clipped
-to the image and empty ones dropped. Instances marked difficult are dropped
+to the image and empty ones dropped. With MODEL.LOAD_PROPOSALS the dict's
+precomputed proposals follow them too (`proposals.transform_proposals`),
+the top DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN (or _TEST) kept. Instances marked difficult are dropped
 at train time (the detectron2 VOC convention).
 
 The two-crop mapper of the mean-teacher loader gives (strong, weak) views of
@@ -17,6 +19,7 @@ from typing import Dict, List
 import numpy as np
 from PIL import Image
 
+from .proposals import transform_proposals
 from .transforms import TransformList, apply_augmentations, build_augmentation, build_strong_augmentation_fn
 
 
@@ -48,6 +51,9 @@ class DatasetMapper:
         self.is_train = is_train
         self.augmentations = build_augmentation(cfg, is_train)
         self.image_format = cfg.INPUT.FORMAT
+        self.load_proposals = cfg.MODEL.LOAD_PROPOSALS
+        d = cfg.DATASETS
+        self.proposal_topk = d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else d.PRECOMPUTED_PROPOSAL_TOPK_TEST
 
     def __call__(self, dataset_dict: dict, rng: np.random.RandomState) -> dict:
         d = dataset_dict
@@ -61,6 +67,8 @@ class DatasetMapper:
             "orig_hw": np.asarray(orig_hw, np.int32),
             "image_id": d.get("image_id"),
         }
+        if self.load_proposals:
+            out.update(transform_proposals(d, hw, tfms, self.proposal_topk))
         if "data_dt_file_name" in d:
             image_t = read_image(d["data_dt_file_name"], self.image_format)
             if image_t.shape[:2] != orig_hw:  # twins are pixel-aligned; guard anyway

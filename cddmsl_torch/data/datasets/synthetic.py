@@ -6,7 +6,10 @@ images and annotations.
   rectangle exactly where each ground-truth box is;
 - `make_synthetic_coco` (the JAX package's writer without its keypoints,
   and without the polygons in the json): a COCO-json set with one bright
-  diamond per box; `make_synthetic_bdd` moves it to the bdd_100k_val paths;
+  diamond per box, registered as `{prefix}_train` / `{prefix}_val` by
+  `register_synthetic_coco`; `make_synthetic_proposals` writes its
+  precomputed-proposal pickle; `make_synthetic_bdd` moves it to the
+  bdd_100k_val paths;
 - `make_synthetic_cityscapes`: one split of the Cityscapes layout (PNGs,
   gtFine polygon JSONs, the leftImg8bit_foggy twins) on smooth images.
 """
@@ -116,6 +119,58 @@ def make_synthetic_coco(root: str, n: int = 6, seed: int = 0, classes: Tuple[str
     with open(json_path, "w") as f:
         json.dump({"images": images, "annotations": annotations, "categories": categories}, f)
     return json_path, img_root
+
+
+def register_synthetic_coco(root: str, prefix: str = "synthetic_coco") -> None:
+    """Writes the COCO fixture under `root` and registers `{prefix}_train`
+    and `{prefix}_val` (the same images, as in the JAX package)."""
+    from .coco import register_coco_instances
+
+    json_path, img_root = make_synthetic_coco(root)
+    for name in (f"{prefix}_train", f"{prefix}_val"):
+        if name not in DatasetCatalog:
+            register_coco_instances(name, json_path, img_root)
+
+
+def make_synthetic_proposals(root: str, seed: int = 1) -> str:
+    """Writes the precomputed-proposal pickle of the COCO fixture under
+    `root` (detectron2's schema: ids, boxes, objectness_logits): per image
+    each ground-truth box (logit 8-9), three jittered copies (2-3) and eight
+    random background boxes (-2 to -1), clipped to the image; the JAX
+    package's file for the same fixture. Returns its path."""
+    import pickle
+
+    json_path = os.path.join(root, "coco_synth", "instances.json")
+    with open(json_path) as f:
+        coco = json.load(f)
+    rng = np.random.RandomState(seed)
+    h, w = _FIXTURE_HW
+    by_img = {}
+    for a in coco["annotations"]:
+        x1, y1, bw, bh = a["bbox"]
+        by_img.setdefault(a["image_id"], []).append([x1, y1, x1 + bw, y1 + bh])
+    ids, boxes, logits = [], [], []
+    for im in coco["images"]:
+        gt = np.asarray(by_img.get(im["id"], []), np.float64).reshape(-1, 4)
+        props, scores = [], []
+        for g in gt:
+            props.append(g)
+            scores.append(8.0 + rng.rand())
+            for _ in range(3):
+                props.append(g + rng.randn(4) * 3.0)
+                scores.append(2.0 + rng.rand())
+        for _ in range(8):
+            x1 = rng.uniform(0, w - 20)
+            y1 = rng.uniform(0, h - 20)
+            props.append([x1, y1, x1 + rng.uniform(10, 40), y1 + rng.uniform(10, 30)])
+            scores.append(-2.0 + rng.rand())
+        ids.append(im["id"])
+        boxes.append(np.clip(np.asarray(props, np.float32), 0, [w, h, w, h]))
+        logits.append(np.asarray(scores, np.float32))
+    out = os.path.join(root, "coco_synth", "proposals.pkl")
+    with open(out, "wb") as f:
+        pickle.dump({"ids": ids, "boxes": boxes, "objectness_logits": logits}, f)
+    return out
 
 
 def make_synthetic_bdd(root: str, n: int = 6, seed: int = 0, classes: Tuple[str, ...] = ("dog", "cat"),

@@ -2,8 +2,10 @@
 cddmsl_tpu/engine/defaults.py: `default_argument_parser`, `default_setup`,
 `build_evaluator`, `DefaultPredictor` and `DefaultTrainer`).
 
-`DefaultTrainer` builds the CDDMSL model with seeded random weights, its
-optimizer and the training state, restores or side-loads weights
+`DefaultTrainer` builds the detector of the tree (`models.build.
+build_detector`: the CDDMSL C4 model, or the FPN family's FPNRCNN, its DC5
+form or a ProposalNetwork, whose loss set ignores the caption switches) with
+seeded random weights, its optimizer and the training state, restores or side-loads weights
 (`resume_or_load`), runs the loop with its hooks, the NaN guard and the
 periodic checkpoints, saves `model_final` and evaluates every
 DATASETS.TEST set (`test`), the Watercolor and Comic sets on their 6
@@ -60,7 +62,7 @@ from ..device import resolve_device
 from ..evaluation import (
     COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
 )
-from ..models.build import build_model
+from ..models.build import build_detector, build_model
 from ..models.caption import ClipCaptionModel
 from ..models.gpt2 import GPT2Config
 from ..parallel import comm
@@ -168,7 +170,7 @@ class DefaultTrainer:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = build_model(model_config_from_cfg(cfg), device="cpu", training=True)
+        model = build_detector(cfg, device="cpu", training=True)
         init_random_(model, torch.Generator().manual_seed(max(cfg.SEED, 0)))
         self.model = model.to(self.device)
         self.optimizer = build_optimizer(self.model, solver_config_from_cfg(cfg))
@@ -377,7 +379,7 @@ class DefaultPredictor:
         self.cfg = cfg
         if model is None:
             check_supported(cfg)
-            model = build_model(model_config_from_cfg(cfg), device="cpu")
+            model = build_detector(cfg, device="cpu")
             init_random_(model, torch.Generator().manual_seed(max(cfg.SEED, 0)))
             model = model.to(resolve_device(device))
             if cfg.MODEL.WEIGHTS:

@@ -42,7 +42,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
-from ..structures import boxes as box_ops
 from .backbone.clip_resnet import ModifiedResNet
 from .backbone.resnet import D2ResNet
 from .backbone.text_encoder import CLIPTextEncoder
@@ -141,22 +140,14 @@ class CLIPFastRCNN(nn.Module):
 
     @torch.no_grad()
     def inference(self, batch: DetBatch, do_postprocess: bool = True) -> DetectionResult:
-        """Offline proposals -> CLIP res4 -> RoI heads; with
-        `do_postprocess` the boxes rescaled to orig_sizes, as
-        `GeneralizedRCNN.inference` rescales them (JAX's CLIPFastRCNN leaves
-        them in the padded input frame: the same where the two sizes are
-        equal)."""
-        detections = self.roi_heads(
+        """Offline proposals -> CLIP res4 -> RoI heads. The boxes stay in the
+        resized frame, as JAX's CLIPFastRCNN leaves them (it has no
+        postprocess; `do_postprocess` changes nothing): they are the
+        original image's only where orig_sizes equal image_sizes."""
+        return self.roi_heads(
             self._features(batch), self.offline_proposals(batch), batch.image_sizes, self.backbone.res5_forward,
             self.backbone.attnpool_forward,
         )
-        if not do_postprocess:
-            return detections
-        orig = batch.orig_sizes.to(detections.boxes.device)
-        scale = (orig / torch.clamp(batch.image_sizes.to(orig.device), min=1)).float()
-        sxy = torch.stack([scale[:, 1], scale[:, 0], scale[:, 1], scale[:, 0]], dim=-1)
-        boxes = box_ops.clip(detections.boxes * sxy[:, None, :], (orig[:, 0, None], orig[:, 1, None]))
-        return detections._replace(boxes=boxes)
 
 
 def soft_target_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:

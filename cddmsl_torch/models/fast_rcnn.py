@@ -26,6 +26,7 @@ from ..ops.nms import batched_nms
 from ..ops.soft_nms import batched_soft_nms
 from ..parallel import comm
 from ..structures import boxes as box_ops
+from .rpn import smooth_l1
 
 
 class DetectionResult(NamedTuple):
@@ -86,10 +87,13 @@ def fast_rcnn_losses(
     box2box: Box2BoxTransform,
     focal_gamma: Optional[float] = None,
     bg_loss_weight: Optional[float] = None,
+    smooth_l1_beta: float = 0.0,
+    box_reg_loss_weight: float = 1.0,
 ) -> Dict[str, torch.Tensor]:
     """Focal-scaled cross-entropy with an optional background weight, and the
-    L1 box loss (SMOOTH_L1_BETA = 0) of the ground-truth class (of the one
-    box when `deltas` has 4 columns) over foreground rows. Both are means over the valid rows, as the JAX package
+    smooth-L1 box loss (L1 at `smooth_l1_beta` 0), times
+    `box_reg_loss_weight`, of the ground-truth class (of the one box when
+    `deltas` has 4 columns) over foreground rows. Both are means over the valid rows, as the JAX package
     takes them; under a process group over the global batch's valid rows
     (a sampler that does not fill its quota leaves ranks with different
     counts), so that the ranks' mean is the global loss."""
@@ -112,8 +116,8 @@ def fast_rcnn_losses(
         fg_cls = torch.clamp(gt_classes, 0, num_classes - 1).long()
         fg_deltas = torch.gather(deltas.reshape(n, num_classes, 4), 1, fg_cls[:, None, None].expand(-1, 1, 4))[:, 0]
     gt_deltas = box2box.get_deltas(proposal_boxes, gt_boxes)
-    reg = torch.abs(fg_deltas - gt_deltas).sum(dim=1)
-    loss_box = (reg * fg.float()).sum() / n_valid
+    reg = smooth_l1(fg_deltas, gt_deltas, smooth_l1_beta).sum(dim=1)
+    loss_box = (reg * fg.float()).sum() / n_valid * box_reg_loss_weight
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 
 

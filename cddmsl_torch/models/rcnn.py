@@ -66,6 +66,32 @@ class DetBatch(NamedTuple):
     gt_classes: Optional[torch.Tensor] = None  # (B, G) int
     gt_valid: Optional[torch.Tensor] = None  # (B, G) bool
     image_trgt: Optional[torch.Tensor] = None  # (B, H, W, 3) the translated twin
+    # precomputed proposals (MODEL.LOAD_PROPOSALS), top-k by objectness per image
+    proposal_boxes: Optional[torch.Tensor] = None  # (B, K, 4) XYXY in canvas coords
+    proposal_scores: Optional[torch.Tensor] = None  # (B, K) objectness logits, -inf where padded
+    proposal_valid: Optional[torch.Tensor] = None  # (B, K) bool
+
+
+def normalize(images: torch.Tensor, pixel_mean, pixel_std, dtype, unit_range: bool = True) -> torch.Tensor:
+    """(x - mean) / std in float32, then `dtype`; with `unit_range` and
+    CLIP's statistics (their sum below 3) x is first divided by 255."""
+    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=images.device)
+    std = torch.tensor(pixel_std, dtype=torch.float32, device=images.device)
+    x = images.float()
+    if unit_range and float(sum(pixel_mean)) < 3.0:
+        x = x / 255.0
+    return ((x - mean) / std).to(dtype)
+
+
+def rescale_detections(detections: DetectionResult, batch: DetBatch) -> DetectionResult:
+    """detector_postprocess: the boxes scaled from the resized frame to
+    orig_sizes and clipped to it."""
+    orig = batch.orig_sizes.to(detections.boxes.device)
+    sizes = batch.image_sizes.to(detections.boxes.device)
+    scale = (orig / torch.clamp(sizes, min=1)).float()
+    sxy = torch.stack([scale[:, 1], scale[:, 0], scale[:, 1], scale[:, 0]], dim=-1)
+    boxes = box_ops.clip(detections.boxes * sxy[:, None, :], (orig[:, 0, None], orig[:, 1, None]))
+    return detections._replace(boxes=boxes)
 
 
 def infonce_bidirectional(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -195,12 +221,7 @@ class GeneralizedRCNN(nn.Module):
             self.image_projector = Projector(in_dim=embed_dim)
 
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
-        mean = torch.tensor(self.pixel_mean, dtype=torch.float32, device=images.device)
-        std = torch.tensor(self.pixel_std, dtype=torch.float32, device=images.device)
-        x = images.float()
-        if float(sum(self.pixel_mean)) < 3.0:  # CLIP stats: inputs scaled to [0, 1]
-            x = x / 255.0
-        return ((x - mean) / std).to(self.dtype)
+        return normalize(images, self.pixel_mean, self.pixel_std, self.dtype)
 
     def _v2l_preprocess(self, images: torch.Tensor) -> torch.Tensor:
         """/255, bicubic short-side resize of the padded canvas to
@@ -241,15 +262,7 @@ class GeneralizedRCNN(nn.Module):
         detections = self.roi_heads(
             features, proposals, batch.image_sizes, res5_fn=self.backbone.res5_forward, attnpool_fn=self._box_pool,
         )
-        if not do_postprocess:
-            return detections
-        # detector_postprocess: rescale to the original image size
-        orig = batch.orig_sizes.to(detections.boxes.device)
-        sizes = batch.image_sizes.to(detections.boxes.device)
-        scale = (orig / torch.clamp(sizes, min=1)).float()
-        sxy = torch.stack([scale[:, 1], scale[:, 0], scale[:, 1], scale[:, 0]], dim=-1)
-        boxes = box_ops.clip(detections.boxes * sxy[:, None, :], (orig[:, 0, None], orig[:, 1, None]))
-        return detections._replace(boxes=boxes)
+        return rescale_detections(detections, batch) if do_postprocess else detections
 
     def extract_res4(self, images: torch.Tensor) -> torch.Tensor:
         """Raw images (B, H, W, 3) -> the res4 map (B, H/16, W/16, C)."""

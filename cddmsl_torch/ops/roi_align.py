@@ -9,7 +9,9 @@ cddmsl_tpu/ops/pallas/roi_align_pallas.py. Bilinear sampling is separable:
 
 where Wy/Wx fold the average over the S x S sample points of each bin.
 `sampling_ratio=0` means S=2, never the adaptive count. The gradient with
-respect to F is the transposed contraction; the boxes get none.
+respect to F is the transposed contraction; the boxes get none. A box with
+a non-finite coordinate pools zeros and passes no gradient, in the kernels
+and the plain versions alike (the FPN pooler masks rows that way).
 
 `roi_align_batched` is what the model calls: a `RoIAlignFunction` whose
 forward is K1 and whose backward is K3 (csrc/roi_align.cu) on CUDA tensors,
@@ -81,7 +83,8 @@ def _interp_matrix(start: torch.Tensor, size: torch.Tensor, pooled: int, samplin
     cc = torch.clamp(coords, 0.0, dim - 1)
     grid = torch.arange(dim, dtype=start.dtype, device=start.device)
     w = torch.clamp(1.0 - torch.abs(cc[..., None] - grid), min=0.0)
-    w = w * in_range[..., None].to(w.dtype)
+    # a select, not a product: a NaN box's weights are 0, as K1 and K3 give it none
+    w = torch.where(in_range[..., None], w, torch.zeros_like(w))
     return w.mean(dim=2)
 
 

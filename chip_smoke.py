@@ -191,16 +191,32 @@ Phases, each of which fails the run with a non-zero exit:
      1/0/2 a batch. Then K1 and K3 at (b)'s pool, K1 at (a)'s, and K4 at
      (b)'s offline RPN and (a)'s offline RPN and detection NMS (on
      `seeded_candidates` where the batch leaves it none), as in phase 7.
+ 16. detectron2's FPN box detectors (`fpn_path`), bf16, seeded random
+     weights: (a) `DefaultTrainer` on
+     configs/COCO-Detection/faster_rcnn_R_50_FPN_1x.yaml (R-50, FPN 256, 80
+     classes, batch 8 at the 800x1344 pad) over a synthetic COCO fixture of
+     the 80 COCO names (16 480x640 JPEGs): 12 steps, K1/K3/K4 4/4/1 a step
+     (the pooler launches K1, and K3 in the backward, once per FPN level;
+     the RPN one K4 over every level's candidates) or the run fails, every
+     loss finite, the FrozenBN statistics bit-equal, the final test through
+     `COCOEvaluator` (4/0/2 a batch), an eval batch's ms/image and the step
+     on a batch already on the card; (b) one eval batch through
+     `model.inference` of faster_rcnn_R_50_DC5_1x (1/0/2),
+     faster_rcnn_X_101_32x8d_FPN_3x (4/0/2) and rpn_R_50_FPN_1x (0/0/1);
+     (c) K1 and K3 at each level of the step's pool (each launch handed
+     every ROI, the other levels' rows NaN), K4 at its RPN NMS, K1 at each
+     level and K4 at both NMS of the eval batch (the detection NMS on
+     `seeded_candidates`), as in phase 7.
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
-`.../ovd`). `launches` counts
+`.../ovd`, `.../fpn`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
 the teacher's test; for ddp, both ranks of world 2 under gloo; for
 pretrain, 6 steps; for language_tools, the region features' batches; for
 plain_r50, 12 steps and the final test; for ovd, (a)'s and (c)'s eval
-batches and (b)'s 9 steps);
+batches and (b)'s 9 steps; for fpn, (a)'s 12 steps and final test);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -210,7 +226,8 @@ step's: K1 3, K3 2, K4 4; for ddp one rank's step and eval batch: K1 4,
 K3 3, K4 3; for pretrain one step's: K1 2, K3 1; for language_tools the
 first region-feature batch: K1 1, K4 1; for plain_r50 one step and one
 eval batch: K1 2, K3 1, K4 3; for ovd one step and one eval batch: K1 2,
-K3 1, K4 3): the largest error and the sums of the times and bounds.
+K3 1, K4 3; for fpn one step and one eval batch: K1 8, K3 4, K4 3): the
+largest error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -617,37 +634,40 @@ def read_launches(roi_ops, nms_ops):
             "nms": nms_ops.KERNEL.launches["cddmsl_nms"]}
 
 
-def roi_bounds_ms(feats, R, map_pixels):
+def roi_bounds_ms(feats, R, map_pixels, pooled=14, active=None):
     """(bound ms, bound_by) of K1 or K3 over `map_pixels` pixels of the map
-    `feats` and R 14x14 ROIs; both do the same work. Bytes: each input read
-    once, each output written once, in the map's dtype: for K1 the map pixels
-    it reads (`read_map_pixels`), the boxes and indices, and the pooled
-    values; for K3 the gradient g, the boxes and indices, and dF, written
-    whole (all the map's pixels). Operations: (2S)^2 = 16 multiply-adds, 32
-    flops, per pooled value at the path's S = 2."""
+    `feats` and R pooled x pooled ROIs, `active` of them (all by default)
+    finite: an FPN level's launch is handed every ROI with the other levels'
+    rows NaN, which pool zeros. Both kernels do the same work. Bytes: each
+    input read once, each output written once, in the map's dtype: for K1
+    the map pixels it reads (`read_map_pixels`), the boxes and indices, and
+    the pooled values (every row's); for K3 the gradient g, the boxes and
+    indices, and dF, written whole (all the map's pixels). Operations:
+    (2S)^2 = 16 multiply-adds, 32 flops, per pooled value of an active ROI
+    at the path's S = 2."""
     es = feats.element_size()
-    values = R * 14 * 14 * feats.shape[-1]
+    values = R * pooled * pooled * feats.shape[-1]
     bytes_ = values * es + R * (4 + 16) + map_pixels * feats.shape[-1] * es
-    ops = 32 * values
+    ops = 32 * (R if active is None else active) * pooled * pooled * feats.shape[-1]
     t_bytes, t_ops = bytes_ / H100_BYTES_PER_S, ops / H100_FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def read_map_pixels(feats, bidx, rois):
+def read_map_pixels(feats, bidx, rois, pooled=14, scale=1 / 16):
     """How many pixels of the map (B, H, W, C) K1 must read for these ROIs
-    (14x14 bins, S = 2, scale 1/16, aligned): those that some ROI's bilinear
-    samples weigh by more than 0, counted once per image. The padding of a
-    bucket and the map outside every ROI are never read. A ROI's samples form
-    a grid, so it reads the rows its y samples weigh times the columns its x
-    samples weigh."""
+    (pooled x pooled bins, S = 2, `scale`, aligned): those that some ROI's
+    bilinear samples weigh by more than 0, counted once per image. The
+    padding of a bucket, the map outside every ROI and NaN ROIs are never
+    read. A ROI's samples form a grid, so it reads the rows its y samples
+    weigh times the columns its x samples weigh."""
     from cddmsl_torch.ops.roi_align import _interp_matrix, _roi_frame
 
     B, H, W, _ = feats.shape
     covered = torch.zeros(B, H * W, device=feats.device)
     for lo in range(0, rois.shape[0], 1024):
-        x1, y1, w, h = _roi_frame(rois[lo:lo + 1024], 1 / 16, True)
-        rows = _interp_matrix(y1, h, 14, 2, H).gt(0).any(1)
-        cols = _interp_matrix(x1, w, 14, 2, W).gt(0).any(1)
+        x1, y1, w, h = _roi_frame(rois[lo:lo + 1024], scale, True)
+        rows = _interp_matrix(y1, h, pooled, 2, H).gt(0).any(1)
+        cols = _interp_matrix(x1, w, pooled, 2, W).gt(0).any(1)
         covered.index_add_(0, bidx[lo:lo + 1024].long(), (rows[:, :, None] & cols[:, None, :]).flatten(1).float())
     return int(covered.gt(0).sum())
 
@@ -872,32 +892,37 @@ def training_path(dev, smi, roi_ops, nms_ops):
 
 
 def add_roi_rows(rows, dev, roi_ops, label, calls, k3_calls):
-    """K1 at each of `calls` [(call, features, batch_idx, boxes)] and K3 at
-    the calls named in `k3_calls`, each held against its plain version on
-    the same inputs in bf16 (rtol 2e-2, the same zeros; K3 on a positive
+    """K1 at each of `calls` [(call, features, batch_idx, boxes) or (call,
+    features, batch_idx, boxes, pooled, scale); 14 and 1/16 by default] and
+    K3 at the calls named in `k3_calls`, each held against its plain version
+    on the same inputs in bf16 (rtol 2e-2, the same zeros; K3 on a positive
     gradient, as in check_k3: no cancellation in dF's sums), then timed
-    beside the plain version and its bound, into `rows`."""
+    beside the plain version and its bound, into `rows`. NaN boxes (an FPN
+    level's share of the other levels' rows) pool zeros in both."""
     gen = torch.Generator(device=dev).manual_seed(6)
-    for call, feats, bidx, rois in calls:
+    for call, feats, bidx, rois, *geometry in calls:
+        pooled, scale = geometry or (14, 1 / 16)
         R = rois.shape[0]
-        k1_args = (feats, bidx, rois, (14, 14), 1 / 16, 0, True)
-        g = torch.rand((R, 14, 14, feats.shape[-1]), generator=gen, device=dev).bfloat16()
-        k3_args = (g, bidx, rois, tuple(feats.shape), (14, 14), 1 / 16, 0, True)
+        active = int(torch.isfinite(rois).all(1).sum())
+        k1_args = (feats, bidx, rois, (pooled, pooled), scale, 0, True)
+        g = torch.rand((R, pooled, pooled, feats.shape[-1]), generator=gen, device=dev).bfloat16()
+        k3_args = (g, bidx, rois, tuple(feats.shape), (pooled, pooled), scale, 0, True)
         for name, kernel, plain, args, fp32_args, map_pixels in (
             ("roi_align_fwd", roi_ops.roi_align_forward, roi_ops.roi_align_batched_plain, k1_args,
-             (feats.float(), *k1_args[1:]), read_map_pixels(feats, bidx, rois)),
+             (feats.float(), *k1_args[1:]), read_map_pixels(feats, bidx, rois, pooled, scale)),
             ("roi_align_bwd", roi_ops.roi_align_backward, roi_ops.roi_align_backward_plain, k3_args,
              (g.float(), *k3_args[1:]), feats[..., 0].numel()),
         ):
             if name == "roi_align_bwd" and call not in k3_calls:
                 continue
-            bound, by = roi_bounds_ms(feats, R, map_pixels)
+            bound, by = roi_bounds_ms(feats, R, map_pixels, pooled, active)
             err = bf16_max_abs_err(f"{name} {label} {call}", kernel(*args), plain(*fp32_args))
             ms = cuda_ms(lambda: kernel(*args), 10)
             plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
             add_to_row(rows[name], err, ms, plain_ms, bound, by)
-            print(f"{name} {label} {call} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} {feats.dtype}: "
-                  f"max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+            share = f", {active} of them finite" if active != R else ""
+            print(f"{name} {label} {call} {R}x{pooled}x{pooled}x{feats.shape[-1]}{share} over {tuple(feats.shape)} "
+                  f"{feats.dtype}: max abs err {err:.4g} (rtol 2e-2), {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
                   f"bound {bound:.5f} ms ({by}; {map_pixels} of {feats[..., 0].numel()} map pixels in its bytes)")
 
 
@@ -3121,6 +3146,245 @@ def ovd_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 16: detectron2's FPN box detectors. (a) DefaultTrainer on the R-50
+# FPN recipe over a synthetic COCO fixture with the 80 COCO names, 12 steps
+# and the final test, (b) one eval batch through the DC5, X-101 FPN and RPN
+# detectors, (c) K1, K3 and K4 at the path's shapes
+FPN_STEPS, FPN_IMAGES, FPN_HW = 12, 16, (480, 640)
+FPN_NAMES = ("chip_smoke_coco_train", "chip_smoke_coco_val")
+FPN_CANDIDATES_SEED = 16
+FPN_CONFIG = "COCO-Detection/faster_rcnn_R_50_FPN_1x.yaml"
+# (config, K1/K3/K4 launches of one eval batch's inference)
+FPN_EVAL_CONFIGS = (("COCO-Detection/faster_rcnn_R_50_DC5_1x.yaml", (1, 0, 2)),
+                    ("COCO-Detection/faster_rcnn_X_101_32x8d_FPN_3x.yaml", (4, 0, 2)),
+                    ("COCO-Detection/rpn_R_50_FPN_1x.yaml", (0, 0, 1)))
+COCO_CLASSES = (
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat", "traffic light",
+    "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow", "elephant",
+    "bear", "zebra", "giraffe", "backpack", "umbrella", "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
+    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard", "surfboard", "tennis racket", "bottle",
+    "wine glass", "cup", "fork", "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange", "broccoli",
+    "carrot", "hot dog", "pizza", "donut", "cake", "chair", "couch", "potted plant", "bed", "dining table", "toilet",
+    "tv", "laptop", "mouse", "remote", "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
+    "refrigerator", "book", "clock", "vase", "scissors", "teddy bear", "hair drier", "toothbrush",
+)
+
+
+@torch.no_grad()
+def unit_scale_stem(model):
+    """Seeded random weights for a recipe whose PIXEL_STD is 1 (the caffe2
+    ResNets' inputs: 0..255 less the means): the stem kernel divided by 58,
+    about the pixels' standard deviation, so that the He-normal towers see
+    unit-scale inputs. Without it the FPN maps reach ~4e3 and the recipe's
+    SGD, unclipped, diverges within 12 steps (NaN at step 11 on the card)."""
+    tower = getattr(model.backbone, "bottom_up", model.backbone)
+    if max(model.pixel_std) == 1.0:
+        tower.stem.conv1.weight.div_(58.0)
+    return model
+
+
+def level_pool_calls(roi_heads, levels, boxes, label):
+    """The K1 launches of the multi-level pooler on boxes (B, S, 4): per FPN
+    level (call, features, batch_idx, boxes with the other levels' rows NaN,
+    pooled size, scale), as `ROIPooler` hands them to `roi_align_batched`."""
+    pooler = roi_heads.pooler
+    bidx, per_level = pooler.level_boxes(boxes)
+    return [(f"{label} p{i + 2}" if len(levels) > 1 else label, feat.contiguous(), bidx, level_boxes,
+             pooler.output_size, scale)
+            for i, (feat, scale, level_boxes) in enumerate(zip(levels, pooler.scales, per_level))]
+
+
+def fpn_rpn_nms_call(model, batch, training):
+    """K4's call of the FPN RPN: every level's pre-NMS top-k moved apart by
+    level, their logits and which may be kept, the threshold and the
+    post-NMS top-k."""
+    rpn = model.proposal_generator
+    shifted, scores, ok, _ = rpn.nms_inputs(rpn._levels(model.features(batch.image)[1]), batch.image_sizes, training)
+    return shifted, scores, ok, rpn.nms_thresh, rpn.post_nms_topk[training]
+
+
+def fpn_step_roi_align_calls(model, batch, draw):
+    """The RoIAlign calls of one FPNRCNN training step, rebuilt outside
+    autograd: the pool of the B x batch_size_per_image sampled ROIs, one
+    call per level."""
+    rpn, rh = model.proposal_generator, model.roi_heads
+    head, rpn_levels = model.features(batch.image)
+    proposals = rpn._predict_levels(rpn._levels(rpn_levels), batch.image_sizes, True)
+    sampled = rh.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)[0]
+    return level_pool_calls(rh, head, sampled, "supervised")
+
+
+@torch.no_grad()
+def fpn_eval_kernel_calls(model, batch, candidates_seed=None):
+    """The kernel calls of FPNRCNN.inference on one eval batch: K1's per
+    level over the proposals, K4's at the RPN NMS and at the detection NMS
+    (on `seeded_candidates` with `candidates_seed`)."""
+    from cddmsl_torch.models.fast_rcnn import detection_candidates
+    from cddmsl_torch.ops.nms import class_shifted
+
+    rh = model.roi_heads
+    head, proposals = model.proposals(batch)
+    b, s = proposals.boxes.shape[:2]
+    scores, deltas = rh.box_predictor(rh.box_features(head, proposals.boxes))
+    boxes, det_scores, classes, valid = detection_candidates(
+        scores.reshape(b, s, -1), deltas.reshape(b, s, -1), proposals.boxes, proposals.valid, batch.image_sizes,
+        rh.box2box, rh.num_classes, rh.score_thresh_test)
+    if candidates_seed is not None:
+        det_scores, valid = seeded_candidates(det_scores, valid, candidates_seed)
+    det_call = (class_shifted(boxes, classes, valid), det_scores, valid, rh.nms_thresh_test, rh.detections_per_image)
+    return level_pool_calls(rh, head, proposals.boxes, "eval"), [fpn_rpn_nms_call(model, batch, False), det_call]
+
+
+def fpn_path(dev, smi, roi_ops, nms_ops):
+    """Phase 16: the FPN family at full width (bf16, seeded random weights,
+    the stem scaled to the pixels by `unit_scale_stem`: the ImageNet and
+    model-zoo weights are not in the repository). (a)
+    `DefaultTrainer.train()` on configs/COCO-Detection/faster_rcnn_R_50_FPN_1x.yaml
+    (R-50, FPN 256, 80 classes, batch 8 at the 800x1344 pad) over a
+    synthetic COCO fixture of the 80 COCO names: 12 steps (K1/K3/K4 4/4/1 a
+    step, one K1 and one K3 per FPN level, or the run fails), every loss
+    finite, the FrozenBN statistics bit-equal, the final test through
+    `COCOEvaluator` (4/0/2 a batch); an eval batch's ms/image and the step
+    on a batch already on the card. (b) One eval batch through
+    `model.inference` of the DC5 (1/0/2), X-101 32x8d FPN (4/0/2) and RPN
+    (0/0/1) detectors. (c) K1 and K3 at each level of the step's pool, K4
+    at its RPN NMS, K1 at each level and K4 at both NMS of the eval batch,
+    checked and timed as in phase 7. Returns the path's rows."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.coco import register_coco_instances
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_coco
+    from cddmsl_torch.engine.defaults import DefaultTrainer
+    from cddmsl_torch.models.build import build_detector
+
+    class ProbedTrainer(DefaultTrainer):
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            return [self.probe] + super().build_hooks()
+
+        def run_step(self, batch):
+            metrics = super().run_step(batch)
+            self.step_losses.append({k: v.detach() for k, v in metrics.items() if k.startswith("loss")})
+            return metrics
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_fpn_")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    try:
+        json_path, img_root = make_synthetic_coco(os.path.join(root, "coco"), n=FPN_IMAGES, seed=16,
+                                                  classes=COCO_CLASSES, hw=FPN_HW)
+        for name in FPN_NAMES:
+            register_coco_instances(name, json_path, img_root)
+
+        def fpn_cfg(config, *opts):
+            cfg = get_cfg()
+            cfg.merge_from_file(os.path.join(here, "configs", config))
+            cfg.merge_from_list(["OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0", "DATASETS.TRAIN",
+                                 repr((FPN_NAMES[0],)), "DATASETS.TEST", repr((FPN_NAMES[1],)),
+                                 "SOLVER.IMS_PER_BATCH", "8", "SOLVER.MAX_ITER", str(FPN_STEPS),
+                                 "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0", *opts])
+            cfg.freeze()
+            return cfg
+
+        cfg = fpn_cfg(FPN_CONFIG)
+        print(f"fpn: configs/{FPN_CONFIG} (R-{cfg.MODEL.RESNETS.DEPTH} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
+              f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, {cfg.SOLVER.IMS_PER_BATCH} images a step padded to "
+              f"{tuple(cfg.TPU.PAD_SIZE_TRAIN)}, {cfg.TPU.COMPUTE_DTYPE}) on a synthetic COCO fixture of "
+              f"{FPN_IMAGES} {FPN_HW[0]}x{FPN_HW[1]} images named with the 80 COCO classes; every weight seeded random")
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.step_losses = []
+        trainer.resume_or_load(resume=False)
+        model = unit_scale_stem(trainer.model)
+        if type(model).__name__ != "FPNRCNN":
+            fail(f"fpn: the trainer built {type(model).__name__}, not FPNRCNN")
+        buffers = {n: (b, b.clone()) for n, b in model.named_buffers()}
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        print(f"fpn path launches ({FPN_STEPS} steps and the final test): {launches}")
+        if min(launches.values()) < 1:
+            fail(f"the fpn path did not go through every kernel: {launches}")
+        probe = trainer.probe
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("fpn", probe, waits, FPN_STEPS, FPN_STEPS, ((4, 4, 1), (4, 4, 1)))
+        losses = [{k: v.item() for k, v in step.items()} for step in trainer.step_losses]
+        names = {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc"}
+        if len(losses) != FPN_STEPS or any(set(step) != names for step in losses) or not all(
+                math.isfinite(v) for step in losses for v in step.values()):
+            fail(f"fpn: the losses are not the four finite ones: {losses}")
+        for i in (0, FPN_STEPS - 1):
+            print(f"fpn step {i + 1} losses: {json.dumps({k: round(v, 6) for k, v in losses[i].items()})}")
+        changed = [n for n, (b, b0) in buffers.items() if not torch.equal(b, b0)]
+        if changed:
+            fail(f"fpn: FrozenBN statistics changed: {changed[:5]}")
+        print(f"fpn: all {len(buffers)} FrozenBN statistics bit-equal after {FPN_STEPS} steps; "
+              f"{sum(p.requires_grad for p in model.parameters())} trainable parameters")
+        warm = per_step[2:]
+        mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+        print(f"fpn loop, steps 3-{FPN_STEPS}: {mean([p[0] for p in warm]):.3f} ms/step CUDA events, "
+              f"{mean([p[1] for p in warm]):.3f} ms/step host wall, {mean([p[2] for p in warm]):.3f} ms/step waiting "
+              f"on the loader; whole loop {probe.loop_s * 1e3 / FPN_STEPS:.3f} ms/step host wall; on {smi}")
+        n_test_batches = -(-FPN_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple((launches[k] - probe.loop_launches[k]) / n_test_batches for k in keys)
+        if per_batch != (4, 0, 2):
+            fail(f"the fpn final test launched K1/K3/K4 {per_batch} per batch, expected (4, 0, 2)")
+        ap = {k: round(v, 4) for k, v in results[FPN_NAMES[1]]["bbox"].items() if k in ("AP", "AP50", "AP75")}
+        print(f"fpn final test (COCOEvaluator): launches per batch K1/K3/K4 {per_batch}; AP (random weights, not "
+              f"judged) {json.dumps(ap)}")
+
+        eval_batch = first_eval_batch(cfg, FPN_NAMES[1], dev)
+        n_img = eval_batch.image.shape[0]
+        ms = cuda_ms(lambda: model.inference(eval_batch), 3, warmup=1)
+        det = model.inference(eval_batch)
+        print(f"fpn eval batch {tuple(eval_batch.image.shape)}: {ms / n_img:.3f} ms/image CUDA events, "
+              f"{det.valid.sum(1).tolist()} detections an image")
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        time_device_batch("fpn", trainer, batch, what="supervised")
+
+        for config, want in FPN_EVAL_CONFIGS:
+            other = init_random_(build_detector(fpn_cfg(config), device="cpu"), torch.Generator().manual_seed(16))
+            other = unit_scale_stem(other)
+            other = other.to(dev).eval()
+            torch.cuda.synchronize()
+            reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+            det = other.inference(eval_batch)
+            torch.cuda.synchronize()
+            got = tuple(read_launches(roi_ops, nms_ops)[k] for k in keys)
+            if got != want or not bool(torch.isfinite(det.scores).all()) or not bool(torch.isfinite(det.boxes).all()):
+                fail(f"fpn: configs/{config} on an eval batch launched K1/K3/K4 {got} (expected {want}) or gave "
+                     "non-finite detections")
+            ms = cuda_ms(lambda: other.inference(eval_batch), 3, warmup=1)
+            print(f"fpn: configs/{config} ({type(other).__name__}) on the eval batch: K1/K3/K4 {got}, "
+                  f"{ms / n_img:.3f} ms/image, {det.valid.sum(1).tolist()} detections an image")
+            del other
+
+        rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+        calls = fpn_step_roi_align_calls(model, batch, trainer.state.draw)
+        add_roi_rows(rows, dev, roi_ops, "fpn", calls, [call for call, *_ in calls])
+        eval_calls, eval_nms = fpn_eval_kernel_calls(model, eval_batch, FPN_CANDIDATES_SEED)
+        add_roi_rows(rows, dev, roi_ops, "fpn", eval_calls, [])
+        rows = {name: close_row(row) for name, row in rows.items()}
+        rows["nms"] = nms_row(nms_ops, "fpn", launches["nms"], [fpn_rpn_nms_call(model, batch, True)] + eval_nms)
+        del trainer, model
+        print(f"fpn phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        for name in FPN_NAMES:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -3182,6 +3446,8 @@ def main() -> int:
     paths["plain_r50"] = plain_r50_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["ovd"] = ovd_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["fpn"] = fpn_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

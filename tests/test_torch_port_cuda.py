@@ -317,3 +317,51 @@ def test_k4_drops_kept_rows_scored_minus_inf_when_max_out_covers_n(dev, max_out)
     n = 4 if max_out <= 6 else 200
     idx, keep = assert_k4_equals_plain(boxes[:, :n].to(dev), scores[:, :n].to(dev), valid[:, :n].to(dev), 0.5, max_out)
     assert torch.isfinite(scores[0, idx[0][keep[0]].cpu()]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nan_rows_pool_zeros_and_pass_no_gradient(dev, dtype):
+    """The FPN pooler's masking: K1 pools zeros for a row with NaN
+    coordinates, as the plain version does, and K3 on the rows with the NaN
+    ones among them gives, bit for bit, K3 on the finite rows alone."""
+    bidx, boxes = _rois(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.randn(SHAPE, generator=g, device=dev).to(dtype)
+    masked = boxes.clone()
+    masked[::3] = float("nan")
+    keep = torch.isfinite(masked).all(1)
+    out = roi_ops.roi_align_forward(feats, bidx, masked, *ARGS, True)
+    plain = roi_ops.roi_align_batched_plain(feats.float(), bidx, masked, *ARGS, True)
+    assert not out[~keep].any() and not plain[~keep].any()
+    torch.testing.assert_close(out[keep].float(), plain[keep], rtol=2e-2 if dtype == torch.bfloat16 else 0,
+                               atol=0 if dtype == torch.bfloat16 else 1e-4)
+    grad = torch.randn((boxes.shape[0], 7, 7, SHAPE[3]), generator=g, device=dev).to(dtype)
+    with_nan = roi_ops.roi_align_backward(grad, bidx, masked, SHAPE, *ARGS, True)
+    finite = roi_ops.roi_align_backward(grad[keep].contiguous(), bidx[keep].contiguous(), boxes[keep].contiguous(),
+                                        SHAPE, *ARGS, True)
+    assert torch.equal(with_nan, finite)
+
+
+def test_the_fpn_pooler_on_the_card_equals_the_plain_pooler(dev):
+    """`ROIPooler` over four levels (one K1 launch a level, NaN-masked rows,
+    then K3 a level in the backward) against the same pooler on the CPU's
+    plain versions: values within 1e-4 and each level's gradient within
+    1e-4 of its largest value, in float32."""
+    from cddmsl_torch.models.poolers import ROIPooler
+
+    g = torch.Generator().manual_seed(3)
+    feats = [torch.randn((2, 112 // s, 176 // s, 16), generator=g) for s in (4, 8, 16, 32)]
+    xy = torch.rand((2, 30, 2), generator=g) * torch.tensor([150.0, 90.0])
+    boxes = torch.cat([xy, xy + 4 + torch.rand((2, 30, 2), generator=g) * 300], -1)
+    cot = torch.randn((60, 7, 7, 16), generator=g)
+    pooler = ROIPooler(7, (1 / 4, 1 / 8, 1 / 16, 1 / 32))
+    runs = []
+    for device in ("cpu", dev):
+        fs = [f.detach().clone().to(device).requires_grad_(True) for f in feats]
+        out = pooler(fs, boxes.to(device))
+        out.backward(cot.to(device))
+        runs.append((out.detach().cpu(), [f.grad.cpu() for f in fs]))
+    (want, want_grads), (got, got_grads) = runs
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    for g_, w in zip(got_grads, want_grads):
+        torch.testing.assert_close(g_, w, rtol=0, atol=1e-4 * float(w.abs().max()))

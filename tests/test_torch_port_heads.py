@@ -458,11 +458,11 @@ def _plain():
 @pytest.mark.parametrize("key, value", [
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]), ("MODEL.RESNETS.DEPTH", 18),
     ("MODEL.RESNETS.DEPTH", 34), ("MODEL.RESNETS.STRIDE_IN_1X1", False), ("MODEL.RESNETS.NUM_GROUPS", 32),
-    ("MODEL.RESNETS.WIDTH_PER_GROUP", 8), ("MODEL.RESNETS.RES5_DILATION", 2), ("MODEL.RESNETS.STEM_OUT_CHANNELS", 128),
+    ("MODEL.RESNETS.WIDTH_PER_GROUP", 8), ("MODEL.RESNETS.RES5_DILATION", 4), ("MODEL.RESNETS.STEM_OUT_CHANNELS", 128),
     ("MODEL.RESNETS.RES2_OUT_CHANNELS", 64), ("MODEL.RESNETS.NORM", "GN"), ("MODEL.RESNETS.OUT_FEATURES", ["res5"]),
     ("TPU.ENABLE_CAPTION_CONSISTENCY", True), ("MODEL.CONSISTENCY_BRANCH", "image"), ("TPU.BACKBONE_WIDTH", 16),
     ("TPU.EMBED_DIM", 1024), ("MODEL.PRE_TRAINED_RCLIP_PATH", "rclip.pth"), ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", "box"),
-    ("MODEL.CLIP.BB_RPN_WEIGHTS", "rpn.pth"), ("MODEL.BACKBONE.NAME", "build_resnet_fpn_backbone"),
+    ("MODEL.CLIP.BB_RPN_WEIGHTS", "rpn.pth"), ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"),
 ])
 def test_the_plain_tower_refuses_what_it_does_not_compute_naming_the_key(key, value):
     cfg = _plain()

@@ -138,9 +138,11 @@ def ovd_runs(tiny_tree, tmp_path_factory):
         losses = model.apply(p, b, r, method=model.supervised_losses)
         return sum(losses.values()), losses
 
-    (grads, losses), dets, bb_props = jax.jit(lambda p, bbp, b, r: (
+    resized = _resized(jb)
+    (grads, losses), dets, bb_props, resized_dets = jax.jit(lambda p, bbp, b, rb, r: (
         jax.grad(total, has_aux=True)(p, b, r), model.apply(p, b, method=model.inference),
-        model.apply(bbp, b, False, method=model._proposals)))(params, bb_params, jb, rng)
+        model.apply(bbp, b, False, method=model._proposals), model.apply(p, rb, method=model.inference),
+    ))(params, bb_params, jb, resized, rng)
 
     tb = _torch_batch(jb)
     ours = _port_model(params)
@@ -151,7 +153,13 @@ def ovd_runs(tiny_tree, tmp_path_factory):
     bb_ours = _port_model(params)
     n_loaded = load_bb_rpn_weights(bb_ours, path)
     return dict(want=(losses, convert_jax_params(grads), dets, bb_props, convert_jax_params(bb_params)),
-                got=(got_losses, ours, got_dets, bb_ours.offline_proposals(tb), bb_ours), sd=sd, n_loaded=n_loaded)
+                got=(got_losses, ours, got_dets, bb_ours.offline_proposals(tb), bb_ours), sd=sd, n_loaded=n_loaded,
+                resized=(resized_dets, ours.inference(_torch_batch(resized))))
+
+
+def _resized(jb):
+    """The batch as resized images: each original twice its resized size."""
+    return jb._replace(orig_sizes=jb.image_sizes * 2)
 
 
 def _rows(d, i):
@@ -217,17 +225,19 @@ def test_bb_rpn_weights_load_as_in_jax(ovd_runs):
             np.asarray(want_props.boxes[i]), TIE_GAP["proposal"], lambda g, w: np.abs(g - w).max() <= BOX_ATOL)
 
 
-def test_the_port_rescales_where_jax_does_not(tiny_tree):
-    """JAX's CLIPFastRCNN.inference leaves the boxes in the resized frame;
-    the port's rescales them to orig_sizes (as GeneralizedRCNN does in both),
-    and without postprocessing gives the resized frame."""
-    _, params, jb = tiny_tree
-    ours = _port_model(params)
-    tb = _torch_batch(jb)
-    big = tb._replace(orig_sizes=tb.image_sizes * 2)
-    frame, scaled = ours.inference(big, do_postprocess=False), ours.inference(big)
-    torch.testing.assert_close(scaled.boxes, frame.boxes * 2, rtol=1e-6, atol=1e-4)
-    torch.testing.assert_close(ours.inference(tb).boxes, frame.boxes, rtol=0, atol=0)
+def test_the_port_rescales_where_jax_does_not(ovd_runs):
+    """On resized images (originals twice the resized size) the detections
+    of both packages stay in the resized frame, equal as on the unresized
+    batch: JAX's CLIPFastRCNN.inference does not rescale, and the port
+    keeps that for parity (ROADMAP §C), unlike GeneralizedRCNN in both."""
+    want, got = ovd_runs["resized"]
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert got.valid.sum() > 0
+    for i in range(2):
+        _assert_ranked_rows_match(
+            got.scores[i].numpy(), _rows(got, i), np.asarray(want.scores[i]), _rows(want, i), TIE_GAP["detection"],
+            lambda g, w: g[0] == w[0] and np.abs(g[1] - w[1]).max() <= BOX_ATOL and abs(g[2] - w[2]) <= SCORE_ATOL)
+    torch.testing.assert_close(got.boxes, ovd_runs["got"][2].boxes, rtol=0, atol=0)
 
 
 # ---------------- the builder and its config ----------------
