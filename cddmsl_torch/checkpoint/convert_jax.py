@@ -15,6 +15,10 @@ are. The offline backbone maps as the backbone does. The plain tower
 shortcut, shortcut_bn) maps to detectron2's names (backbone.stem.conv1,
 its .norm, backbone.res{s}.{i}.conv{1,2,3}, .shortcut and their .norm);
 the linear classifier's cls_score Dense to `cls_score.weight` and `.bias`.
+The mask head (roi_heads/mask_head: mask_fcn{i}, deconv, predictor) keeps
+detectron2's names; its flax deconv kernel (kh, kw, in, out), whose taps
+flax applies unflipped, becomes the ConvTranspose2d weight (in, out, kh,
+kw) with both spatial axes flipped.
 
 A JAX `FPNRCNN` or `FPNProposalNetwork` tree (it has `fpn`, or for DC5 a
 `roi_heads` with `box_head_fc1`) converts by the FPN family's rules: the
@@ -146,11 +150,17 @@ _BOX_PREDICTOR_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"roi_heads/box_predictor/bbox_pred/kernel", r"roi_heads.box_predictor.bbox_pred.weight", "dense"),
     (r"roi_heads/box_predictor/bbox_pred/bias", r"roi_heads.box_predictor.bbox_pred.bias", "copy"),
 )
+_MASK_HEAD_RULES: Tuple[Tuple[str, str, str], ...] = (
+    (r"roi_heads/mask_head/(mask_fcn\d+|predictor)/kernel", r"roi_heads.mask_head.\1.weight", "conv"),
+    (r"roi_heads/mask_head/deconv/kernel", r"roi_heads.mask_head.deconv.weight", "deconv"),
+    (r"roi_heads/mask_head/(mask_fcn\d+|deconv|predictor)/bias", r"roi_heads.mask_head.\1.bias", "copy"),
+)
 _RULES: Tuple[Tuple[str, str, str], ...] = (
     *_BACKBONE_RULES,
     *_D2_BACKBONE_RULES,
     *_rpn_rules("proposal_generator"),
     *_BOX_PREDICTOR_RULES,
+    *_MASK_HEAD_RULES,
     *_mapper_rules("v2l_mapper"),
     *_projector_rules("projector"),
     *_projector_rules("image_projector"),
@@ -177,6 +187,7 @@ def _fpn_family_rules(tower: str):
         (r"roi_heads/box_head_fc([12])/kernel", r"roi_heads.box_head.fc\1.weight", "dense"),
         (r"roi_heads/box_head_fc([12])/bias", r"roi_heads.box_head.fc\1.bias", "copy"),
         *_BOX_PREDICTOR_RULES,
+        *_MASK_HEAD_RULES,
     )
 
 
@@ -209,6 +220,7 @@ _BACKBONE_TWINS = (_OFFLINE, "teacher_backbone")
 _LAYOUT = {
     "conv": lambda a: np.transpose(a, (3, 2, 0, 1)),  # HWIO -> OIHW
     "dense": np.transpose,  # (in, out) -> (out, in)
+    "deconv": lambda a: np.transpose(a[::-1, ::-1], (2, 3, 0, 1)),  # flax (kh, kw, in, out) -> (in, out, kh, kw)
     "copy": lambda a: a,
 }
 
@@ -308,7 +320,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
 
     for name, mod in model.named_modules():
-        if isinstance(mod, FrozenBatchNorm2d):
+        if isinstance(mod, nn.ConvTranspose2d):
+            normal(mod.weight, (2.0 / mod.weight[0].numel()) ** 0.5)
+            mod.bias.zero_()
+        elif isinstance(mod, FrozenBatchNorm2d):
             uniform(mod.weight, 0.5, 1.0)
             uniform(mod.bias, -0.1, 0.1)
             uniform(mod.running_mean, -0.1, 0.1)
@@ -316,7 +331,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             head = name.startswith(("proposal_generator", "offline_proposal_generator"))
-            normal(mod.weight, 0.01 if head else (2.0 / fan_in) ** 0.5)
+            mask_predictor = name.endswith("mask_head.predictor")
+            normal(mod.weight, 0.01 if head else 0.001 if mask_predictor else (2.0 / fan_in) ** 0.5)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.LayerNorm):

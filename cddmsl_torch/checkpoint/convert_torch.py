@@ -12,8 +12,9 @@ mapper ("clip_project.*") into `v2l_mapper`, and the text-embedding tensor
 into the classifier rows. A detector checkpoint (MODEL.WEIGHTS) loads by its
 dialect: "d2_rcnn" (backbone into both backbones, or detectron2's ResNet
 keys into the plain tower, RPN head, box predictor: the text classifier
-without its background row, the linear one as it is), "d2_fpn" (an FPN
-detector's: `load_d2_fpn`), "oai_clip" (the visual tower into both
+without its background row, the linear one as it is; the mask head, which
+JAX's d2_rcnn loader leaves out), "d2_fpn" (an FPN detector's:
+`load_d2_fpn`, the mask head too), "oai_clip" (the visual tower into both
 backbones), "clipcap" (the mapper) or "lang" (the CLIP text tower,
 "lang_encoder.*", into a model that has one: the pretraining model); a
 model with a text tower also takes an oai_clip file's "transformer.*" text
@@ -92,6 +93,17 @@ _D2_RESNET = re.compile(
 # and ROI_BOX_HEAD.NORM are refused)
 _FPN_CONVS = re.compile(r"fpn_(lateral|output)\d\.(weight|bias)")
 _BOX_HEAD = re.compile(r"fc[12]\.(weight|bias)")
+# `convert_d2_fpn_rcnn`'s mask head without its GN norms (ROI_MASK_HEAD.NORM is refused)
+_MASK_HEAD = re.compile(r"(mask_fcn\d+|deconv|predictor)\.(weight|bias)")
+
+
+def _load_mask_head(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int:
+    """roi_heads.mask_head.* as they are (detectron2's layouts are the
+    port's) into a model with a mask head; nothing otherwise."""
+    head = getattr(getattr(model, "roi_heads", None), "mask_head", None)
+    if head is None:
+        return 0
+    return _load_prefixed(head, sd, "roi_heads.mask_head.", f"{path}: mask head", _MASK_HEAD)
 
 
 @torch.no_grad()
@@ -179,6 +191,7 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
                                _BOX_PREDICTOR)
             else:  # the linear classifier has the file's K + 1 rows
                 _load_prefixed(head, sd, box, f"{path}: box predictor", _LINEAR_BOX_PREDICTOR)
+            _load_mask_head(model, sd, path)
     elif dialect == "clipcap":
         _load_prefixed(model.v2l_mapper, sd, "clip_project.", f"{path}: ClipCap mapper", _MAPPER)
     elif dialect == "lang":
@@ -225,6 +238,7 @@ def load_d2_fpn(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int
         n += _load_prefixed(rh.box_head, sd, "roi_heads.box_head.", f"{path}: box head", _BOX_HEAD)
         n += _load_prefixed(rh.box_predictor, sd, "roi_heads.box_predictor.", f"{path}: box predictor",
                             _LINEAR_BOX_PREDICTOR)
+        n += _load_mask_head(model, sd, path)
     return n
 
 

@@ -115,6 +115,13 @@ class ModelConfig:
     v2l_mapper_tokens: int = 40
     # TPU.COMPUTE_DTYPE
     compute_dtype: str = "bfloat16"
+    # MODEL.MASK_ON and MODEL.ROI_MASK_HEAD.{NUM_CONV, CONV_DIM,
+    # CLS_AGNOSTIC_MASK}, TPU.MASK_CANVAS_STRIDE
+    mask_on: bool = False
+    mask_num_conv: int = 0
+    mask_conv_dim: int = 256
+    mask_cls_agnostic: bool = False
+    mask_canvas_stride: float = 4.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +256,6 @@ _SUPPORTED_RUN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
     *_SUPPORTED_TOWERS,
-    ("MODEL.MASK_ON", _falsy),
     ("MODEL.KEYPOINT_ON", _falsy),
     ("MODEL.LOAD_PROPOSALS", _falsy),
     ("MODEL.CONSISTENCY_BRANCH", lambda v: v in CONSISTENCY_BRANCHES),
@@ -262,6 +268,30 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
     *_SUPPORTED_RUN,
 )
+
+
+# with MODEL.MASK_ON: the keys of the mask head that JAX's modules leave
+# unread, at the values they compute with (a 14x14 aligned pool with 2x2
+# samples, the conv-upsample head without a norm)
+_SUPPORTED_MASK: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
+    ("MODEL.ROI_MASK_HEAD.NAME", lambda v: v == "MaskRCNNConvUpsampleHead"),
+    ("MODEL.ROI_MASK_HEAD.NORM", _falsy),
+    ("MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", lambda v: v == 14),
+    ("MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO", lambda v: v == 0),
+    ("MODEL.ROI_MASK_HEAD.POOLER_TYPE", lambda v: v == "ROIAlignV2"),
+    ("TPU.MASK_CANVAS_STRIDE", lambda v: v >= 1),
+    # Cityscapes' instance sets need cityscapes_eval, which is not ported
+    ("DATASETS.TRAIN", lambda v: not any(n.startswith("cityscapes_fine_instance_seg") for n in v)),
+    ("DATASETS.TEST", lambda v: not any(n.startswith("cityscapes_fine_instance_seg") for n in v)),
+)
+
+
+def _mask_checks(cfg) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    if not cfg.MODEL.MASK_ON:
+        return ()
+    # the mean-teacher trainer's batches carry no canvases
+    semisup = (("SEMISUPNET.Trainer", lambda v: v == "default"),) if "SEMISUPNET" in cfg else ()
+    return _SUPPORTED_MASK + semisup
 
 
 FPN_TOWER = "build_resnet_fpn_backbone"
@@ -318,7 +348,6 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
              "proposal_c4": lambda v: "fpn_backbone" not in v}[family]
     checks = [
         ("MODEL.BACKBONE.NAME", tower),
-        ("MODEL.MASK_ON", _falsy),
         ("MODEL.KEYPOINT_ON", _falsy),
         ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
         ("MODEL.RESNETS.NORM", eq("FrozenBN")),
@@ -330,7 +359,7 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
                                           ["res4"])),
         ("MODEL.RPN.IN_FEATURES", eq(FPN_RPN_FEATURES if fpn else ["res5"] if family == "dc5" else ["res4"],
                                      ["res4"])),
-        ("MODEL.RPN.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
+        ("MODEL.RPN.BBOX_REG_LOSS_TYPE", eq("smooth_l1", "giou") if not proposal else eq("smooth_l1")),
         ("MODEL.CONSISTENCY_BRANCH", _falsy),
         ("MODEL.PRE_TRAINED_RCLIP_PATH", _falsy),
         ("MODEL.VISION_TO_LANG_PATH", _falsy),
@@ -349,7 +378,8 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
         checks += [("MODEL.FPN.IN_FEATURES", eq(FPN_IN_FEATURES, [])), ("MODEL.FPN.NORM", _falsy),
                    ("MODEL.FPN.FUSE_TYPE", eq("sum"))]
     if proposal:
-        checks += [("MODEL.PROPOSAL_GENERATOR.NAME", eq("RPN")), ("MODEL.LOAD_PROPOSALS", _falsy),
+        checks += [("MODEL.MASK_ON", _falsy), ("MODEL.PROPOSAL_GENERATOR.NAME", eq("RPN")),
+                   ("MODEL.LOAD_PROPOSALS", _falsy),
                    ("MODEL.RESNETS.NUM_GROUPS", eq(1)), ("MODEL.RESNETS.WIDTH_PER_GROUP", eq(64)),
                    ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True)]
         checks += [("MODEL.FPN.OUT_CHANNELS", eq(256))] if fpn else [("TPU.BACKBONE_WIDTH", _falsy)]
@@ -362,14 +392,14 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
             ("MODEL.ROI_BOX_HEAD.NUM_CONV", eq(0)),
             ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v in (0, 2)),
             ("MODEL.ROI_BOX_HEAD.NORM", _falsy),
-            ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
+            ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", eq("smooth_l1", "giou")),
             ("MODEL.PROPOSAL_GENERATOR.NAME", lambda v: v in ("RPN", "PrecomputedProposals")),
         ]
     return tuple(checks)
 
 
 def _check_family(cfg, family: str) -> None:
-    checks = _family_checks(family) + _SUPPORTED_RUN
+    checks = _family_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg)
     if "SEMISUPNET" in cfg:  # the mean teacher builds the C4 detector only
         checks += (("SEMISUPNET.Trainer", lambda v: v == "default"),)
     for key, ok in checks:
@@ -425,7 +455,7 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
     if family != "c4":
         _check_family(cfg, family)
     else:
-        checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ())
+        checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ()) + _mask_checks(cfg)
         if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
             checks += _SUPPORTED_D2
         else:
@@ -592,6 +622,11 @@ def model_config_from_cfg(cfg) -> ModelConfig:
         v2l_mapper_layers=tpu.V2L_MAPPER_LAYERS,
         v2l_mapper_tokens=tpu.V2L_MAPPER_TOKENS,
         compute_dtype=tpu.COMPUTE_DTYPE,
+        mask_on=m.MASK_ON,
+        mask_num_conv=m.ROI_MASK_HEAD.NUM_CONV,
+        mask_conv_dim=m.ROI_MASK_HEAD.CONV_DIM,
+        mask_cls_agnostic=m.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK,
+        mask_canvas_stride=float(tpu.MASK_CANVAS_STRIDE),
     )
 
 

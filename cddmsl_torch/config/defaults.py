@@ -118,14 +118,17 @@ def get_cfg() -> CfgNode:
     _C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE = "smooth_l1"
     _C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT = 1.0
 
-    # the mask head: MODEL.MASK_ON is refused, so these change nothing
+    # the mask head (MODEL.MASK_ON); JAX's modules pool 14x14 with 2x2
+    # samples, aligned, whatever the pooler keys say
     _C.MODEL.ROI_MASK_HEAD = CfgNode()
     _C.MODEL.ROI_MASK_HEAD.NAME = "MaskRCNNConvUpsampleHead"
     _C.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+    _C.MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 0
     _C.MODEL.ROI_MASK_HEAD.NUM_CONV = 0
     _C.MODEL.ROI_MASK_HEAD.CONV_DIM = 256
     _C.MODEL.ROI_MASK_HEAD.NORM = ""
     _C.MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK = False
+    _C.MODEL.ROI_MASK_HEAD.POOLER_TYPE = "ROIAlignV2"
 
     _C.MODEL.CLIP = CfgNode()
     _C.MODEL.CLIP.CROP_REGION_TYPE = "RPN"
@@ -236,6 +239,7 @@ def get_cfg() -> CfgNode:
     _C.TPU.ASYNC_CHECKPOINT = False
     _C.TPU.COMPUTE_DTYPE = "bfloat16"
     _C.TPU.MAX_GT_BOXES = 100
+    _C.TPU.MASK_CANVAS_STRIDE = 4  # the ground-truth mask canvases' stride (MASK_ON)
     _C.TPU.PAD_SIZE_TRAIN = [800, 1344]
     _C.TPU.PAD_SIZE_TEST = [800, 1344]
     _C.TPU.PAD_BUCKETS = []

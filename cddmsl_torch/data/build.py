@@ -5,7 +5,10 @@ The host side is numpy and runs in the JAX package's order: the sampler's
 permutations, the mapper's draws from one `np.random.RandomState`, grouping
 by orientation into the landscape and portrait pad buckets, and collation
 into zero-padded arrays with the ground truth padded to TPU.MAX_GT_BOXES, so
-a batch equals JAX's bit for bit. Batches are CPU tensors; a background
+a batch equals JAX's bit for bit. With MODEL.MASK_ON a training batch
+carries each instance's polygons rasterised on the padded canvas at
+TPU.MASK_CANVAS_STRIDE (`DetBatch.gt_masks`, uint8 where JAX's are float32
+of the same 0/1 values). Batches are CPU tensors; a background
 thread builds them ahead of the consumer and, with `pin_memory`, pins them,
 so that `to_device` copies them to the card without blocking.
 
@@ -86,13 +89,29 @@ class InferenceSampler:
         return iter(range(self.size))
 
 
+def rasterize_polygons(polygons: List[List[np.ndarray]], hw: Tuple[int, int], stride: int) -> np.ndarray:
+    """Per instance its polygon rings in image coordinates -> (N, H/stride,
+    W/stride) {0, 1} uint8: the rings divided by the stride and filled as
+    the evaluator fills ground truth (masks.polygons_to_bitmask)."""
+    from ..evaluation.masks import polygons_to_bitmask  # evaluation imports this module
+
+    h, w = max(1, hw[0] // stride), max(1, hw[1] // stride)
+    out = np.zeros((len(polygons), h, w), np.uint8)
+    for i, rings in enumerate(polygons):
+        scaled = [np.asarray(ring, np.float64) / stride for ring in rings if len(ring) >= 3]
+        out[i] = polygons_to_bitmask(scaled, (h, w))
+    return out
+
+
 def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 100, with_trgt: bool = True,
-                    max_proposals: int = 0) -> DetBatch:
+                    max_proposals: int = 0, mask_stride: int = 0) -> DetBatch:
     """Samples -> a DetBatch of CPU tensors: images zero-padded to `pad_hw`
     at the top left, the true and original sizes, the first `max_gt` boxes
     and classes of each image with a validity mask; with `max_proposals`
     the first that many precomputed proposals of each image (scores -inf
-    and not valid past them)."""
+    and not valid past them); with `mask_stride` the first `max_gt`
+    instances' polygons rasterised on the padded canvas at that stride,
+    (B, max_gt, H/stride, W/stride)."""
     b = len(samples)
     H, W = pad_hw
     images = np.zeros((b, H, W, 3), np.float32)
@@ -105,6 +124,9 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
     prop_boxes = np.zeros((b, max_proposals, 4), np.float32)
     prop_scores = np.full((b, max_proposals), -np.inf, np.float32)
     prop_valid = np.zeros((b, max_proposals), bool)
+    gt_masks = None
+    if mask_stride:
+        gt_masks = np.zeros((b, max_gt, max(1, H // mask_stride), max(1, W // mask_stride)), np.uint8)
     for i, s in enumerate(samples):
         img = s["image"]
         h, w = img.shape[:2]
@@ -120,6 +142,9 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
             gt_boxes[i, :n] = s["boxes"][:n]
             gt_classes[i, :n] = s["classes"][:n]
             gt_valid[i, :n] = True
+            if gt_masks is not None and s.get("polygons"):
+                # rasterised on the padded canvas, where the boxes live
+                gt_masks[i, :n] = rasterize_polygons(s["polygons"][:n], (H, W), mask_stride)
         p = min(len(s.get("proposal_boxes", ())), max_proposals)
         if p:
             prop_boxes[i, :p] = s["proposal_boxes"][:p]
@@ -131,6 +156,7 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
         image=t(images), image_sizes=t(sizes), orig_sizes=t(orig), gt_boxes=t(gt_boxes),
         gt_classes=t(gt_classes), gt_valid=t(gt_valid), image_trgt=t(images_t) if with_trgt else None,
         proposal_boxes=proposals[0], proposal_scores=proposals[1], proposal_valid=proposals[2],
+        gt_masks=t(gt_masks) if gt_masks is not None else None,
     )
 
 
@@ -248,6 +274,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
                          f"{world} rank(s)")
     pad_hw = tuple(cfg.TPU.PAD_SIZE_TRAIN)
     max_gt = cfg.TPU.MAX_GT_BOXES
+    mask_stride = cfg.TPU.MASK_CANVAS_STRIDE if cfg.MODEL.MASK_ON else 0
     aspect_grouping = cfg.DATALOADER.ASPECT_RATIO_GROUPING
 
     def gen():
@@ -260,7 +287,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
             if len(buckets[key]) == batch_size:
                 group, buckets[key] = buckets[key], []
                 batch = pad_and_collate(_process_block(group, rank, world, parts), key, max_gt, with_trgt=True,
-                                        max_proposals=max_props)
+                                        max_proposals=max_props, mask_stride=mask_stride)
                 yield _pinned(batch) if pin_memory else batch
 
     return _Prefetcher(gen, depth=cfg.DATALOADER.NUM_WORKERS)

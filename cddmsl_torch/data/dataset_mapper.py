@@ -6,7 +6,9 @@ The image and its translated twin `data_dt_file_name` are read and put
 through the same sampled geometric transforms; the boxes follow, are clipped
 to the image and empty ones dropped. With MODEL.LOAD_PROPOSALS the dict's
 precomputed proposals follow them too (`proposals.transform_proposals`),
-the top DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN (or _TEST) kept. Instances marked difficult are dropped
+the top DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN (or _TEST) kept. With
+MODEL.MASK_ON each instance's polygon rings (of 3 points or more) follow
+as well, as "polygons", dropped with their boxes. Instances marked difficult are dropped
 at train time (the detectron2 VOC convention).
 
 The two-crop mapper of the mean-teacher loader gives (strong, weak) views of
@@ -28,11 +30,20 @@ def read_image(path: str, fmt: str = "RGB") -> np.ndarray:
     return img[:, :, ::-1] if fmt == "BGR" else img
 
 
-def transform_boxes(annos: List[dict], tfms: TransformList, image_hw) -> Dict[str, np.ndarray]:
+def transform_boxes(annos: List[dict], tfms: TransformList, image_hw, with_masks: bool = False) -> Dict:
     """The annotations' boxes through `tfms`, clipped to `image_hw`, empty
-    ones dropped with their classes."""
+    ones dropped with their classes; `with_masks` adds each instance's
+    polygon rings through `tfms` ("polygons": per instance a list of (P, 2)
+    arrays; an RLE segmentation gives no ring)."""
     boxes = np.array([a["bbox"] for a in annos], np.float32).reshape(-1, 4)
     classes = np.array([a["category_id"] for a in annos], np.int32).reshape(-1)
+    polygons = None
+    if with_masks:
+        polygons = []
+        for a in annos:
+            segs = a.get("segmentation") or []
+            rings = [np.asarray(seg, np.float32).reshape(-1, 2) for seg in (segs if isinstance(segs, list) else [])]
+            polygons.append([tfms.apply_coords(pts) for pts in rings if len(pts) >= 3])
     if len(boxes):
         boxes = tfms.apply_box(boxes)
         h, w = image_hw
@@ -40,7 +51,12 @@ def transform_boxes(annos: List[dict], tfms: TransformList, image_hw) -> Dict[st
         boxes[:, 1::2] = boxes[:, 1::2].clip(0, h)
         keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
         boxes, classes = boxes[keep], classes[keep]
-    return {"boxes": boxes, "classes": classes}
+        if polygons is not None:
+            polygons = [p for p, k in zip(polygons, keep) if k]
+    out = {"boxes": boxes, "classes": classes}
+    if polygons is not None:
+        out["polygons"] = polygons
+    return out
 
 
 class DatasetMapper:
@@ -52,6 +68,7 @@ class DatasetMapper:
         self.augmentations = build_augmentation(cfg, is_train)
         self.image_format = cfg.INPUT.FORMAT
         self.load_proposals = cfg.MODEL.LOAD_PROPOSALS
+        self.use_instance_mask = cfg.MODEL.MASK_ON
         d = cfg.DATASETS
         self.proposal_topk = d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else d.PRECOMPUTED_PROPOSAL_TOPK_TEST
 
@@ -75,7 +92,7 @@ class DatasetMapper:
                 image_t = np.asarray(Image.fromarray(image_t).resize((orig_hw[1], orig_hw[0])))
             out["image_trgt"] = tfms.apply_image(image_t)
         annos = [a for a in d.get("annotations", []) if not (self.is_train and a.get("difficult", 0))]
-        out.update(transform_boxes(annos, tfms, hw))
+        out.update(transform_boxes(annos, tfms, hw, self.use_instance_mask))
         return out
 
 

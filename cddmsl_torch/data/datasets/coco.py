@@ -1,10 +1,12 @@
-"""COCO-json detection sets, boxes only (the port's copy of
+"""COCO-json instance sets (the port's copy of
 cddmsl_tpu/data/datasets/coco.py `load_coco_json` and
 `register_coco_instances`).
 
 Contiguous class ids follow the categories sorted by id; the metadata gets
 their names when the set is first loaded. Crowd annotations are dropped and
-boxes go from XYWH to XYXY. Segmentations and keypoints are not read.
+boxes go from XYWH to XYXY. An annotation's segmentation (polygon rings or
+an RLE dict) is kept as it is: the mapper rasterises the polygons, the
+evaluator reads both. Keypoints are not read.
 """
 
 import json
@@ -38,8 +40,11 @@ def load_coco_json(json_file: str, image_root: str, dataset_name: Optional[str] 
             if filter_crowd and ann.get("iscrowd", 0):
                 continue
             x, y, w, h = ann["bbox"]
-            annos.append({"category_id": id_map[ann["category_id"]], "bbox": [x, y, x + w, y + h],
-                          "bbox_mode": "XYXY_ABS", "iscrowd": ann.get("iscrowd", 0)})
+            rec = {"category_id": id_map[ann["category_id"]], "bbox": [x, y, x + w, y + h],
+                   "bbox_mode": "XYXY_ABS", "iscrowd": ann.get("iscrowd", 0)}
+            if ann.get("segmentation") is not None:
+                rec["segmentation"] = ann["segmentation"]
+            annos.append(rec)
         dicts.append({
             "file_name": os.path.join(image_root, img["file_name"]),
             "image_id": img["id"],

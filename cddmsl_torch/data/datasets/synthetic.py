@@ -4,9 +4,8 @@ images and annotations.
 - `make_synthetic_voc` and `register_synthetic_quick` (the port's copies of
   those in cddmsl_tpu/data/datasets/synthetic.py): VOC with a bright
   rectangle exactly where each ground-truth box is;
-- `make_synthetic_coco` (the JAX package's writer without its keypoints,
-  and without the polygons in the json): a COCO-json set with one bright
-  diamond per box, registered as `{prefix}_train` / `{prefix}_val` by
+- `make_synthetic_coco` (the JAX package's writer without its keypoints):
+  a COCO-json set with one bright diamond per box and its polygon, registered as `{prefix}_train` / `{prefix}_val` by
   `register_synthetic_coco`; `make_synthetic_proposals` writes its
   precomputed-proposal pickle; `make_synthetic_bdd` moves it to the
   bdd_100k_val paths;
@@ -87,9 +86,10 @@ def register_synthetic_quick(root: str, prefix: str = "synthetic_voc") -> None:
 def make_synthetic_coco(root: str, n: int = 6, seed: int = 0, classes: Tuple[str, ...] = ("dog", "cat"),
                         hw: Tuple[int, int] = _FIXTURE_HW) -> Tuple[str, str]:
     """Writes a COCO-json set of `n` JPEGs under `root`/coco_synth, one bright
-    diamond per box, box sizes scaled from the 100x140 fixture to `hw`;
-    returns (json path, image root). At the default size the images are
-    the JAX package's, byte for byte."""
+    diamond per box with the diamond as its segmentation polygon (the
+    midpoints of the box's edges), box sizes scaled from the 100x140 fixture
+    to `hw`; returns (json path, image root). At the default size the
+    images and the json are the JAX package's, byte for byte."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -112,7 +112,8 @@ def make_synthetic_coco(root: str, n: int = 6, seed: int = 0, classes: Tuple[str
             inside = (np.abs(xx + 0.5 - cx) / (bw / 2.0) + np.abs(yy + 0.5 - cy) / (bh / 2.0)) <= 1.0
             img[inside] = 255 if cid == 0 else 160
             annotations.append({"id": len(annotations) + 1, "image_id": i + 1, "category_id": cid + 1,
-                                "bbox": [x1, y1, bw, bh], "area": bw * bh / 2.0, "iscrowd": 0})
+                                "bbox": [x1, y1, bw, bh], "area": bw * bh / 2.0, "iscrowd": 0,
+                                "segmentation": [[cx, y1, x1 + bw, cy, cx, y1 + bh, x1, cy]]})
         Image.fromarray(img).save(os.path.join(img_root, f"{i:06d}.jpg"))
     categories = [{"id": c + 1, "name": name} for c, name in enumerate(classes)]
     json_path = os.path.join(root, "coco_synth", "instances.json")

@@ -25,6 +25,10 @@ class Transform:
         """boxes: (N, 4) XYXY float."""
         raise NotImplementedError
 
+    def apply_coords(self, coords: np.ndarray) -> np.ndarray:
+        """coords: (N, 2) float (x, y) points (polygon vertices)."""
+        raise NotImplementedError
+
 
 class NoOpTransform(Transform):
     def apply_image(self, img):
@@ -32,6 +36,9 @@ class NoOpTransform(Transform):
 
     def apply_box(self, boxes):
         return boxes
+
+    def apply_coords(self, coords):
+        return coords
 
 
 class ResizeTransform(Transform):
@@ -50,6 +57,12 @@ class ResizeTransform(Transform):
         boxes[:, 1::2] *= self.new_h / self.h
         return boxes
 
+    def apply_coords(self, coords: np.ndarray) -> np.ndarray:
+        coords = coords.astype(np.float32).copy()
+        coords[:, 0] *= self.new_w / self.w
+        coords[:, 1] *= self.new_h / self.h
+        return coords
+
 
 class HFlipTransform(Transform):
     def __init__(self, width: int):
@@ -65,6 +78,11 @@ class HFlipTransform(Transform):
         boxes[:, 0], boxes[:, 2] = x1, x2
         return boxes
 
+    def apply_coords(self, coords: np.ndarray) -> np.ndarray:
+        coords = coords.astype(np.float32).copy()
+        coords[:, 0] = self.width - coords[:, 0]
+        return coords
+
 
 class TransformList(Transform):
     def __init__(self, tfms: Sequence[Transform]):
@@ -79,6 +97,11 @@ class TransformList(Transform):
         for t in self.transforms:
             boxes = t.apply_box(boxes)
         return boxes
+
+    def apply_coords(self, coords):
+        for t in self.transforms:
+            coords = t.apply_coords(coords)
+        return coords
 
 
 class Augmentation:

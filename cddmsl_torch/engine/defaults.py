@@ -62,6 +62,7 @@ from ..device import resolve_device
 from ..evaluation import (
     COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
 )
+from ..evaluation.masks import paste_masks_np
 from ..models.build import build_detector, build_model
 from ..models.caption import ClipCaptionModel
 from ..models.gpt2 import GPT2Config
@@ -109,20 +110,22 @@ def default_setup(cfg: CfgNode, args=None) -> None:
 
 def build_evaluator(cfg: CfgNode, dataset_name: str):
     """The VOC evaluator (Watercolor and Comic scored on the 6 classes they
-    annotate), for a "coco" set the COCO bbox evaluator, which writes its
-    detections to OUTPUT_DIR/inference/coco_instances_results_<name>.json,
-    or for an "lvis" set the LVIS evaluator. Other evaluator types, and
-    COCO segm and keypoints, are not ported."""
+    annotate), for a "coco" set the COCO evaluator of bbox (and segm with
+    MODEL.MASK_ON), which writes its detections to
+    OUTPUT_DIR/inference/coco_instances_results_<name>.json, or for an
+    "lvis" set the LVIS evaluator. Other evaluator types, and COCO
+    keypoints, are not ported."""
     ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "pascal_voc")
     if ev_type == "pascal_voc":
         target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
         return PascalVOCDetectionEvaluator(dataset_name, target_classnames=target)
     if ev_type == "coco":
-        if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError(f"COCO segm and keypoint evaluation of {dataset_name} is not ported")
+        if cfg.MODEL.KEYPOINT_ON:
+            raise NotImplementedError(f"COCO keypoint evaluation of {dataset_name} is not ported")
         out_json = (os.path.join(cfg.OUTPUT_DIR, "inference", f"coco_instances_results_{dataset_name}.json")
                     if cfg.OUTPUT_DIR else None)
-        return COCOEvaluator(dataset_name, output_json=out_json)
+        tasks = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
+        return COCOEvaluator(dataset_name, output_json=out_json, tasks=tasks)
     if ev_type == "lvis":
         return LVISEvaluator(dataset_name)
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
@@ -373,7 +376,9 @@ class DefaultPredictor:
     builds the serving model with seeded random weights, then loads
     MODEL.WEIGHTS (a file `DetectionCheckpointer` wrote or a reference
     checkpoint) and then the text embeddings of MODEL.CLIP.TEXT_EMB_PATH
-    over it, in the order of the JAX package's `resume_or_load`."""
+    over it, in the order of the JAX package's `resume_or_load`. With a
+    mask head the output has "masks": (N, H, W) bool, pasted into the
+    original image (`paste_masks_np`)."""
 
     def __init__(self, cfg: CfgNode, model: Optional[torch.nn.Module] = None, device="cuda"):
         self.cfg = cfg
@@ -399,4 +404,7 @@ class DefaultPredictor:
                                 with_trgt=False)
         det = self.model.inference(to_device(batch, self.device))
         keep = det.valid[0].cpu()
-        return {k: getattr(det, k)[0].cpu()[keep].numpy() for k in ("boxes", "scores", "classes")}
+        out = {k: getattr(det, k)[0].cpu()[keep].numpy() for k in ("boxes", "scores", "classes")}
+        if det.masks is not None:  # the box-frame probabilities pasted into the original image
+            out["masks"] = paste_masks_np(det.masks[0].cpu()[keep].numpy(), out["boxes"], original_image.shape[:2])
+        return out

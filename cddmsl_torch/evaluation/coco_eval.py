@@ -1,5 +1,5 @@
-"""COCO-style bbox AP in numpy (the port's copy of the bbox path of
-cddmsl_tpu/evaluation/coco_eval.py `COCOEvaluator`).
+"""COCO-style bbox and segm AP in numpy (the port's copy of the bbox and
+segm paths of cddmsl_tpu/evaluation/coco_eval.py `COCOEvaluator`).
 
 101-point interpolated AP averaged over IoU .50:.95, AP50 and AP75, the
 small/medium/large area splits and the per-class AP, with crowd boxes as
@@ -13,11 +13,12 @@ keypoints are not ported.
 import json
 import os
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..data.catalog import MetadataCatalog
+from .masks import mask_iou_matrix, paste_masks_np, rle_area, rle_encode, segmentation_to_rle
 
 IOU_THRESHOLDS = np.linspace(0.5, 0.95, 10)  # pycocotools Params.setDetParams
 RECALL_POINTS = np.linspace(0.0, 1.0, 101)
@@ -44,16 +45,17 @@ def _iou_matrix(dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.nd
     return np.where(union > 0, inter / np.maximum(union, 1e-10), 0.0)
 
 
-def _eval_image(dets, det_scores, gts, gt_ignore, iscrowd, thresholds):
+def _eval_image(dets, det_scores, gts, gt_ignore, iscrowd, thresholds, ious=None):
     """Greedy matching per COCOeval.evaluateImg: for each threshold, the
     detections by score (descending) take the best free ground truth.
-    Returns the sorted scores and (T, D) true-positive and ignored flags."""
+    Returns the sorted scores and (T, D) true-positive and ignored flags.
+    `ious` (D, G) in the given orders replaces the box IoU (segm's mask IoU)."""
     order = np.argsort(-det_scores, kind="stable")
     dets = dets[order]
     # real ground truth before ignored (cocoeval sorts by the ignore flag)
     g_order = np.argsort(gt_ignore.astype(np.int8), kind="stable")
     gts, gt_ignore, iscrowd = gts[g_order], gt_ignore[g_order], iscrowd[g_order]
-    ious = _iou_matrix(dets, gts, iscrowd)
+    ious = _iou_matrix(dets, gts, iscrowd) if ious is None else ious[order][:, g_order]
     T, D, G = len(thresholds), len(dets), len(gts)
     tp = np.zeros((T, D), bool)
     ignore_det = np.zeros((T, D), bool)
@@ -89,54 +91,70 @@ def _box_area(boxes: np.ndarray) -> np.ndarray:
 
 class COCOEvaluator:
     """Accumulates detections and ground truth; `evaluate()` returns
-    {"bbox": {AP, AP50, AP75, APs, APm, APl, AP-<class>...}} and, with
-    `output_json`, writes the detections in the COCO results schema."""
+    {task: {AP, AP50, AP75, APs, APm, APl, AP-<class>...}} for each of
+    `tasks` ("bbox", and "segm") and, with `output_json`, writes the
+    detections in the COCO results schema."""
 
-    def __init__(self, dataset_name: str, output_json: Optional[str] = None):
+    def __init__(self, dataset_name: str, output_json: Optional[str] = None, tasks: Sequence[str] = ("bbox",)):
         classes = MetadataCatalog.get(dataset_name).get("thing_classes")
         self.num_classes = len(classes) if classes else 80
         self.class_names = classes
         self.output_json = output_json
+        self.tasks = tuple(tasks)
         self.reset()
 
     def reset(self):
-        self._dets = defaultdict(lambda: defaultdict(list))  # class -> image -> [(score, box)]
-        self._gts = defaultdict(lambda: defaultdict(list))  # class -> image -> [(box, iscrowd)]
+        self._dets = defaultdict(lambda: defaultdict(list))  # class -> image -> [(score, box, rle or None)]
+        self._gts = defaultdict(lambda: defaultdict(list))  # class -> image -> [(box, iscrowd, rle or None)]
         self._images = set()
 
-    def process(self, image_id, boxes, scores, classes):
+    def process(self, image_id, boxes, scores, classes, masks=None, image_hw=None):
+        """`masks` (N, M, M) box-frame probabilities: pasted at `image_hw`
+        and encoded when the segm task is on."""
         self._images.add(image_id)
-        for b, s, c in zip(boxes, scores, classes):
-            self._dets[int(c)][image_id].append((float(s), np.asarray(b, np.float64)))
+        rles = [None] * len(boxes)
+        if masks is not None and "segm" in self.tasks:
+            pasted = paste_masks_np(np.asarray(masks), np.asarray(boxes), image_hw)
+            rles = [rle_encode(m) for m in pasted]
+        for b, s, c, r in zip(boxes, scores, classes, rles):
+            self._dets[int(c)][image_id].append((float(s), np.asarray(b, np.float64), r))
 
-    def process_gt(self, image_id, boxes, classes, iscrowd=None):
+    def process_gt(self, image_id, boxes, classes, iscrowd=None, segmentations=None, image_hw=None):
+        """`segmentations`: per instance its COCO segmentation (original
+        image coordinates), encoded at `image_hw` for the segm task."""
         self._images.add(image_id)
         if iscrowd is None:
             iscrowd = np.zeros(len(boxes), bool)
-        for b, c, cr in zip(boxes, classes, iscrowd):
-            self._gts[int(c)][image_id].append((np.asarray(b, np.float64), bool(cr)))
+        rles = [None] * len(boxes)
+        if segmentations is not None and "segm" in self.tasks:
+            rles = [segmentation_to_rle(seg, image_hw) for seg in segmentations]
+        for b, c, cr, r in zip(boxes, classes, iscrowd, rles):
+            self._gts[int(c)][image_id].append((np.asarray(b, np.float64), bool(cr), r))
 
     def evaluate(self) -> Dict[str, Dict[str, float]]:
-        out = {"bbox": self._evaluate_bbox()}
+        out = {task: self._evaluate_task(task) for task in self.tasks}
         if self.output_json:
             self.dump_predictions(self.output_json)
         return out
 
     def dump_predictions(self, path: str) -> None:
         """The detections as COCO results: image_id, category_id (the
-        contiguous id), bbox in XYWH, score."""
+        contiguous id), bbox in XYWH, score, and with segm the mask's RLE."""
         records = []
         for c, per_img in self._dets.items():
             for img, dets in per_img.items():
-                for score, box in dets:
+                for score, box, rle in dets:
                     x1, y1, x2, y2 = [float(v) for v in box]
-                    records.append({"image_id": img, "category_id": int(c), "bbox": [x1, y1, x2 - x1, y2 - y1],
-                                    "score": float(score)})
+                    rec = {"image_id": img, "category_id": int(c), "bbox": [x1, y1, x2 - x1, y2 - y1],
+                           "score": float(score)}
+                    if rle is not None:
+                        rec["segmentation"] = rle
+                    records.append(rec)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(records, f)
 
-    def _evaluate_bbox(self) -> Dict[str, float]:
+    def _evaluate_task(self, task: str) -> Dict[str, float]:
         ap_per_class = {area: [] for area in AREA_RANGES}
         ap50, ap75 = [], []
         ap50_by_class = {}
@@ -145,7 +163,7 @@ class COCOEvaluator:
             if not any(len(v) for v in self._gts.get(c, {}).values()):
                 continue
             for area, (lo, hi) in AREA_RANGES.items():
-                precisions = self._class_pr(c, lo, hi)  # (T, 101)
+                precisions = self._class_pr(c, lo, hi, task)  # (T, 101)
                 ap = np.nan if precisions is None else float(np.mean(precisions))
                 ap_per_class[area].append(ap)
                 if area == "all":
@@ -156,7 +174,7 @@ class COCOEvaluator:
                         ap75.append(float(np.mean(precisions[5])))
                         ap50_by_class[c] = ap50[-1]
         return {
-            **self._ovd_splits(ap50_by_class),
+            **(self._ovd_splits(ap50_by_class) if task == "bbox" else {}),
             "AP": 100 * float(np.nanmean(ap_per_class["all"])) if ap_per_class["all"] else float("nan"),
             "AP50": 100 * float(np.mean(ap50)) if ap50 else float("nan"),
             "AP75": 100 * float(np.mean(ap75)) if ap75 else float("nan"),
@@ -179,28 +197,37 @@ class COCOEvaluator:
             out[f"AP50_split_{split}"] = 100 * float(np.mean(vals)) if vals else -1.0
         return out
 
-    def _class_pr(self, c: int, area_lo: float, area_hi: float) -> Optional[np.ndarray]:
-        """(T, 101) interpolated precision of class `c` in an area range;
-        None when it has no ground truth there."""
+    def _class_pr(self, c: int, area_lo: float, area_hi: float, task: str = "bbox") -> Optional[np.ndarray]:
+        """(T, 101) interpolated precision of class `c` in an area range for
+        `task`; None when it has no ground truth there. An image whose
+        detections or ground truth of the class have no mask is left out of
+        segm's matching (its ground truth still counts)."""
         T = len(IOU_THRESHOLDS)
         all_scores, all_tp, all_ign = [], [], []
         npos = 0
         det_imgs, gt_imgs = self._dets.get(c, {}), self._gts.get(c, {})
+        segm = task == "segm"
         for img in self._images:
             gt_list = gt_imgs.get(img, [])
-            gts = np.array([b for b, _ in gt_list]).reshape(-1, 4)
-            iscrowd = np.array([cr for _, cr in gt_list], bool)
-            areas = _box_area(gts)
+            gts = np.array([b for b, _, _ in gt_list]).reshape(-1, 4)
+            iscrowd = np.array([cr for _, cr, _ in gt_list], bool)
+            areas = np.array([rle_area(r) if r else 0.0 for _, _, r in gt_list]) if segm else _box_area(gts)
             gt_ignore = iscrowd | (areas < area_lo) | (areas > area_hi)
             npos += int((~gt_ignore).sum())
             det_list = det_imgs.get(img, [])
             if not det_list:
                 continue
-            det_boxes = np.array([b for _, b in det_list]).reshape(-1, 4)
-            det_scores = np.array([s for s, _ in det_list])
-            scores, tp, ign = _eval_image(det_boxes, det_scores, gts, gt_ignore, iscrowd, IOU_THRESHOLDS)
+            det_boxes = np.array([b for _, b, _ in det_list]).reshape(-1, 4)
+            det_scores = np.array([s for s, _, _ in det_list])
+            ious = None
+            if segm:
+                det_rles, gt_rles = [r for _, _, r in det_list], [r for _, _, r in gt_list]
+                if any(r is None for r in det_rles + gt_rles):
+                    continue
+                ious = mask_iou_matrix(det_rles, gt_rles, iscrowd)
+            scores, tp, ign = _eval_image(det_boxes, det_scores, gts, gt_ignore, iscrowd, IOU_THRESHOLDS, ious)
             # unmatched detections outside the area range are ignored
-            d_areas = _box_area(det_boxes)
+            d_areas = np.array([rle_area(r) for _, _, r in det_list], np.float64) if segm else _box_area(det_boxes)
             order = np.argsort(-det_scores, kind="stable")
             out_of_range = ((d_areas < area_lo) | (d_areas > area_hi))[order]
             ign = ign | (out_of_range[None, :] & ~tp)

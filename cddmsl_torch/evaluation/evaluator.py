@@ -13,32 +13,44 @@ from ..parallel import comm
 logger = logging.getLogger(__name__)
 
 
+def _segm(evaluator) -> bool:
+    return "segm" in getattr(evaluator, "tasks", ())
+
+
 def _feed(evaluator, meta: dict, det) -> None:
-    """One image's detections (boxes, scores, classes) and ground truth. The
+    """One image's detections (boxes, scores, classes, and box-frame masks
+    or None) and ground truth. With the segm task the masks and the
+    annotations' segmentations go in at the record's height and width. The
     ground truth's `difficult` flags (0 where a record has none) go in
     third, as in the JAX package, where `COCOEvaluator.process_gt` takes
     them as `iscrowd`. An LVIS record's `neg_category_ids` and
     `not_exhaustive_category_ids` go to an evaluator that says it takes
     them (`accepts_lvis_ignore`)."""
-    evaluator.process(meta["image_id"], *det)
+    boxes, scores, classes, masks = det
+    segm = masks is not None and _segm(evaluator)
+    hw = (meta.get("height"), meta.get("width")) if segm else None
+    evaluator.process(meta["image_id"], boxes, scores, classes, **({"masks": masks, "image_hw": hw} if segm else {}))
     if "annotations" in meta:
         annos = meta["annotations"]
         gb = np.array([a["bbox"] for a in annos], np.float32).reshape(-1, 4)
         gc = np.array([a["category_id"] for a in annos], np.int32).reshape(-1)
         gd = np.array([a.get("difficult", 0) for a in annos], bool).reshape(-1)
-        ignore = {}
+        extra = {}
+        if segm:
+            extra = {"segmentations": [a.get("segmentation") for a in annos], "image_hw": hw}
         if "neg_category_ids" in meta and getattr(evaluator, "accepts_lvis_ignore", False):
-            ignore = {"neg_category_ids": meta["neg_category_ids"],
-                      "not_exhaustive_category_ids": meta.get("not_exhaustive_category_ids", ())}
-        evaluator.process_gt(meta["image_id"], gb, gc, gd, **ignore)
+            extra.update(neg_category_ids=meta["neg_category_ids"],
+                         not_exhaustive_category_ids=meta.get("not_exhaustive_category_ids", ()))
+        evaluator.process_gt(meta["image_id"], gb, gc, gd, **extra)
 
 
 def inference_on_dataset(model, data_loader, num_images: int, evaluator, device=None) -> dict:
     """Runs `model.inference` over the loader's (DetBatch, metas) pairs on
     `device` (the model's own by default), feeds the evaluator each real
-    image's detections and ground truth, and returns its metrics. The rows
-    past len(metas) repeat the batch's last image and are dropped. Reading
-    the detections back to the host is each batch's sync.
+    image's detections (with their masks when the model gives masks and the
+    evaluator has the segm task) and ground truth, and returns its metrics.
+    The rows past len(metas) repeat the batch's last image and are dropped.
+    Reading the detections back to the host is each batch's sync.
 
     Under a process group each rank infers its rows of every batch; rank 0
     gathers the real rows' detections, feeds the evaluator in the single
@@ -55,11 +67,13 @@ def inference_on_dataset(model, data_loader, num_images: int, evaluator, device=
         t0 = time.perf_counter()
         det = model.inference(to_device(batch, device))
         boxes, scores, classes, valid = (t.cpu().numpy() for t in (det.boxes, det.scores, det.classes, det.valid))
+        masks = det.masks.cpu().numpy() if getattr(det, "masks", None) is not None and _segm(evaluator) else None
         total_compute += time.perf_counter() - t0
 
         t1 = time.perf_counter()
         lo = comm.get_rank() * len(boxes)
-        rows = [(boxes[i][valid[i]], scores[i][valid[i]], classes[i][valid[i]])
+        rows = [(boxes[i][valid[i]], scores[i][valid[i]], classes[i][valid[i]],
+                 None if masks is None else masks[i][valid[i]])
                 for i in range(min(len(boxes), len(metas) - lo))]
         if world == 1:
             for meta, d in zip(metas, rows):

@@ -73,6 +73,9 @@ def build_model(config: ModelConfig, device="cuda", training: bool = False) -> G
         v2l_mapper_tokens=config.v2l_mapper_tokens,
         dtype=compute_dtype(config.compute_dtype),
         training_modules=training,
+        mask_head=dict(num_conv=config.mask_num_conv, conv_dim=config.mask_conv_dim,
+                       cls_agnostic=config.mask_cls_agnostic, canvas_stride=config.mask_canvas_stride)
+        if config.mask_on else None,
     )
     return model.to(device).eval()
 
@@ -170,7 +173,9 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
     loss's beta and weight, class-agnostic boxes, the classifier), the
     tower's (DEPTH, NUM_GROUPS, WIDTH_PER_GROUP or TPU.BACKBONE_WIDTH,
     STRIDE_IN_1X1), DC5 at RES5_DILATION 2, precomputed proposals at
-    PROPOSAL_GENERATOR.NAME PrecomputedProposals, and the compute dtype."""
+    PROPOSAL_GENERATOR.NAME PrecomputedProposals, both box losses' types,
+    the mask head's (MASK_ON, ROI_MASK_HEAD.{NUM_CONV, CONV_DIM,
+    CLS_AGNOSTIC_MASK}, TPU.MASK_CANVAS_STRIDE) and the compute dtype."""
     check_supported(cfg)
     m = cfg.MODEL
     return dict(
@@ -201,7 +206,14 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
         num_groups=m.RESNETS.NUM_GROUPS,
         stride_in_1x1=m.RESNETS.STRIDE_IN_1X1,
         box_reg_loss_weight=m.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT,
+        box_reg_loss_type=m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE,
+        rpn_box_reg_loss_type=m.RPN.BBOX_REG_LOSS_TYPE,
         cls_agnostic_bbox_reg=m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG,
+        mask_on=m.MASK_ON,
+        mask_num_conv=m.ROI_MASK_HEAD.NUM_CONV,
+        mask_conv_dim=m.ROI_MASK_HEAD.CONV_DIM,
+        mask_cls_agnostic=m.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK,
+        mask_canvas_stride=float(cfg.TPU.MASK_CANVAS_STRIDE),
         dc5=m.RESNETS.RES5_DILATION == 2,
         load_proposals=m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals",
         dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),

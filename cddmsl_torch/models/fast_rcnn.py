@@ -34,6 +34,9 @@ class DetectionResult(NamedTuple):
     scores: torch.Tensor  # (B, D)
     classes: torch.Tensor  # (B, D) int32
     valid: torch.Tensor  # (B, D) bool
+    # (B, D, M, M) mask probabilities in each box's frame (MASK_ON
+    # inference); the evaluator pastes them into the image on the host
+    masks: Optional[torch.Tensor] = None
 
 
 class FastRCNNOutputLayers(nn.Module):
@@ -89,11 +92,13 @@ def fast_rcnn_losses(
     bg_loss_weight: Optional[float] = None,
     smooth_l1_beta: float = 0.0,
     box_reg_loss_weight: float = 1.0,
+    box_reg_loss_type: str = "smooth_l1",
 ) -> Dict[str, torch.Tensor]:
     """Focal-scaled cross-entropy with an optional background weight, and the
-    smooth-L1 box loss (L1 at `smooth_l1_beta` 0), times
-    `box_reg_loss_weight`, of the ground-truth class (of the one box when
-    `deltas` has 4 columns) over foreground rows. Both are means over the valid rows, as the JAX package
+    smooth-L1 box loss (L1 at `smooth_l1_beta` 0), or with
+    `box_reg_loss_type` "giou" 1 - GIoU of the decoded box against its ground
+    truth, times `box_reg_loss_weight`, of the ground-truth class (of the one
+    box when `deltas` has 4 columns) over foreground rows. Both are means over the valid rows, as the JAX package
     takes them; under a process group over the global batch's valid rows
     (a sampler that does not fill its quota leaves ranks with different
     counts), so that the ranks' mean is the global loss."""
@@ -115,8 +120,12 @@ def fast_rcnn_losses(
     else:
         fg_cls = torch.clamp(gt_classes, 0, num_classes - 1).long()
         fg_deltas = torch.gather(deltas.reshape(n, num_classes, 4), 1, fg_cls[:, None, None].expand(-1, 1, 4))[:, 0]
-    gt_deltas = box2box.get_deltas(proposal_boxes, gt_boxes)
-    reg = smooth_l1(fg_deltas, gt_deltas, smooth_l1_beta).sum(dim=1)
+    if box_reg_loss_type == "giou":
+        reg = 1.0 - box_ops.pairwise_giou(box2box.apply_deltas(fg_deltas, proposal_boxes), gt_boxes)
+    elif box_reg_loss_type == "smooth_l1":
+        reg = smooth_l1(fg_deltas, box2box.get_deltas(proposal_boxes, gt_boxes), smooth_l1_beta).sum(dim=1)
+    else:
+        raise ValueError(f"box_reg_loss_type {box_reg_loss_type!r}: 'smooth_l1' or 'giou'")
     loss_box = (reg * fg.float()).sum() / n_valid * box_reg_loss_weight
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 

@@ -1,8 +1,11 @@
-"""The FPN family's Faster R-CNN (counterpart of cddmsl_tpu/models/fpn_rcnn.py
-`FPNRCNN`, box path): detectron2's Base-RCNN-FPN (ResNet or ResNeXt + FPN,
-the RPN over p2..p6, `StandardROIHeads` pooling 7x7 from p2..p5) and, with
-`dc5`, Base-RCNN-DilatedC5 (the dilated res5 as the one map of the RPN,
-all anchor sizes on it, and of the heads). With `load_proposals` there is
+"""The FPN family's Faster and Mask R-CNN (counterpart of
+cddmsl_tpu/models/fpn_rcnn.py `FPNRCNN`, box and mask paths): detectron2's
+Base-RCNN-FPN (ResNet or ResNeXt + FPN, the RPN over p2..p6,
+`StandardROIHeads` pooling 7x7 from p2..p5, and with `mask_on` 14x14 for
+the mask head) and, with `dc5`, Base-RCNN-DilatedC5 (the dilated res5 as
+the one map of the RPN, all anchor sizes on it, and of the heads). Either
+box loss may be the GIoU one (`rpn_box_reg_loss_type`,
+`box_reg_loss_type`). With `load_proposals` there is
 no RPN: the proposals are the batch's precomputed ones
 (MODEL.LOAD_PROPOSALS, PROPOSAL_GENERATOR.NAME PrecomputedProposals).
 
@@ -62,12 +65,20 @@ class FPNRCNN(nn.Module):
         load_proposals: bool = False,
         fpn_out_channels: int = 256,
         res2_out_channels: int = 256,
+        box_reg_loss_type: str = "smooth_l1",
+        rpn_box_reg_loss_type: str = "smooth_l1",
+        mask_on: bool = False,
+        mask_num_conv: int = 4,
+        mask_conv_dim: int = 256,
+        mask_cls_agnostic: bool = False,
+        mask_canvas_stride: float = 4.0,
         dtype: torch.dtype = torch.float32,
     ):
         """`backbone_width` is WIDTH_PER_GROUP (TPU.BACKBONE_WIDTH where
         set); `emb_dim` the second fc's width (1024 in JAX's builds);
         `res2_out_channels` and `fpn_out_channels` narrow the towers for
-        tests."""
+        tests. `mask_on` adds the mask head (MODEL.MASK_ON, ROI_MASK_HEAD.*,
+        TPU.MASK_CANVAS_STRIDE)."""
         super().__init__()
         self.dtype = dtype
         self.dc5 = dc5
@@ -94,6 +105,7 @@ class FPNRCNN(nn.Module):
                 loss_weight=rpn_loss_weight,
                 smooth_l1_beta=rpn_smooth_l1_beta,
                 box_reg_loss_weight=rpn_box_reg_loss_weight,
+                box_reg_loss_type=rpn_box_reg_loss_type,
             )
         self.roi_heads = StandardROIHeads(
             num_classes=num_classes,
@@ -111,6 +123,9 @@ class FPNRCNN(nn.Module):
             cls_agnostic_bbox_reg=cls_agnostic_bbox_reg,
             smooth_l1_beta=roi_smooth_l1_beta,
             box_reg_loss_weight=box_reg_loss_weight,
+            box_reg_loss_type=box_reg_loss_type,
+            mask_head=dict(num_conv=mask_num_conv, conv_dim=mask_conv_dim, cls_agnostic=mask_cls_agnostic,
+                           canvas_stride=mask_canvas_stride) if mask_on else None,
         )
 
     def features(self, images: torch.Tensor):
@@ -147,7 +162,8 @@ class FPNRCNN(nn.Module):
 
     def supervised_losses(self, batch: DetBatch, draw: Draw) -> Dict[str, torch.Tensor]:
         """The RPN's losses (none with precomputed proposals) and the box
-        head's, on the training proposals; draw sites as GeneralizedRCNN's."""
+        head's (and the mask head's), on the training proposals; draw sites
+        as GeneralizedRCNN's."""
         head, rpn_levels = self.features(batch.image)
         rpn_losses = {}
         if self.load_proposals:
@@ -158,7 +174,8 @@ class FPNRCNN(nn.Module):
                 draw=draw,
             )
         det_losses = self.roi_heads(head, proposals, batch.image_sizes, training=True, gt_boxes=batch.gt_boxes,
-                                    gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw)
+                                    gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
+                                    gt_masks=batch.gt_masks)
         return {**det_losses, **rpn_losses}
 
     def cddmsl_losses(self, batch: DetBatch, draw: Draw, caption_on: bool = False, kd_regularization: bool = True,

@@ -70,6 +70,8 @@ class DetBatch(NamedTuple):
     proposal_boxes: Optional[torch.Tensor] = None  # (B, K, 4) XYXY in canvas coords
     proposal_scores: Optional[torch.Tensor] = None  # (B, K) objectness logits, -inf where padded
     proposal_valid: Optional[torch.Tensor] = None  # (B, K) bool
+    # (B, G, H/s, W/s) {0, 1} uint8 ground-truth canvases at TPU.MASK_CANVAS_STRIDE s (MASK_ON)
+    gt_masks: Optional[torch.Tensor] = None
 
 
 def normalize(images: torch.Tensor, pixel_mean, pixel_std, dtype, unit_range: bool = True) -> torch.Tensor:
@@ -152,7 +154,10 @@ class GeneralizedRCNN(nn.Module):
         v2l_mapper_tokens: int = 40,
         dtype: torch.dtype = torch.float32,
         training_modules: bool = False,
+        mask_head: Optional[dict] = None,
     ):
+        """`mask_head` (MODEL.MASK_ON): the mask head's num_conv, conv_dim,
+        cls_agnostic and canvas_stride, on res5's crops."""
         super().__init__()
         if backbone_type not in ("clip", "d2_resnet"):
             raise ValueError(f"backbone_type {backbone_type!r}: 'clip' or 'd2_resnet'")
@@ -205,6 +210,8 @@ class GeneralizedRCNN(nn.Module):
             soft_nms=soft_nms,
             no_box_delta=no_box_delta,
             multiply_rpn_score=multiply_rpn_score,
+            mask_head=mask_head,
+            res5_channels=backbone_width * 32 if backbone_type == "clip" else 2048,
         )
         if training_modules and backbone_type == "clip":
             # frozen second copy: the KD teacher of the caption branch
@@ -347,7 +354,8 @@ class GeneralizedRCNN(nn.Module):
         return r_src, rh._region_embed(f_trgt, boxes, backbone.res5_forward, backbone.attnpool_forward)
 
     def supervised(self, batch: DetBatch, draw: Draw):
-        """The supervised RPN and RoI losses on the source view, with the
+        """The supervised RPN and RoI losses (with a mask head "loss_mask"
+        too) on the source view, with the
         res4 map and the training proposals they came from: (losses, res4,
         Proposals)."""
         f_src = self.extract_res4(batch.image)
@@ -357,6 +365,7 @@ class GeneralizedRCNN(nn.Module):
         det_losses = self.roi_heads(
             f_src, proposals, batch.image_sizes, self.backbone.res5_forward, self._box_pool, training=True,
             gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
+            gt_masks=batch.gt_masks,
         )
         return {**det_losses, **rpn_losses}, f_src, proposals
 

@@ -1,11 +1,14 @@
 """RoI heads (counterpart of cddmsl_tpu/models/roi_heads.py
-`CLIPRes5ROIHeads` and, box path only, `CLIPStandardROIHeads`).
+`CLIPRes5ROIHeads` and, box and mask paths, `CLIPStandardROIHeads`).
 
 `StandardROIHeads`, the FPN family's: the 7x7 multi-level pooler
 (models/poolers.py: K1 once per level, K3 for its gradient), two ReLU fcs,
 fc1 reading the pooled map flattened in HWC order (JAX's; a detectron2
 file's CHW fc1 is permuted when it loads), and the box predictor; training
-samples proposals as the C4 heads do and takes the smooth-L1 box loss.
+samples proposals as the C4 heads do and takes the smooth-L1 (or GIoU) box
+loss. With a mask head (MODEL.MASK_ON) a second pooler pools 14x14 from the
+same levels (K1 once per level again, K3 for its gradient) for
+models/mask_head.py's head.
 
 `CLIPRes5ROIHeads`, the C4 heads: RoIAlign 14x14 at 1/16 on res4 (kernels K1 and, for its
 gradient, K3 on the card) -> the backbone's res5 on every crop -> the
@@ -14,7 +17,17 @@ attention pool and the cosine classifier, or with the linear classifier
 NMS (kernel K4) or soft-NMS; training matches and samples the proposals
 (with the ground truth appended) and returns the Fast R-CNN losses.
 `forward_get_features` pools the same boxes from two maps for the
-region-level consistency loss."""
+region-level consistency loss. With a mask head the training mask loss
+reads the same res5 crops the box head reads, and inference pools the final
+boxes again (one more K1 launch), runs res5 on them and the head.
+
+In training both mask branches run on the leading rows of each image's
+samples, where the sampler packs its foreground rows: the
+`mask_head.foreground_rows` of its quota, or more where keys tied at the
+quota's threshold kept more positives (`_mask_losses`). JAX runs the head
+on all of them and masks the loss to the foreground, with the same loss
+and gradients.
+"""
 
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -26,6 +39,7 @@ from ..ops.box_regression import Box2BoxTransform
 from ..ops.roi_align import roi_align_batched
 from ..structures import boxes as box_ops
 from .fast_rcnn import DetectionResult, FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
+from .mask_head import MaskRCNNConvUpsampleHead, foreground_rows, mask_branch_losses, mask_rcnn_inference
 from .matcher import Matcher
 from .poolers import ROIPooler
 from .rpn import Proposals
@@ -45,18 +59,20 @@ def pool_boxes(features: torch.Tensor, boxes: torch.Tensor, resolution: int = 14
 
 
 class ProposalSampling(nn.Module):
-    """`label_and_sample_proposals` of both heads: they set num_classes,
-    batch_size_per_image, positive_fraction and an IoU-0.5 `matcher`."""
+    """`label_and_sample_proposals` of both heads, and their mask branch's
+    loss and inference: they set num_classes, batch_size_per_image,
+    positive_fraction, an IoU-0.5 `matcher` and call `_init_mask_branch`."""
 
     @torch.no_grad()
     def label_and_sample_proposals(
         self, proposals: Proposals, gt_boxes: torch.Tensor, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
         draw: Draw,
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Proposals (B, P) with the ground truth (B, G) appended
         (PROPOSAL_APPEND_GT) -> per image `batch_size_per_image` samples,
         positives first: boxes (B, S, 4), classes (B, S) in [0, K], matched
-        ground-truth boxes (B, S, 4) and valid (B, S). Draw sites "roi_pos",
+        ground-truth boxes (B, S, 4), valid (B, S) and the index of each
+        sample's matched ground truth (B, S). Draw sites "roi_pos",
         "roi_neg", "roi_gather", each (B, P+G)."""
         pboxes = torch.cat([proposals.boxes, gt_boxes], dim=1)
         pvalid = torch.cat([proposals.valid, gt_valid], dim=1)
@@ -75,9 +91,40 @@ class ProposalSampling(nn.Module):
         )
         idx, valid = gather_selected(pos_sel, neg_sel, self.batch_size_per_image, draw("roi_gather", (b, n)))
         take = lambda t: torch.gather(t, 1, idx[..., None].expand(-1, -1, 4))
-        matched_gt = torch.gather(gt_boxes, 1, torch.gather(matched_idxs, 1, idx)[..., None].expand(-1, -1, 4))
+        sampled_idx = torch.gather(matched_idxs, 1, idx)
+        matched_gt = torch.gather(gt_boxes, 1, sampled_idx[..., None].expand(-1, -1, 4))
         sampled_classes = torch.where(valid, torch.gather(classes, 1, idx), k)
-        return take(pboxes), sampled_classes, matched_gt, valid
+        return take(pboxes), sampled_classes, matched_gt, valid, sampled_idx
+
+    def _mask_losses(self, regions_fn: Callable, boxes, classes, valid, matched_idx, gt_masks) -> torch.Tensor:
+        """`loss_mask` over the leading F samples of each image, which hold
+        every foreground sample: F is `mask_rows`, the sampler's quota of
+        positives, unless a tie at the quota's threshold kept more (the
+        sampler keeps every tied key, as JAX's does), and then the most
+        that an image kept (reading the count is one host sync a step).
+        `regions_fn(boxes (B, F, 4))` gives their pooled regions."""
+        fg = valid & (classes >= 0) & (classes < self.num_classes)
+        f = max(self.mask_rows, int(fg.sum(1).max()))
+        boxes = boxes[:, :f]
+        return mask_branch_losses(self.mask_head, regions_fn(boxes), gt_masks, boxes, classes[:, :f], valid[:, :f],
+                                  matched_idx[:, :f], self.num_classes, self.mask_canvas_stride)
+
+    def _with_masks(self, detections: DetectionResult, regions: torch.Tensor) -> DetectionResult:
+        """The detections with the head's probabilities of their classes on
+        `regions`, pooled for their boxes: masks (B, D, M, M)."""
+        b, d = detections.boxes.shape[:2]
+        probs = mask_rcnn_inference(self.mask_head(regions), detections.classes.reshape(b * d))
+        return detections._replace(masks=probs.reshape(b, d, *probs.shape[1:]))
+
+    def _init_mask_branch(self, mask_head: Optional[dict], in_channels: int) -> None:
+        """`mask_head`: None, or the head's num_conv, conv_dim, cls_agnostic
+        and canvas_stride (TPU.MASK_CANVAS_STRIDE)."""
+        self.mask_head = None
+        if mask_head is not None:
+            mask_head = dict(mask_head)
+            self.mask_canvas_stride = float(mask_head.pop("canvas_stride", 4.0))
+            self.mask_head = MaskRCNNConvUpsampleHead(in_channels, self.num_classes, **mask_head)
+            self.mask_rows = foreground_rows(self.batch_size_per_image, self.positive_fraction)
 
 
 class CLIPRes5ROIHeads(ProposalSampling):
@@ -102,12 +149,15 @@ class CLIPRes5ROIHeads(ProposalSampling):
         soft_nms: Optional[Tuple[str, float, float]] = None,
         no_box_delta: bool = False,
         multiply_rpn_score: bool = False,
+        mask_head: Optional[dict] = None,
+        res5_channels: int = 2048,
     ):
         """`emb_dim` is the width of the classifier's input: the attention
         pool's output with `use_text_emb`, else res5's channels. `soft_nms`
         = (method, sigma, prune) replaces the detection NMS. `no_box_delta`
         keeps the proposal boxes; `multiply_rpn_score` folds each
-        proposal's objectness logit into its class scores."""
+        proposal's objectness logit into its class scores. `mask_head`
+        (`_init_mask_branch`) adds the mask head on res5's `res5_channels`."""
         super().__init__()
         self.num_classes = num_classes
         self.batch_size_per_image = batch_size_per_image
@@ -127,6 +177,7 @@ class CLIPRes5ROIHeads(ProposalSampling):
                                                   cls_agnostic_bbox_reg)
         self.box2box = Box2BoxTransform(bbox_reg_weights)
         self.matcher = Matcher((0.5,), (0, 1), allow_low_quality_matches=False)
+        self._init_mask_branch(mask_head, res5_channels)
 
     def pool(self, features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """features (B, H, W, C), boxes (B, S, 4) -> (B*S, P, P, C)."""
@@ -135,8 +186,11 @@ class CLIPRes5ROIHeads(ProposalSampling):
     def _region_embed(self, features, boxes, res5_fn: Callable, attnpool_fn: Optional[Callable]) -> torch.Tensor:
         """(B,H,W,C) x (B,S,4) -> (B*S, emb): pool -> res5 -> the attention
         pool, or without one the mean over the crop."""
-        x = res5_fn(self.pool(features, boxes))
-        return attnpool_fn(x) if attnpool_fn is not None else x.mean(dim=(1, 2))
+        return self._embed(res5_fn(self.pool(features, boxes)), attnpool_fn)
+
+    @staticmethod
+    def _embed(r5: torch.Tensor, attnpool_fn: Optional[Callable]) -> torch.Tensor:
+        return attnpool_fn(r5) if attnpool_fn is not None else r5.mean(dim=(1, 2))
 
     def forward_get_features(
         self, features_src: torch.Tensor, features_trgt: torch.Tensor, boxes: torch.Tensor,
@@ -161,26 +215,37 @@ class CLIPRes5ROIHeads(ProposalSampling):
         gt_classes: Optional[torch.Tensor] = None,
         gt_valid: Optional[torch.Tensor] = None,
         draw: Optional[Draw] = None,
+        gt_masks: Optional[torch.Tensor] = None,
     ):
-        """Inference: the detections (DetectionResult). Training: the losses
-        {"loss_cls", "loss_box_reg"} over the sampled proposals."""
+        """Inference: the detections (DetectionResult, with masks when the
+        heads have a mask head). Training: the losses {"loss_cls",
+        "loss_box_reg"} over the sampled proposals, and "loss_mask" against
+        the canvases `gt_masks` (B, G, H/s, W/s)."""
         if training:
             if gt_boxes is None or gt_classes is None or gt_valid is None or draw is None:
                 raise ValueError("RoI-head training needs gt_boxes, gt_classes, gt_valid and draw")
-            boxes, classes, matched_gt, valid = self.label_and_sample_proposals(
+            boxes, classes, matched_gt, valid, matched_idx = self.label_and_sample_proposals(
                 proposals, gt_boxes, gt_classes, gt_valid, draw
             )
-            scores, deltas = self.box_predictor(self._region_embed(features, boxes, res5_fn, attnpool_fn))
-            n = boxes.shape[0] * boxes.shape[1]
-            return fast_rcnn_losses(
+            r5 = res5_fn(self.pool(features, boxes))  # the box and mask heads share res5's crops
+            scores, deltas = self.box_predictor(self._embed(r5, attnpool_fn))
+            b, s = boxes.shape[:2]
+            n = b * s
+            losses = fast_rcnn_losses(
                 scores, deltas, boxes.reshape(n, 4), matched_gt.reshape(n, 4), classes.reshape(n),
                 valid.reshape(n), self.num_classes, self.box2box, focal_gamma=self.focal_gamma,
                 bg_loss_weight=self.bg_loss_weight,
             )
+            if self.mask_head is not None:
+                crops = r5.reshape(b, s, *r5.shape[1:])
+                losses["loss_mask"] = self._mask_losses(
+                    lambda bx: crops[:, : bx.shape[1]].reshape(-1, *r5.shape[1:]), boxes, classes, valid,
+                    matched_idx, gt_masks)
+            return losses
         b, k = proposals.boxes.shape[:2]
         region_feats = self._region_embed(features, proposals.boxes, res5_fn, attnpool_fn)
         scores, deltas = self.box_predictor(region_feats)
-        return fast_rcnn_inference(
+        detections = fast_rcnn_inference(
             scores.reshape(b, k, -1),
             deltas.reshape(b, k, -1),
             proposals.boxes,
@@ -196,6 +261,9 @@ class CLIPRes5ROIHeads(ProposalSampling):
             rpn_scores=proposals.scores,
             multiply_rpn_score=self.multiply_rpn_score,
         )
+        if self.mask_head is not None:  # the final boxes pooled again, res5 on them
+            detections = self._with_masks(detections, res5_fn(self.pool(features, detections.boxes)))
+        return detections
 
 
 class FastRCNNFCHead(nn.Module):
@@ -217,7 +285,9 @@ class FastRCNNFCHead(nn.Module):
 class StandardROIHeads(ProposalSampling):
     """The FPN family's box heads: `pooler_scales` one per level (one level
     for DC5), a 2-fc head of `fc_dim` then `emb_dim`, the linear or
-    text-embedding predictor; smooth-L1 at `smooth_l1_beta`."""
+    text-embedding predictor; smooth-L1 at `smooth_l1_beta`, or 1 - GIoU
+    (`box_reg_loss_type`). `mask_head` (`_init_mask_branch`) adds the mask
+    branch: its own 14x14 pooler over the same levels."""
 
     def __init__(
         self,
@@ -237,6 +307,8 @@ class StandardROIHeads(ProposalSampling):
         cls_agnostic_bbox_reg: bool = False,
         smooth_l1_beta: float = 0.0,
         box_reg_loss_weight: float = 1.0,
+        box_reg_loss_type: str = "smooth_l1",
+        mask_head: Optional[dict] = None,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -247,6 +319,7 @@ class StandardROIHeads(ProposalSampling):
         self.detections_per_image = detections_per_image
         self.smooth_l1_beta = smooth_l1_beta
         self.box_reg_loss_weight = box_reg_loss_weight
+        self.box_reg_loss_type = box_reg_loss_type
         self.pooler_resolution = pooler_resolution
         self.pooler = ROIPooler(pooler_resolution, pooler_scales, sampling_ratio=0, min_level=2)
         self.box_head = FastRCNNFCHead(pooler_resolution * pooler_resolution * in_channels, fc_dim, emb_dim)
@@ -254,6 +327,9 @@ class StandardROIHeads(ProposalSampling):
                                                   cls_agnostic_bbox_reg)
         self.box2box = Box2BoxTransform((10.0, 10.0, 5.0, 5.0))
         self.matcher = Matcher((0.5,), (0, 1), allow_low_quality_matches=False)
+        self._init_mask_branch(mask_head, in_channels)
+        if self.mask_head is not None:
+            self.mask_pooler = ROIPooler(14, pooler_scales, sampling_ratio=0, min_level=2)
 
     def box_features(self, features: Sequence[torch.Tensor], boxes: torch.Tensor) -> torch.Tensor:
         """Per level (B, H_l, W_l, C), boxes (B, S, 4) -> (B*S, emb_dim)."""
@@ -269,26 +345,36 @@ class StandardROIHeads(ProposalSampling):
         gt_classes: Optional[torch.Tensor] = None,
         gt_valid: Optional[torch.Tensor] = None,
         draw: Optional[Draw] = None,
+        gt_masks: Optional[torch.Tensor] = None,
     ):
-        """Inference: the detections (DetectionResult). Training: the losses
-        {"loss_cls", "loss_box_reg"} over the sampled proposals."""
+        """Inference: the detections (DetectionResult, with masks when the
+        heads have a mask head). Training: the losses {"loss_cls",
+        "loss_box_reg"} over the sampled proposals, and "loss_mask" against
+        the canvases `gt_masks`."""
         if training:
             if gt_boxes is None or gt_classes is None or gt_valid is None or draw is None:
                 raise ValueError("RoI-head training needs gt_boxes, gt_classes, gt_valid and draw")
-            boxes, classes, matched_gt, valid = self.label_and_sample_proposals(
+            boxes, classes, matched_gt, valid, matched_idx = self.label_and_sample_proposals(
                 proposals, gt_boxes, gt_classes, gt_valid, draw
             )
             scores, deltas = self.box_predictor(self.box_features(features, boxes))
             n = boxes.shape[0] * boxes.shape[1]
-            return fast_rcnn_losses(
+            losses = fast_rcnn_losses(
                 scores, deltas, boxes.reshape(n, 4), matched_gt.reshape(n, 4), classes.reshape(n),
                 valid.reshape(n), self.num_classes, self.box2box, smooth_l1_beta=self.smooth_l1_beta,
-                box_reg_loss_weight=self.box_reg_loss_weight,
+                box_reg_loss_weight=self.box_reg_loss_weight, box_reg_loss_type=self.box_reg_loss_type,
             )
+            if self.mask_head is not None:
+                losses["loss_mask"] = self._mask_losses(lambda bx: self.mask_pooler(features, bx), boxes, classes,
+                                                        valid, matched_idx, gt_masks)
+            return losses
         b, k = proposals.boxes.shape[:2]
         scores, deltas = self.box_predictor(self.box_features(features, proposals.boxes))
-        return fast_rcnn_inference(
+        detections = fast_rcnn_inference(
             scores.reshape(b, k, -1), deltas.reshape(b, k, -1), proposals.boxes, proposals.valid, image_sizes,
             self.box2box, self.num_classes, score_thresh=self.score_thresh_test, nms_thresh=self.nms_thresh_test,
             topk_per_image=self.detections_per_image,
         )
+        if self.mask_head is not None:
+            detections = self._with_masks(detections, self.mask_pooler(features, detections.boxes))
+        return detections

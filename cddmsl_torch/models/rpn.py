@@ -4,6 +4,10 @@ proposals (kernel K4 for the NMS) and, in training, anchor matching (IoU
 0.3 / 0.7 with low-quality matches), balanced sampling and the objectness
 and smooth-L1 box losses (L1 at beta 0).
 
+With `box_reg_loss_type` "giou" the box loss decodes each positive
+anchor's deltas and takes 1 - GIoU against its matched ground truth
+(MODEL.RPN.BBOX_REG_LOSS_TYPE); BBOX_REG_LOSS_WEIGHT scales it either way.
+
 `FPNRPN` runs one shared head on every FPN level, each with its own anchor
 grid, takes each level's pre-NMS top-k, matches the anchors of all levels
 jointly, and keeps the post-NMS top-k of one NMS over all levels' candidates,
@@ -79,8 +83,11 @@ class RPN(nn.Module):
         min_box_size: float = 0.0,
         smooth_l1_beta: float = 0.0,
         box_reg_loss_weight: float = 1.0,
+        box_reg_loss_type: str = "smooth_l1",
     ):
         super().__init__()
+        if box_reg_loss_type not in ("smooth_l1", "giou"):
+            raise ValueError(f"box_reg_loss_type {box_reg_loss_type!r}: 'smooth_l1' or 'giou'")
         self.stride = stride
         self.anchor_offset = anchor_offset
         self.batch_size_per_image = batch_size_per_image
@@ -92,6 +99,7 @@ class RPN(nn.Module):
         self.min_box_size = min_box_size
         self.smooth_l1_beta = smooth_l1_beta
         self.box_reg_loss_weight = box_reg_loss_weight
+        self.box_reg_loss_type = box_reg_loss_type
         self.cell_anchors = generate_cell_anchors(anchor_sizes, anchor_aspect_ratios)
         self.rpn_head = StandardRPNHead(in_channels, self.cell_anchors.shape[0])
         self.box2box = Box2BoxTransform(bbox_reg_weights)
@@ -134,8 +142,9 @@ class RPN(nn.Module):
         return anchors, logits, deltas
 
     def _losses(self, anchors, logits, deltas, gt_boxes, gt_valid, draw: Draw) -> Dict[str, torch.Tensor]:
-        """Matching, balanced sampling, BCE objectness and smooth-L1 box loss, summed
-        over the sampled anchors and normalized by batch_size_per_image * B."""
+        """Matching, balanced sampling, BCE objectness and the smooth-L1 (or
+        1 - GIoU) box loss, summed over the sampled anchors and normalized by
+        batch_size_per_image * B."""
         b, n = logits.shape
         iou = box_ops.pairwise_iou(gt_boxes, anchors.expand(b, -1, -1))  # (B, G, A)
         matched_idxs, match_labels = self.matcher(iou, gt_valid)
@@ -144,8 +153,12 @@ class RPN(nn.Module):
             draw("rpn_pos", (b, n)), draw("rpn_neg", (b, n)),
         )
         matched_gt = torch.gather(gt_boxes, 1, matched_idxs[..., None].expand(-1, -1, 4))  # (B, A, 4)
-        gt_deltas = self.box2box.get_deltas(anchors.expand(b, -1, -1), matched_gt)
-        loc = (smooth_l1(deltas, gt_deltas, self.smooth_l1_beta) * pos_sel[..., None]).sum()
+        if self.box_reg_loss_type == "giou":
+            pred = self.box2box.apply_deltas(deltas, anchors.expand(b, -1, -1))
+            loc = ((1.0 - box_ops.pairwise_giou(pred, matched_gt)) * pos_sel).sum()
+        else:
+            gt_deltas = self.box2box.get_deltas(anchors.expand(b, -1, -1), matched_gt)
+            loc = (smooth_l1(deltas, gt_deltas, self.smooth_l1_beta) * pos_sel[..., None]).sum()
         target = pos_sel.float()
         bce = torch.clamp(logits, min=0) - logits * target + torch.log1p(torch.exp(-torch.abs(logits)))
         cls = (bce * (pos_sel | neg_sel)).sum()

@@ -122,3 +122,52 @@ def build(*kernels: CudaKernel) -> float:
                 s[0].kill()
                 s[0].wait()
     return time.perf_counter() - t0
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++"), shutil.which("clang++")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("no host C++ compiler (c++, g++ or clang++) found to build the host libraries")
+
+
+class HostLibrary:
+    """One csrc/*.cpp file for the host, built by the host C++ compiler at
+    first use into `csrc/build/` (the name carries a hash of the source and
+    flags, as `CudaKernel`'s) and loaded through ctypes. `functions` maps
+    each exported C name to its argtypes; each returns nothing. A failed
+    build raises: nothing falls back to another implementation."""
+
+    FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+    def __init__(self, source: str, functions: Dict[str, Sequence]):
+        self.source = CSRC / source
+        self.functions = functions
+        self._lib: Optional[ctypes.CDLL] = None
+
+    @property
+    def library_path(self) -> Path:
+        digest = hashlib.sha1(self.source.read_bytes() + " ".join(self.FLAGS).encode()).hexdigest()[:12]
+        return BUILD_DIR / f"lib{self.source.stem}_host_{digest}.so"
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            out = self.library_path
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([_cxx(), *self.FLAGS, "-o", str(tmp), str(self.source)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"building {self.source.name} failed:\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(str(out))
+            for name, argtypes in self.functions.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = None
+            self._lib = lib
+        return self._lib
+
+    def call(self, name: str, *args) -> None:
+        getattr(self.library(), name)(*args)

@@ -60,3 +60,22 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     union = a1 + a2 - inter
     ok = union > 0
     return torch.where(ok, inter / torch.where(ok, union, torch.ones_like(union)), torch.zeros_like(union))
+
+
+def pairwise_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU of aligned rows, (..., 4), (..., 4) -> (...) in
+    [-1, 1]: the IoU (0 where the union is 0) less the share of the
+    enclosing box that the union leaves empty (0 where the enclosing box is
+    empty)."""
+    wh = torch.clamp(torch.minimum(boxes1[..., 2:4], boxes2[..., 2:4])
+                     - torch.maximum(boxes1[..., :2], boxes2[..., :2]), min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(boxes1) + area(boxes2) - inter
+    ok = union > 0
+    iou = torch.where(ok, inter / torch.where(ok, union, torch.ones_like(union)), torch.zeros_like(union))
+    wh = torch.clamp(torch.maximum(boxes1[..., 2:4], boxes2[..., 2:4])
+                     - torch.minimum(boxes1[..., :2], boxes2[..., :2]), min=0.0)
+    enclosing = wh[..., 0] * wh[..., 1]
+    ok = enclosing > 0
+    return iou - torch.where(ok, (enclosing - union) / torch.where(ok, enclosing, torch.ones_like(enclosing)),
+                             torch.zeros_like(enclosing))

@@ -207,16 +207,40 @@ Phases, each of which fails the run with a non-zero exit:
      every ROI, the other levels' rows NaN), K4 at its RPN NMS, K1 at each
      level and K4 at both NMS of the eval batch (the detection NMS on
      `seeded_candidates`), as in phase 7.
+ 17. Mask R-CNN (`mask_path`), bf16, seeded random weights, over the same
+     fixture with its diamond polygons: (a) `DefaultTrainer` on
+     configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml (batch 8
+     at 800x1344, stride-4 ground-truth canvases): 12 steps at K1/K3/K4
+     8/8/1 a step (the box and the mask pooler once per level each) or the
+     run fails, every loss finite (loss_mask too), the FrozenBN statistics
+     bit-equal, the final test through `COCOEvaluator` with bbox and segm
+     (8/0/2 a batch); an eval batch's ms/image, the mask pool and head on
+     100 seeded final boxes an image, the host paste (held equal to its
+     full-grid plain version) and the RLE encoding timed apart, and the step
+     on a batch already on the card; (b) mask_rcnn_CLIP_R_50_C4_1x.yaml
+     (CLIP RN50, the text classifier from a seeded 80-row file): 3 steps on
+     a device batch of 8 at 1/1/1 a step, one eval batch at 2/0/2 (the
+     proposals' pool and the final boxes' re-pool) with its masks pasted
+     and encoded, and its stages timed (res4, proposals, the re-pool, and
+     the re-pool with res5 and the mask head on the final boxes); (c) mask_rcnn_R_50_FPN_1x_giou.yaml: 3 steps on a device
+     batch, every loss finite; (d) K1 and K3 at each level of (a)'s mask
+     pool, K1 at each level of the eval batch's mask pool and at (b)'s
+     re-pool, K4 at (a)'s RPN and detection NMS, as in phase 7; (e)
+     configs/quick_schedules/segm_training_acc_test.yaml through
+     `train_net.main` (fp32, TF32 off), its bbox and segm AP50 printed
+     beside JAX's goldens, not judged.
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
-`.../ovd`, `.../fpn`). `launches` counts
+`.../ovd`, `.../fpn`, `.../mask`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
 the teacher's test; for ddp, both ranks of world 2 under gloo; for
 pretrain, 6 steps; for language_tools, the region features' batches; for
 plain_r50, 12 steps and the final test; for ovd, (a)'s and (c)'s eval
-batches and (b)'s 9 steps; for fpn, (a)'s 12 steps and final test);
+batches and (b)'s 9 steps; for fpn, (a)'s 12 steps and final test; for
+mask, (a)'s 12 steps and final test, (b)'s 3 steps and eval batch, (c)'s
+3 steps);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -226,8 +250,10 @@ step's: K1 3, K3 2, K4 4; for ddp one rank's step and eval batch: K1 4,
 K3 3, K4 3; for pretrain one step's: K1 2, K3 1; for language_tools the
 first region-feature batch: K1 1, K4 1; for plain_r50 one step and one
 eval batch: K1 2, K3 1, K4 3; for ovd one step and one eval batch: K1 2,
-K3 1, K4 3; for fpn one step and one eval batch: K1 8, K3 4, K4 3): the
-largest error and the sums of the times and bounds.
+K3 1, K4 3; for fpn one step and one eval batch: K1 8, K3 4, K4 3; for
+mask (a)'s mask pool, the eval batch's mask pool and (b)'s re-pool, (a)'s
+RPN and eval NMS: K1 9, K3 4, K4 3): the largest error and the sums of the
+times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -566,7 +592,7 @@ def check_tiny_against_cpu(dev):
     orig = torch.tensor([[256, 320], [224, 200]], dtype=torch.int32)
     want = cpu.inference(DetBatch(image, sizes, orig))
     got = gpu.inference(DetBatch(image.to(dev), sizes.to(dev), orig.to(dev)))
-    got = type(got)(*(t.cpu() for t in got))
+    got = type(got)(*(None if t is None else t.cpu() for t in got))
     ok = (torch.equal(got.valid, want.valid) and torch.equal(got.classes, want.classes)
           and (got.boxes - want.boxes).abs().max().item() <= 1e-2
           and (got.scores - want.scores).abs().max().item() <= 1e-4)
@@ -3183,11 +3209,12 @@ def unit_scale_stem(model):
     return model
 
 
-def level_pool_calls(roi_heads, levels, boxes, label):
-    """The K1 launches of the multi-level pooler on boxes (B, S, 4): per FPN
-    level (call, features, batch_idx, boxes with the other levels' rows NaN,
-    pooled size, scale), as `ROIPooler` hands them to `roi_align_batched`."""
-    pooler = roi_heads.pooler
+def level_pool_calls(roi_heads, levels, boxes, label, pooler=None):
+    """The K1 launches of the multi-level pooler (the box pooler unless
+    `pooler` is given) on boxes (B, S, 4): per FPN level (call, features,
+    batch_idx, boxes with the other levels' rows NaN, pooled size, scale),
+    as `ROIPooler` hands them to `roi_align_batched`."""
+    pooler = pooler or roi_heads.pooler
     bidx, per_level = pooler.level_boxes(boxes)
     return [(f"{label} p{i + 2}" if len(levels) > 1 else label, feat.contiguous(), bidx, level_boxes,
              pooler.output_size, scale)
@@ -3384,6 +3411,340 @@ def fpn_path(dev, smi, roi_ops, nms_ops):
                 MetadataCatalog.remove(name)
         shutil.rmtree(root, ignore_errors=True)
 
+# Phase 17: Mask R-CNN on both detector families over the COCO fixture with
+# its diamond polygons: (a) the FPN recipe, 12 steps and the final test;
+# (b) the CLIP C4 recipe, 3 steps and an eval batch; (c) the GIoU recipe, 3
+# steps; (d) K1, K3 and K4 at the path's shapes; (e) the segm golden
+MASK_STEPS, MASK_C4_STEPS, MASK_GIOU_STEPS = 12, 3, 3
+MASK_NAMES = ("chip_smoke_mask_train", "chip_smoke_mask_val")
+MASK_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml"
+MASK_C4_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_CLIP_R_50_C4_1x.yaml"
+MASK_GIOU_CONFIG = "COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x_giou.yaml"
+MASK_SEED = 17
+# the segm golden's AP50 from JAX's own runs (the schedule's yaml files)
+SEGM_GOLDEN_AP50 = {"bbox": 12.822, "segm": 6.733}
+
+
+def mask_step_pool_calls(model, batch, draw):
+    """The mask pool of one FPN Mask R-CNN step, rebuilt outside autograd:
+    the leading `mask_rows` sampled ROIs of each image, one call per level."""
+    rpn, rh = model.proposal_generator, model.roi_heads
+    head, rpn_levels = model.features(batch.image)
+    proposals = rpn._predict_levels(rpn._levels(rpn_levels), batch.image_sizes, True)
+    sampled = rh.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)[0]
+    return level_pool_calls(rh, head, sampled[:, :rh.mask_rows], "mask supervised", rh.mask_pooler)
+
+
+def seeded_detections(batch, num_classes, per_image, seed):
+    """`per_image` seeded boxes of 24..400 px inside each image's true size
+    with seeded classes, all valid, in the padded input frame: a few steps
+    from random weights leave the detection stage with nothing to paste."""
+    from cddmsl_torch.models.fast_rcnn import DetectionResult
+
+    dev = batch.image.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = batch.image.shape[0]
+    hw = batch.image_sizes.to(dev).float()[:, None, :]
+    size = 24 + torch.rand((b, per_image, 2), generator=gen, device=dev) * 376
+    size = torch.minimum(size, hw.flip(-1) - 1)
+    lo = torch.rand((b, per_image, 2), generator=gen, device=dev) * (hw.flip(-1) - size)
+    boxes = torch.cat([lo, lo + size], -1)
+    classes = torch.randint(0, num_classes, (b, per_image), generator=gen, device=dev, dtype=torch.int32)
+    scores = torch.rand((b, per_image), generator=gen, device=dev)
+    return DetectionResult(boxes=boxes, scores=scores, classes=classes, valid=torch.ones_like(scores, dtype=torch.bool))
+
+
+def host_paste_ms(det, batch, n_img):
+    """The evaluator's host work on `det`'s masks, timed apart: the paste
+    into each original image (`paste_masks_np`, the host library) and the
+    run-length encoding; also the full-grid plain paste of the first image,
+    held equal to it. Returns (paste ms/image, encode ms/image, masks)."""
+    import numpy as np
+
+    from cddmsl_torch.evaluation.masks import paste_masks_full_grid, paste_masks_np, rle_encode
+
+    masks = det.masks.float().cpu().numpy()
+    boxes = det.boxes.float().cpu().numpy()
+    orig = batch.orig_sizes.cpu().numpy()
+    t0 = time.perf_counter()
+    pasted = [paste_masks_np(masks[i], boxes[i], tuple(orig[i])) for i in range(n_img)]
+    t1 = time.perf_counter()
+    rles = [[rle_encode(m) for m in p] for p in pasted]
+    t2 = time.perf_counter()
+    plain = paste_masks_full_grid(masks[0], boxes[0], tuple(orig[0]))
+    if not np.array_equal(plain, pasted[0]):
+        fail(f"the host paste disagrees with its full-grid plain version on {int((plain != pasted[0]).sum())} pixels")
+    area = sum(int(p.sum()) for p in pasted)
+    return (t1 - t0) * 1e3 / n_img, (t2 - t1) * 1e3 / n_img, sum(len(r) for r in rles), area
+
+
+def mask_path(dev, smi, roi_ops, nms_ops):
+    """Phase 17: Mask R-CNN at full width (bf16, seeded random weights, the
+    stem scaled by `unit_scale_stem`) over the synthetic COCO fixture with
+    its diamond polygons. (a) `DefaultTrainer.train()` on
+    configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml (R-50 FPN,
+    80 classes, batch 8 at the 800x1344 pad): 12 steps at K1/K3/K4 8/8/1 a
+    step (the box and the mask pooler once per level each) or the run
+    fails, every loss finite (loss_mask too), the FrozenBN statistics
+    bit-equal, the final test through `COCOEvaluator` with bbox and segm
+    at 8/0/2 a batch; an eval batch's ms/image, its mask head on seeded
+    final boxes with the host paste and the RLE encoding timed apart, and
+    the step on a batch already on the card. (b)
+    mask_rcnn_CLIP_R_50_C4_1x.yaml (CLIP RN50, the text classifier from a
+    seeded 80-row file): 3 steps on a device batch of 8 at 1/1/1 a step,
+    one eval batch at 2/0/2 (the proposals' pool and the final boxes'
+    re-pool), its masks pasted and encoded. (c) mask_rcnn_R_50_FPN_1x_giou:
+    3 steps on a device batch, every loss finite. (d) K1 and K3 at each
+    level of (a)'s mask pool, K1 at each level of the eval batch's mask
+    pool and at (b)'s re-pool, K4 at (a)'s RPN and detection NMS, checked
+    and timed as in phase 7. (e) quick_schedules/segm_training_acc_test.yaml
+    through `train_net.main` (fp32), its bbox and segm AP50 printed beside
+    JAX's, not judged. Returns the path's rows."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch import train_net
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.coco import register_coco_instances
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_coco, register_synthetic_coco
+    from cddmsl_torch.engine.defaults import DefaultTrainer, default_argument_parser
+    from cddmsl_torch.models.rcnn import rescale_detections
+
+    class ProbedTrainer(DefaultTrainer):
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            return [self.probe] + super().build_hooks()
+
+        def run_step(self, batch):
+            metrics = super().run_step(batch)
+            self.step_losses.append({k: v.detach() for k, v in metrics.items() if k.startswith("loss")})
+            return metrics
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_mask_")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    names = {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_mask"}
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    try:
+        json_path, img_root = make_synthetic_coco(os.path.join(root, "coco"), n=FPN_IMAGES, seed=16,
+                                                  classes=COCO_CLASSES, hw=FPN_HW)
+        for name in MASK_NAMES:
+            register_coco_instances(name, json_path, img_root)
+        emb_path = os.path.join(root, "coco_text_emb.pth")
+        torch.save(torch.randn((80, 1024), generator=torch.Generator().manual_seed(MASK_SEED)), emb_path)
+
+        def mask_cfg(config, *opts):
+            cfg = get_cfg()
+            cfg.merge_from_file(os.path.join(here, "configs", config))
+            cfg.merge_from_list(["OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0", "DATASETS.TRAIN",
+                                 repr((MASK_NAMES[0],)), "DATASETS.TEST", repr((MASK_NAMES[1],)),
+                                 "SOLVER.IMS_PER_BATCH", "8", "SOLVER.MAX_ITER", str(MASK_STEPS),
+                                 "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0", *opts])
+            cfg.freeze()
+            return cfg
+
+        # (a) the FPN recipe through train()
+        cfg = mask_cfg(MASK_CONFIG)
+        print(f"mask (a): configs/{MASK_CONFIG} (R-{cfg.MODEL.RESNETS.DEPTH} FPN, mask head of "
+              f"{cfg.MODEL.ROI_MASK_HEAD.NUM_CONV} convs, {cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, "
+              f"{cfg.SOLVER.IMS_PER_BATCH} images a step padded to {tuple(cfg.TPU.PAD_SIZE_TRAIN)}, ground-truth "
+              f"canvases at stride {cfg.TPU.MASK_CANVAS_STRIDE}, {cfg.TPU.COMPUTE_DTYPE}) on the synthetic COCO "
+              f"fixture ({FPN_IMAGES} {FPN_HW[0]}x{FPN_HW[1]} images, one diamond polygon per box)")
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.step_losses = []
+        trainer.resume_or_load(resume=False)
+        model = unit_scale_stem(trainer.model)
+        if type(model).__name__ != "FPNRCNN" or model.roi_heads.mask_head is None:
+            fail(f"mask (a): the trainer built {type(model).__name__} without a mask head")
+        buffers = {n: (b, b.clone()) for n, b in model.named_buffers()}
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches_a = read_launches(roi_ops, nms_ops)
+        probe = trainer.probe
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("mask", probe, waits, MASK_STEPS, MASK_STEPS, ((8, 8, 1), (8, 8, 1)))
+        losses = [{k: v.item() for k, v in step.items()} for step in trainer.step_losses]
+        if len(losses) != MASK_STEPS or any(set(step) != names for step in losses) or not all(
+                math.isfinite(v) for step in losses for v in step.values()):
+            fail(f"mask (a): the losses are not the five finite ones: {losses}")
+        for i in (0, MASK_STEPS - 1):
+            print(f"mask step {i + 1} losses: {json.dumps({k: round(v, 6) for k, v in losses[i].items()})}")
+        changed = [n for n, (b, b0) in buffers.items() if not torch.equal(b, b0)]
+        if changed:
+            fail(f"mask (a): FrozenBN statistics changed: {changed[:5]}")
+        print(f"mask (a): all {len(buffers)} FrozenBN statistics bit-equal after {MASK_STEPS} steps")
+        warm = per_step[2:]
+        print(f"mask loop, steps 3-{MASK_STEPS}: {mean([p[0] for p in warm]):.3f} ms/step CUDA events, "
+              f"{mean([p[1] for p in warm]):.3f} ms/step host wall, {mean([p[2] for p in warm]):.3f} ms/step waiting "
+              f"on the loader; whole loop {probe.loop_s * 1e3 / MASK_STEPS:.3f} ms/step host wall; on {smi}")
+        n_test_batches = -(-FPN_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple((launches_a[k] - probe.loop_launches[k]) / n_test_batches for k in keys)
+        if per_batch != (8, 0, 2):
+            fail(f"the mask final test launched K1/K3/K4 {per_batch} per batch, expected (8, 0, 2)")
+        res = results[MASK_NAMES[1]]
+        if set(res) != {"bbox", "segm"}:
+            fail(f"mask (a): the final test gave {sorted(res)}, not bbox and segm")
+        ap = {task: {k: round(v, 4) for k, v in res[task].items() if k in ("AP", "AP50")} for task in res}
+        print(f"mask final test (COCOEvaluator bbox + segm): launches per batch K1/K3/K4 {per_batch}; AP (random "
+              f"weights, not judged) {json.dumps(ap)}")
+
+        eval_batch = first_eval_batch(cfg, MASK_NAMES[1], dev)
+        n_img = eval_batch.image.shape[0]
+        ms = cuda_ms(lambda: model.inference(eval_batch), 3, warmup=1)
+        det = model.inference(eval_batch)
+        if det.masks is None or tuple(det.masks.shape) != (n_img, 100, 28, 28) or not bool(
+                torch.isfinite(det.masks).all()):
+            fail(f"mask (a): inference gave masks {None if det.masks is None else tuple(det.masks.shape)}")
+        print(f"mask eval batch {tuple(eval_batch.image.shape)}: {ms / n_img:.3f} ms/image CUDA events (masks "
+              f"{tuple(det.masks.shape)} included), {det.valid.sum(1).tolist()} detections an image")
+        rh = model.roi_heads
+        head = model.features(eval_batch.image)[0]
+        seeded = seeded_detections(eval_batch, rh.num_classes, rh.detections_per_image, MASK_SEED)
+        head_ms = cuda_ms(lambda: rh._with_masks(seeded, rh.mask_pooler(head, seeded.boxes)), 3, warmup=1)
+        with_masks = rh._with_masks(seeded, rh.mask_pooler(head, seeded.boxes))
+        paste_ms, encode_ms, n_rle, area = host_paste_ms(rescale_detections(with_masks, eval_batch), eval_batch,
+                                                         n_img)
+        print(f"mask (a) on {rh.detections_per_image} seeded final boxes an image: the mask pool and head "
+              f"{head_ms / n_img:.3f} ms/image CUDA events; on the host the paste into the originals "
+              f"{paste_ms:.3f} ms/image (the window-only library, equal to the full-grid plain paste on image 0) "
+              f"and the RLE encoding {encode_ms:.3f} ms/image; {n_rle} masks, {area} pixels set")
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        if batch.gt_masks is None or batch.gt_masks.shape[-2:] != (200, 336):
+            fail(f"mask (a): the training batch's canvases are "
+                 f"{None if batch.gt_masks is None else tuple(batch.gt_masks.shape)}")
+        print(f"mask (a) training batch: canvases {tuple(batch.gt_masks.shape)} {batch.gt_masks.dtype}, "
+              f"{int(batch.gt_masks.sum())} pixels set")
+        time_device_batch("mask", trainer, batch, what="supervised, loss_mask on")
+        step_draw = trainer.state.draw
+        mask_calls = mask_step_pool_calls(model, batch, step_draw)
+        eval_mask_calls = level_pool_calls(rh, head, det.boxes, "mask eval", rh.mask_pooler)
+        _, eval_nms = fpn_eval_kernel_calls(model, eval_batch, FPN_CANDIDATES_SEED)
+        rpn_call = fpn_rpn_nms_call(model, batch, True)
+        del trainer, model, head
+        torch.cuda.empty_cache()
+
+        # (b) the CLIP C4 recipe on a device batch
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        cfg_c4 = mask_cfg(MASK_C4_CONFIG, "MODEL.CLIP.TEXT_EMB_PATH", emb_path)
+        c4 = DefaultTrainer(cfg_c4, device="cuda")
+        c4.resume_or_load(resume=False)
+        c4_model = c4.model
+        if type(c4_model).__name__ != "GeneralizedRCNN" or c4_model.roi_heads.mask_head is None:
+            fail(f"mask (b): built {type(c4_model).__name__} without a mask head")
+        with build_detection_train_loader(cfg_c4, seed=0, pin_memory=True) as train_loader:
+            c4_batch = to_device(next(train_loader), dev)
+        c4_ms = []
+        for i in range(MASK_C4_STEPS):
+            before = read_launches(roi_ops, nms_ops)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            metrics = c4.run_step(c4_batch)
+            e1.record()
+            torch.cuda.synchronize()
+            after = read_launches(roi_ops, nms_ops)
+            counts = tuple(after[k] - before[k] for k in keys)
+            step = {k: v.item() for k, v in metrics.items() if k.startswith("loss")}
+            if counts != (1, 1, 1) or set(step) != names or not all(math.isfinite(v) for v in step.values()):
+                fail(f"mask (b) step {i + 1}: K1/K3/K4 {counts} (expected (1, 1, 1)), losses {step}")
+            c4_ms.append(e0.elapsed_time(e1))
+            print(f"mask (b) step {i + 1}: {c4_ms[-1]:.3f} ms CUDA events, K1/K3/K4 {counts}, losses "
+                  f"{json.dumps({k: round(v, 6) for k, v in step.items()})}")
+        c4_eval = first_eval_batch(cfg_c4, MASK_NAMES[1], dev)
+        before = read_launches(roi_ops, nms_ops)
+        c4_det = c4_model.inference(c4_eval, do_postprocess=False)
+        torch.cuda.synchronize()
+        counts = tuple(read_launches(roi_ops, nms_ops)[k] - before[k] for k in keys)
+        if counts != (2, 0, 2) or c4_det.masks is None or tuple(c4_det.masks.shape[1:]) != (100, 14, 14):
+            fail(f"mask (b): an eval batch launched K1/K3/K4 {counts} (expected (2, 0, 2)), masks "
+                 f"{None if c4_det.masks is None else tuple(c4_det.masks.shape)}")
+        launches_b = read_launches(roi_ops, nms_ops)  # the timing below launches outside the path's run
+        c4_eval_ms = cuda_ms(lambda: c4_model.inference(c4_eval), 3, warmup=1)
+        paste_ms, encode_ms, n_rle, area = host_paste_ms(rescale_detections(c4_det, c4_eval), c4_eval,
+                                                         c4_eval.image.shape[0])
+        print(f"mask (b) configs/{MASK_C4_CONFIG}: steps {mean(c4_ms[1:]):.3f} ms/step CUDA events after the "
+              f"first; eval batch {tuple(c4_eval.image.shape)} K1/K3/K4 {counts}, "
+              f"{c4_eval_ms / c4_eval.image.shape[0]:.3f} ms/image, {c4_det.valid.sum(1).tolist()} detections an "
+              f"image, masks {tuple(c4_det.masks.shape)}; host paste {paste_ms:.3f} and RLE encoding "
+              f"{encode_ms:.3f} ms/image ({n_rle} masks, {area} pixels set)")
+        features = c4_model.backbone(c4_model._normalize(c4_eval.image))["res4"]
+        rh, backbone = c4_model.roi_heads, c4_model.backbone
+        stages = {
+            "res4": lambda: backbone(c4_model._normalize(c4_eval.image))["res4"],
+            "proposals": lambda: c4_model.proposals(c4_eval),
+            "re-pool": lambda: rh.pool(features, c4_det.boxes),
+            "re-pool, res5 and the mask head": lambda: rh._with_masks(
+                c4_det, backbone.res5_forward(rh.pool(features, c4_det.boxes))),
+        }
+        n_c4 = c4_eval.image.shape[0]
+        stage_ms = {k: round(cuda_ms(fn, 3, warmup=1) / n_c4, 3) for k, fn in stages.items()}
+        print(f"mask (b) eval stages, ms/image CUDA events (of {c4_eval_ms / n_c4:.3f} for the whole "
+              f"inference): {json.dumps(stage_ms)}")
+        c4_calls = [("mask c4 re-pool", *pool_args(features, c4_det.boxes))]
+        del c4, c4_model, features, rh, backbone, stages
+        torch.cuda.empty_cache()
+
+        # (c) the GIoU recipe on a device batch
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        cfg_giou = mask_cfg(MASK_GIOU_CONFIG)
+        giou = DefaultTrainer(cfg_giou, device="cuda")
+        giou.resume_or_load(resume=False)
+        unit_scale_stem(giou.model)
+        if giou.model.roi_heads.box_reg_loss_type != "giou" or giou.model.proposal_generator.box_reg_loss_type != \
+                "giou":
+            fail("mask (c): the GIoU recipe did not build GIoU box losses")
+        for i in range(MASK_GIOU_STEPS):
+            metrics = giou.run_step(batch)
+            step = {k: v.item() for k, v in metrics.items() if k.startswith("loss")}
+            if set(step) != names or not all(math.isfinite(v) for v in step.values()):
+                fail(f"mask (c) step {i + 1}: losses {step}")
+            print(f"mask (c) configs/{MASK_GIOU_CONFIG} step {i + 1}: "
+                  f"{json.dumps({k: round(v, 6) for k, v in step.items()})}")
+        launches_c = read_launches(roi_ops, nms_ops)
+        del giou
+        torch.cuda.empty_cache()
+        launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in keys}
+        print(f"mask path launches ((a) 12 steps and the final test, (b) 3 steps and an eval batch, (c) 3 steps): "
+              f"{launches}")
+
+        # (d) the kernels at the path's shapes
+        rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+        add_roi_rows(rows, dev, roi_ops, "mask", mask_calls, [call for call, *_ in mask_calls])
+        add_roi_rows(rows, dev, roi_ops, "mask", eval_mask_calls + c4_calls, [])
+        rows = {name: close_row(row) for name, row in rows.items()}
+        rows["nms"] = nms_row(nms_ops, "mask", launches["nms"], [rpn_call] + eval_nms)
+        del batch, eval_batch, mask_calls, eval_mask_calls, c4_calls
+        torch.cuda.empty_cache()
+
+        # (e) the segm golden's schedule from the port's own init and draws
+        register_synthetic_coco(os.path.join(root, "golden"))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            golden = train_net.main(default_argument_parser().parse_args([
+                "--config-file", os.path.join(here, "configs", "quick_schedules", "segm_training_acc_test.yaml"),
+                "OUTPUT_DIR", os.path.join(root, "golden_out"), "TEST.EXPECTED_RESULTS", "[]"]))
+        got = {task: golden["synthetic_coco_val"][task]["AP50"] for task in ("bbox", "segm")}
+        if not all(math.isfinite(v) for v in got.values()):
+            fail(f"mask (e): the segm schedule's AP50 is not finite: {got}")
+        print(f"mask (e) quick_schedules/segm_training_acc_test.yaml through train_net.main (fp32, TF32 off, "
+              f"{time.perf_counter() - t0:.1f} s): AP50 bbox {got['bbox']:.4f} (JAX's golden "
+              f"{SEGM_GOLDEN_AP50['bbox']}), segm {got['segm']:.4f} (JAX's golden {SEGM_GOLDEN_AP50['segm']}); the "
+              f"port's own init and draws, not judged")
+        print(f"mask phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return rows
+    finally:
+        for name in (*MASK_NAMES, "synthetic_coco_train", "synthetic_coco_val"):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 
 def free_port() -> int:
     import socket
@@ -3448,6 +3809,8 @@ def main() -> int:
     paths["ovd"] = ovd_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["fpn"] = fpn_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths["mask"] = mask_path(dev, smi, roi_ops, nms_ops)
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

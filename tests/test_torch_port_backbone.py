@@ -66,7 +66,8 @@ def _inverse_rules():
     return out
 
 
-_INVERSE_LAYOUT = {"conv": lambda s: (s[2], s[3], s[1], s[0]), "dense": lambda s: (s[1], s[0]), "copy": tuple}
+_INVERSE_LAYOUT = {"conv": lambda s: (s[2], s[3], s[1], s[0]), "dense": lambda s: (s[1], s[0]), "copy": tuple,
+                   "deconv": lambda s: (s[2], s[3], s[0], s[1])}
 
 
 def jax_param_shapes(model_config):

@@ -160,8 +160,6 @@ def test_coco_writer_and_loader_equal_jax(tmp_path):
     for name in sorted(os.listdir(want_root)):
         assert (Path(ours_root) / name).read_bytes() == (Path(want_root) / name).read_bytes(), name
     coco, want = json.loads(Path(ours_json).read_text()), json.loads(Path(want_json).read_text())
-    for a in want["annotations"]:
-        del a["segmentation"]  # the port's writer is boxes only
     assert coco == want
     # non-contiguous ids listed out of order, a crowd box, an image without boxes
     remap = {1: 17, 2: 5}
@@ -375,13 +373,17 @@ def test_coco_evaluator_equals_jax(tmp_path):
 
 
 def test_build_evaluator_takes_coco_for_boxes_only(tmp_path):
+    """bbox, and with MODEL.MASK_ON bbox and segm; keypoints are refused."""
     MetadataCatalog.get("port_test_coco_only").set(evaluator_type="coco", thing_classes=["a"])
     try:
         cfg = _tiny_cfg(OUTPUT_DIR=str(tmp_path))
         ev = build_evaluator(cfg, "port_test_coco_only")
         assert ev.output_json == str(tmp_path / "inference" / "coco_instances_results_port_test_coco_only.json")
+        assert ev.tasks == ("bbox",)
         cfg.MODEL.MASK_ON = True
-        with pytest.raises(NotImplementedError, match="segm"):
+        assert build_evaluator(cfg, "port_test_coco_only").tasks == ("bbox", "segm")
+        cfg.MODEL.KEYPOINT_ON = True
+        with pytest.raises(NotImplementedError, match="keypoint"):
             build_evaluator(cfg, "port_test_coco_only")
     finally:
         MetadataCatalog.remove("port_test_coco_only")

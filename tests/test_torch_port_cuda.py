@@ -37,10 +37,10 @@ ARGS = ((7, 7), 1 / 16, 0)
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _rois(dev, n=48):
@@ -363,5 +363,40 @@ def test_the_fpn_pooler_on_the_card_equals_the_plain_pooler(dev):
         runs.append((out.detach().cpu(), [f.grad.cpu() for f in fs]))
     (want, want_grads), (got, got_grads) = runs
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    for g_, w in zip(got_grads, want_grads):
+        torch.testing.assert_close(g_, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_the_mask_pooler_and_head_on_the_card_equal_the_cpu(dev):
+    """The FPN mask branch: a 14x14 `ROIPooler` over four levels (K1 a
+    level, K3 a level in the backward) into the mask head (4 convs, the
+    deconv, the predictor) and `mask_rcnn_loss` on seeded targets, on the
+    card against the same on the CPU's plain versions, in float32: the
+    logits within 1e-4 of their largest value, the loss within 1e-5
+    relative, each level's gradient within 1e-4 of its largest value."""
+    from cddmsl_torch.models.mask_head import MaskRCNNConvUpsampleHead, mask_rcnn_loss
+    from cddmsl_torch.models.poolers import ROIPooler
+
+    g = torch.Generator().manual_seed(4)
+    feats = [torch.randn((2, 112 // s, 176 // s, 16), generator=g) for s in (4, 8, 16, 32)]
+    xy = torch.rand((2, 12, 2), generator=g) * torch.tensor([150.0, 90.0])
+    boxes = torch.cat([xy, xy + 4 + torch.rand((2, 12, 2), generator=g) * 300], -1)
+    head = MaskRCNNConvUpsampleHead(16, 5, num_conv=4, conv_dim=16)
+    targets = (torch.rand((24, 28, 28), generator=g) > 0.5).float()
+    classes = torch.randint(0, 5, (24,), generator=g)
+    fg = torch.rand((24,), generator=g) > 0.3
+    pooler = ROIPooler(14, (1 / 4, 1 / 8, 1 / 16, 1 / 32))
+    runs = []
+    for device in ("cpu", dev):
+        h = head.to(device)
+        fs = [f.detach().clone().to(device).requires_grad_(True) for f in feats]
+        logits = h(pooler(fs, boxes.to(device)))
+        loss = mask_rcnn_loss(logits, targets.to(device), classes.to(device), fg.to(device))
+        loss.backward()
+        runs.append((logits.detach().cpu(), loss.item(), [f.grad.cpu() for f in fs]))
+    (want, want_loss, want_grads), (got, got_loss, got_grads) = runs
+    assert got.shape == (24, 28, 28, 5)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
     for g_, w in zip(got_grads, want_grads):
         torch.testing.assert_close(g_, w, rtol=0, atol=1e-4 * float(w.abs().max()))

@@ -448,17 +448,21 @@ def _fpn_cfg():
 
 
 @pytest.mark.parametrize("key, value", [
-    ("MODEL.MASK_ON", True), ("MODEL.KEYPOINT_ON", True), ("MODEL.ROI_HEADS.NAME", "CascadeROIHeads"),
+    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.KEYPOINT_ON", True), ("MODEL.ROI_HEADS.NAME", "CascadeROIHeads"),
     ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"), ("MODEL.BACKBONE.NAME", "build_regnet_fpn_backbone"),
     ("MODEL.RESNETS.NORM", "GN"), ("MODEL.FPN.NORM", "GN"), ("MODEL.ROI_BOX_HEAD.NUM_CONV", 4),
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 1), ("MODEL.ROI_BOX_HEAD.NORM", "GN"),
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]),
-    ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", "giou"), ("MODEL.RPN.BBOX_REG_LOSS_TYPE", "giou"),
+    ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", "diou"), ("MODEL.RPN.BBOX_REG_LOSS_TYPE", "diou"),
     ("MODEL.RESNETS.DEPTH", 18), ("MODEL.RESNETS.DEPTH", 34), ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 14 * 2),
     ("MODEL.CONSISTENCY_BRANCH", "image"), ("MODEL.CLIP.FOCAL_SCALED_LOSS", 0.5),
 ])
 def test_the_fpn_family_refuses_what_it_leaves_out_naming_the_key(key, value):
+    """GIoU and the mask head are ported: their keys are refused at other
+    values (a mask head's under MODEL.MASK_ON)."""
     cfg = _fpn_cfg()
+    if key.startswith("MODEL.ROI_MASK_HEAD."):
+        cfg.merge_from_list(["MODEL.MASK_ON", "True"])
     cfg.merge_from_list([key, repr(value) if not isinstance(value, str) else value])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg, world=1)
