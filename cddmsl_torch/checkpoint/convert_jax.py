@@ -18,7 +18,13 @@ the linear classifier's cls_score Dense to `cls_score.weight` and `.bias`.
 The mask head (roi_heads/mask_head: mask_fcn{i}, deconv, predictor) keeps
 detectron2's names; its flax deconv kernel (kh, kw, in, out), whose taps
 flax applies unflipped, becomes the ConvTranspose2d weight (in, out, kh,
-kw) with both spatial axes flipped.
+kw) with both spatial axes flipped. The keypoint head (the C4 heads'
+roi_heads/keypoint_branch/keypoint_head, the FPN heads' roi_heads/kp_head:
+conv_fcn{i}, score_lowres) goes to `roi_heads.keypoint_head.*`, its
+score_lowres deconv flipped the same way; the cascade's stages
+(roi_heads/stage{i}: fc1, fc2, cls_score, bbox_pred) to
+`roi_heads.box_head.{i}.fc1/fc2` and `roi_heads.box_predictor.{i}.*`,
+fc1's rows in the pooled map's HWC order, as the port's stage reads it.
 
 A JAX `FPNRCNN` or `FPNProposalNetwork` tree (it has `fpn`, or for DC5 a
 `roi_heads` with `box_head_fc1`) converts by the FPN family's rules: the
@@ -155,12 +161,32 @@ _MASK_HEAD_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"roi_heads/mask_head/deconv/kernel", r"roi_heads.mask_head.deconv.weight", "deconv"),
     (r"roi_heads/mask_head/(mask_fcn\d+|deconv|predictor)/bias", r"roi_heads.mask_head.\1.bias", "copy"),
 )
+
+def _keypoint_head_rules(name: str):
+    """A KRCNNConvDeconvUpsampleHead under roi_heads/`name` (FPN: kp_head;
+    C4: keypoint_branch/keypoint_head) -> roi_heads.keypoint_head."""
+    return (
+        (rf"roi_heads/{name}/(conv_fcn\d+)/kernel", r"roi_heads.keypoint_head.\1.weight", "conv"),
+        (rf"roi_heads/{name}/score_lowres/kernel", r"roi_heads.keypoint_head.score_lowres.weight", "deconv"),
+        (rf"roi_heads/{name}/(conv_fcn\d+|score_lowres)/bias", r"roi_heads.keypoint_head.\1.bias", "copy"),
+    )
+
+
+# the cascade's stages: stage{i}/fc1, fc2 -> box_head.{i}, cls_score, bbox_pred -> box_predictor.{i}
+_CASCADE_RULES: Tuple[Tuple[str, str, str], ...] = (
+    (r"roi_heads/stage(\d+)/(fc[12])/kernel", r"roi_heads.box_head.\1.\2.weight", "dense"),
+    (r"roi_heads/stage(\d+)/(fc[12])/bias", r"roi_heads.box_head.\1.\2.bias", "copy"),
+    (r"roi_heads/stage(\d+)/(cls_score|bbox_pred)/kernel", r"roi_heads.box_predictor.\1.\2.weight", "dense"),
+    (r"roi_heads/stage(\d+)/(cls_score|bbox_pred)/bias", r"roi_heads.box_predictor.\1.\2.bias", "copy"),
+)
 _RULES: Tuple[Tuple[str, str, str], ...] = (
     *_BACKBONE_RULES,
     *_D2_BACKBONE_RULES,
     *_rpn_rules("proposal_generator"),
     *_BOX_PREDICTOR_RULES,
     *_MASK_HEAD_RULES,
+    *_keypoint_head_rules("keypoint_branch/keypoint_head"),
+    *_CASCADE_RULES,
     *_mapper_rules("v2l_mapper"),
     *_projector_rules("projector"),
     *_projector_rules("image_projector"),
@@ -188,6 +214,8 @@ def _fpn_family_rules(tower: str):
         (r"roi_heads/box_head_fc([12])/bias", r"roi_heads.box_head.fc\1.bias", "copy"),
         *_BOX_PREDICTOR_RULES,
         *_MASK_HEAD_RULES,
+        *_keypoint_head_rules("kp_head"),
+        *_CASCADE_RULES,
     )
 
 

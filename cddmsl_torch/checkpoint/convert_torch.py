@@ -29,7 +29,9 @@ MODEL.CLIP.BB_RPN_WEIGHTS (`load_bb_rpn_weights`): detectron2's
 "backbone.*" ResNet keys and "proposal_generator.rpn_head.*".
 Only the keys the JAX converters take
 are read: the rest of the file, and every tensor of the model it names no
-key for, is left as it is. A key whose shape differs raises, where the JAX
+key for, is left as it is. Neither JAX converter takes a keypoint head
+(roi_heads.keypoint_head.*) or a cascade's stages (roi_heads.box_head.{i}.*,
+box_predictor.{i}.*): both loaders leave them as they were (ROADMAP C). A key whose shape differs raises, where the JAX
 package skips it with a warning.
 
 An HF GPT-2 state dict (`transformer.*` keys, or the same without the
@@ -186,7 +188,9 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
             _load_prefixed(model.proposal_generator.rpn_head, sd, "proposal_generator.rpn_head.",
                            f"{path}: RPN head", _RPN_HEAD)
             box, head = "roi_heads.box_predictor.", model.roi_heads.box_predictor
-            if head.use_text_emb:
+            if isinstance(head, nn.ModuleList):  # the cascade's stages: JAX's loader takes none
+                pass
+            elif head.use_text_emb:
                 _load_prefixed(head, _drop_background(sd, box, head.num_classes), box, f"{path}: box predictor",
                                _BOX_PREDICTOR)
             else:  # the linear classifier has the file's K + 1 rows

@@ -122,6 +122,14 @@ class ModelConfig:
     mask_conv_dim: int = 256
     mask_cls_agnostic: bool = False
     mask_canvas_stride: float = 4.0
+    # MODEL.KEYPOINT_ON and MODEL.ROI_KEYPOINT_HEAD.{NUM_KEYPOINTS,
+    # CONV_DIMS, LOSS_WEIGHT}; the normaliser is -1 (the visible keypoints)
+    # or NUM_KEYPOINTS x BATCH_SIZE_PER_IMAGE x POSITIVE_FRACTION per image
+    keypoint_on: bool = False
+    num_keypoints: int = 17
+    keypoint_conv_dims: Tuple[int, ...] = (512,) * 8
+    keypoint_loss_weight: float = 1.0
+    keypoint_loss_normalizer: float = -1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,7 +264,6 @@ _SUPPORTED_RUN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.META_ARCHITECTURE", lambda v: v == "GeneralizedRCNN"),
     *_SUPPORTED_TOWERS,
-    ("MODEL.KEYPOINT_ON", _falsy),
     ("MODEL.LOAD_PROPOSALS", _falsy),
     ("MODEL.CONSISTENCY_BRANCH", lambda v: v in CONSISTENCY_BRANCHES),
     ("MODEL.CAPTION_PL_LOSS", lambda v: v in ("pseudo_label", "kl")),
@@ -294,6 +301,53 @@ def _mask_checks(cfg) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
     return _SUPPORTED_MASK + semisup
 
 
+def _keypoint_checks(cfg, family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """With MODEL.KEYPOINT_ON: the keypoint head's keys that JAX's modules
+    leave unread, at the values they compute with. The FPN branch pools
+    14x14 (its own pooler, sampling ratio 0); the C4 branch pools res4 at
+    the box pooler's resolution with 2x2 samples whatever
+    POOLER_SAMPLING_RATIO says (ROADMAP C). The mean-teacher trainer's
+    batches carry no keypoints."""
+    if not cfg.MODEL.KEYPOINT_ON:
+        return ()
+    resolution = 14 if family == "fpn" else cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+    checks = (
+        ("MODEL.ROI_KEYPOINT_HEAD.NAME", lambda v: v == "KRCNNConvDeconvUpsampleHead"),
+        ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", lambda v: v == "ROIAlignV2"),
+        ("MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO", lambda v: v == 0),
+        ("MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION", lambda v: v == resolution),
+    )
+    return checks + ((("SEMISUPNET.Trainer", lambda v: v == "default"),) if "SEMISUPNET" in cfg else ())
+
+
+_DEFAULT_CASCADE_IOUS = [0.5, 0.6, 0.7]
+_DEFAULT_CASCADE_WEIGHTS = [[10.0, 10.0, 5.0, 5.0], [20.0, 20.0, 10.0, 10.0], [30.0, 30.0, 15.0, 15.0]]
+
+
+def _cascade_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """What the cascade heads take. Their stages are fixed in JAX's
+    modules: 2 fcs of 1024, a linear classifier, class-agnostic smooth-L1
+    (beta 0) boxes, weights (10,10,5,5), (20,20,10,10), (30,30,15,15),
+    which no builder reads from ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS. The
+    FPN build passes no ROI_BOX_CASCADE_HEAD.IOUS either (the stages match
+    at 0.5, 0.6, 0.7) and no keypoint head (JAX asserts); the C4 build
+    (CascadeRCNN) reads IOUS, one stage for each of up to three."""
+    checks = [
+        ("MODEL.KEYPOINT_ON", _falsy),
+        ("MODEL.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS", lambda v: [list(w) for w in v] == _DEFAULT_CASCADE_WEIGHTS),
+        ("MODEL.ROI_BOX_CASCADE_HEAD.IOUS", (lambda v: 1 <= len(v) <= 3) if family == "cascade_c4"
+         else (lambda v: list(v) == _DEFAULT_CASCADE_IOUS)),
+        ("MODEL.CLIP.USE_TEXT_EMB_CLASSIFIER", _falsy),
+    ]
+    if family == "fpn":
+        checks += [("MODEL.ROI_BOX_HEAD.FC_DIM", lambda v: v == 1024),
+                   ("MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", lambda v: v == 0.0),
+                   ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", lambda v: v == "smooth_l1"),
+                   ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT", lambda v: v == 1.0),
+                   ("MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK", _falsy)]
+    return tuple(checks)
+
+
 FPN_TOWER = "build_resnet_fpn_backbone"
 FPN_IN_FEATURES = ["res2", "res3", "res4", "res5"]
 FPN_RPN_FEATURES = ["p2", "p3", "p4", "p5", "p6"]
@@ -306,12 +360,17 @@ def model_family(cfg) -> str:
     `check_supported` refuses), "fpn" (FPNRCNN: BACKBONE.NAME names an
     fpn_backbone), "dc5" (FPNRCNN on the one dilated res5 map:
     RESNETS.RES5_DILATION 2), "proposal_fpn" or "proposal_c4"
-    (ProposalNetwork on the FPN or on res4)."""
+    (ProposalNetwork on the FPN or on res4) or "cascade_c4" (CascadeRCNN on
+    res4: MODEL.META_ARCHITECTURE CascadeRCNN, or ROI_HEADS.NAME
+    CascadeROIHeads without an fpn_backbone)."""
     m = cfg.MODEL
     fpn = "fpn_backbone" in m.BACKBONE.NAME
     if m.META_ARCHITECTURE == "ProposalNetwork":
         return "proposal_fpn" if fpn else "proposal_c4"
-    if m.META_ARCHITECTURE == "GeneralizedRCNN" and not (m.ROI_HEADS.NAME == "CascadeROIHeads" and not fpn):
+    if m.META_ARCHITECTURE == "CascadeRCNN" or (
+            m.META_ARCHITECTURE == "GeneralizedRCNN" and m.ROI_HEADS.NAME == "CascadeROIHeads" and not fpn):
+        return "cascade_c4"
+    if m.META_ARCHITECTURE == "GeneralizedRCNN":
         if fpn:
             return "fpn"
         if m.RESNETS.RES5_DILATION == 2:
@@ -326,6 +385,7 @@ def _describe(cfg, family: str) -> str:
         "dc5": "the DC5 detector (MODEL.RESNETS.RES5_DILATION = 2: JAX's FPNRCNN on the one res5 map)",
         "proposal_fpn": f"ProposalNetwork on the FPN (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r})",
         "proposal_c4": f"ProposalNetwork on res4 (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r})",
+        "cascade_c4": "the C4 cascade (JAX's CascadeRCNN on res4)",
     }[family]
 
 
@@ -338,17 +398,20 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
     (MODEL.RPN.*, ANCHOR_GENERATOR.* and BACKBONE.NAME are not read), as
     JAX's does. The feature lists, ROI_HEADS.NAME and POOLER_RESOLUTION,
     which JAX's modules do not read either, are taken at the family's value
-    or at the tree's default (the quick schedules leave them unset)."""
+    or at the tree's default (the quick schedules leave them unset). The C4
+    cascade, like ProposalNetwork on res4, builds its RPN from the module's
+    defaults, its tower from RESNETS.DEPTH and its heads from NUM_CLASSES
+    and ROI_BOX_CASCADE_HEAD.IOUS (`_cascade_checks`)."""
     fpn, proposal = family in ("fpn", "proposal_fpn"), family.startswith("proposal")
+    rpn_only_c4 = family in ("proposal_c4", "cascade_c4")
 
     def eq(*wants):
         return lambda v: (list(v) if isinstance(v, (list, tuple)) else v) in wants
 
     tower = {"fpn": eq(FPN_TOWER), "proposal_fpn": eq(FPN_TOWER), "dc5": eq(D2_TOWER),
-             "proposal_c4": lambda v: "fpn_backbone" not in v}[family]
+             "proposal_c4": lambda v: "fpn_backbone" not in v, "cascade_c4": lambda v: "fpn_backbone" not in v}[family]
     checks = [
         ("MODEL.BACKBONE.NAME", tower),
-        ("MODEL.KEYPOINT_ON", _falsy),
         ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
         ("MODEL.RESNETS.NORM", eq("FrozenBN")),
         ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
@@ -359,7 +422,7 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
                                           ["res4"])),
         ("MODEL.RPN.IN_FEATURES", eq(FPN_RPN_FEATURES if fpn else ["res5"] if family == "dc5" else ["res4"],
                                      ["res4"])),
-        ("MODEL.RPN.BBOX_REG_LOSS_TYPE", eq("smooth_l1", "giou") if not proposal else eq("smooth_l1")),
+        ("MODEL.RPN.BBOX_REG_LOSS_TYPE", eq("smooth_l1") if proposal or rpn_only_c4 else eq("smooth_l1", "giou")),
         ("MODEL.CONSISTENCY_BRANCH", _falsy),
         ("MODEL.PRE_TRAINED_RCLIP_PATH", _falsy),
         ("MODEL.VISION_TO_LANG_PATH", _falsy),
@@ -377,15 +440,18 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
     if fpn:
         checks += [("MODEL.FPN.IN_FEATURES", eq(FPN_IN_FEATURES, [])), ("MODEL.FPN.NORM", _falsy),
                    ("MODEL.FPN.FUSE_TYPE", eq("sum"))]
-    if proposal:
+    if family != "fpn":
+        checks += [("MODEL.KEYPOINT_ON", _falsy)]
+    if proposal or rpn_only_c4:
         checks += [("MODEL.MASK_ON", _falsy), ("MODEL.PROPOSAL_GENERATOR.NAME", eq("RPN")),
                    ("MODEL.LOAD_PROPOSALS", _falsy),
                    ("MODEL.RESNETS.NUM_GROUPS", eq(1)), ("MODEL.RESNETS.WIDTH_PER_GROUP", eq(64)),
                    ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True)]
         checks += [("MODEL.FPN.OUT_CHANNELS", eq(256))] if fpn else [("TPU.BACKBONE_WIDTH", _falsy)]
     else:
+        heads = ("StandardROIHeads", "CLIPStandardROIHeads", "CLIPRes5ROIHeads") + (("CascadeROIHeads",) if fpn else ())
         checks += [
-            ("MODEL.ROI_HEADS.NAME", eq("StandardROIHeads", "CLIPStandardROIHeads", "CLIPRes5ROIHeads")),
+            ("MODEL.ROI_HEADS.NAME", eq(*heads)),
             ("MODEL.ROI_HEADS.IN_FEATURES", eq(FPN_HEAD_FEATURES if fpn else ["res5"], ["res4"])),
             ("MODEL.ROI_BOX_HEAD.NAME", eq("", "FastRCNNConvFCHead")),
             ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", eq(7, 14)),
@@ -399,7 +465,9 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
 
 
 def _check_family(cfg, family: str) -> None:
-    checks = _family_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg)
+    checks = _family_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg) + _keypoint_checks(cfg, family)
+    if cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads" or family == "cascade_c4":
+        checks += _cascade_checks(family)
     if "SEMISUPNET" in cfg:  # the mean teacher builds the C4 detector only
         checks += (("SEMISUPNET.Trainer", lambda v: v == "default"),)
     for key, ok in checks:
@@ -455,7 +523,8 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
     if family != "c4":
         _check_family(cfg, family)
     else:
-        checks = _SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ()) + _mask_checks(cfg)
+        checks = (_SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ()) + _mask_checks(cfg)
+                  + _keypoint_checks(cfg, family))
         if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
             checks += _SUPPORTED_D2
         else:
@@ -627,7 +696,22 @@ def model_config_from_cfg(cfg) -> ModelConfig:
         mask_conv_dim=m.ROI_MASK_HEAD.CONV_DIM,
         mask_cls_agnostic=m.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK,
         mask_canvas_stride=float(tpu.MASK_CANVAS_STRIDE),
+        keypoint_on=m.KEYPOINT_ON,
+        num_keypoints=m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS,
+        keypoint_conv_dims=tuple(m.ROI_KEYPOINT_HEAD.CONV_DIMS),
+        keypoint_loss_weight=m.ROI_KEYPOINT_HEAD.LOSS_WEIGHT,
+        keypoint_loss_normalizer=keypoint_loss_normalizer(cfg),
     )
+
+
+def keypoint_loss_normalizer(cfg) -> float:
+    """-1 (divide by the visible keypoints) with
+    NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS, else NUM_KEYPOINTS x
+    BATCH_SIZE_PER_IMAGE x POSITIVE_FRACTION, as JAX's builders read it."""
+    m = cfg.MODEL
+    if m.ROI_KEYPOINT_HEAD.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS:
+        return -1.0
+    return m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS * m.ROI_HEADS.BATCH_SIZE_PER_IMAGE * m.ROI_HEADS.POSITIVE_FRACTION
 
 
 def solver_config_from_cfg(cfg) -> SolverConfig:

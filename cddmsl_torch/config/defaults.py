@@ -130,6 +130,32 @@ def get_cfg() -> CfgNode:
     _C.MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK = False
     _C.MODEL.ROI_MASK_HEAD.POOLER_TYPE = "ROIAlignV2"
 
+    # the cascade's stages (ROI_HEADS.NAME CascadeROIHeads): the IoU each
+    # stage matches at and its box transform's weights
+    _C.MODEL.ROI_BOX_CASCADE_HEAD = CfgNode()
+    _C.MODEL.ROI_BOX_CASCADE_HEAD.IOUS = [0.5, 0.6, 0.7]
+    _C.MODEL.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS = [
+        [10.0, 10.0, 5.0, 5.0],
+        [20.0, 20.0, 10.0, 10.0],
+        [30.0, 30.0, 15.0, 15.0],
+    ]
+
+    # the keypoint head (MODEL.KEYPOINT_ON): CONV_DIMS 3x3 convs, a 4x4
+    # stride-2 deconv and a 2x bilinear upsample; the loss divides by the
+    # visible keypoints, or without NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS by
+    # images x NUM_KEYPOINTS x BATCH_SIZE_PER_IMAGE x POSITIVE_FRACTION
+    _C.MODEL.ROI_KEYPOINT_HEAD = CfgNode()
+    _C.MODEL.ROI_KEYPOINT_HEAD.NAME = "KRCNNConvDeconvUpsampleHead"
+    _C.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION = 14
+    _C.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 0
+    _C.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = [512] * 8
+    _C.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 17
+    _C.MODEL.ROI_KEYPOINT_HEAD.LOSS_WEIGHT = 1.0
+    _C.MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE = "ROIAlignV2"
+    # training images with fewer visible keypoints are dropped
+    _C.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE = 1
+    _C.MODEL.ROI_KEYPOINT_HEAD.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS = True
+
     _C.MODEL.CLIP = CfgNode()
     _C.MODEL.CLIP.CROP_REGION_TYPE = "RPN"
     _C.MODEL.CLIP.BB_RPN_WEIGHTS = None
@@ -223,6 +249,7 @@ def get_cfg() -> CfgNode:
     _C.TEST.EVAL_PERIOD = 0
     _C.TEST.EXPECTED_RESULTS = []
     _C.TEST.DETECTIONS_PER_IMAGE = 100
+    _C.TEST.KEYPOINT_OKS_SIGMAS = []  # where set, over the test set's metadata sigmas
     _C.TEST.AUG = CfgNode()
     _C.TEST.AUG.ENABLED = False
     _C.TEST.PRECISE_BN = CfgNode()

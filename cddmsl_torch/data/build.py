@@ -8,7 +8,11 @@ into zero-padded arrays with the ground truth padded to TPU.MAX_GT_BOXES, so
 a batch equals JAX's bit for bit. With MODEL.MASK_ON a training batch
 carries each instance's polygons rasterised on the padded canvas at
 TPU.MASK_CANVAS_STRIDE (`DetBatch.gt_masks`, uint8 where JAX's are float32
-of the same 0/1 values). Batches are CPU tensors; a background
+of the same 0/1 values), and with MODEL.KEYPOINT_ON each instance's
+keypoints (`DetBatch.gt_keypoints`, (B, G, NUM_KEYPOINTS, 3)); the training
+set then drops the images with fewer visible keypoints than
+ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE
+(`filter_images_with_few_keypoints`). Batches are CPU tensors; a background
 thread builds them ahead of the consumer and, with `pin_memory`, pins them,
 so that `to_device` copies them to the card without blocking.
 
@@ -103,15 +107,30 @@ def rasterize_polygons(polygons: List[List[np.ndarray]], hw: Tuple[int, int], st
     return out
 
 
+def filter_images_with_few_keypoints(dicts: List[dict], min_kp: int) -> List[dict]:
+    """The records with at least `min_kp` visible (flag > 0) keypoints over
+    their annotations; raises when none is left."""
+
+    def visible(d):
+        return sum(int((np.asarray(a["keypoints"][2::3]) > 0).sum()) for a in d.get("annotations", [])
+                   if "keypoints" in a)
+
+    out = [d for d in dicts if visible(d) >= min_kp]
+    if not out:
+        raise ValueError("all images were filtered by MIN_KEYPOINTS_PER_IMAGE")
+    return out
+
+
 def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 100, with_trgt: bool = True,
-                    max_proposals: int = 0, mask_stride: int = 0) -> DetBatch:
+                    max_proposals: int = 0, mask_stride: int = 0, num_keypoints: int = 0) -> DetBatch:
     """Samples -> a DetBatch of CPU tensors: images zero-padded to `pad_hw`
     at the top left, the true and original sizes, the first `max_gt` boxes
     and classes of each image with a validity mask; with `max_proposals`
     the first that many precomputed proposals of each image (scores -inf
     and not valid past them); with `mask_stride` the first `max_gt`
     instances' polygons rasterised on the padded canvas at that stride,
-    (B, max_gt, H/stride, W/stride)."""
+    (B, max_gt, H/stride, W/stride); with `num_keypoints` their first that
+    many keypoints, (B, max_gt, num_keypoints, 3), zeros past them."""
     b = len(samples)
     H, W = pad_hw
     images = np.zeros((b, H, W, 3), np.float32)
@@ -127,6 +146,7 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
     gt_masks = None
     if mask_stride:
         gt_masks = np.zeros((b, max_gt, max(1, H // mask_stride), max(1, W // mask_stride)), np.uint8)
+    gt_keypoints = np.zeros((b, max_gt, num_keypoints, 3), np.float32) if num_keypoints else None
     for i, s in enumerate(samples):
         img = s["image"]
         h, w = img.shape[:2]
@@ -145,6 +165,9 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
             if gt_masks is not None and s.get("polygons"):
                 # rasterised on the padded canvas, where the boxes live
                 gt_masks[i, :n] = rasterize_polygons(s["polygons"][:n], (H, W), mask_stride)
+            if gt_keypoints is not None and s.get("keypoints") is not None and len(s["keypoints"]):
+                kp = np.asarray(s["keypoints"], np.float32)[:n]
+                gt_keypoints[i, :n, :kp.shape[1]] = kp[:, :num_keypoints]
         p = min(len(s.get("proposal_boxes", ())), max_proposals)
         if p:
             prop_boxes[i, :p] = s["proposal_boxes"][:p]
@@ -157,6 +180,7 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
         gt_classes=t(gt_classes), gt_valid=t(gt_valid), image_trgt=t(images_t) if with_trgt else None,
         proposal_boxes=proposals[0], proposal_scores=proposals[1], proposal_valid=proposals[2],
         gt_masks=t(gt_masks) if gt_masks is not None else None,
+        gt_keypoints=t(gt_keypoints) if gt_keypoints is not None else None,
     )
 
 
@@ -261,6 +285,9 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
     `world` default to the process group's)."""
     rank, world = _shard(rank, world)
     dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN, cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+    min_kp = cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE
+    if cfg.MODEL.KEYPOINT_ON and min_kp > 0:
+        dicts = filter_images_with_few_keypoints(dicts, min_kp)
     if cfg.MODEL.LOAD_PROPOSALS:
         for path in cfg.DATASETS.PROPOSAL_FILES_TRAIN:
             dicts = load_proposals_into_dataset(dicts, path)
@@ -275,6 +302,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
     pad_hw = tuple(cfg.TPU.PAD_SIZE_TRAIN)
     max_gt = cfg.TPU.MAX_GT_BOXES
     mask_stride = cfg.TPU.MASK_CANVAS_STRIDE if cfg.MODEL.MASK_ON else 0
+    num_kp = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS if cfg.MODEL.KEYPOINT_ON else 0
     aspect_grouping = cfg.DATALOADER.ASPECT_RATIO_GROUPING
 
     def gen():
@@ -287,7 +315,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
             if len(buckets[key]) == batch_size:
                 group, buckets[key] = buckets[key], []
                 batch = pad_and_collate(_process_block(group, rank, world, parts), key, max_gt, with_trgt=True,
-                                        max_proposals=max_props, mask_stride=mask_stride)
+                                        max_proposals=max_props, mask_stride=mask_stride, num_keypoints=num_kp)
                 yield _pinned(batch) if pin_memory else batch
 
     return _Prefetcher(gen, depth=cfg.DATALOADER.NUM_WORKERS)

@@ -8,7 +8,11 @@ to the image and empty ones dropped. With MODEL.LOAD_PROPOSALS the dict's
 precomputed proposals follow them too (`proposals.transform_proposals`),
 the top DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN (or _TEST) kept. With
 MODEL.MASK_ON each instance's polygon rings (of 3 points or more) follow
-as well, as "polygons", dropped with their boxes. Instances marked difficult are dropped
+as well, as "polygons", dropped with their boxes; with MODEL.KEYPOINT_ON
+each instance's keypoints, (N, K, 3) "keypoints" (`transforms.
+transform_keypoint_annotations`, the flip's mirror indices from the
+keypoint_names / keypoint_flip_map metadata of the first DATASETS.TRAIN,
+or DATASETS.TEST, set). Instances marked difficult are dropped
 at train time (the detectron2 VOC convention).
 
 The two-crop mapper of the mean-teacher loader gives (strong, weak) views of
@@ -22,7 +26,10 @@ import numpy as np
 from PIL import Image
 
 from .proposals import transform_proposals
-from .transforms import TransformList, apply_augmentations, build_augmentation, build_strong_augmentation_fn
+from .transforms import (
+    TransformList, apply_augmentations, build_augmentation, build_strong_augmentation_fn, create_keypoint_hflip_indices,
+    transform_keypoint_annotations,
+)
 
 
 def read_image(path: str, fmt: str = "RGB") -> np.ndarray:
@@ -30,11 +37,14 @@ def read_image(path: str, fmt: str = "RGB") -> np.ndarray:
     return img[:, :, ::-1] if fmt == "BGR" else img
 
 
-def transform_boxes(annos: List[dict], tfms: TransformList, image_hw, with_masks: bool = False) -> Dict:
+def transform_boxes(annos: List[dict], tfms: TransformList, image_hw, with_masks: bool = False,
+                    with_keypoints: bool = False, hflip_indices=None) -> Dict:
     """The annotations' boxes through `tfms`, clipped to `image_hw`, empty
     ones dropped with their classes; `with_masks` adds each instance's
     polygon rings through `tfms` ("polygons": per instance a list of (P, 2)
-    arrays; an RLE segmentation gives no ring)."""
+    arrays; an RLE segmentation gives no ring), `with_keypoints` its
+    keypoints ("keypoints" (N, K, 3), K the most an instance has, zeros past
+    an instance's own)."""
     boxes = np.array([a["bbox"] for a in annos], np.float32).reshape(-1, 4)
     classes = np.array([a["category_id"] for a in annos], np.int32).reshape(-1)
     polygons = None
@@ -44,6 +54,13 @@ def transform_boxes(annos: List[dict], tfms: TransformList, image_hw, with_masks
             segs = a.get("segmentation") or []
             rings = [np.asarray(seg, np.float32).reshape(-1, 2) for seg in (segs if isinstance(segs, list) else [])]
             polygons.append([tfms.apply_coords(pts) for pts in rings if len(pts) >= 3])
+    keypoints = None
+    if with_keypoints:
+        kps = [np.asarray(a.get("keypoints", []), np.float32).reshape(-1, 3) for a in annos]
+        keypoints = np.zeros((len(annos), max((len(k) for k in kps), default=0), 3), np.float32)
+        for i, kp in enumerate(kps):
+            if len(kp):
+                keypoints[i, :len(kp)] = transform_keypoint_annotations(kp, tfms, image_hw, hflip_indices)
     if len(boxes):
         boxes = tfms.apply_box(boxes)
         h, w = image_hw
@@ -53,9 +70,13 @@ def transform_boxes(annos: List[dict], tfms: TransformList, image_hw, with_masks
         boxes, classes = boxes[keep], classes[keep]
         if polygons is not None:
             polygons = [p for p, k in zip(polygons, keep) if k]
+        if keypoints is not None:
+            keypoints = keypoints[keep]
     out = {"boxes": boxes, "classes": classes}
     if polygons is not None:
         out["polygons"] = polygons
+    if keypoints is not None:
+        out["keypoints"] = keypoints
     return out
 
 
@@ -69,6 +90,15 @@ class DatasetMapper:
         self.image_format = cfg.INPUT.FORMAT
         self.load_proposals = cfg.MODEL.LOAD_PROPOSALS
         self.use_instance_mask = cfg.MODEL.MASK_ON
+        self.use_keypoint = cfg.MODEL.KEYPOINT_ON
+        self.hflip_indices = None
+        names = cfg.DATASETS.TRAIN if is_train else cfg.DATASETS.TEST
+        if self.use_keypoint and names:
+            from .catalog import MetadataCatalog
+
+            meta = MetadataCatalog.get(names[0])
+            if meta.get("keypoint_names"):
+                self.hflip_indices = create_keypoint_hflip_indices(meta)
         d = cfg.DATASETS
         self.proposal_topk = d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else d.PRECOMPUTED_PROPOSAL_TOPK_TEST
 
@@ -92,7 +122,7 @@ class DatasetMapper:
                 image_t = np.asarray(Image.fromarray(image_t).resize((orig_hw[1], orig_hw[0])))
             out["image_trgt"] = tfms.apply_image(image_t)
         annos = [a for a in d.get("annotations", []) if not (self.is_train and a.get("difficult", 0))]
-        out.update(transform_boxes(annos, tfms, hw, self.use_instance_mask))
+        out.update(transform_boxes(annos, tfms, hw, self.use_instance_mask, self.use_keypoint, self.hflip_indices))
         return out
 
 

@@ -6,7 +6,10 @@ Contiguous class ids follow the categories sorted by id; the metadata gets
 their names when the set is first loaded. Crowd annotations are dropped and
 boxes go from XYWH to XYXY. An annotation's segmentation (polygon rings or
 an RLE dict) is kept as it is: the mapper rasterises the polygons, the
-evaluator reads both. Keypoints are not read.
+evaluator reads both. An annotation's keypoints (COCO's flat [x0, y0, v0,
+...]) are kept as they are: like JAX's loader, this one does not add
+detectron2's +0.5 pixel-centre shift, and neither does the mapper (ROADMAP
+C).
 """
 
 import json
@@ -44,6 +47,8 @@ def load_coco_json(json_file: str, image_root: str, dataset_name: Optional[str] 
                    "bbox_mode": "XYXY_ABS", "iscrowd": ann.get("iscrowd", 0)}
             if ann.get("segmentation") is not None:
                 rec["segmentation"] = ann["segmentation"]
+            if ann.get("keypoints") is not None:
+                rec["keypoints"] = ann["keypoints"]
             annos.append(rec)
         dicts.append({
             "file_name": os.path.join(image_root, img["file_name"]),

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import numpy as np
 
-from ..catalog import DatasetCatalog
+from ..catalog import DatasetCatalog, MetadataCatalog
 from .cityscapes import CITYSCAPES_THING_CLASSES
 from .voc import register_pascal_DG, register_pascal_voc
 
@@ -84,11 +84,13 @@ def register_synthetic_quick(root: str, prefix: str = "synthetic_voc") -> None:
 
 
 def make_synthetic_coco(root: str, n: int = 6, seed: int = 0, classes: Tuple[str, ...] = ("dog", "cat"),
-                        hw: Tuple[int, int] = _FIXTURE_HW) -> Tuple[str, str]:
+                        hw: Tuple[int, int] = _FIXTURE_HW, with_keypoints: bool = False) -> Tuple[str, str]:
     """Writes a COCO-json set of `n` JPEGs under `root`/coco_synth, one bright
     diamond per box with the diamond as its segmentation polygon (the
     midpoints of the box's edges), box sizes scaled from the 100x140 fixture
-    to `hw`; returns (json path, image root). At the default size the
+    to `hw`; `with_keypoints` adds 3 visible keypoints per box at a quarter,
+    half and three quarters of its diagonal, each marked by a 3x3 dot of its
+    own grey. Returns (json path, image root). At the default size the
     images and the json are the JAX package's, byte for byte."""
     from PIL import Image
 
@@ -111,9 +113,18 @@ def make_synthetic_coco(root: str, n: int = 6, seed: int = 0, classes: Tuple[str
             yy, xx = np.mgrid[0:h, 0:w]
             inside = (np.abs(xx + 0.5 - cx) / (bw / 2.0) + np.abs(yy + 0.5 - cy) / (bh / 2.0)) <= 1.0
             img[inside] = 255 if cid == 0 else 160
-            annotations.append({"id": len(annotations) + 1, "image_id": i + 1, "category_id": cid + 1,
-                                "bbox": [x1, y1, bw, bh], "area": bw * bh / 2.0, "iscrowd": 0,
-                                "segmentation": [[cx, y1, x1 + bw, cy, cx, y1 + bh, x1, cy]]})
+            ann = {"id": len(annotations) + 1, "image_id": i + 1, "category_id": cid + 1,
+                   "bbox": [x1, y1, bw, bh], "area": bw * bh / 2.0, "iscrowd": 0,
+                   "segmentation": [[cx, y1, x1 + bw, cy, cx, y1 + bh, x1, cy]]}
+            if with_keypoints:
+                flat = []
+                for j, (kx, ky) in enumerate(((x1 + 0.25 * bw, y1 + 0.25 * bh), (cx, cy),
+                                              (x1 + 0.75 * bw, y1 + 0.75 * bh))):
+                    ix, iy = int(kx), int(ky)
+                    img[max(0, iy - 1):iy + 2, max(0, ix - 1):ix + 2] = (j + 1) * 60
+                    flat += [float(kx), float(ky), 2]
+                ann.update(keypoints=flat, num_keypoints=3)
+            annotations.append(ann)
         Image.fromarray(img).save(os.path.join(img_root, f"{i:06d}.jpg"))
     categories = [{"id": c + 1, "name": name} for c, name in enumerate(classes)]
     json_path = os.path.join(root, "coco_synth", "instances.json")
@@ -122,15 +133,29 @@ def make_synthetic_coco(root: str, n: int = 6, seed: int = 0, classes: Tuple[str
     return json_path, img_root
 
 
-def register_synthetic_coco(root: str, prefix: str = "synthetic_coco") -> None:
+def register_synthetic_coco(root: str, prefix: str = "synthetic_coco", with_keypoints: bool = False) -> None:
     """Writes the COCO fixture under `root` and registers `{prefix}_train`
-    and `{prefix}_val` (the same images, as in the JAX package)."""
+    and `{prefix}_val` (the same images, as in the JAX package); with
+    `with_keypoints` the keypoint fixture, whose metadata names the 3
+    keypoints (kp_tl, kp_center, kp_br), an empty flip map and OKS sigmas of
+    0.05. The keypoint schedules read it as synthetic_kp_{train,val}
+    (`register_synthetic_keypoints`)."""
     from .coco import register_coco_instances
 
-    json_path, img_root = make_synthetic_coco(root)
+    json_path, img_root = make_synthetic_coco(root, with_keypoints=with_keypoints)
     for name in (f"{prefix}_train", f"{prefix}_val"):
         if name not in DatasetCatalog:
             register_coco_instances(name, json_path, img_root)
+            if with_keypoints:
+                MetadataCatalog.get(name).set(keypoint_names=("kp_tl", "kp_center", "kp_br"), keypoint_flip_map=(),
+                                              keypoint_oks_sigmas=(0.05, 0.05, 0.05))
+
+
+def register_synthetic_keypoints(root: str) -> None:
+    """The keypoint fixture under `root`/kp as synthetic_kp_{train,val}, as
+    the JAX package's quick-schedule runner registers it (its own directory:
+    the dots would change the plain COCO fixture's images)."""
+    register_synthetic_coco(os.path.join(root, "kp"), prefix="synthetic_kp", with_keypoints=True)
 
 
 def make_synthetic_proposals(root: str, seed: int = 1) -> str:

@@ -9,6 +9,8 @@ Augmentations draw from the caller's `np.random.RandomState` in the JAX
 package's order, so the same state gives the same samples. Each returns a
 deterministic `Transform` that is replayed on the paired translated view and
 on the boxes. Images are resized with PIL's bilinear filter, as in JAX.
+`transform_keypoint_annotations` moves an instance's keypoints through
+them (`create_keypoint_hflip_indices` gives the flip's mirror indices).
 """
 
 from typing import List, Sequence, Tuple, Union
@@ -147,6 +149,35 @@ class RandomFlip(Augmentation):
         if rng.rand() < self.prob:
             return HFlipTransform(img.shape[1])
         return NoOpTransform()
+
+
+def create_keypoint_hflip_indices(meta) -> np.ndarray:
+    """The metadata's keypoint_names and keypoint_flip_map -> for each
+    keypoint the index of its mirror (itself where the map names none)."""
+    names = list(meta.get("keypoint_names") or ())
+    flip_map = dict(meta.get("keypoint_flip_map") or ())
+    flip_map.update({v: k for k, v in flip_map.items()})
+    return np.asarray([names.index(flip_map.get(n, n)) for n in names], np.int32)
+
+
+def transform_keypoint_annotations(keypoints: np.ndarray, tfms: TransformList, image_hw,
+                                   hflip_indices=None) -> np.ndarray:
+    """(K, 3) keypoints (x, y, flag) through `tfms`: a point outside the
+    transformed image [0, w] x [0, h] becomes unlabelled; an odd number of
+    horizontal flips swaps each keypoint with its mirror (`hflip_indices`);
+    an unlabelled keypoint is (0, 0, 0), COCO's convention."""
+    kp = np.asarray(keypoints, np.float64).reshape(-1, 3).copy()
+    xy = tfms.apply_coords(kp[:, :2].astype(np.float32)).astype(np.float64)
+    h, w = image_hw
+    inside = (xy[:, 0] >= 0) & (xy[:, 1] >= 0) & (xy[:, 0] <= w) & (xy[:, 1] <= h)
+    kp[:, :2] = xy
+    kp[~inside, 2] = 0
+    if sum(isinstance(t, HFlipTransform) for t in tfms.transforms) % 2 == 1:
+        if hflip_indices is None:
+            raise ValueError("a horizontal flip of keypoints needs the set's keypoint_names metadata")
+        kp = kp[np.asarray(hflip_indices, np.int32)]
+    kp[kp[:, 2] == 0] = 0
+    return kp.astype(np.float32)
 
 
 def build_augmentation(cfg, is_train: bool) -> List[Augmentation]:

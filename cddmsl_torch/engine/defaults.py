@@ -111,21 +111,20 @@ def default_setup(cfg: CfgNode, args=None) -> None:
 def build_evaluator(cfg: CfgNode, dataset_name: str):
     """The VOC evaluator (Watercolor and Comic scored on the 6 classes they
     annotate), for a "coco" set the COCO evaluator of bbox (and segm with
-    MODEL.MASK_ON), which writes its detections to
+    MODEL.MASK_ON, keypoints with MODEL.KEYPOINT_ON, its OKS sigmas from
+    TEST.KEYPOINT_OKS_SIGMAS where set), which writes its detections to
     OUTPUT_DIR/inference/coco_instances_results_<name>.json, or for an
-    "lvis" set the LVIS evaluator. Other evaluator types, and COCO
-    keypoints, are not ported."""
+    "lvis" set the LVIS evaluator. Other evaluator types are not ported."""
     ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "pascal_voc")
     if ev_type == "pascal_voc":
         target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
         return PascalVOCDetectionEvaluator(dataset_name, target_classnames=target)
     if ev_type == "coco":
-        if cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError(f"COCO keypoint evaluation of {dataset_name} is not ported")
         out_json = (os.path.join(cfg.OUTPUT_DIR, "inference", f"coco_instances_results_{dataset_name}.json")
                     if cfg.OUTPUT_DIR else None)
-        tasks = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
-        return COCOEvaluator(dataset_name, output_json=out_json, tasks=tasks)
+        tasks = ("bbox",) + (("segm",) if cfg.MODEL.MASK_ON else ()) + (("keypoints",) if cfg.MODEL.KEYPOINT_ON else ())
+        return COCOEvaluator(dataset_name, output_json=out_json, tasks=tasks,
+                             kpt_oks_sigmas=list(cfg.TEST.KEYPOINT_OKS_SIGMAS) or None)
     if ev_type == "lvis":
         return LVISEvaluator(dataset_name)
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")

@@ -1,13 +1,20 @@
-"""COCO-style bbox and segm AP in numpy (the port's copy of the bbox and
-segm paths of cddmsl_tpu/evaluation/coco_eval.py `COCOEvaluator`).
+"""COCO-style bbox, segm and keypoints AP in numpy (the port's copy of
+cddmsl_tpu/evaluation/coco_eval.py `COCOEvaluator` and `_oks_matrix`).
 
 101-point interpolated AP averaged over IoU .50:.95, AP50 and AP75, the
 small/medium/large area splits and the per-class AP, with crowd boxes as
 ignored ground truth (pycocotools' `COCOeval` rules). On a set of the 65
 open-vocabulary classes it reports first the AP50 over the novel, the base
 and all classes (`AP50_split_target`, `_base`, `_all`; -1 where no class of
-the split has ground truth). The matcher is the numpy one; segm and
-keypoints are not ported.
+the split has ground truth). The matcher is the numpy one.
+
+The keypoints task matches by OKS (pycocotools' `computeOks`, with the
+ground truth's area taken as its box's, as JAX's evaluator takes it) over
+the all / medium / large ranges; the sigmas are TEST.KEYPOINT_OKS_SIGMAS
+where set, else the set's keypoint_oks_sigmas metadata, else COCO person's.
+A ground truth without labelled keypoints is ignored; an image whose
+detections or ground truth of a class carry no keypoints is left out of
+that class's matching (its ground truth still counts).
 """
 
 import json
@@ -28,6 +35,39 @@ AREA_RANGES = {
     "medium": (32 ** 2, 96 ** 2),
     "large": (96 ** 2, 1e10),
 }
+# pycocotools Params.setKpParams: keypoints AP over all, medium and large only
+KP_AREA_RANGES = {k: AREA_RANGES[k] for k in ("all", "medium", "large")}
+# pycocotools' COCO person sigmas (Params.kpt_oks_sigmas)
+COCO_PERSON_SIGMAS = np.array(
+    [.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07, .87, .87, .89, .89]) / 10.0
+
+
+def _oks_matrix(det_kps: np.ndarray, gt_kps: np.ndarray, gt_boxes: np.ndarray, sigmas: np.ndarray) -> np.ndarray:
+    """(D, K, 3) detected x (G, K, 3) ground-truth keypoints -> (D, G) OKS,
+    each ground truth's area its box's. A ground truth without labelled
+    keypoints scores by the distance outside its box grown by its size on
+    each side."""
+    d_n, g_n = len(det_kps), len(gt_kps)
+    if d_n == 0 or g_n == 0:
+        return np.zeros((d_n, g_n))
+    var = (sigmas[:det_kps.shape[1]] * 2.0) ** 2
+    areas = np.maximum((gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]), 1e-6)
+    out = np.zeros((d_n, g_n))
+    for g in range(g_n):
+        xg, yg, vg = gt_kps[g, :, 0], gt_kps[g, :, 1], gt_kps[g, :, 2]
+        lab = vg > 0
+        x0, y0, x1, y1 = gt_boxes[g]
+        bw, bh = x1 - x0, y1 - y0
+        for d in range(d_n):
+            xd, yd = det_kps[d, :, 0], det_kps[d, :, 1]
+            if lab.sum() > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                dx = np.maximum(0, x0 - bw - xd) + np.maximum(0, xd - (x1 + bw))
+                dy = np.maximum(0, y0 - bh - yd) + np.maximum(0, yd - (y1 + bh))
+            e = (dx ** 2 + dy ** 2) / var / (areas[g] + np.spacing(1)) / 2.0
+            out[d, g] = np.mean(np.exp(-e[lab])) if lab.sum() > 0 else np.mean(np.exp(-e))
+    return out
 
 
 def _iou_matrix(dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
@@ -92,44 +132,63 @@ def _box_area(boxes: np.ndarray) -> np.ndarray:
 class COCOEvaluator:
     """Accumulates detections and ground truth; `evaluate()` returns
     {task: {AP, AP50, AP75, APs, APm, APl, AP-<class>...}} for each of
-    `tasks` ("bbox", and "segm") and, with `output_json`, writes the
-    detections in the COCO results schema."""
+    `tasks` ("bbox", "segm", "keypoints"; APs is NaN for keypoints) and,
+    with `output_json`, writes the detections in the COCO results schema.
+    `kpt_oks_sigmas` (TEST.KEYPOINT_OKS_SIGMAS) overrides the set's
+    keypoint_oks_sigmas metadata."""
 
-    def __init__(self, dataset_name: str, output_json: Optional[str] = None, tasks: Sequence[str] = ("bbox",)):
-        classes = MetadataCatalog.get(dataset_name).get("thing_classes")
+    def __init__(self, dataset_name: str, output_json: Optional[str] = None, tasks: Sequence[str] = ("bbox",),
+                 kpt_oks_sigmas=None):
+        meta = MetadataCatalog.get(dataset_name)
+        classes = meta.get("thing_classes")
         self.num_classes = len(classes) if classes else 80
         self.class_names = classes
         self.output_json = output_json
         self.tasks = tuple(tasks)
+        if kpt_oks_sigmas is None:
+            kpt_oks_sigmas = meta.get("keypoint_oks_sigmas")
+        self.kpt_oks_sigmas = np.asarray(kpt_oks_sigmas) if kpt_oks_sigmas is not None else COCO_PERSON_SIGMAS
         self.reset()
 
     def reset(self):
         self._dets = defaultdict(lambda: defaultdict(list))  # class -> image -> [(score, box, rle or None)]
         self._gts = defaultdict(lambda: defaultdict(list))  # class -> image -> [(box, iscrowd, rle or None)]
+        # the keypoints task's (K, 3) arrays or None, in step with _dets and _gts
+        self._det_kps = defaultdict(lambda: defaultdict(list))
+        self._gt_kps = defaultdict(lambda: defaultdict(list))
         self._images = set()
 
-    def process(self, image_id, boxes, scores, classes, masks=None, image_hw=None):
+    def process(self, image_id, boxes, scores, classes, masks=None, image_hw=None, keypoints=None):
         """`masks` (N, M, M) box-frame probabilities: pasted at `image_hw`
-        and encoded when the segm task is on."""
+        and encoded when the segm task is on. `keypoints` (N, K, 3): the
+        decoded (x, y, score) of each detection."""
         self._images.add(image_id)
         rles = [None] * len(boxes)
         if masks is not None and "segm" in self.tasks:
             pasted = paste_masks_np(np.asarray(masks), np.asarray(boxes), image_hw)
             rles = [rle_encode(m) for m in pasted]
-        for b, s, c, r in zip(boxes, scores, classes, rles):
+        kps = [None] * len(boxes) if keypoints is None else keypoints
+        for b, s, c, r, kp in zip(boxes, scores, classes, rles, kps):
             self._dets[int(c)][image_id].append((float(s), np.asarray(b, np.float64), r))
+            if "keypoints" in self.tasks:
+                self._det_kps[int(c)][image_id].append(None if kp is None else np.asarray(kp, np.float64))
 
-    def process_gt(self, image_id, boxes, classes, iscrowd=None, segmentations=None, image_hw=None):
+    def process_gt(self, image_id, boxes, classes, iscrowd=None, segmentations=None, image_hw=None,
+                   keypoints=None):
         """`segmentations`: per instance its COCO segmentation (original
-        image coordinates), encoded at `image_hw` for the segm task."""
+        image coordinates), encoded at `image_hw` for the segm task.
+        `keypoints`: per instance its (K, 3) (x, y, flag) or None."""
         self._images.add(image_id)
         if iscrowd is None:
             iscrowd = np.zeros(len(boxes), bool)
         rles = [None] * len(boxes)
         if segmentations is not None and "segm" in self.tasks:
             rles = [segmentation_to_rle(seg, image_hw) for seg in segmentations]
-        for b, c, cr, r in zip(boxes, classes, iscrowd, rles):
+        kps = [None] * len(boxes) if keypoints is None else keypoints
+        for b, c, cr, r, kp in zip(boxes, classes, iscrowd, rles, kps):
             self._gts[int(c)][image_id].append((np.asarray(b, np.float64), bool(cr), r))
+            if "keypoints" in self.tasks:
+                self._gt_kps[int(c)][image_id].append(None if kp is None else np.asarray(kp, np.float64))
 
     def evaluate(self) -> Dict[str, Dict[str, float]]:
         out = {task: self._evaluate_task(task) for task in self.tasks}
@@ -155,14 +214,15 @@ class COCOEvaluator:
             json.dump(records, f)
 
     def _evaluate_task(self, task: str) -> Dict[str, float]:
-        ap_per_class = {area: [] for area in AREA_RANGES}
+        ranges = KP_AREA_RANGES if task == "keypoints" else AREA_RANGES
+        ap_per_class = {area: [] for area in ranges}
         ap50, ap75 = [], []
         ap50_by_class = {}
         named = {}
         for c in range(self.num_classes):
             if not any(len(v) for v in self._gts.get(c, {}).values()):
                 continue
-            for area, (lo, hi) in AREA_RANGES.items():
+            for area, (lo, hi) in ranges.items():
                 precisions = self._class_pr(c, lo, hi, task)  # (T, 101)
                 ap = np.nan if precisions is None else float(np.mean(precisions))
                 ap_per_class[area].append(ap)
@@ -178,7 +238,7 @@ class COCOEvaluator:
             "AP": 100 * float(np.nanmean(ap_per_class["all"])) if ap_per_class["all"] else float("nan"),
             "AP50": 100 * float(np.mean(ap50)) if ap50 else float("nan"),
             "AP75": 100 * float(np.mean(ap75)) if ap75 else float("nan"),
-            "APs": 100 * float(np.nanmean(ap_per_class["small"])) if ap_per_class["small"] else float("nan"),
+            "APs": 100 * float(np.nanmean(ap_per_class["small"])) if ap_per_class.get("small") else float("nan"),
             "APm": 100 * float(np.nanmean(ap_per_class["medium"])) if ap_per_class["medium"] else float("nan"),
             "APl": 100 * float(np.nanmean(ap_per_class["large"])) if ap_per_class["large"] else float("nan"),
             **named,
@@ -201,7 +261,9 @@ class COCOEvaluator:
         """(T, 101) interpolated precision of class `c` in an area range for
         `task`; None when it has no ground truth there. An image whose
         detections or ground truth of the class have no mask is left out of
-        segm's matching (its ground truth still counts)."""
+        segm's matching (its ground truth still counts), and so is one whose
+        detections or ground truth have no keypoints from the keypoints
+        task's, where a ground truth without labelled keypoints is ignored."""
         T = len(IOU_THRESHOLDS)
         all_scores, all_tp, all_ign = [], [], []
         npos = 0
@@ -213,6 +275,11 @@ class COCOEvaluator:
             iscrowd = np.array([cr for _, cr, _ in gt_list], bool)
             areas = np.array([rle_area(r) if r else 0.0 for _, _, r in gt_list]) if segm else _box_area(gts)
             gt_ignore = iscrowd | (areas < area_lo) | (areas > area_hi)
+            gkps = self._gt_kps.get(c, {}).get(img, [])
+            if task == "keypoints":
+                n_lab = np.array([0 if k is None else int((k[:, 2] > 0).sum()) for k in gkps]).reshape(-1)
+                if len(n_lab) == len(gt_ignore):
+                    gt_ignore = gt_ignore | (n_lab == 0)
             npos += int((~gt_ignore).sum())
             det_list = det_imgs.get(img, [])
             if not det_list:
@@ -225,6 +292,12 @@ class COCOEvaluator:
                 if any(r is None for r in det_rles + gt_rles):
                     continue
                 ious = mask_iou_matrix(det_rles, gt_rles, iscrowd)
+            elif task == "keypoints":
+                dkps = self._det_kps.get(c, {}).get(img, [])
+                if any(k is None for k in dkps + gkps):
+                    continue
+                ious = _oks_matrix(np.stack(dkps) if dkps else np.zeros((0, 1, 3)),
+                                   np.stack(gkps) if gkps else np.zeros((0, 1, 3)), gts, self.kpt_oks_sigmas)
             scores, tp, ign = _eval_image(det_boxes, det_scores, gts, gt_ignore, iscrowd, IOU_THRESHOLDS, ious)
             # unmatched detections outside the area range are ignored
             d_areas = np.array([rle_area(r) for _, _, r in det_list], np.float64) if segm else _box_area(det_boxes)

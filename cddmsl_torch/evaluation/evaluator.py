@@ -17,19 +17,28 @@ def _segm(evaluator) -> bool:
     return "segm" in getattr(evaluator, "tasks", ())
 
 
+def _keypoints_task(evaluator) -> bool:
+    return "keypoints" in getattr(evaluator, "tasks", ())
+
+
 def _feed(evaluator, meta: dict, det) -> None:
-    """One image's detections (boxes, scores, classes, and box-frame masks
-    or None) and ground truth. With the segm task the masks and the
-    annotations' segmentations go in at the record's height and width. The
+    """One image's detections (boxes, scores, classes, box-frame masks or
+    None, keypoints or None) and ground truth. With the segm task the masks
+    and the annotations' segmentations go in at the record's height and
+    width; with the keypoints task the detections' keypoints and each
+    annotation's (K, 3) keypoints (None where it has none). The
     ground truth's `difficult` flags (0 where a record has none) go in
     third, as in the JAX package, where `COCOEvaluator.process_gt` takes
     them as `iscrowd`. An LVIS record's `neg_category_ids` and
     `not_exhaustive_category_ids` go to an evaluator that says it takes
     them (`accepts_lvis_ignore`)."""
-    boxes, scores, classes, masks = det
+    boxes, scores, classes, masks, kps = det
     segm = masks is not None and _segm(evaluator)
     hw = (meta.get("height"), meta.get("width")) if segm else None
-    evaluator.process(meta["image_id"], boxes, scores, classes, **({"masks": masks, "image_hw": hw} if segm else {}))
+    extra = {"masks": masks, "image_hw": hw} if segm else {}
+    if kps is not None:
+        extra["keypoints"] = kps
+    evaluator.process(meta["image_id"], boxes, scores, classes, **extra)
     if "annotations" in meta:
         annos = meta["annotations"]
         gb = np.array([a["bbox"] for a in annos], np.float32).reshape(-1, 4)
@@ -38,6 +47,9 @@ def _feed(evaluator, meta: dict, det) -> None:
         extra = {}
         if segm:
             extra = {"segmentations": [a.get("segmentation") for a in annos], "image_hw": hw}
+        if kps is not None:
+            extra["keypoints"] = [None if a.get("keypoints") is None else
+                                  np.asarray(a["keypoints"], np.float64).reshape(-1, 3) for a in annos]
         if "neg_category_ids" in meta and getattr(evaluator, "accepts_lvis_ignore", False):
             extra.update(neg_category_ids=meta["neg_category_ids"],
                          not_exhaustive_category_ids=meta.get("not_exhaustive_category_ids", ()))
@@ -48,7 +60,9 @@ def inference_on_dataset(model, data_loader, num_images: int, evaluator, device=
     """Runs `model.inference` over the loader's (DetBatch, metas) pairs on
     `device` (the model's own by default), feeds the evaluator each real
     image's detections (with their masks when the model gives masks and the
-    evaluator has the segm task) and ground truth, and returns its metrics.
+    evaluator has the segm task, their keypoints when it gives keypoints and
+    the evaluator has the keypoints task) and ground truth, and returns its
+    metrics.
     The rows past len(metas) repeat the batch's last image and are dropped.
     Reading the detections back to the host is each batch's sync.
 
@@ -68,12 +82,14 @@ def inference_on_dataset(model, data_loader, num_images: int, evaluator, device=
         det = model.inference(to_device(batch, device))
         boxes, scores, classes, valid = (t.cpu().numpy() for t in (det.boxes, det.scores, det.classes, det.valid))
         masks = det.masks.cpu().numpy() if getattr(det, "masks", None) is not None and _segm(evaluator) else None
+        kps = (det.keypoints.cpu().numpy() if getattr(det, "keypoints", None) is not None
+               and _keypoints_task(evaluator) else None)
         total_compute += time.perf_counter() - t0
 
         t1 = time.perf_counter()
         lo = comm.get_rank() * len(boxes)
         rows = [(boxes[i][valid[i]], scores[i][valid[i]], classes[i][valid[i]],
-                 None if masks is None else masks[i][valid[i]])
+                 None if masks is None else masks[i][valid[i]], None if kps is None else kps[i][valid[i]])
                 for i in range(min(len(boxes), len(metas) - lo))]
         if world == 1:
             for meta, d in zip(metas, rows):

@@ -1,13 +1,16 @@
 """Config -> model (counterpart of cddmsl_tpu/models/build.py `build_model`
-with `build_generalized_rcnn`, `build_fpn_rcnn` and
+with `build_generalized_rcnn`, `build_fpn_rcnn`, `build_cascade_rcnn` and
 `build_proposal_network`, and of `build_clip_fast_rcnn` and
 `build_pretrain_fast_rcnn`).
 
 `build_detector` dispatches as JAX's `build_model` does
 (`config.model_family`): the C4 GeneralizedRCNN, FPNRCNN when
-MODEL.BACKBONE.NAME names an fpn_backbone or, with RESNETS.RES5_DILATION 2,
-in its single-level DC5 form, and ProposalNetwork (META_ARCHITECTURE) on
-res4 or on the FPN."""
+MODEL.BACKBONE.NAME names an fpn_backbone (with the cascade heads at
+ROI_HEADS.NAME CascadeROIHeads) or, with RESNETS.RES5_DILATION 2, in its
+single-level DC5 form, CascadeRCNN on res4 (ROI_HEADS.NAME
+CascadeROIHeads without an fpn_backbone, or META_ARCHITECTURE
+CascadeRCNN), and ProposalNetwork (META_ARCHITECTURE) on res4 or on the
+FPN."""
 
 from typing import Any, Dict
 
@@ -15,9 +18,10 @@ import torch
 
 from ..config import (
     EMBED_DIMS, RESNET_SPECS, ModelConfig, check_clip_fast_rcnn_supported, check_pretrain_supported, check_supported,
-    model_config_from_cfg, model_family,
+    keypoint_loss_normalizer, model_config_from_cfg, model_family,
 )
 from ..device import compute_dtype, resolve_device
+from .cascade_rcnn import CascadeRCNN
 from .clip_rcnn import CLIPFastRCNN, PretrainFastRCNN
 from .extra_meta_archs import FPNProposalNetwork, ProposalNetwork
 from .fpn_rcnn import FPNRCNN
@@ -76,6 +80,9 @@ def build_model(config: ModelConfig, device="cuda", training: bool = False) -> G
         mask_head=dict(num_conv=config.mask_num_conv, conv_dim=config.mask_conv_dim,
                        cls_agnostic=config.mask_cls_agnostic, canvas_stride=config.mask_canvas_stride)
         if config.mask_on else None,
+        keypoint_head=dict(num_keypoints=config.num_keypoints, conv_dims=tuple(config.keypoint_conv_dims),
+                           loss_weight=config.keypoint_loss_weight, loss_normalizer=config.keypoint_loss_normalizer)
+        if config.keypoint_on else None,
     )
     return model.to(device).eval()
 
@@ -175,7 +182,10 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
     STRIDE_IN_1X1), DC5 at RES5_DILATION 2, precomputed proposals at
     PROPOSAL_GENERATOR.NAME PrecomputedProposals, both box losses' types,
     the mask head's (MASK_ON, ROI_MASK_HEAD.{NUM_CONV, CONV_DIM,
-    CLS_AGNOSTIC_MASK}, TPU.MASK_CANVAS_STRIDE) and the compute dtype."""
+    CLS_AGNOSTIC_MASK}, TPU.MASK_CANVAS_STRIDE), the keypoint head's
+    (KEYPOINT_ON, ROI_KEYPOINT_HEAD.{NUM_KEYPOINTS, CONV_DIMS, LOSS_WEIGHT},
+    the normaliser), the cascade (ROI_HEADS.NAME CascadeROIHeads) and the
+    compute dtype."""
     check_supported(cfg)
     m = cfg.MODEL
     return dict(
@@ -214,6 +224,12 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
         mask_conv_dim=m.ROI_MASK_HEAD.CONV_DIM,
         mask_cls_agnostic=m.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK,
         mask_canvas_stride=float(cfg.TPU.MASK_CANVAS_STRIDE),
+        keypoint_on=m.KEYPOINT_ON,
+        num_keypoints=m.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS,
+        keypoint_conv_dims=tuple(m.ROI_KEYPOINT_HEAD.CONV_DIMS),
+        keypoint_loss_weight=m.ROI_KEYPOINT_HEAD.LOSS_WEIGHT,
+        keypoint_loss_normalizer=keypoint_loss_normalizer(cfg),
+        cascade=m.ROI_HEADS.NAME == "CascadeROIHeads",
         dc5=m.RESNETS.RES5_DILATION == 2,
         load_proposals=m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals",
         dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
@@ -242,6 +258,17 @@ def proposal_network_fields(cfg) -> Dict[str, Any]:
     return fields
 
 
+def cascade_rcnn_fields(cfg) -> Dict[str, Any]:
+    """The fields JAX's `build_cascade_rcnn` gives `CascadeRCNN` (DEPTH,
+    NUM_CLASSES, ROI_BOX_CASCADE_HEAD.IOUS, the pixel statistics, the
+    compute dtype), after `check_supported`."""
+    check_supported(cfg)
+    m = cfg.MODEL
+    return dict(num_classes=m.ROI_HEADS.NUM_CLASSES, depth=m.RESNETS.DEPTH,
+                stage_ious=tuple(m.ROI_BOX_CASCADE_HEAD.IOUS), pixel_mean=tuple(m.PIXEL_MEAN),
+                pixel_std=tuple(m.PIXEL_STD), dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE))
+
+
 def build_detector(cfg, device="cuda", training: bool = False):
     """The detector of the tree (`model_family`) on `device` (CUDA unless
     the caller asks for the CPU) in eval mode; `training` adds the C4
@@ -252,6 +279,8 @@ def build_detector(cfg, device="cuda", training: bool = False):
         return build_model(model_config_from_cfg(cfg), device=device, training=training)
     if family in ("fpn", "dc5"):
         model = FPNRCNN(**fpn_rcnn_fields(cfg))
+    elif family == "cascade_c4":
+        model = CascadeRCNN(**cascade_rcnn_fields(cfg))
     elif family == "proposal_fpn":
         model = FPNProposalNetwork(**proposal_network_fields(cfg))
     else:

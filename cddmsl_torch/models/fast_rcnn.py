@@ -37,6 +37,8 @@ class DetectionResult(NamedTuple):
     # (B, D, M, M) mask probabilities in each box's frame (MASK_ON
     # inference); the evaluator pastes them into the image on the host
     masks: Optional[torch.Tensor] = None
+    # (B, D, K, 3) decoded (x, y, score) keypoints (KEYPOINT_ON inference)
+    keypoints: Optional[torch.Tensor] = None
 
 
 class FastRCNNOutputLayers(nn.Module):

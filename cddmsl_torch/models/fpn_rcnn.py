@@ -1,11 +1,15 @@
-"""The FPN family's Faster and Mask R-CNN (counterpart of
-cddmsl_tpu/models/fpn_rcnn.py `FPNRCNN`, box and mask paths): detectron2's
+"""The FPN family's Faster, Mask, Keypoint and Cascade R-CNN (counterpart
+of cddmsl_tpu/models/fpn_rcnn.py `FPNRCNN`, box, mask, keypoint and
+cascade paths): detectron2's
 Base-RCNN-FPN (ResNet or ResNeXt + FPN, the RPN over p2..p6,
 `StandardROIHeads` pooling 7x7 from p2..p5, and with `mask_on` 14x14 for
 the mask head) and, with `dc5`, Base-RCNN-DilatedC5 (the dilated res5 as
 the one map of the RPN, all anchor sizes on it, and of the heads). Either
 box loss may be the GIoU one (`rpn_box_reg_loss_type`,
-`box_reg_loss_type`). With `load_proposals` there is
+`box_reg_loss_type`). `keypoint_on` adds the keypoint head's 14x14 pool
+(MODEL.KEYPOINT_ON); `cascade` replaces the heads by
+models/cascade_rcnn.py's three stages (ROI_HEADS.NAME CascadeROIHeads),
+with the mask branch under `mask_on`. With `load_proposals` there is
 no RPN: the proposals are the batch's precomputed ones
 (MODEL.LOAD_PROPOSALS, PROPOSAL_GENERATOR.NAME PrecomputedProposals).
 
@@ -21,6 +25,7 @@ from torch import nn
 from .backbone.resnet import FPN, D2ResNet
 from .fast_rcnn import DetectionResult
 from .rcnn import DetBatch, normalize, rescale_detections
+from .cascade_rcnn import CascadeROIHeads
 from .roi_heads import StandardROIHeads
 from .rpn import FPNRPN, Proposals
 from .sampling import Draw
@@ -72,13 +77,23 @@ class FPNRCNN(nn.Module):
         mask_conv_dim: int = 256,
         mask_cls_agnostic: bool = False,
         mask_canvas_stride: float = 4.0,
+        keypoint_on: bool = False,
+        num_keypoints: int = 17,
+        keypoint_conv_dims: Sequence[int] = (512,) * 8,
+        keypoint_loss_weight: float = 1.0,
+        keypoint_loss_normalizer: float = -1.0,
+        cascade: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         """`backbone_width` is WIDTH_PER_GROUP (TPU.BACKBONE_WIDTH where
         set); `emb_dim` the second fc's width (1024 in JAX's builds);
         `res2_out_channels` and `fpn_out_channels` narrow the towers for
         tests. `mask_on` adds the mask head (MODEL.MASK_ON, ROI_MASK_HEAD.*,
-        TPU.MASK_CANVAS_STRIDE)."""
+        TPU.MASK_CANVAS_STRIDE), `keypoint_on` the keypoint head
+        (ROI_KEYPOINT_HEAD.*; `keypoint_loss_normalizer` -1 divides by the
+        visible keypoints). `cascade` builds the cascade heads, which take
+        only the classes, the sampler's keys, the test keys and the mask
+        head's, as JAX's."""
         super().__init__()
         self.dtype = dtype
         self.dc5 = dc5
@@ -107,6 +122,19 @@ class FPNRCNN(nn.Module):
                 box_reg_loss_weight=rpn_box_reg_loss_weight,
                 box_reg_loss_type=rpn_box_reg_loss_type,
             )
+        mask_head = dict(num_conv=mask_num_conv, conv_dim=mask_conv_dim, cls_agnostic=mask_cls_agnostic,
+                         canvas_stride=mask_canvas_stride) if mask_on else None
+        if cascade:
+            if keypoint_on:
+                raise ValueError("the cascade heads have no keypoint branch")
+            mask_head = None if mask_head is None else {**mask_head, "cls_agnostic": False}
+            self.roi_heads = CascadeROIHeads(
+                num_classes=num_classes, in_channels=channels, pooler_scales=(1 / 16,) if dc5 else FPN_SCALES,
+                batch_size_per_image=roi_batch_size_per_image, positive_fraction=roi_positive_fraction,
+                score_thresh_test=score_thresh_test, nms_thresh_test=nms_thresh_test,
+                detections_per_image=detections_per_image, mask_head=mask_head,
+            )
+            return
         self.roi_heads = StandardROIHeads(
             num_classes=num_classes,
             in_channels=channels,
@@ -124,8 +152,10 @@ class FPNRCNN(nn.Module):
             smooth_l1_beta=roi_smooth_l1_beta,
             box_reg_loss_weight=box_reg_loss_weight,
             box_reg_loss_type=box_reg_loss_type,
-            mask_head=dict(num_conv=mask_num_conv, conv_dim=mask_conv_dim, cls_agnostic=mask_cls_agnostic,
-                           canvas_stride=mask_canvas_stride) if mask_on else None,
+            mask_head=mask_head,
+            keypoint_head=dict(num_keypoints=num_keypoints, conv_dims=tuple(keypoint_conv_dims),
+                               loss_weight=keypoint_loss_weight, loss_normalizer=keypoint_loss_normalizer)
+            if keypoint_on else None,
         )
 
     def features(self, images: torch.Tensor):
@@ -162,7 +192,8 @@ class FPNRCNN(nn.Module):
 
     def supervised_losses(self, batch: DetBatch, draw: Draw) -> Dict[str, torch.Tensor]:
         """The RPN's losses (none with precomputed proposals) and the box
-        head's (and the mask head's), on the training proposals; draw sites
+        head's (the stages' of the cascade; the mask and keypoint heads'),
+        on the training proposals; draw sites
         as GeneralizedRCNN's."""
         head, rpn_levels = self.features(batch.image)
         rpn_losses = {}
@@ -175,7 +206,7 @@ class FPNRCNN(nn.Module):
             )
         det_losses = self.roi_heads(head, proposals, batch.image_sizes, training=True, gt_boxes=batch.gt_boxes,
                                     gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
-                                    gt_masks=batch.gt_masks)
+                                    gt_masks=batch.gt_masks, gt_keypoints=batch.gt_keypoints)
         return {**det_losses, **rpn_losses}
 
     def cddmsl_losses(self, batch: DetBatch, draw: Draw, caption_on: bool = False, kd_regularization: bool = True,

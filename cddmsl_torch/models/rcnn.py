@@ -72,6 +72,8 @@ class DetBatch(NamedTuple):
     proposal_valid: Optional[torch.Tensor] = None  # (B, K) bool
     # (B, G, H/s, W/s) {0, 1} uint8 ground-truth canvases at TPU.MASK_CANVAS_STRIDE s (MASK_ON)
     gt_masks: Optional[torch.Tensor] = None
+    # (B, G, K, 3) (x, y, visibility) ground-truth keypoints in canvas coords (KEYPOINT_ON)
+    gt_keypoints: Optional[torch.Tensor] = None
 
 
 def normalize(images: torch.Tensor, pixel_mean, pixel_std, dtype, unit_range: bool = True) -> torch.Tensor:
@@ -87,13 +89,16 @@ def normalize(images: torch.Tensor, pixel_mean, pixel_std, dtype, unit_range: bo
 
 def rescale_detections(detections: DetectionResult, batch: DetBatch) -> DetectionResult:
     """detector_postprocess: the boxes scaled from the resized frame to
-    orig_sizes and clipped to it."""
+    orig_sizes and clipped to it; keypoints' (x, y) scaled, not clipped."""
     orig = batch.orig_sizes.to(detections.boxes.device)
     sizes = batch.image_sizes.to(detections.boxes.device)
     scale = (orig / torch.clamp(sizes, min=1)).float()
     sxy = torch.stack([scale[:, 1], scale[:, 0], scale[:, 1], scale[:, 0]], dim=-1)
     boxes = box_ops.clip(detections.boxes * sxy[:, None, :], (orig[:, 0, None], orig[:, 1, None]))
-    return detections._replace(boxes=boxes)
+    kps = detections.keypoints
+    if kps is not None:
+        kps = torch.cat([kps[..., :2] * sxy[:, None, None, :2], kps[..., 2:]], dim=-1)
+    return detections._replace(boxes=boxes, keypoints=kps)
 
 
 def infonce_bidirectional(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -155,9 +160,12 @@ class GeneralizedRCNN(nn.Module):
         dtype: torch.dtype = torch.float32,
         training_modules: bool = False,
         mask_head: Optional[dict] = None,
+        keypoint_head: Optional[dict] = None,
     ):
         """`mask_head` (MODEL.MASK_ON): the mask head's num_conv, conv_dim,
-        cls_agnostic and canvas_stride, on res5's crops."""
+        cls_agnostic and canvas_stride, on res5's crops; `keypoint_head`
+        (MODEL.KEYPOINT_ON): the keypoint head's num_keypoints, conv_dims,
+        loss_weight and loss_normalizer, on res4 pooled again."""
         super().__init__()
         if backbone_type not in ("clip", "d2_resnet"):
             raise ValueError(f"backbone_type {backbone_type!r}: 'clip' or 'd2_resnet'")
@@ -212,6 +220,8 @@ class GeneralizedRCNN(nn.Module):
             multiply_rpn_score=multiply_rpn_score,
             mask_head=mask_head,
             res5_channels=backbone_width * 32 if backbone_type == "clip" else 2048,
+            keypoint_head=keypoint_head,
+            res4_channels=backbone_width * 16 if backbone_type == "clip" else 1024,
         )
         if training_modules and backbone_type == "clip":
             # frozen second copy: the KD teacher of the caption branch
@@ -354,8 +364,8 @@ class GeneralizedRCNN(nn.Module):
         return r_src, rh._region_embed(f_trgt, boxes, backbone.res5_forward, backbone.attnpool_forward)
 
     def supervised(self, batch: DetBatch, draw: Draw):
-        """The supervised RPN and RoI losses (with a mask head "loss_mask"
-        too) on the source view, with the
+        """The supervised RPN and RoI losses (with a mask head "loss_mask",
+        with a keypoint head "loss_keypoint" too) on the source view, with the
         res4 map and the training proposals they came from: (losses, res4,
         Proposals)."""
         f_src = self.extract_res4(batch.image)
@@ -365,7 +375,7 @@ class GeneralizedRCNN(nn.Module):
         det_losses = self.roi_heads(
             f_src, proposals, batch.image_sizes, self.backbone.res5_forward, self._box_pool, training=True,
             gt_boxes=batch.gt_boxes, gt_classes=batch.gt_classes, gt_valid=batch.gt_valid, draw=draw,
-            gt_masks=batch.gt_masks,
+            gt_masks=batch.gt_masks, gt_keypoints=batch.gt_keypoints,
         )
         return {**det_losses, **rpn_losses}, f_src, proposals
 

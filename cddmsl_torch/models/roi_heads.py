@@ -21,11 +21,17 @@ region-level consistency loss. With a mask head the training mask loss
 reads the same res5 crops the box head reads, and inference pools the final
 boxes again (one more K1 launch), runs res5 on them and the head.
 
-In training both mask branches run on the leading rows of each image's
-samples, where the sampler packs its foreground rows: the
+With a keypoint head (MODEL.KEYPOINT_ON, models/keypoint_head.py) the C4
+heads pool res4 again at the box pooler's resolution with 2x2 samples (one
+more K1 launch, K3 for its gradient) for the sampled boxes in training and
+for the final boxes at inference; the FPN heads have a 14x14 keypoint
+pooler over the same levels. The keypoints are decoded on the final boxes.
+
+In training the mask and keypoint branches run on the leading rows of each
+image's samples, where the sampler packs its foreground rows: the
 `mask_head.foreground_rows` of its quota, or more where keys tied at the
-quota's threshold kept more positives (`_mask_losses`). JAX runs the head
-on all of them and masks the loss to the foreground, with the same loss
+quota's threshold kept more positives (`_fg_rows`). JAX runs the heads on
+all of them and masks the losses to the foreground, with the same losses
 and gradients.
 """
 
@@ -39,6 +45,7 @@ from ..ops.box_regression import Box2BoxTransform
 from ..ops.roi_align import roi_align_batched
 from ..structures import boxes as box_ops
 from .fast_rcnn import DetectionResult, FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
+from .keypoint_head import KRCNNConvDeconvUpsampleHead, decode_keypoint_heatmaps, keypoint_branch_losses
 from .mask_head import MaskRCNNConvUpsampleHead, foreground_rows, mask_branch_losses, mask_rcnn_inference
 from .matcher import Matcher
 from .poolers import ROIPooler
@@ -96,18 +103,51 @@ class ProposalSampling(nn.Module):
         sampled_classes = torch.where(valid, torch.gather(classes, 1, idx), k)
         return take(pboxes), sampled_classes, matched_gt, valid, sampled_idx
 
-    def _mask_losses(self, regions_fn: Callable, boxes, classes, valid, matched_idx, gt_masks) -> torch.Tensor:
-        """`loss_mask` over the leading F samples of each image, which hold
-        every foreground sample: F is `mask_rows`, the sampler's quota of
-        positives, unless a tie at the quota's threshold kept more (the
-        sampler keeps every tied key, as JAX's does), and then the most
-        that an image kept (reading the count is one host sync a step).
-        `regions_fn(boxes (B, F, 4))` gives their pooled regions."""
+    def _fg_rows(self, classes, valid) -> int:
+        """F, the leading samples of each image that hold every foreground
+        sample: the sampler's quota of positives
+        (`mask_head.foreground_rows`), unless a tie at the quota's threshold
+        kept more (the sampler keeps every tied key, as JAX's does), and
+        then the most that an image kept (reading the count is one host sync
+        a step)."""
         fg = valid & (classes >= 0) & (classes < self.num_classes)
-        f = max(self.mask_rows, int(fg.sum(1).max()))
+        return max(foreground_rows(self.batch_size_per_image, self.positive_fraction), int(fg.sum(1).max()))
+
+    def _mask_losses(self, regions_fn: Callable, boxes, classes, valid, matched_idx, gt_masks,
+                     f: int) -> torch.Tensor:
+        """`loss_mask` over the leading `f` (`_fg_rows`) samples of each
+        image. `regions_fn(boxes (B, F, 4))` gives their pooled regions."""
         boxes = boxes[:, :f]
         return mask_branch_losses(self.mask_head, regions_fn(boxes), gt_masks, boxes, classes[:, :f], valid[:, :f],
                                   matched_idx[:, :f], self.num_classes, self.mask_canvas_stride)
+
+    def _keypoint_losses(self, regions_fn: Callable, boxes, classes, valid, matched_idx, gt_keypoints,
+                         f: int) -> torch.Tensor:
+        """`loss_keypoint` over the leading `f` (`_fg_rows`) samples of each
+        image; `regions_fn(boxes (B, F, 4))` gives their pooled regions."""
+        boxes = boxes[:, :f]
+        return keypoint_branch_losses(self.keypoint_head, regions_fn(boxes), gt_keypoints, boxes, classes[:, :f],
+                                      valid[:, :f], matched_idx[:, :f], self.num_classes,
+                                      self.keypoint_loss_weight, self.keypoint_loss_normalizer)
+
+    def _branch_losses(self, losses, mask_regions_fn, kp_regions_fn, boxes, classes, valid, matched_idx,
+                       gt_masks, gt_keypoints):
+        """Adds "loss_mask" and "loss_keypoint" where the heads have those
+        branches, each on the same leading rows."""
+        if self.mask_head is None and self.keypoint_head is None:
+            return losses
+        f = self._fg_rows(classes, valid)
+        if self.mask_head is not None:
+            losses["loss_mask"] = self._mask_losses(mask_regions_fn, boxes, classes, valid, matched_idx, gt_masks, f)
+        if self.keypoint_head is not None:
+            losses["loss_keypoint"] = self._keypoint_losses(kp_regions_fn, boxes, classes, valid, matched_idx,
+                                                            gt_keypoints, f)
+        return losses
+
+    def _with_keypoints(self, detections: DetectionResult, regions: torch.Tensor) -> DetectionResult:
+        """The detections with their keypoints (B, D, K, 3) decoded from the
+        head's heatmaps on `regions`, pooled for their boxes."""
+        return detections._replace(keypoints=decode_keypoint_heatmaps(self.keypoint_head(regions), detections.boxes))
 
     def _with_masks(self, detections: DetectionResult, regions: torch.Tensor) -> DetectionResult:
         """The detections with the head's probabilities of their classes on
@@ -124,7 +164,16 @@ class ProposalSampling(nn.Module):
             mask_head = dict(mask_head)
             self.mask_canvas_stride = float(mask_head.pop("canvas_stride", 4.0))
             self.mask_head = MaskRCNNConvUpsampleHead(in_channels, self.num_classes, **mask_head)
-            self.mask_rows = foreground_rows(self.batch_size_per_image, self.positive_fraction)
+
+    def _init_keypoint_branch(self, keypoint_head: Optional[dict], in_channels: int) -> None:
+        """`keypoint_head`: None, or the head's num_keypoints, conv_dims,
+        loss_weight and loss_normalizer (`keypoint_branch_losses`)."""
+        self.keypoint_head = None
+        if keypoint_head is not None:
+            keypoint_head = dict(keypoint_head)
+            self.keypoint_loss_weight = float(keypoint_head.pop("loss_weight", 1.0))
+            self.keypoint_loss_normalizer = float(keypoint_head.pop("loss_normalizer", -1.0))
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(in_channels, **keypoint_head)
 
 
 class CLIPRes5ROIHeads(ProposalSampling):
@@ -151,13 +200,17 @@ class CLIPRes5ROIHeads(ProposalSampling):
         multiply_rpn_score: bool = False,
         mask_head: Optional[dict] = None,
         res5_channels: int = 2048,
+        keypoint_head: Optional[dict] = None,
+        res4_channels: int = 1024,
     ):
         """`emb_dim` is the width of the classifier's input: the attention
         pool's output with `use_text_emb`, else res5's channels. `soft_nms`
         = (method, sigma, prune) replaces the detection NMS. `no_box_delta`
         keeps the proposal boxes; `multiply_rpn_score` folds each
         proposal's objectness logit into its class scores. `mask_head`
-        (`_init_mask_branch`) adds the mask head on res5's `res5_channels`."""
+        (`_init_mask_branch`) adds the mask head on res5's `res5_channels`;
+        `keypoint_head` (`_init_keypoint_branch`) the keypoint head on res4's
+        `res4_channels`, pooled again with 2x2 samples."""
         super().__init__()
         self.num_classes = num_classes
         self.batch_size_per_image = batch_size_per_image
@@ -178,6 +231,12 @@ class CLIPRes5ROIHeads(ProposalSampling):
         self.box2box = Box2BoxTransform(bbox_reg_weights)
         self.matcher = Matcher((0.5,), (0, 1), allow_low_quality_matches=False)
         self._init_mask_branch(mask_head, res5_channels)
+        self._init_keypoint_branch(keypoint_head, res4_channels)
+
+    def keypoint_pool(self, features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """The keypoint branch's regions: res4 pooled at the box pooler's
+        resolution and scale with 2x2 samples (JAX's `KeypointROIHeads`)."""
+        return pool_boxes(features, boxes, self.pooler_resolution, self.pooler_scale, 2)
 
     def pool(self, features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """features (B, H, W, C), boxes (B, S, 4) -> (B*S, P, P, C)."""
@@ -216,11 +275,13 @@ class CLIPRes5ROIHeads(ProposalSampling):
         gt_valid: Optional[torch.Tensor] = None,
         draw: Optional[Draw] = None,
         gt_masks: Optional[torch.Tensor] = None,
+        gt_keypoints: Optional[torch.Tensor] = None,
     ):
-        """Inference: the detections (DetectionResult, with masks when the
-        heads have a mask head). Training: the losses {"loss_cls",
-        "loss_box_reg"} over the sampled proposals, and "loss_mask" against
-        the canvases `gt_masks` (B, G, H/s, W/s)."""
+        """Inference: the detections (DetectionResult, with masks and
+        keypoints where the heads have those heads). Training: the losses
+        {"loss_cls", "loss_box_reg"} over the sampled proposals,
+        "loss_mask" against the canvases `gt_masks` (B, G, H/s, W/s) and
+        "loss_keypoint" against `gt_keypoints` (B, G, K, 3)."""
         if training:
             if gt_boxes is None or gt_classes is None or gt_valid is None or draw is None:
                 raise ValueError("RoI-head training needs gt_boxes, gt_classes, gt_valid and draw")
@@ -236,12 +297,11 @@ class CLIPRes5ROIHeads(ProposalSampling):
                 valid.reshape(n), self.num_classes, self.box2box, focal_gamma=self.focal_gamma,
                 bg_loss_weight=self.bg_loss_weight,
             )
-            if self.mask_head is not None:
-                crops = r5.reshape(b, s, *r5.shape[1:])
-                losses["loss_mask"] = self._mask_losses(
-                    lambda bx: crops[:, : bx.shape[1]].reshape(-1, *r5.shape[1:]), boxes, classes, valid,
-                    matched_idx, gt_masks)
-            return losses
+            crops = r5.reshape(b, s, *r5.shape[1:])
+            return self._branch_losses(
+                losses, lambda bx: crops[:, : bx.shape[1]].reshape(-1, *r5.shape[1:]),
+                lambda bx: self.keypoint_pool(features, bx), boxes, classes, valid, matched_idx, gt_masks,
+                gt_keypoints)
         b, k = proposals.boxes.shape[:2]
         region_feats = self._region_embed(features, proposals.boxes, res5_fn, attnpool_fn)
         scores, deltas = self.box_predictor(region_feats)
@@ -263,6 +323,8 @@ class CLIPRes5ROIHeads(ProposalSampling):
         )
         if self.mask_head is not None:  # the final boxes pooled again, res5 on them
             detections = self._with_masks(detections, res5_fn(self.pool(features, detections.boxes)))
+        if self.keypoint_head is not None:
+            detections = self._with_keypoints(detections, self.keypoint_pool(features, detections.boxes))
         return detections
 
 
@@ -287,7 +349,8 @@ class StandardROIHeads(ProposalSampling):
     for DC5), a 2-fc head of `fc_dim` then `emb_dim`, the linear or
     text-embedding predictor; smooth-L1 at `smooth_l1_beta`, or 1 - GIoU
     (`box_reg_loss_type`). `mask_head` (`_init_mask_branch`) adds the mask
-    branch: its own 14x14 pooler over the same levels."""
+    branch and `keypoint_head` (`_init_keypoint_branch`) the keypoint
+    branch, each with its own 14x14 pooler over the same levels."""
 
     def __init__(
         self,
@@ -309,6 +372,7 @@ class StandardROIHeads(ProposalSampling):
         box_reg_loss_weight: float = 1.0,
         box_reg_loss_type: str = "smooth_l1",
         mask_head: Optional[dict] = None,
+        keypoint_head: Optional[dict] = None,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -330,6 +394,9 @@ class StandardROIHeads(ProposalSampling):
         self._init_mask_branch(mask_head, in_channels)
         if self.mask_head is not None:
             self.mask_pooler = ROIPooler(14, pooler_scales, sampling_ratio=0, min_level=2)
+        self._init_keypoint_branch(keypoint_head, in_channels)
+        if self.keypoint_head is not None:
+            self.keypoint_pooler = ROIPooler(14, pooler_scales, sampling_ratio=0, min_level=2)
 
     def box_features(self, features: Sequence[torch.Tensor], boxes: torch.Tensor) -> torch.Tensor:
         """Per level (B, H_l, W_l, C), boxes (B, S, 4) -> (B*S, emb_dim)."""
@@ -346,11 +413,13 @@ class StandardROIHeads(ProposalSampling):
         gt_valid: Optional[torch.Tensor] = None,
         draw: Optional[Draw] = None,
         gt_masks: Optional[torch.Tensor] = None,
+        gt_keypoints: Optional[torch.Tensor] = None,
     ):
-        """Inference: the detections (DetectionResult, with masks when the
-        heads have a mask head). Training: the losses {"loss_cls",
-        "loss_box_reg"} over the sampled proposals, and "loss_mask" against
-        the canvases `gt_masks`."""
+        """Inference: the detections (DetectionResult, with masks and
+        keypoints where the heads have those heads). Training: the losses
+        {"loss_cls", "loss_box_reg"} over the sampled proposals,
+        "loss_mask" against the canvases `gt_masks` and "loss_keypoint"
+        against `gt_keypoints`."""
         if training:
             if gt_boxes is None or gt_classes is None or gt_valid is None or draw is None:
                 raise ValueError("RoI-head training needs gt_boxes, gt_classes, gt_valid and draw")
@@ -364,10 +433,9 @@ class StandardROIHeads(ProposalSampling):
                 valid.reshape(n), self.num_classes, self.box2box, smooth_l1_beta=self.smooth_l1_beta,
                 box_reg_loss_weight=self.box_reg_loss_weight, box_reg_loss_type=self.box_reg_loss_type,
             )
-            if self.mask_head is not None:
-                losses["loss_mask"] = self._mask_losses(lambda bx: self.mask_pooler(features, bx), boxes, classes,
-                                                        valid, matched_idx, gt_masks)
-            return losses
+            return self._branch_losses(
+                losses, lambda bx: self.mask_pooler(features, bx), lambda bx: self.keypoint_pooler(features, bx),
+                boxes, classes, valid, matched_idx, gt_masks, gt_keypoints)
         b, k = proposals.boxes.shape[:2]
         scores, deltas = self.box_predictor(self.box_features(features, proposals.boxes))
         detections = fast_rcnn_inference(
@@ -377,4 +445,6 @@ class StandardROIHeads(ProposalSampling):
         )
         if self.mask_head is not None:
             detections = self._with_masks(detections, self.mask_pooler(features, detections.boxes))
+        if self.keypoint_head is not None:
+            detections = self._with_keypoints(detections, self.keypoint_pooler(features, detections.boxes))
         return detections

@@ -229,9 +229,26 @@ Phases, each of which fails the run with a non-zero exit:
      configs/quick_schedules/segm_training_acc_test.yaml through
      `train_net.main` (fp32, TF32 off), its bbox and segm AP50 printed
      beside JAX's goldens, not judged.
+ 18. Keypoint and Cascade R-CNN (`keypoint_cascade_path`), bf16, seeded
+     random weights: (a) `DefaultTrainer` on
+     configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml (17 keypoints,
+     batch 8 at 800x1344) over a person fixture with COCO's 17 keypoints a
+     box: 6 steps at 8/8/1 (the box and the keypoint pooler once per level
+     each), every loss finite (loss_keypoint too), the final test through
+     `COCOEvaluator` with bbox and keypoints (8/0/2 a batch), an eval
+     batch's ms/image and keypoints, the step on a device batch; (b)
+     configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml (80 classes) over the
+     COCO fixture: 6 steps at 16/16/1 (three stages and the mask pooler),
+     the final test with bbox and segm (16/0/2), an eval batch, the step on
+     a device batch; (c) cascade_rcnn_R_50_C4_1x.yaml (3/3/1, 3/0/2) and
+     keypoint_rcnn_R_50_C4_1x.yaml (2/2/1, 2/0/2): a step on a device batch
+     and an eval batch each; (d) K1 at every RoIAlign call and K3 at every
+     one that takes a gradient, as `KernelCalls` records them in the last
+     counted step of (a) and (b), in (c)'s step and in an eval batch of
+     each, and K4 at the NMS calls recorded in (a) and (b).
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
-`.../ovd`, `.../fpn`, `.../mask`). `launches` counts
+`.../ovd`, `.../fpn`, `.../mask`, `.../keypoint`, `.../cascade`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
@@ -240,7 +257,8 @@ pretrain, 6 steps; for language_tools, the region features' batches; for
 plain_r50, 12 steps and the final test; for ovd, (a)'s and (c)'s eval
 batches and (b)'s 9 steps; for fpn, (a)'s 12 steps and final test; for
 mask, (a)'s 12 steps and final test, (b)'s 3 steps and eval batch, (c)'s
-3 steps);
+3 steps; for keypoint, (a)'s 6 steps and final test and the C4 keypoint
+step and eval batch; for cascade, (b)'s and the C4 cascade's likewise);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -252,8 +270,9 @@ first region-feature batch: K1 1, K4 1; for plain_r50 one step and one
 eval batch: K1 2, K3 1, K4 3; for ovd one step and one eval batch: K1 2,
 K3 1, K4 3; for fpn one step and one eval batch: K1 8, K3 4, K4 3; for
 mask (a)'s mask pool, the eval batch's mask pool and (b)'s re-pool, (a)'s
-RPN and eval NMS: K1 9, K3 4, K4 3): the largest error and the sums of the
-times and bounds.
+RPN and eval NMS: K1 9, K3 4, K4 3; for keypoint K1 20, K3 10, K4 3; for
+cascade K1 38, K3 19, K4 3): the largest error and the sums of the times
+and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -3427,12 +3446,13 @@ SEGM_GOLDEN_AP50 = {"bbox": 12.822, "segm": 6.733}
 
 def mask_step_pool_calls(model, batch, draw):
     """The mask pool of one FPN Mask R-CNN step, rebuilt outside autograd:
-    the leading `mask_rows` sampled ROIs of each image, one call per level."""
+    the leading `_fg_rows` sampled ROIs of each image, one call per level."""
     rpn, rh = model.proposal_generator, model.roi_heads
     head, rpn_levels = model.features(batch.image)
     proposals = rpn._predict_levels(rpn._levels(rpn_levels), batch.image_sizes, True)
-    sampled = rh.label_and_sample_proposals(proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)[0]
-    return level_pool_calls(rh, head, sampled[:, :rh.mask_rows], "mask supervised", rh.mask_pooler)
+    sampled, classes, _, valid, _ = rh.label_and_sample_proposals(
+        proposals, batch.gt_boxes, batch.gt_classes, batch.gt_valid, draw)
+    return level_pool_calls(rh, head, sampled[:, :rh._fg_rows(classes, valid)], "mask supervised", rh.mask_pooler)
 
 
 def seeded_detections(batch, num_classes, per_image, seed):
@@ -3746,6 +3766,371 @@ def mask_path(dev, smi, roi_ops, nms_ops):
 
 
 
+KP_NAMES = ("chip_smoke_kp_train", "chip_smoke_kp_val")
+CASCADE_NAMES = ("chip_smoke_cascade_train", "chip_smoke_cascade_val")
+KP_CONFIG = "COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml"
+KP_C4_CONFIG = "COCO-Keypoints/keypoint_rcnn_R_50_C4_1x.yaml"
+CASCADE_CONFIG = "Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml"
+CASCADE_C4_CONFIG = "Misc/cascade_rcnn_R_50_C4_1x.yaml"
+KP_STEPS, CASCADE_STEPS = 6, 6
+KP_SEED, CASCADE_CANDIDATES_SEED = 18, 19
+# COCO person's keypoints and their mirrors (detectron2's builtin metadata)
+COCO_KEYPOINT_NAMES = ("nose", "left_eye", "right_eye", "left_ear", "right_ear", "left_shoulder", "right_shoulder",
+                       "left_elbow", "right_elbow", "left_wrist", "right_wrist", "left_hip", "right_hip", "left_knee",
+                       "right_knee", "left_ankle", "right_ankle")
+COCO_KEYPOINT_FLIP_MAP = tuple((f"left_{p}", f"right_{p}") for p in
+                               ("eye", "ear", "shoulder", "elbow", "wrist", "hip", "knee", "ankle"))
+
+
+def write_keypoint_fixture(root, names, seed):
+    """The synthetic COCO fixture of one class, person (FPN_IMAGES images
+    of FPN_HW), with COCO's 17 keypoints per box at seeded spots
+    inside it (flags 2, one in five 1, one in ten 0), registered under
+    `names` with COCO person's keypoint names, flip map and OKS sigmas."""
+    import os
+
+    from cddmsl_torch.data import MetadataCatalog
+    from cddmsl_torch.data.datasets.coco import register_coco_instances
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_coco
+    from cddmsl_torch.evaluation.coco_eval import COCO_PERSON_SIGMAS
+
+    json_path, img_root = make_synthetic_coco(os.path.join(root, "kp"), n=FPN_IMAGES, seed=seed,
+                                              classes=("person",), hw=FPN_HW)
+    with open(json_path) as f:
+        coco = json.load(f)
+    gen = torch.Generator().manual_seed(seed)
+    for ann in coco["annotations"]:
+        x, y, w, h = ann["bbox"]
+        u = torch.rand((17, 3), generator=gen)
+        flags = torch.where(u[:, 2] < 0.1, 0, torch.where(u[:, 2] < 0.3, 1, 2))
+        ann["keypoints"] = [v for k in range(17) for v in (x + float(u[k, 0]) * w, y + float(u[k, 1]) * h,
+                                                          int(flags[k]))]
+        ann["num_keypoints"] = int((flags > 0).sum())
+    with open(json_path, "w") as f:
+        json.dump(coco, f)
+    for name in names:
+        register_coco_instances(name, json_path, img_root)
+        MetadataCatalog.get(name).set(keypoint_names=COCO_KEYPOINT_NAMES, keypoint_flip_map=COCO_KEYPOINT_FLIP_MAP,
+                                      keypoint_oks_sigmas=tuple(COCO_PERSON_SIGMAS.tolist()))
+
+
+class KernelCalls:
+    """The inputs of the RoIAlign and NMS calls that the models make while
+    `recording`, taken as they make them: (call, features, batch_idx,
+    boxes, pooled, scale) for each `roi_align_batched` (through `pool_boxes`
+    and `ROIPooler`) in `pools`, the names of those whose map takes a
+    gradient (K3 runs there) in `k3`, and (boxes, scores, valid, threshold,
+    max_out) for each NMS in `nms`: the RPN's, and the detection stage's
+    after `class_shifted`, its scores replaced by `seeded_candidates` with
+    `candidates_seed` (a few steps from random weights leave it an empty
+    problem)."""
+
+    def __init__(self, candidates_seed):
+        self.candidates_seed = candidates_seed
+        self.pools, self.k3, self.nms = [], [], []
+
+    @contextlib.contextmanager
+    def recording(self, what):
+        from cddmsl_torch.models import fast_rcnn, poolers, roi_heads, rpn
+        from cddmsl_torch.ops.nms import class_shifted
+
+        real = {module: module.roi_align_batched for module in (poolers, roi_heads)}
+        real_nms, real_batched_nms = rpn.nms, fast_rcnn.batched_nms
+
+        def pool_of(module):
+            def pool(features, batch_idx, boxes, output_size, spatial_scale, *rest):
+                call = f"{what} {len(self.pools)} ({output_size[0]}x{output_size[1]} at 1/{1 / spatial_scale:g})"
+                self.pools.append((call, features.detach(), batch_idx.clone(), boxes.detach().clone(),
+                                   output_size[0], spatial_scale))
+                if features.requires_grad and torch.is_grad_enabled():
+                    self.k3.append(call)
+                return real[module](features, batch_idx, boxes, output_size, spatial_scale, *rest)
+
+            return pool
+
+        def nms(boxes, scores, iou_threshold, max_out, valid):
+            self.nms.append((boxes.clone(), scores.clone(), valid.clone(), iou_threshold, max_out))
+            return real_nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+        def batched_nms(boxes, scores, idxs, iou_threshold, max_out, valid):
+            seeded = seeded_candidates(scores, valid, self.candidates_seed)
+            self.nms.append((class_shifted(boxes, idxs, valid), *seeded, iou_threshold, max_out))
+            return real_batched_nms(boxes, scores, idxs, iou_threshold, max_out, valid=valid)
+
+        for module in real:
+            module.roi_align_batched = pool_of(module)
+        rpn.nms, fast_rcnn.batched_nms = nms, batched_nms
+        try:
+            yield self
+        finally:
+            for module, fn in real.items():
+                module.roi_align_batched = fn
+            rpn.nms, fast_rcnn.batched_nms = real_nms, real_batched_nms
+
+
+def keypoint_cascade_path(dev, smi, roi_ops, nms_ops):
+    """Phase 18: Keypoint R-CNN and Cascade R-CNN at full width (bf16,
+    seeded random weights, the stem scaled by `unit_scale_stem`), batch 8 at
+    the 800x1344 pad. (a) `DefaultTrainer.train()` on
+    configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml (R-50 FPN, one
+    class, 17 keypoints, 8 convs of 512) over a person fixture with COCO's
+    17 keypoints per box (`write_keypoint_fixture`): 6 steps at K1/K3/K4
+    8/8/1 a step (the box and the keypoint pooler once per level each) or
+    the run fails, every loss finite (loss_keypoint too), the final test
+    through `COCOEvaluator` with bbox and keypoints (OKS) at 8/0/2 a batch;
+    an eval batch's ms/image and its keypoints (N, 100, 17, 3) finite, the
+    step on a device batch. (b)
+    configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml (80 classes) over the
+    COCO fixture: 6 steps at 16/16/1 (three stages and the mask pooler, once
+    per level each), the eight losses finite, the final test with bbox and
+    segm at 16/0/2 a batch, an eval batch, the step on a device batch. (c)
+    cascade_rcnn_R_50_C4_1x.yaml (3/3/1 a step, 3/0/2 an eval batch) and
+    keypoint_rcnn_R_50_C4_1x.yaml (the plain tower, 2/2/1 and 2/0/2): one
+    step each on a device batch and one eval batch. (d) K1 at every
+    RoIAlign call and K3 at every one that takes a gradient, as
+    `KernelCalls` records them in the last counted step of (a) and (b), in
+    (c)'s counted step and in an eval batch of each; K4 at the NMS calls
+    recorded in (a) and (b); each checked and timed as in phase 7. The
+    launches are read right after each counted run, before any timing.
+    Returns {"keypoint": rows, "cascade": rows}."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.coco import register_coco_instances
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_coco
+    from cddmsl_torch.engine.defaults import DefaultTrainer
+
+    class ProbedTrainer(DefaultTrainer):
+        """Probed by `StepProbe`; while `step_calls` is set, each step's
+        kernel calls are recorded into a new `KernelCalls` there."""
+
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            return [self.probe] + super().build_hooks()
+
+        def run_step(self, batch):
+            if self.step_calls is None:
+                return super().run_step(batch)
+            self.step_calls = KernelCalls(self.step_calls.candidates_seed)
+            with self.step_calls.recording("step"):
+                metrics = super().run_step(batch)
+            self.step_losses.append({k: v.detach() for k, v in metrics.items() if k.startswith("loss")})
+            return metrics
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_kp_cascade_")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+
+    def cfg_of(config, names, steps, *opts):
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(here, "configs", config))
+        cfg.merge_from_list(["OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0", "DATASETS.TRAIN",
+                             repr((names[0],)), "DATASETS.TEST", repr((names[1],)), "SOLVER.IMS_PER_BATCH", "8",
+                             "SOLVER.MAX_ITER", str(steps), "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD",
+                             "0", *opts])
+        cfg.freeze()
+        return cfg
+
+    def train_and_test(label, cfg, steps, want_step, want_eval, names, tasks, candidates_seed):
+        """`train()` with the probe: the per-step launches, finite losses of
+        `names`, the final test's launches per batch and its tasks.
+        Returns (trainer, the run's launches, the last step's
+        `KernelCalls`)."""
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.step_losses = []
+        trainer.step_calls = KernelCalls(candidates_seed)
+        trainer.resume_or_load(resume=False)
+        unit_scale_stem(trainer.model)
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        step_calls, trainer.step_calls = trainer.step_calls, None
+        probe = trainer.probe
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps(label, probe, waits, steps, steps, (want_step, want_step))
+        losses = [{k: v.item() for k, v in step.items()} for step in trainer.step_losses]
+        if len(losses) != steps or any(set(step) != names for step in losses) or not all(
+                math.isfinite(v) for step in losses for v in step.values()):
+            fail(f"{label}: the losses are not the finite {sorted(names)}: {losses}")
+        for i in (0, steps - 1):
+            print(f"{label} step {i + 1} losses: {json.dumps({k: round(v, 6) for k, v in losses[i].items()})}")
+        warm = per_step[2:]
+        print(f"{label} loop, steps 3-{steps}: {mean([p[0] for p in warm]):.3f} ms/step CUDA events, "
+              f"{mean([p[1] for p in warm]):.3f} ms/step host wall, {mean([p[2] for p in warm]):.3f} ms/step "
+              f"waiting on the loader; whole loop {probe.loop_s * 1e3 / steps:.3f} ms/step host wall; on {smi}")
+        n_batches = -(-FPN_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple((launches[k] - probe.loop_launches[k]) / n_batches for k in keys)
+        if per_batch != want_eval:
+            fail(f"the {label} final test launched K1/K3/K4 {per_batch} per batch, expected {want_eval}")
+        res = results[cfg.DATASETS.TEST[0]]
+        if set(res) != set(tasks) or not all(math.isfinite(res[t]["AP"]) for t in tasks):
+            fail(f"{label}: the final test gave {res}")
+        ap = {t: {k: round(v, 4) for k, v in res[t].items() if k in ("AP", "AP50")} for t in res}
+        print(f"{label} final test (COCOEvaluator {' + '.join(tasks)}): launches per batch K1/K3/K4 {per_batch}; "
+              f"AP (random weights, not judged) {json.dumps(ap)}")
+        return trainer, launches, step_calls
+
+    def eval_ms(label, model, batch, calls=None):
+        """An eval batch's ms/image; its first inference's kernel calls are
+        recorded into `calls` where given."""
+        n = batch.image.shape[0]
+        with calls.recording("eval") if calls is not None else contextlib.nullcontext():
+            det = model.inference(batch)
+        ms = cuda_ms(lambda: model.inference(batch), 3, warmup=1)
+        print(f"{label} eval batch {tuple(batch.image.shape)}: {ms / n:.3f} ms/image CUDA events, "
+              f"{det.valid.sum(1).tolist()} detections an image")
+        return det
+
+    def c4_step_and_eval(label, cfg, want_step, want_eval, names):
+        """One step on a device batch and one eval batch of a C4 detector,
+        the launches of each checked; returns (the eval batch's detections,
+        the run's launches, the `KernelCalls` of the step and of the eval
+        batch)."""
+        trainer = DefaultTrainer(cfg, device="cuda")
+        trainer.resume_or_load(resume=False)
+        unit_scale_stem(trainer.model)
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as loader:
+            batch = to_device(next(loader), dev)
+        test = first_eval_batch(cfg, cfg.DATASETS.TEST[0], dev)
+        step_calls, eval_calls = KernelCalls(CASCADE_CANDIDATES_SEED), KernelCalls(CASCADE_CANDIDATES_SEED)
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with step_calls.recording("step"):
+            metrics = trainer.run_step(batch)
+        e1.record()
+        torch.cuda.synchronize()
+        step = read_launches(roi_ops, nms_ops)
+        with eval_calls.recording("eval"):
+            det = trainer.model.inference(test)
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        counts = tuple(step[k] for k in keys)
+        per_eval = tuple(launches[k] - step[k] for k in keys)
+        losses = {k: v.item() for k, v in metrics.items() if k.startswith("loss")}
+        if counts != want_step or per_eval != want_eval or set(losses) != names or not all(
+                math.isfinite(v) for v in losses.values()):
+            fail(f"{label}: a step launched K1/K3/K4 {counts} (expected {want_step}), an eval batch {per_eval} "
+                 f"(expected {want_eval}); losses {losses}")
+        ms = cuda_ms(lambda: trainer.run_step(batch), 3, warmup=1)
+        print(f"{label} configs/{cfg_name[label]}: step on a device batch {tuple(batch.image.shape)} "
+              f"{e0.elapsed_time(e1):.3f} ms (the first), {ms:.3f} ms/step CUDA events after; K1/K3/K4 {counts} a "
+              f"step, {per_eval} an eval batch; losses {json.dumps({k: round(v, 6) for k, v in losses.items()})}")
+        eval_ms(label, trainer.model, test)
+        return det, launches, step_calls, eval_calls
+
+    try:
+        write_keypoint_fixture(root, KP_NAMES, KP_SEED)
+        json_path, img_root = make_synthetic_coco(os.path.join(root, "coco"), n=FPN_IMAGES, seed=16,
+                                                  classes=COCO_CLASSES, hw=FPN_HW)
+        for name in CASCADE_NAMES:
+            register_coco_instances(name, json_path, img_root)
+        cfg_name = {"keypoint c4": KP_C4_CONFIG, "cascade c4": CASCADE_C4_CONFIG}
+
+        # (a) the FPN Keypoint R-CNN through train()
+        kp_names = {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_keypoint"}
+        cfg = cfg_of(KP_CONFIG, KP_NAMES, KP_STEPS)
+        print(f"keypoint (a): configs/{KP_CONFIG} (R-{cfg.MODEL.RESNETS.DEPTH} FPN, "
+              f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} class, {cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS} keypoints, "
+              f"convs {list(cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS)}, {cfg.SOLVER.IMS_PER_BATCH} images a step "
+              f"padded to {tuple(cfg.TPU.PAD_SIZE_TRAIN)}, {cfg.TPU.COMPUTE_DTYPE}) on a person fixture "
+              f"({FPN_IMAGES} {FPN_HW[0]}x{FPN_HW[1]} images, COCO's 17 keypoints a box)")
+        trainer, launches_a, kp_step = train_and_test("keypoint", cfg, KP_STEPS, (8, 8, 1), (8, 0, 2), kp_names,
+                                                      ("bbox", "keypoints"), FPN_CANDIDATES_SEED)
+        kp_eval = KernelCalls(FPN_CANDIDATES_SEED)
+        eval_batch = first_eval_batch(cfg, KP_NAMES[1], dev)
+        det = eval_ms("keypoint", trainer.model, eval_batch, kp_eval)
+        if det.keypoints is None or tuple(det.keypoints.shape) != (eval_batch.image.shape[0], 100, 17, 3) or not bool(
+                torch.isfinite(det.keypoints).all()):
+            fail(f"keypoint (a): inference gave keypoints "
+                 f"{None if det.keypoints is None else tuple(det.keypoints.shape)}")
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        if batch.gt_keypoints is None or tuple(batch.gt_keypoints.shape[2:]) != (17, 3):
+            fail(f"keypoint (a): the training batch's keypoints are "
+                 f"{None if batch.gt_keypoints is None else tuple(batch.gt_keypoints.shape)}")
+        print(f"keypoint (a) training batch: keypoints {tuple(batch.gt_keypoints.shape)}, "
+              f"{int((batch.gt_keypoints[..., 2] > 0).sum())} labelled")
+        time_device_batch("keypoint", trainer, batch, what="supervised, loss_keypoint on")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (b) the FPN Cascade Mask R-CNN through train()
+        stage_names = {f"loss_{kind}_stage{i}" for kind in ("cls", "box_reg") for i in range(3)}
+        cascade_names = stage_names | {"loss_rpn_cls", "loss_rpn_loc", "loss_mask"}
+        cfg_b = cfg_of(CASCADE_CONFIG, CASCADE_NAMES, CASCADE_STEPS)
+        print(f"cascade (b): configs/{CASCADE_CONFIG} (R-{cfg_b.MODEL.RESNETS.DEPTH} FPN, three stages at IoU "
+              f"{list(cfg_b.MODEL.ROI_BOX_CASCADE_HEAD.IOUS)}, mask head, {cfg_b.MODEL.ROI_HEADS.NUM_CLASSES} "
+              f"classes, batch {cfg_b.SOLVER.IMS_PER_BATCH}, {cfg_b.TPU.COMPUTE_DTYPE}) on the synthetic COCO fixture")
+        trainer, launches_b, cascade_step = train_and_test("cascade", cfg_b, CASCADE_STEPS, (16, 16, 1), (16, 0, 2),
+                                                           cascade_names, ("bbox", "segm"), CASCADE_CANDIDATES_SEED)
+        cascade_eval = KernelCalls(CASCADE_CANDIDATES_SEED)
+        eval_batch = first_eval_batch(cfg_b, CASCADE_NAMES[1], dev)
+        det = eval_ms("cascade", trainer.model, eval_batch, cascade_eval)
+        if det.masks is None or not bool(torch.isfinite(det.boxes).all()):
+            fail("cascade (b): inference gave no masks or non-finite boxes")
+        with build_detection_train_loader(cfg_b, seed=0, pin_memory=True) as train_loader:
+            batch = to_device(next(train_loader), dev)
+        time_device_batch("cascade", trainer, batch, what="supervised, three stages and loss_mask")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (c) the C4 cascade and the C4 keypoint detector
+        c4_names = stage_names | {"loss_rpn_cls", "loss_rpn_loc"}
+        cfg_c = cfg_of(CASCADE_C4_CONFIG, CASCADE_NAMES, 1)
+        _, launches_c, c4_cascade_step, c4_cascade_eval = c4_step_and_eval("cascade c4", cfg_c, (3, 3, 1),
+                                                                           (3, 0, 2), c4_names)
+        torch.cuda.empty_cache()
+        cfg_k = cfg_of(KP_C4_CONFIG, KP_NAMES, 1, "TPU.ENABLE_CAPTION_CONSISTENCY", "False")
+        det_k, launches_k, kp_c4_step, kp_c4_eval = c4_step_and_eval("keypoint c4", cfg_k, (2, 2, 1), (2, 0, 2),
+                                                                     kp_names)
+        if det_k.keypoints is None or tuple(det_k.keypoints.shape[2:]) != (17, 3):
+            fail("keypoint c4: inference gave no (17, 3) keypoints")
+        del det_k
+        torch.cuda.empty_cache()
+
+        launches = {
+            "keypoint": {k: launches_a[k] + launches_k[k] for k in keys},
+            "cascade": {k: launches_b[k] + launches_c[k] for k in keys},
+        }
+        print(f"keypoint path launches ((a) {KP_STEPS} steps and the final test, (c) a C4 step and an eval batch): "
+              f"{launches['keypoint']}")
+        print(f"cascade path launches ((b) {CASCADE_STEPS} steps and the final test, (c) a C4 step and an eval "
+              f"batch): {launches['cascade']}")
+
+        # (d) the kernels at the calls recorded on the path
+        out = {}
+        for path, recorded, nms_calls in (
+            ("keypoint", (("", kp_step), ("", kp_eval), ("c4 ", kp_c4_step), ("c4 ", kp_c4_eval)),
+             kp_step.nms + kp_eval.nms),
+            ("cascade", (("", cascade_step), ("", cascade_eval), ("c4 ", c4_cascade_step), ("c4 ", c4_cascade_eval)),
+             cascade_step.nms + cascade_eval.nms),
+        ):
+            rows = {name: new_row(launches[path][name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+            for prefix, calls in recorded:
+                pools = [(prefix + call, *args) for call, *args in calls.pools]
+                add_roi_rows(rows, dev, roi_ops, path, pools, [prefix + call for call in calls.k3])
+            rows = {name: close_row(row) for name, row in rows.items()}
+            rows["nms"] = nms_row(nms_ops, path, launches[path]["nms"], nms_calls)
+            out[path] = rows
+        print(f"keypoint_cascade phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return out
+    finally:
+        for name in (*KP_NAMES, *CASCADE_NAMES):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -3811,6 +4196,8 @@ def main() -> int:
     paths["fpn"] = fpn_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths["mask"] = mask_path(dev, smi, roi_ops, nms_ops)
+    torch.cuda.empty_cache()
+    paths.update(keypoint_cascade_path(dev, smi, roi_ops, nms_ops))
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

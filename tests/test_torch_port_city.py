@@ -373,7 +373,8 @@ def test_coco_evaluator_equals_jax(tmp_path):
 
 
 def test_build_evaluator_takes_coco_for_boxes_only(tmp_path):
-    """bbox, and with MODEL.MASK_ON bbox and segm; keypoints are refused."""
+    """bbox, with MODEL.MASK_ON bbox and segm, with MODEL.KEYPOINT_ON the
+    keypoints task too, its OKS sigmas from TEST.KEYPOINT_OKS_SIGMAS."""
     MetadataCatalog.get("port_test_coco_only").set(evaluator_type="coco", thing_classes=["a"])
     try:
         cfg = _tiny_cfg(OUTPUT_DIR=str(tmp_path))
@@ -383,8 +384,9 @@ def test_build_evaluator_takes_coco_for_boxes_only(tmp_path):
         cfg.MODEL.MASK_ON = True
         assert build_evaluator(cfg, "port_test_coco_only").tasks == ("bbox", "segm")
         cfg.MODEL.KEYPOINT_ON = True
-        with pytest.raises(NotImplementedError, match="keypoint"):
-            build_evaluator(cfg, "port_test_coco_only")
+        cfg.TEST.KEYPOINT_OKS_SIGMAS = [0.05, 0.07]
+        ev = build_evaluator(cfg, "port_test_coco_only")
+        assert ev.tasks == ("bbox", "segm", "keypoints") and ev.kpt_oks_sigmas.tolist() == [0.05, 0.07]
     finally:
         MetadataCatalog.remove("port_test_coco_only")
 

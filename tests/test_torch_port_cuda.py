@@ -400,3 +400,97 @@ def test_the_mask_pooler_and_head_on_the_card_equal_the_cpu(dev):
     assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
     for g_, w in zip(got_grads, want_grads):
         torch.testing.assert_close(g_, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_the_keypoint_pooler_head_and_decode_on_the_card_equal_the_cpu(dev):
+    """The FPN keypoint branch: a 14x14 `ROIPooler` over four levels (K1 a
+    level, K3 a level in the backward) into the keypoint head (2 convs, the
+    4x4 deconv, the 2x upsample), `keypoint_rcnn_loss` on seeded targets and
+    the heatmaps' decode, on the card against the same on the CPU's plain
+    versions, in float32: the logits within 1e-4 of their largest value,
+    the loss within 1e-5 relative, each level's gradient within 1e-4 of its
+    largest value, the decoded (x, y) within 1e-2 px where the coarse bin
+    is the same (a logit within 1e-4 of another may win on either device)."""
+    from cddmsl_torch.models.keypoint_head import (KRCNNConvDeconvUpsampleHead, decode_keypoint_heatmaps,
+                                                   keypoint_rcnn_loss)
+    from cddmsl_torch.models.poolers import ROIPooler
+
+    g = torch.Generator().manual_seed(5)
+    feats = [torch.randn((2, 112 // s, 176 // s, 16), generator=g) for s in (4, 8, 16, 32)]
+    xy = torch.rand((2, 12, 2), generator=g) * torch.tensor([150.0, 90.0])
+    boxes = torch.cat([xy, xy + 4 + torch.rand((2, 12, 2), generator=g) * 300], -1)
+    head = KRCNNConvDeconvUpsampleHead(16, 4, conv_dims=(16, 16))
+    pos = torch.randint(0, 56 * 56, (24, 4), generator=g)
+    vis = torch.rand((24, 4), generator=g) > 0.3
+    pooler = ROIPooler(14, (1 / 4, 1 / 8, 1 / 16, 1 / 32))
+    runs = []
+    for device in ("cpu", dev):
+        h = head.to(device)
+        fs = [f.detach().clone().to(device).requires_grad_(True) for f in feats]
+        logits = h(pooler(fs, boxes.to(device)))
+        loss = keypoint_rcnn_loss(logits, pos.to(device), vis.to(device))
+        loss.backward()
+        kps = decode_keypoint_heatmaps(logits.detach(), boxes.to(device))
+        runs.append((logits.detach().cpu(), loss.item(), [f.grad.cpu() for f in fs], kps.cpu()))
+    (want, want_loss, want_grads, want_kps), (got, got_loss, got_grads, got_kps) = runs
+    assert got.shape == (24, 56, 56, 4) and got_kps.shape == (2, 12, 4, 3)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    for g_, w in zip(got_grads, want_grads):
+        torch.testing.assert_close(g_, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    same_bin = (got.reshape(24, -1, 4).argmax(1) == want.reshape(24, -1, 4).argmax(1)).reshape(2, 12, 4)
+    assert same_bin.float().mean() > 0.9
+    torch.testing.assert_close(got_kps[..., :2][same_bin], want_kps[..., :2][same_bin], rtol=0, atol=1e-2)
+
+
+def test_the_cascade_heads_on_the_card_equal_the_cpu(dev):
+    """`CascadeROIHeads` on four levels (three stages' 7x7 pools, K1 and K3
+    a level each, the mask branch's 14x14 pool) in training with a
+    site-seeded draw, and at inference (the stages' mean softmax, the
+    detection NMS, K4), on the card against the CPU's plain versions, in
+    float32: the eight losses within 1e-4 relative, each level's gradient
+    within 1e-4 of its largest value, the detections' boxes within 1e-3 px
+    and scores within 1e-5, classes and validity equal."""
+    import zlib
+
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.models.cascade_rcnn import CascadeROIHeads
+    from cddmsl_torch.models.rpn import Proposals
+
+    def draw(site, shape):
+        return torch.rand(shape, generator=torch.Generator().manual_seed(zlib.crc32(site.encode())))
+
+    g = torch.Generator().manual_seed(6)
+    feats = [torch.randn((2, 112 // s, 176 // s, 16), generator=g) for s in (4, 8, 16, 32)]
+    xy = torch.rand((2, 40, 2), generator=g) * torch.tensor([150.0, 90.0])
+    prop = torch.cat([xy, xy + 8 + torch.rand((2, 40, 2), generator=g) * 60], -1)
+    gt = prop[:, :3] + torch.rand((2, 3, 4), generator=g) * 4
+    sizes = torch.tensor([[112, 176], [96, 160]])
+    canvas = (torch.rand((2, 3, 28, 44), generator=g) > 0.5).to(torch.uint8)
+    heads = init_random_(CascadeROIHeads(num_classes=5, in_channels=16, pooler_scales=(1 / 4, 1 / 8, 1 / 16, 1 / 32),
+                                         batch_size_per_image=16, fc_dim=32,
+                                         mask_head=dict(num_conv=1, conv_dim=8, canvas_stride=4.0)),
+                         torch.Generator().manual_seed(7))
+    runs = []
+    for device in ("cpu", dev):
+        h = heads.to(device)
+        fs = [f.detach().clone().to(device).requires_grad_(True) for f in feats]
+        proposals = Proposals(prop.to(device), torch.zeros((2, 40), device=device),
+                              torch.ones((2, 40), dtype=torch.bool, device=device))
+        with torch.enable_grad():
+            losses = h(fs, proposals, sizes.to(device), training=True, gt_boxes=gt.to(device),
+                       gt_classes=torch.tensor([[0, 1, 2], [3, 4, 0]], device=device),
+                       gt_valid=torch.ones((2, 3), dtype=torch.bool, device=device),
+                       draw=lambda s, shape: draw(s, shape).to(device), gt_masks=canvas.to(device))
+            sum(losses.values()).backward()
+        with torch.no_grad():
+            det = h([f.detach() for f in fs], proposals, sizes.to(device))
+        runs.append(({k: v.item() for k, v in losses.items()}, [f.grad.cpu() for f in fs],
+                     [t.cpu() for t in (det.boxes, det.scores, det.classes, det.valid)]))
+    (want_l, want_g, want_d), (got_l, got_g, got_d) = runs
+    assert len(got_l) == 7 and all(abs(got_l[k] - want_l[k]) <= 1e-4 * abs(want_l[k]) + 1e-7 for k in want_l)
+    for g_, w in zip(got_g, want_g):
+        torch.testing.assert_close(g_, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    assert torch.equal(got_d[2], want_d[2]) and torch.equal(got_d[3], want_d[3])
+    torch.testing.assert_close(got_d[0], want_d[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got_d[1], want_d[1], rtol=0, atol=1e-5)

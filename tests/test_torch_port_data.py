@@ -145,15 +145,17 @@ def _text_emb_cfg():
 
 
 @pytest.mark.parametrize("key, value", [
-    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.KEYPOINT_ON", True), ("MODEL.LOAD_PROPOSALS", True),
+    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"), ("MODEL.LOAD_PROPOSALS", True),
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 2), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
     ("TPU.MOE.NUM_EXPERTS", 4), ("TEST.PRECISE_BN.ENABLED", True), ("TPU.QUANT_EVAL", True),
     ("TPU.PAD_BUCKETS", [[800, 1088], [800, 1344]]),
 ])
 def test_unsupported_values_raise_naming_their_key(key, value):
-    """A mask head's key is refused under MODEL.MASK_ON, which the port takes."""
+    """A mask head's key is refused under MODEL.MASK_ON and a keypoint
+    head's under MODEL.KEYPOINT_ON, which the port takes."""
     cfg = _text_emb_cfg()
     cfg.MODEL.MASK_ON = key.startswith("MODEL.ROI_MASK_HEAD.")
+    cfg.MODEL.KEYPOINT_ON = key.startswith("MODEL.ROI_KEYPOINT_HEAD.")
     cfg.merge_from_list([key, repr(value)])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg)

@@ -163,15 +163,15 @@ def close_detection(scale):
                          and abs(g[2] - w[2]) <= DET_SCORE_ATOL)
 
 
-def assert_grads_match(model, want_grads):
-    """Every trainable parameter's gradient against JAX's, within
-    GRAD_RTOL of its tensor's largest gradient and never less than
+def assert_grads_match(model, want_grads, rtol=GRAD_RTOL):
+    """Every trainable parameter's gradient against JAX's, within `rtol`
+    (GRAD_RTOL) of its tensor's largest gradient and never less than
     GRAD_ATOL; some are not zero."""
     named = list(model.named_parameters())
     assert named and all(p.grad is not None for _, p in named)
     for name, p in named:
         want = want_grads[name].numpy()
-        atol = max(GRAD_ATOL, GRAD_RTOL * np.abs(want).max())
+        atol = max(GRAD_ATOL, rtol * np.abs(want).max())
         np.testing.assert_allclose(p.grad.numpy(), want, rtol=0, atol=atol, err_msg=name)
     assert any(np.abs(want_grads[n].numpy()).max() > 0 for n, _ in named)
 
@@ -448,7 +448,8 @@ def _fpn_cfg():
 
 
 @pytest.mark.parametrize("key, value", [
-    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.KEYPOINT_ON", True), ("MODEL.ROI_HEADS.NAME", "CascadeROIHeads"),
+    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"),
+    ("MODEL.ROI_BOX_CASCADE_HEAD.IOUS", [0.5, 0.55, 0.6]),
     ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"), ("MODEL.BACKBONE.NAME", "build_regnet_fpn_backbone"),
     ("MODEL.RESNETS.NORM", "GN"), ("MODEL.FPN.NORM", "GN"), ("MODEL.ROI_BOX_HEAD.NUM_CONV", 4),
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 1), ("MODEL.ROI_BOX_HEAD.NORM", "GN"),
@@ -458,11 +459,17 @@ def _fpn_cfg():
     ("MODEL.CONSISTENCY_BRANCH", "image"), ("MODEL.CLIP.FOCAL_SCALED_LOSS", 0.5),
 ])
 def test_the_fpn_family_refuses_what_it_leaves_out_naming_the_key(key, value):
-    """GIoU and the mask head are ported: their keys are refused at other
-    values (a mask head's under MODEL.MASK_ON)."""
+    """GIoU, the mask and keypoint heads and the cascade are ported: their
+    keys are refused at other values (a mask head's under MODEL.MASK_ON, a
+    keypoint head's under MODEL.KEYPOINT_ON, the cascade's under
+    ROI_HEADS.NAME CascadeROIHeads)."""
     cfg = _fpn_cfg()
     if key.startswith("MODEL.ROI_MASK_HEAD."):
         cfg.merge_from_list(["MODEL.MASK_ON", "True"])
+    if key.startswith("MODEL.ROI_KEYPOINT_HEAD."):
+        cfg.merge_from_list(["MODEL.KEYPOINT_ON", "True"])
+    if key.startswith("MODEL.ROI_BOX_CASCADE_HEAD."):
+        cfg.merge_from_list(["MODEL.ROI_HEADS.NAME", "CascadeROIHeads"])
     cfg.merge_from_list([key, repr(value) if not isinstance(value, str) else value])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg, world=1)

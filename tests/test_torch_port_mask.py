@@ -155,7 +155,7 @@ def test_a_tie_at_the_positive_quota_keeps_every_foreground_row_in_loss_mask():
     rh = StandardROIHeads(num_classes=k, in_channels=c, pooler_scales=(1 / 4,), fc_dim=8, emb_dim=8,
                           batch_size_per_image=s, positive_fraction=0.25,
                           mask_head=dict(num_conv=1, conv_dim=8, cls_agnostic=False, canvas_stride=4.0))
-    assert rh.mask_rows == 2
+    assert mask_head.foreground_rows(s, 0.25) == 2  # the quota
     r = np.random.RandomState(11)
     gt = np.tile(np.array([[[10, 10, 60, 50], [70, 40, 120, 100]]], np.float32), (2, 1, 1))  # (B, G, 4)
     near = gt[:, [0, 0, 1, 1]] + r.uniform(-2, 2, (2, 4, 4)).astype(np.float32)  # IoU >= 0.5: positives
@@ -188,8 +188,9 @@ def test_a_tie_at_the_positive_quota_keeps_every_foreground_row_in_loss_mask():
 
     want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
     crops = _t(x).reshape(2, s, p, p, c)
+    assert rh._fg_rows(classes, valid) == 3
     loss = rh._mask_losses(lambda bx: crops[:, :bx.shape[1]].reshape(-1, p, p, c), boxes, classes, valid,
-                           matched_idx, _t(canvas))
+                           matched_idx, _t(canvas), rh._fg_rows(classes, valid))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
     grads = convert_jax_params({"roi_heads": {"mask_head": want_grads["params"]}})
@@ -633,9 +634,9 @@ REFUSED = [
     ("Misc/scratch_mask_rcnn_R_50_FPN_3x_gn.yaml", "MODEL.RESNETS.NORM"),
     ("Misc/scratch_mask_rcnn_R_50_FPN_9x_syncbn.yaml", "MODEL.RESNETS.NORM"),
     ("Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
-    ("Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml", "MODEL.ROI_HEADS.NAME"),
+    ("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.SEM_SEG_HEAD"),
     ("Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "MODEL.RESNETS.DEFORM_ON_PER_STAGE"),
-    ("quick_schedules/cascade_mask_rcnn_R_50_FPN_instant_test.yaml", "MODEL.ROI_HEADS.NAME"),
+    ("Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
     ("LVISv0.5-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
     ("LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
     ("LVISv1-InstanceSegmentation/mask_rcnn_CLIP_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
@@ -657,13 +658,15 @@ def test_mask_configs_the_port_refuses_name_their_key(path, key):
     ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_MASK_HEAD.NORM", "SyncBN"),
     ("MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", 28), ("MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO", 2),
     ("MODEL.ROI_MASK_HEAD.POOLER_TYPE", "ROIAlign"), ("MODEL.ROI_MASK_HEAD.NAME", "MaskRCNNConvGNHead"),
-    ("MODEL.KEYPOINT_ON", True),
+    ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"),
 ])
 @pytest.mark.parametrize("family", ["fpn", "c4"])
 def test_the_mask_keys_jax_does_not_compute_with_are_refused(family, key, value):
     path = ("COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml" if family == "fpn"
             else "COCO-InstanceSegmentation/mask_rcnn_CLIP_R_50_C4_1x.yaml")
     cfg = _cfg(path)[0]
+    if key.startswith("MODEL.ROI_KEYPOINT_HEAD."):  # a keypoint head's key, under MODEL.KEYPOINT_ON
+        cfg.merge_from_list(["MODEL.KEYPOINT_ON", "True"])
     cfg.merge_from_list([key, value if isinstance(value, str) else repr(value)])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg, world=1)

@@ -51,6 +51,7 @@ from cddmsl_torch.engine.train_loop import Trainer
 from cddmsl_torch.evaluation import verify_results
 from cddmsl_torch.models.build import build_model
 from cddmsl_torch.models.fpn_rcnn import FPNRCNN
+from cddmsl_torch.models.mask_head import foreground_rows
 from cddmsl_torch.models.rcnn import DetBatch
 from cddmsl_torch.solver.build import build_optimizer
 from test_torch_port_backbone import fill_params, jax_param_shapes
@@ -147,7 +148,8 @@ def test_fpn_mask_rcnn_losses_and_gradients_equal_jax(fpn_mask_runs):
     for k, v in want_losses.items():
         np.testing.assert_allclose(got_losses[k].item(), float(v), rtol=1e-4, err_msg=k)
         assert float(v) > 0, k
-    assert model.roi_heads.mask_rows == 8 < NARROW["roi_batch_size_per_image"]
+    assert foreground_rows(NARROW["roi_batch_size_per_image"], model.roi_heads.positive_fraction) == 8 < \
+        NARROW["roi_batch_size_per_image"]
     assert_grads_match(model, want_grads)
 
 
@@ -250,7 +252,7 @@ def test_mask_pool_calls_are_the_steps_own(monkeypatch):
         assert torch.equal(feats, f) and torch.equal(bidx, i) and _same(boxes, b)
         assert (pooled, pooled) == size == (14, 14)
         assert scale == s
-    assert bidx.shape[0] == 2 * model.roi_heads.mask_rows
+    assert bidx.shape[0] == 2 * foreground_rows(NARROW["roi_batch_size_per_image"], model.roi_heads.positive_fraction)
     pools.clear()
     with torch.no_grad():
         det = model.inference(tb, do_postprocess=False)

@@ -102,9 +102,12 @@ def supervised_draw(rng):
     return jax_draw(*jax.random.split(rng))
 
 
-def replaying_trainers(params, dis):
+def replaying_trainers(params, dis, draw_of_step=step_draw):
     """`DefaultTrainer` and `MeanTeacherTrainer` subclasses that start from
-    JAX's tree and replay JAX's per-iteration draws."""
+    JAX's tree and replay JAX's per-iteration draws: `draw_of_step(rng)`,
+    `step_draw` for GeneralizedRCNN's `cddmsl_losses`, `supervised_draw` for
+    the modules whose `cddmsl_losses` is their supervised losses (FPNRCNN,
+    CascadeRCNN)."""
 
     def load(trainer):
         trainer.model.load_state_dict(convert_jax_params(params), strict=True)
@@ -118,7 +121,7 @@ def replaying_trainers(params, dis):
             self._jax_key = jax.random.PRNGKey(max(cfg.SEED, 0) + 12345)
 
         def run_step(self, batch):
-            return self.state.train_step(batch, step_draw(jax.random.fold_in(self._jax_key, self.state.iteration)))
+            return self.state.train_step(batch, draw_of_step(jax.random.fold_in(self._jax_key, self.state.iteration)))
 
     class MeanTeacher(mean_teacher.MeanTeacherTrainer):
         def __init__(self, cfg, device="cuda"):
