@@ -26,13 +26,16 @@ score_lowres deconv flipped the same way; the cascade's stages
 `roi_heads.box_head.{i}.fc1/fc2` and `roi_heads.box_predictor.{i}.*`,
 fc1's rows in the pooled map's HWC order, as the port's stage reads it.
 
-A JAX `FPNRCNN` or `FPNProposalNetwork` tree (it has `fpn`, or for DC5 a
+A JAX `FPNRCNN`, `FPNProposalNetwork`, `PanopticFPN` or
+`SemanticSegmentor` tree (it has `fpn`, or for DC5 a
 `roi_heads` with `box_head_fc1`) converts by the FPN family's rules: the
 tower under `backbone.bottom_up.` (`backbone.` under DC5),
 fpn/lateral_res{l} and output_res{l} to `backbone.fpn_lateral{l}` and
 `backbone.fpn_output{l}`, `box_head_fc{i}` to `roi_heads.box_head.fc{i}`
 (fc1's rows in JAX's HWC order of the pooled map, as the port's head reads
-it). A JAX `ProposalNetwork` tree is the plain tower and an RPN head, which
+it), the semantic head's `head_{i}_conv{u}`, `head_{i}_gn{u}` and
+`predictor` to `sem_seg_head.` under the same names. A JAX
+`ProposalNetwork` tree is the plain tower and an RPN head, which
 the default rules map.
 
 A JAX `CLIPFastRCNN` tree (it has `offline_proposal_generator`) converts
@@ -216,6 +219,9 @@ def _fpn_family_rules(tower: str):
         *_MASK_HEAD_RULES,
         *_keypoint_head_rules("kp_head"),
         *_CASCADE_RULES,
+        (r"sem_seg_head/(head_\d+_conv\d+|predictor)/kernel", r"sem_seg_head.\1.weight", "conv"),
+        (r"sem_seg_head/(head_\d+_conv\d+|predictor)/bias", r"sem_seg_head.\1.bias", "copy"),
+        (r"sem_seg_head/(head_\d+_gn\d+)/(weight|bias)", r"sem_seg_head.\1.\2", "copy"),
     )
 
 

@@ -31,7 +31,9 @@ GeneralizedRCNN above (`ModelConfig`), or the FPN family, which
 `models.build.build_detector` builds from the tree: FPNRCNN on
 build_resnet_fpn_backbone, its DC5 form at RESNETS.RES5_DILATION 2, and
 MODEL.META_ARCHITECTURE ProposalNetwork on res4 or on the FPN.
-`check_supported` holds that family to `_family_checks`.
+`check_supported` holds that family to `_family_checks`, and PanopticFPN
+and the SemanticSegmentor (MODEL.META_ARCHITECTURE) to
+`_segmentation_checks`.
 """
 
 import dataclasses
@@ -362,9 +364,12 @@ def model_family(cfg) -> str:
     RESNETS.RES5_DILATION 2), "proposal_fpn" or "proposal_c4"
     (ProposalNetwork on the FPN or on res4) or "cascade_c4" (CascadeRCNN on
     res4: MODEL.META_ARCHITECTURE CascadeRCNN, or ROI_HEADS.NAME
-    CascadeROIHeads without an fpn_backbone)."""
+    CascadeROIHeads without an fpn_backbone), "panoptic" (PanopticFPN) or
+    "semantic" (SemanticSegmentor)."""
     m = cfg.MODEL
     fpn = "fpn_backbone" in m.BACKBONE.NAME
+    if m.META_ARCHITECTURE in SEGMENTATION_ARCHS:
+        return SEGMENTATION_ARCHS[m.META_ARCHITECTURE]
     if m.META_ARCHITECTURE == "ProposalNetwork":
         return "proposal_fpn" if fpn else "proposal_c4"
     if m.META_ARCHITECTURE == "CascadeRCNN" or (
@@ -386,6 +391,8 @@ def _describe(cfg, family: str) -> str:
         "proposal_fpn": f"ProposalNetwork on the FPN (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r})",
         "proposal_c4": f"ProposalNetwork on res4 (MODEL.BACKBONE.NAME = {m.BACKBONE.NAME!r})",
         "cascade_c4": "the C4 cascade (JAX's CascadeRCNN on res4)",
+        "panoptic": "Panoptic FPN (JAX's PanopticFPN)",
+        "semantic": "the semantic segmentor (JAX's SemanticSegmentor)",
     }[family]
 
 
@@ -464,8 +471,118 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
     return tuple(checks)
 
 
+SEGMENTATION_ARCHS = {"PanopticFPN": "panoptic", "SemanticSegmentor": "semantic"}
+SEM_SEG_FEATURES = ["p2", "p3", "p4", "p5"]
+
+
+def _segmentation_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """What `models.build.panoptic_fpn_fields` and `semantic_segmentor_fields`
+    implement, as JAX's `build_panoptic_fpn` and `build_semantic_segmentor`
+    read the tree. PanopticFPN computes with a tower of RESNETS.DEPTH,
+    STRIDE_IN_1X1 and TPU.BACKBONE_WIDTH under FrozenBN, the FPN without
+    p6, an RPN on p2 alone (one anchor size, 32, at stride 4; pre-NMS top-k
+    256 / 128, post-NMS 64 / 32), the standard heads sampling 64 rows an
+    image with the mask head under MASK_ON, and the semantic head on p2..p5
+    (128 channels, common stride 4, ignore 255); a key it does not read is
+    accepted at the tree's default or at the value JAX computes with, and
+    any other value raises. The GN and deformable towers, the FPN's GN and
+    the cascade heads wait on ROADMAP A4 and B2; COMBINE.ENABLED False is
+    refused because JAX's test always combines. The semantic segmentor
+    reads DEPTH, the head's classes, norm, ignore value and IN_FEATURES
+    (any of p2..p5, in order) and nothing of the instance branch."""
+
+    def eq(*wants):
+        return lambda v: (list(v) if isinstance(v, (list, tuple)) else v) in wants
+
+    checks = [
+        ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
+        ("MODEL.RESNETS.NORM", eq("FrozenBN")),
+        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
+        ("MODEL.FPN.NORM", _falsy),
+        ("MODEL.BACKBONE.NAME", eq(CLIP_TOWER, FPN_TOWER)),
+        ("MODEL.RESNETS.OUT_FEATURES", eq(["res4"], FPN_IN_FEATURES)),
+        ("MODEL.RESNETS.STEM_OUT_CHANNELS", eq(64)),
+        ("MODEL.RESNETS.RES2_OUT_CHANNELS", eq(256)),
+        ("MODEL.RESNETS.NUM_GROUPS", eq(1)),
+        ("MODEL.RESNETS.WIDTH_PER_GROUP", eq(64)),
+        ("MODEL.RESNETS.RES5_DILATION", eq(1)),
+        ("MODEL.FPN.IN_FEATURES", eq([], FPN_IN_FEATURES)),
+        ("MODEL.FPN.OUT_CHANNELS", eq(256)),
+        ("MODEL.FPN.FUSE_TYPE", eq("sum")),
+        ("MODEL.SEM_SEG_HEAD.NAME", eq("SemSegFPNHead")),
+        ("MODEL.SEM_SEG_HEAD.NORM", eq("", "GN")),
+        ("MODEL.SEM_SEG_HEAD.IGNORE_VALUE", eq(255)),
+        ("MODEL.SEM_SEG_HEAD.CONVS_DIM", eq(128)),
+        ("MODEL.SEM_SEG_HEAD.COMMON_STRIDE", eq(4)),
+        ("MODEL.LOAD_PROPOSALS", _falsy),
+        ("MODEL.KEYPOINT_ON", _falsy),
+        ("MODEL.CONSISTENCY_BRANCH", _falsy),
+        ("MODEL.PRE_TRAINED_RCLIP_PATH", _falsy),
+        ("MODEL.VISION_TO_LANG_PATH", _falsy),
+        ("MODEL.CLIP.OPENSET_TEST_NUM_CLASSES", lambda v: v is None),
+        ("TPU.BACKBONE_LAYERS", _falsy),
+        ("TPU.EMBED_DIM", _falsy),
+    ]
+    if family == "semantic":
+        return tuple(checks + [
+            ("MODEL.SEM_SEG_HEAD.IN_FEATURES",
+             lambda v: len(v) > 0 and list(v) == [f for f in SEM_SEG_FEATURES if f in v]),
+            ("MODEL.SEM_SEG_HEAD.LOSS_WEIGHT", eq(1.0)),
+            ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True),
+            ("TPU.BACKBONE_WIDTH", _falsy),
+            ("MODEL.MASK_ON", _falsy),
+        ])
+    return tuple(checks + [
+        ("MODEL.SEM_SEG_HEAD.IN_FEATURES", eq(SEM_SEG_FEATURES)),
+        ("MODEL.PANOPTIC_FPN.COMBINE.ENABLED", lambda v: v is True),
+        ("MODEL.ROI_HEADS.NAME", eq("CLIPRes5ROIHeads", "StandardROIHeads", "CLIPStandardROIHeads")),
+        ("MODEL.ROI_HEADS.IN_FEATURES", eq(["res4"], FPN_HEAD_FEATURES)),
+        ("MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", eq(512, 64)),
+        ("MODEL.ROI_HEADS.POSITIVE_FRACTION", eq(0.25)),
+        ("MODEL.ROI_HEADS.SCORE_THRESH_TEST", eq(0.05)),
+        ("MODEL.ROI_HEADS.NMS_THRESH_TEST", eq(0.5)),
+        ("MODEL.ROI_HEADS.SOFT_NMS_ENABLED", _falsy),
+        ("TEST.DETECTIONS_PER_IMAGE", eq(100)),
+        ("MODEL.ROI_BOX_HEAD.NAME", eq("", "FastRCNNConvFCHead")),
+        ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", eq(14, 7)),
+        ("MODEL.ROI_BOX_HEAD.NUM_CONV", eq(0)),
+        ("MODEL.ROI_BOX_HEAD.NUM_FC", eq(0, 2)),
+        ("MODEL.ROI_BOX_HEAD.FC_DIM", eq(1024)),
+        ("MODEL.ROI_BOX_HEAD.NORM", _falsy),
+        ("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", _falsy),
+        ("MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", eq(0.0)),
+        ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
+        ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT", eq(1.0)),
+        ("MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK", _falsy),
+        ("MODEL.PROPOSAL_GENERATOR.NAME", eq("RPN")),
+        ("MODEL.RPN.IN_FEATURES", eq(["res4"], ["p2"])),
+        ("MODEL.ANCHOR_GENERATOR.SIZES", eq([[32, 64, 128, 256, 512]], [[32]])),
+        ("MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS", eq([[0.5, 1.0, 2.0]])),
+        ("MODEL.RPN.BATCH_SIZE_PER_IMAGE", eq(256)),
+        ("MODEL.RPN.POSITIVE_FRACTION", eq(0.5)),
+        ("MODEL.RPN.PRE_NMS_TOPK_TRAIN", eq(12000, 256)),
+        ("MODEL.RPN.PRE_NMS_TOPK_TEST", eq(6000, 128)),
+        ("MODEL.RPN.POST_NMS_TOPK_TRAIN", eq(2000, 64)),
+        ("MODEL.RPN.POST_NMS_TOPK_TEST", eq(1000, 32)),
+        ("MODEL.RPN.NMS_THRESH", eq(0.7)),
+        ("MODEL.RPN.LOSS_WEIGHT", eq(1.0)),
+        ("MODEL.RPN.SMOOTH_L1_BETA", eq(0.0)),
+        ("MODEL.RPN.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
+        ("MODEL.RPN.BBOX_REG_LOSS_WEIGHT", eq(1.0)),
+        ("MODEL.CLIP.FOCAL_SCALED_LOSS", lambda v: v is None),
+        ("MODEL.CLIP.BG_CLS_LOSS_WEIGHT", lambda v: v is None),
+        ("MODEL.CLIP.NO_BOX_DELTA", _falsy),
+        ("MODEL.CLIP.MULTIPLY_RPN_SCORE", _falsy),
+        ("MODEL.CLIP.BB_RPN_WEIGHTS", _falsy),
+        ("MODEL.CLIP.CROP_REGION_TYPE", eq("RPN")),
+    ])
+
+
 def _check_family(cfg, family: str) -> None:
-    checks = _family_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg) + _keypoint_checks(cfg, family)
+    if family in ("panoptic", "semantic"):
+        checks = _segmentation_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg)
+    else:
+        checks = _family_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg) + _keypoint_checks(cfg, family)
     if cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads" or family == "cascade_c4":
         checks += _cascade_checks(family)
     if "SEMISUPNET" in cfg:  # the mean teacher builds the C4 detector only

@@ -130,6 +130,25 @@ def get_cfg() -> CfgNode:
     _C.MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK = False
     _C.MODEL.ROI_MASK_HEAD.POOLER_TYPE = "ROIAlignV2"
 
+    # the semantic head (PanopticFPN, SemanticSegmentor) and the panoptic
+    # combine; NORM defaults to GN, as in JAX
+    _C.MODEL.SEM_SEG_HEAD = CfgNode()
+    _C.MODEL.SEM_SEG_HEAD.NAME = "SemSegFPNHead"
+    _C.MODEL.SEM_SEG_HEAD.NUM_CLASSES = 54
+    _C.MODEL.SEM_SEG_HEAD.IGNORE_VALUE = 255
+    _C.MODEL.SEM_SEG_HEAD.CONVS_DIM = 128
+    _C.MODEL.SEM_SEG_HEAD.COMMON_STRIDE = 4
+    _C.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT = 1.0
+    _C.MODEL.SEM_SEG_HEAD.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+    _C.MODEL.SEM_SEG_HEAD.NORM = "GN"
+    _C.MODEL.PANOPTIC_FPN = CfgNode()
+    _C.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT = 1.0
+    _C.MODEL.PANOPTIC_FPN.COMBINE = CfgNode()
+    _C.MODEL.PANOPTIC_FPN.COMBINE.ENABLED = True
+    _C.MODEL.PANOPTIC_FPN.COMBINE.OVERLAP_THRESH = 0.5
+    _C.MODEL.PANOPTIC_FPN.COMBINE.STUFF_AREA_LIMIT = 4096
+    _C.MODEL.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH = 0.5
+
     # the cascade's stages (ROI_HEADS.NAME CascadeROIHeads): the IoU each
     # stage matches at and its box transform's weights
     _C.MODEL.ROI_BOX_CASCADE_HEAD = CfgNode()

@@ -21,6 +21,12 @@ training set into a labeled and an unlabeled part (`divide_label_unlabel`)
 and yields ((label_strong, label_weak), (unlabel_strong, unlabel_weak)):
 two sampler streams, one mapper state serving both, labeled first.
 
+A panoptic training set (its records hold `pan_seg_file_name`) is mapped
+by `PanopticDatasetMapper` and a semantic one (`sem_seg_file_name` without
+`annotations`) by `SemSegDatasetMapper`, as JAX's loader picks them; their
+batches carry `DetBatch.sem_seg` and, for panoptic things under MASK_ON,
+the canvases cut from the segment-id map.
+
 With MODEL.LOAD_PROPOSALS each set's dicts take the proposals of its
 DATASETS.PROPOSAL_FILES_* file (`proposals.py`), the mapper moves them with
 the image, and the batch carries the top DATASETS.PRECOMPUTED_PROPOSAL_TOPK_*
@@ -51,7 +57,7 @@ import torch
 from ..models.rcnn import DetBatch
 from ..parallel import comm
 from .catalog import DatasetCatalog
-from .dataset_mapper import DatasetMapper, DatasetMapperTwoCropSeparate
+from .dataset_mapper import DatasetMapper, DatasetMapperTwoCropSeparate, PanopticDatasetMapper, SemSegDatasetMapper
 from .proposals import load_proposals_into_dataset
 
 
@@ -130,7 +136,10 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
     and not valid past them); with `mask_stride` the first `max_gt`
     instances' polygons rasterised on the padded canvas at that stride,
     (B, max_gt, H/stride, W/stride); with `num_keypoints` their first that
-    many keypoints, (B, max_gt, num_keypoints, 3), zeros past them."""
+    many keypoints, (B, max_gt, num_keypoints, 3), zeros past them. A
+    sample's "bitmasks" (a panoptic set's things) go onto the canvases as
+    every `mask_stride`-th pixel of the padded canvas; samples with a
+    "sem_seg" map give (B, H, W) int32 labels, 255 where padded."""
     b = len(samples)
     H, W = pad_hw
     images = np.zeros((b, H, W, 3), np.float32)
@@ -147,6 +156,7 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
     if mask_stride:
         gt_masks = np.zeros((b, max_gt, max(1, H // mask_stride), max(1, W // mask_stride)), np.uint8)
     gt_keypoints = np.zeros((b, max_gt, num_keypoints, 3), np.float32) if num_keypoints else None
+    sem_seg = np.full((b, H, W), 255, np.int32) if any("sem_seg" in s for s in samples) else None
     for i, s in enumerate(samples):
         img = s["image"]
         h, w = img.shape[:2]
@@ -165,6 +175,12 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
             if gt_masks is not None and s.get("polygons"):
                 # rasterised on the padded canvas, where the boxes live
                 gt_masks[i, :n] = rasterize_polygons(s["polygons"][:n], (H, W), mask_stride)
+            elif gt_masks is not None and s.get("bitmasks") is not None:
+                # the panoptic things' pixels on the padded canvas, every stride-th pixel
+                for j, bm in enumerate(s["bitmasks"][:n]):
+                    canvas = np.zeros((H, W), np.uint8)
+                    canvas[: bm.shape[0], : bm.shape[1]] = bm
+                    gt_masks[i, j] = canvas[::mask_stride, ::mask_stride][: gt_masks.shape[2], : gt_masks.shape[3]]
             if gt_keypoints is not None and s.get("keypoints") is not None and len(s["keypoints"]):
                 kp = np.asarray(s["keypoints"], np.float32)[:n]
                 gt_keypoints[i, :n, :kp.shape[1]] = kp[:, :num_keypoints]
@@ -173,6 +189,8 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
             prop_boxes[i, :p] = s["proposal_boxes"][:p]
             prop_scores[i, :p] = s["proposal_objectness"][:p]
             prop_valid[i, :p] = True
+        if sem_seg is not None and s.get("sem_seg") is not None:
+            sem_seg[i, :h, :w] = s["sem_seg"]
     t = torch.from_numpy
     proposals = (t(prop_boxes), t(prop_scores), t(prop_valid)) if max_proposals else (None, None, None)
     return DetBatch(
@@ -181,6 +199,7 @@ def pad_and_collate(samples: List[dict], pad_hw: Tuple[int, int], max_gt: int = 
         proposal_boxes=proposals[0], proposal_scores=proposals[1], proposal_valid=proposals[2],
         gt_masks=t(gt_masks) if gt_masks is not None else None,
         gt_keypoints=t(gt_keypoints) if gt_keypoints is not None else None,
+        sem_seg=t(sem_seg) if sem_seg is not None else None,
     )
 
 
@@ -292,7 +311,12 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
         for path in cfg.DATASETS.PROPOSAL_FILES_TRAIN:
             dicts = load_proposals_into_dataset(dicts, path)
     max_props = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if cfg.MODEL.LOAD_PROPOSALS else 0
-    mapper = DatasetMapper(cfg, is_train=True)
+    if "pan_seg_file_name" in dicts[0]:
+        mapper = PanopticDatasetMapper(cfg, is_train=True)
+    elif "sem_seg_file_name" in dicts[0] and "annotations" not in dicts[0]:
+        mapper = SemSegDatasetMapper(cfg, is_train=True)
+    else:
+        mapper = DatasetMapper(cfg, is_train=True)
     sampler = TrainingSampler(len(dicts), seed=seed)
     batch_size = cfg.SOLVER.IMS_PER_BATCH
     parts = cfg.SOLVER.ACCUM_STEPS

@@ -1,6 +1,6 @@
 """Dataset dict -> per-image numpy sample (the port's copy of
-cddmsl_tpu/data/dataset_mapper.py `DatasetMapper`, boxes only, and
-`DatasetMapperTwoCropSeparate`).
+cddmsl_tpu/data/dataset_mapper.py `DatasetMapper`, `DatasetMapperTwoCropSeparate`,
+`SemSegDatasetMapper` and `PanopticDatasetMapper`).
 
 The image and its translated twin `data_dt_file_name` are read and put
 through the same sampled geometric transforms; the boxes follow, are clipped
@@ -18,6 +18,10 @@ at train time (the detectron2 VOC convention).
 The two-crop mapper of the mean-teacher loader gives (strong, weak) views of
 one image under one geometric transform: the weak view is the plain sample,
 the strong one its photometric augmentation (and its translated twin's).
+
+`SemSegDatasetMapper` and `PanopticDatasetMapper` (the JAX package's) map
+the semantic and the panoptic sets: their label maps follow the image
+NEAREST (`Transform.apply_segmentation`).
 """
 
 from typing import Dict, List
@@ -25,6 +29,7 @@ from typing import Dict, List
 import numpy as np
 from PIL import Image
 
+from .datasets.coco_panoptic import panoptic_png_to_sem_seg, rgb2id
 from .proposals import transform_proposals
 from .transforms import (
     TransformList, apply_augmentations, build_augmentation, build_strong_augmentation_fn, create_keypoint_hflip_indices,
@@ -142,3 +147,97 @@ class DatasetMapperTwoCropSeparate:
         if "image_trgt" in weak:
             strong["image_trgt"] = self.strong_aug(weak["image_trgt"], rng)
         return strong, weak
+
+
+def check_labels(sem: np.ndarray, num_classes: int, ignore_label: int, path: str) -> np.ndarray:
+    """`sem` unchanged where every label is a class of the head or the
+    ignore label; else ValueError naming `path` (a label past the head's
+    classes would index past its logits, where JAX's loss reads garbage)."""
+    bad = (sem != ignore_label) & ((sem < 0) | (sem >= num_classes))
+    if bad.any():
+        raise ValueError(f"{path}: labels {sorted(set(np.unique(sem[bad]).tolist()))[:8]} are not classes of "
+                         f"MODEL.SEM_SEG_HEAD.NUM_CLASSES = {num_classes} (ignore {ignore_label})")
+    return sem
+
+
+class SemSegDatasetMapper:
+    """A sem-seg record -> the image and its labelTrainIds map through the
+    same sampled geometric transforms (the map NEAREST), as "sem_seg" (H,
+    W) int32; no instances. A label that is neither a class of the head
+    nor the ignore value raises (`check_labels`)."""
+
+    def __init__(self, cfg, is_train: bool = True):
+        self.augmentations = build_augmentation(cfg, is_train)
+        self.image_format = cfg.INPUT.FORMAT
+        self.num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        self.ignore_label = cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE
+
+    def __call__(self, dataset_dict: dict, rng: np.random.RandomState) -> dict:
+        d = dataset_dict
+        image = read_image(d["file_name"], self.image_format)
+        orig_hw = image.shape[:2]
+        image, tfms = apply_augmentations(self.augmentations, image, rng)
+        sem = np.asarray(Image.open(d["sem_seg_file_name"]), np.int32)
+        sem = tfms.apply_segmentation(check_labels(sem, self.num_classes, self.ignore_label, d["sem_seg_file_name"]))
+        return {
+            "image": image,
+            "hw": np.asarray(image.shape[:2], np.int32),
+            "orig_hw": np.asarray(orig_hw, np.int32),
+            "image_id": d.get("image_id"),
+            "boxes": np.zeros((0, 4), np.float32),
+            "classes": np.zeros((0,), np.int32),
+            "sem_seg": sem.astype(np.int32),
+        }
+
+
+class PanopticDatasetMapper:
+    """A panoptic record -> the image through the sampled geometric
+    transforms, the thing segments' boxes (from segments_info, moved,
+    clipped, empty ones dropped) and thing-space classes, and "sem_seg", the
+    stuff-space class map of the panoptic PNG (MODEL.SEM_SEG_HEAD.IGNORE_VALUE
+    where no segment is), NEAREST. With MODEL.MASK_ON, "bitmasks": each kept
+    thing's pixels of the NEAREST-transformed segment-id map, float32. The
+    stuff space is every category of the set (JAX's loader): a set of more
+    categories than the head's classes raises (`check_labels`)."""
+
+    def __init__(self, cfg, is_train: bool = True):
+        self.augmentations = build_augmentation(cfg, is_train)
+        self.image_format = cfg.INPUT.FORMAT
+        self.num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        self.ignore_label = cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE
+        self.use_instance_mask = cfg.MODEL.MASK_ON
+
+    def __call__(self, dataset_dict: dict, rng: np.random.RandomState) -> dict:
+        d = dataset_dict
+        image = read_image(d["file_name"], self.image_format)
+        orig_hw = image.shape[:2]
+        image, tfms = apply_augmentations(self.augmentations, image, rng)
+        hw = image.shape[:2]
+        pan = np.asarray(Image.open(d["pan_seg_file_name"]).convert("RGB"))
+        sem = check_labels(panoptic_png_to_sem_seg(pan, d["segments_info"], self.ignore_label), self.num_classes,
+                           self.ignore_label, d["pan_seg_file_name"])
+        sem = tfms.apply_segmentation(sem)
+        ids = tfms.apply_segmentation(rgb2id(pan).astype(np.int32)) if self.use_instance_mask else None
+        things = [seg for seg in d["segments_info"] if seg["isthing"] and seg.get("bbox") is not None]
+        boxes = np.asarray([[x, y, x + w, y + h] for x, y, w, h in (seg["bbox"] for seg in things)],
+                           np.float32).reshape(-1, 4)
+        classes = np.asarray([seg["category_id"] for seg in things], np.int32).reshape(-1)
+        seg_ids = np.asarray([seg["id"] for seg in things], np.int32).reshape(-1)
+        if len(boxes):
+            boxes = tfms.apply_box(boxes)
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, hw[1])
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, hw[0])
+            keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+            boxes, classes, seg_ids = boxes[keep], classes[keep], seg_ids[keep]
+        out = {
+            "image": image,
+            "hw": np.asarray(hw, np.int32),
+            "orig_hw": np.asarray(orig_hw, np.int32),
+            "image_id": d.get("image_id"),
+            "boxes": boxes,
+            "classes": classes,
+            "sem_seg": sem.astype(np.int32),
+        }
+        if ids is not None:
+            out["bitmasks"] = [(ids == sid).astype(np.float32) for sid in seg_ids]
+        return out

@@ -18,15 +18,23 @@
   * LVIS:           lvis_{v1,v0.5}_{train,val} (LVIS json over the COCO
                     images, evaluator "lvis")
 
-The panoptic, semantic and Cityscapes-instance names of the JAX package are
-not ported. The dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
+  * panoptic:       coco_2017_{train,val}_panoptic (COCO panoptic json and
+                    PNGs, evaluator "coco_panoptic_seg") and
+                    cityscapes_fine_panoptic_{train,val}
+                    ("cityscapes_panoptic_seg")
+  * semantic:       cityscapes_fine_sem_seg_{train,val} (labelTrainIds PNGs,
+                    evaluator "sem_seg")
+
+The Cityscapes-instance names of the JAX package are not ported. The dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
 from disk until a dataset is requested.
 """
 
 import os
 
-from .cityscapes import register_cityscapes, register_cityscapes_DG
+from .cityscapes import register_cityscapes, register_cityscapes_DG, register_cityscapes_semantic
+from .cityscapes_panoptic import register_all_cityscapes_panoptic
 from .coco import register_coco_instances
+from .coco_panoptic import register_coco_panoptic
 from .lvis import register_lvis_instances
 from .voc import ARTISTIC_6_CLASSES, register_pascal_DG, register_pascal_voc
 
@@ -86,8 +94,16 @@ def register_all(root: str = None) -> None:
             os.path.join(coco, "annotations", f"ovd_ins_{img_split}2017_{ovd_split.split('_')[1]}.json"),
             os.path.join(coco, f"{img_split}2017"),
         )
+    for split in ("train", "val"):
+        register_coco_panoptic(f"coco_2017_{split}_panoptic",
+                               os.path.join(coco, "annotations", f"panoptic_{split}2017.json"),
+                               os.path.join(coco, f"{split}2017"), os.path.join(coco, f"panoptic_{split}2017"))
     for version in ("v1", "v0.5"):
         for split in ("train", "val"):
             # LVIS images live in the COCO folders
             register_lvis_instances(f"lvis_{version}_{split}",
                                     os.path.join(root, "lvis", f"lvis_{version}_{split}.json"), coco)
+    register_all_cityscapes_panoptic(root)
+    for split in ("train", "val"):
+        register_cityscapes_semantic(f"cityscapes_fine_sem_seg_{split}", os.path.join(city, "leftImg8bit", split),
+                                     os.path.join(city, "gtFine", split))

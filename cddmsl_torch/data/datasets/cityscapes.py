@@ -6,6 +6,8 @@ label ending in "group" counts as its class, any other label is dropped.
 The DG variant pairs each clear image with its synthetic-fog twin under
 leftImg8bit_foggy through `data_dt_file_name`, or with itself when the twin
 is missing. Both are evaluated with the VOC evaluator.
+`load_cityscapes_semantic` pairs each image with its gtFine labelTrainIds
+PNG for the semantic segmentor (evaluator "sem_seg").
 
 The loader keeps the files whose names end in "leftImg8bit.png", as the JAX
 package's does. A leftImg8bit_foggy directory holds "..._leftImg8bit_foggy_
@@ -89,3 +91,35 @@ def register_cityscapes_DG(name, image_dir, gt_dir, foggy_image_dir, beta=0.02, 
     )
     MetadataCatalog.get(name).set(thing_classes=list(class_names), image_dir=image_dir, gt_dir=gt_dir,
                                   foggy_image_dir=foggy_image_dir, evaluator_type="pascal_voc")
+
+
+def load_cityscapes_semantic(image_dir: str, gt_dir: str) -> List[dict]:
+    """Sem-seg records: each image with its *_gtFine_labelTrainIds.png (the
+    19 trainIds, 255 ignored); raises without images or without the first
+    label file."""
+    dicts = []
+    for city in sorted(os.listdir(image_dir)):
+        city_img_dir = os.path.join(image_dir, city)
+        if not os.path.isdir(city_img_dir):
+            continue
+        for basename in sorted(os.listdir(city_img_dir)):
+            if not basename.endswith("leftImg8bit.png"):
+                continue
+            prefix = basename[: -len("leftImg8bit.png")]
+            dicts.append({"file_name": os.path.join(city_img_dir, basename),
+                          "sem_seg_file_name": os.path.join(gt_dir, city, prefix + "gtFine_labelTrainIds.png"),
+                          "image_id": prefix.rstrip("_")})
+    assert dicts, f"no cityscapes images under {image_dir}"
+    if not os.path.isfile(dicts[0]["sem_seg_file_name"]):
+        raise FileNotFoundError(f"{dicts[0]['sem_seg_file_name']}: generate labelTrainIds.png with "
+                                "cityscapesscripts createTrainIdLabelImgs.py")
+    return dicts
+
+
+def register_cityscapes_semantic(name: str, image_dir: str, gt_dir: str) -> None:
+    from ..catalog import DatasetCatalog, MetadataCatalog
+    from .cityscapes_panoptic import CITYSCAPES_CATEGORIES
+
+    DatasetCatalog.register(name, lambda: load_cityscapes_semantic(image_dir, gt_dir))
+    MetadataCatalog.get(name).set(stuff_classes=[k["name"] for k in CITYSCAPES_CATEGORIES], image_dir=image_dir,
+                                  gt_dir=gt_dir, ignore_label=255, evaluator_type="sem_seg")

@@ -10,7 +10,12 @@ images and annotations.
   precomputed-proposal pickle; `make_synthetic_bdd` moves it to the
   bdd_100k_val paths;
 - `make_synthetic_cityscapes`: one split of the Cityscapes layout (PNGs,
-  gtFine polygon JSONs, the leftImg8bit_foggy twins) on smooth images.
+  gtFine polygon JSONs, the leftImg8bit_foggy twins) on smooth images;
+- `make_synthetic_panoptic` and `make_synthetic_semseg` (the JAX package's
+  writers, byte for byte): a COCO-panoptic set of one thing rectangle on a
+  stuff background, and a labelTrainIds set of class stripes, registered
+  as `{prefix}_train` / `{prefix}_val` by `register_synthetic_panoptic`
+  and `register_synthetic_semseg`.
 """
 
 import json
@@ -262,3 +267,94 @@ def make_synthetic_cityscapes(root: str, n: int = 4, seed: int = 0, hw: Tuple[in
         with open(os.path.join(gt, prefix + "gtFine_polygons.json"), "w") as f:
             json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, f)
     return city_root
+
+
+def make_synthetic_panoptic(root: str, n: int = 6, seed: int = 0) -> Tuple[str, str, str]:
+    """A COCO-panoptic set of `n` JPEGs under root/pan_synth: one thing
+    rectangle (40x32, class 1 or 2 in turn, painted 255 or 160) per image on
+    a stuff background (class 100), the id-encoded panoptic PNGs and the
+    json. Returns (json_path, image_root, panoptic_root)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = _FIXTURE_HW
+    img_dir = os.path.join(root, "pan_synth", "images")
+    pan_dir = os.path.join(root, "pan_synth", "panoptic")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(pan_dir, exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        fid = f"{i:06d}"
+        img = (rng.rand(h, w, 3) * 60).astype(np.uint8)
+        ids = np.full((h, w), 2, np.int32)  # the stuff background
+        bw, bh = 40, 32
+        x0 = int(rng.rand() * (w - bw - 2)) + 1
+        y0 = int(rng.rand() * (h - bh - 2)) + 1
+        cat = 1 + (i % 2)
+        ids[y0 : y0 + bh, x0 : x0 + bw] = 1
+        img[y0 : y0 + bh, x0 : x0 + bw] = 255 if cat == 1 else 160
+        Image.fromarray(img).save(os.path.join(img_dir, fid + ".jpg"))
+        png = np.stack([ids % 256, ids // 256, ids // 65536], axis=-1).astype(np.uint8)
+        Image.fromarray(png).save(os.path.join(pan_dir, fid + ".png"))
+        images.append({"id": i, "height": h, "width": w, "file_name": fid + ".jpg"})
+        anns.append({"image_id": i, "file_name": fid + ".png", "segments_info": [
+            {"id": 1, "category_id": cat, "iscrowd": 0, "bbox": [x0, y0, bw, bh], "area": bw * bh},
+            {"id": 2, "category_id": 100, "iscrowd": 0, "bbox": [0, 0, w, h], "area": h * w - bw * bh},
+        ]})
+    j = {"categories": [{"id": 1, "name": "thing_a", "isthing": 1}, {"id": 2, "name": "thing_b", "isthing": 1},
+                        {"id": 100, "name": "stuff_x", "isthing": 0}],
+         "images": images, "annotations": anns}
+    json_path = os.path.join(root, "pan_synth", "panoptic.json")
+    with open(json_path, "w") as f:
+        json.dump(j, f)
+    return json_path, img_dir, pan_dir
+
+
+def register_synthetic_panoptic(root: str, prefix: str = "synthetic_panoptic") -> None:
+    """Writes the panoptic fixture and registers `{prefix}_train` and
+    `{prefix}_val` on it (the same images)."""
+    from .coco_panoptic import register_coco_panoptic
+
+    json_path, img_dir, pan_dir = make_synthetic_panoptic(root)
+    for name in (f"{prefix}_train", f"{prefix}_val"):
+        if name not in DatasetCatalog:
+            register_coco_panoptic(name, json_path, img_dir, pan_dir)
+
+
+def make_synthetic_semseg(root: str, n: int = 6, n_cls: int = 5, seed: int = 0) -> Tuple[str, str]:
+    """A sem-seg set in the Cityscapes layout under root/semseg_synth:
+    vertical class stripes, a 255 band over the top 4 rows, images whose
+    intensity follows the class. Returns (image_dir, gt_dir)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = _FIXTURE_HW
+    img_dir = os.path.join(root, "semseg_synth", "leftImg8bit", "val", "cityA")
+    gt_dir = os.path.join(root, "semseg_synth", "gtFine", "val", "cityA")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(gt_dir, exist_ok=True)
+    for i in range(n):
+        base = f"cityA_{i:06d}_000019"
+        gt = np.zeros((h, w), np.uint8)
+        for c in range(1, n_cls):
+            gt[:, c * (w // n_cls) : (c + 1) * (w // n_cls)] = c
+        gt[:4] = 255
+        img = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+        img += (gt[..., None] % n_cls) * 40  # class-correlated intensity
+        Image.fromarray(img).save(os.path.join(img_dir, base + "_leftImg8bit.png"))
+        Image.fromarray(gt).save(os.path.join(gt_dir, base + "_gtFine_labelTrainIds.png"))
+    return os.path.dirname(img_dir), os.path.dirname(gt_dir)
+
+
+def register_synthetic_semseg(root: str, prefix: str = "synthetic_semseg", n_cls: int = 5) -> None:
+    """Writes the sem-seg fixture and registers `{prefix}_train` and
+    `{prefix}_val` on it (the same images, evaluator "sem_seg")."""
+    from .cityscapes import load_cityscapes_semantic
+
+    img_dir, gt_dir = make_synthetic_semseg(root, n_cls=n_cls)
+    for name in (f"{prefix}_train", f"{prefix}_val"):
+        if name in DatasetCatalog:
+            continue
+        DatasetCatalog.register(name, lambda i=img_dir, g=gt_dir: load_cityscapes_semantic(i, g))
+        MetadataCatalog.get(name).set(stuff_classes=[f"s{i}" for i in range(n_cls)], ignore_label=255,
+                                      evaluator_type="sem_seg")

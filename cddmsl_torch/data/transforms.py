@@ -7,8 +7,10 @@ the strong photometric augmentation of the mean-teacher loader
 
 Augmentations draw from the caller's `np.random.RandomState` in the JAX
 package's order, so the same state gives the same samples. Each returns a
-deterministic `Transform` that is replayed on the paired translated view and
-on the boxes. Images are resized with PIL's bilinear filter, as in JAX.
+deterministic `Transform` that is replayed on the paired translated view,
+on the boxes and on label maps. Images are resized with PIL's bilinear
+filter, label and segment-id maps (`apply_segmentation`) with its nearest
+one, as in JAX.
 `transform_keypoint_annotations` moves an instance's keypoints through
 them (`create_keypoint_hflip_indices` gives the flip's mirror indices).
 """
@@ -31,10 +33,18 @@ class Transform:
         """coords: (N, 2) float (x, y) points (polygon vertices)."""
         raise NotImplementedError
 
+    def apply_segmentation(self, seg: np.ndarray) -> np.ndarray:
+        """(H, W) integer label or segment-id map; a resize resamples it
+        NEAREST."""
+        return self.apply_image(seg)
+
 
 class NoOpTransform(Transform):
     def apply_image(self, img):
         return img
+
+    def apply_segmentation(self, seg):
+        return seg
 
     def apply_box(self, boxes):
         return boxes
@@ -64,6 +74,11 @@ class ResizeTransform(Transform):
         coords[:, 0] *= self.new_w / self.w
         coords[:, 1] *= self.new_h / self.h
         return coords
+
+    def apply_segmentation(self, seg: np.ndarray) -> np.ndarray:
+        """int32 through PIL's 32-bit mode, NEAREST."""
+        pil = Image.fromarray(np.ascontiguousarray(seg, np.int32))
+        return np.asarray(pil.resize((self.new_w, self.new_h), Image.NEAREST))
 
 
 class HFlipTransform(Transform):
@@ -104,6 +119,11 @@ class TransformList(Transform):
         for t in self.transforms:
             coords = t.apply_coords(coords)
         return coords
+
+    def apply_segmentation(self, seg):
+        for t in self.transforms:
+            seg = t.apply_segmentation(seg)
+        return seg
 
 
 class Augmentation:

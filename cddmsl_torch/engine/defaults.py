@@ -4,7 +4,8 @@ cddmsl_tpu/engine/defaults.py: `default_argument_parser`, `default_setup`,
 
 `DefaultTrainer` builds the detector of the tree (`models.build.
 build_detector`: the CDDMSL C4 model, or the FPN family's FPNRCNN, its DC5
-form or a ProposalNetwork, whose loss set ignores the caption switches) with
+form or a ProposalNetwork, PanopticFPN or the SemanticSegmentor, whose
+loss sets ignore the caption switches) with
 seeded random weights, its optimizer and the training state, restores or side-loads weights
 (`resume_or_load`), runs the loop with its hooks, the NaN guard and the
 periodic checkpoints, saves `model_final` and evaluates every
@@ -63,6 +64,8 @@ from ..evaluation import (
     COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
 )
 from ..evaluation.masks import paste_masks_np
+from ..evaluation.panoptic_eval import COCOPanopticEvaluator, inference_on_dataset_panoptic
+from ..evaluation.sem_seg_eval import SemSegEvaluator, inference_on_dataset_semseg
 from ..models.build import build_detector, build_model
 from ..models.caption import ClipCaptionModel
 from ..models.gpt2 import GPT2Config
@@ -113,8 +116,11 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
     annotate), for a "coco" set the COCO evaluator of bbox (and segm with
     MODEL.MASK_ON, keypoints with MODEL.KEYPOINT_ON, its OKS sigmas from
     TEST.KEYPOINT_OKS_SIGMAS where set), which writes its detections to
-    OUTPUT_DIR/inference/coco_instances_results_<name>.json, or for an
-    "lvis" set the LVIS evaluator. Other evaluator types are not ported."""
+    OUTPUT_DIR/inference/coco_instances_results_<name>.json, for an
+    "lvis" set the LVIS evaluator, for a "sem_seg" set the sem-seg
+    evaluator and for a panoptic set ("coco_panoptic_seg",
+    "cityscapes_panoptic_seg") the PQ evaluator. Other evaluator types are
+    not ported."""
     ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "pascal_voc")
     if ev_type == "pascal_voc":
         target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
@@ -127,6 +133,10 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
                              kpt_oks_sigmas=list(cfg.TEST.KEYPOINT_OKS_SIGMAS) or None)
     if ev_type == "lvis":
         return LVISEvaluator(dataset_name)
+    if ev_type == "sem_seg":
+        return SemSegEvaluator(dataset_name)
+    if ev_type in ("coco_panoptic_seg", "cityscapes_panoptic_seg"):
+        return COCOPanopticEvaluator(dataset_name)
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
 
 
@@ -328,7 +338,10 @@ class DefaultTrainer:
         """Every DATASETS.TEST set through `inference_on_dataset` of `model`
         (the trained model by default) in MODEL.CLIP.IMS_PER_BATCH_TEST
         batches, rounded up to a multiple of the ranks: {dataset: {"bbox":
-        {...}}}, on every rank."""
+        {...}}}, on every rank. A panoptic set goes through
+        `inference_on_dataset_panoptic` with MODEL.PANOPTIC_FPN.COMBINE's
+        thresholds ({"panoptic_seg": PQ ...}), a sem-seg set through
+        `inference_on_dataset_semseg` ({"sem_seg": mIoU ...})."""
         cfg = cfg or self.cfg
         model = self.model if model is None else model
         if self.openset_model is not None:
@@ -341,7 +354,17 @@ class DefaultTrainer:
             loader, n = build_detection_test_loader(cfg, name, batch_size, pin_memory=self.device.type == "cuda")
             with loader:
                 evaluator = build_evaluator(cfg, name)
-                results[name] = inference_on_dataset(model, loader, n, evaluator, self.device)
+                if isinstance(evaluator, COCOPanopticEvaluator):
+                    comb = cfg.MODEL.PANOPTIC_FPN.COMBINE
+                    results[name] = inference_on_dataset_panoptic(
+                        model, loader, evaluator, dict(overlap_threshold=comb.OVERLAP_THRESH,
+                                                       stuff_area_limit=comb.STUFF_AREA_LIMIT,
+                                                       instances_score_thresh=comb.INSTANCES_CONFIDENCE_THRESH),
+                        self.device)
+                elif isinstance(evaluator, SemSegEvaluator):
+                    results[name] = inference_on_dataset_semseg(model, loader, evaluator, self.device)
+                else:
+                    results[name] = inference_on_dataset(model, loader, n, evaluator, self.device)
             logger.info("Results on %s:", name)
             print_csv_format(results[name])
         return results

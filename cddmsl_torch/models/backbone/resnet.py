@@ -122,7 +122,8 @@ class D2ResNet(nn.Module):
 
 
 def _conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    return F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype), layer.stride, layer.padding)
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
 
 
 def _nearest_index(m: int, n: int, device) -> torch.Tensor:

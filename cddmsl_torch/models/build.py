@@ -1,6 +1,7 @@
 """Config -> model (counterpart of cddmsl_tpu/models/build.py `build_model`
-with `build_generalized_rcnn`, `build_fpn_rcnn`, `build_cascade_rcnn` and
-`build_proposal_network`, and of `build_clip_fast_rcnn` and
+with `build_generalized_rcnn`, `build_fpn_rcnn`, `build_cascade_rcnn`,
+`build_proposal_network`, `build_panoptic_fpn` and
+`build_semantic_segmentor`, and of `build_clip_fast_rcnn` and
 `build_pretrain_fast_rcnn`).
 
 `build_detector` dispatches as JAX's `build_model` does
@@ -9,8 +10,9 @@ MODEL.BACKBONE.NAME names an fpn_backbone (with the cascade heads at
 ROI_HEADS.NAME CascadeROIHeads) or, with RESNETS.RES5_DILATION 2, in its
 single-level DC5 form, CascadeRCNN on res4 (ROI_HEADS.NAME
 CascadeROIHeads without an fpn_backbone, or META_ARCHITECTURE
-CascadeRCNN), and ProposalNetwork (META_ARCHITECTURE) on res4 or on the
-FPN."""
+CascadeRCNN), ProposalNetwork (META_ARCHITECTURE) on res4 or on the
+FPN, PanopticFPN and SemanticSegmentor (META_ARCHITECTURE; JAX's
+`build_panoptic_fpn` and `build_semantic_segmentor`)."""
 
 from typing import Any, Dict
 
@@ -25,7 +27,9 @@ from .cascade_rcnn import CascadeRCNN
 from .clip_rcnn import CLIPFastRCNN, PretrainFastRCNN
 from .extra_meta_archs import FPNProposalNetwork, ProposalNetwork
 from .fpn_rcnn import FPNRCNN
+from .panoptic_fpn import PanopticFPN
 from .rcnn import GeneralizedRCNN
+from .semantic_seg import SemanticSegmentor
 
 
 def build_model(config: ModelConfig, device="cuda", training: bool = False) -> GeneralizedRCNN:
@@ -269,6 +273,47 @@ def cascade_rcnn_fields(cfg) -> Dict[str, Any]:
                 pixel_std=tuple(m.PIXEL_STD), dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE))
 
 
+def panoptic_fpn_fields(cfg) -> Dict[str, Any]:
+    """The fields JAX's `build_panoptic_fpn` gives `PanopticFPN` that the
+    port implements (the thing and stuff classes, DEPTH, the two loss
+    weights, the head's NORM, STRIDE_IN_1X1, TPU.BACKBONE_WIDTH, the mask
+    head's, the pixel statistics, the compute dtype), after
+    `check_supported` (which refuses the GN, deformable and cascade
+    fields)."""
+    check_supported(cfg)
+    m = cfg.MODEL
+    return dict(
+        num_classes=m.ROI_HEADS.NUM_CLASSES,
+        sem_seg_classes=m.SEM_SEG_HEAD.NUM_CLASSES,
+        depth=m.RESNETS.DEPTH,
+        instance_loss_weight=m.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT,
+        sem_seg_loss_weight=m.SEM_SEG_HEAD.LOSS_WEIGHT,
+        sem_seg_norm=m.SEM_SEG_HEAD.NORM,
+        stride_in_1x1=m.RESNETS.STRIDE_IN_1X1,
+        backbone_width=cfg.TPU.BACKBONE_WIDTH or 64,
+        mask_on=m.MASK_ON,
+        mask_num_conv=m.ROI_MASK_HEAD.NUM_CONV,
+        mask_conv_dim=m.ROI_MASK_HEAD.CONV_DIM,
+        mask_canvas_stride=float(cfg.TPU.MASK_CANVAS_STRIDE),
+        pixel_mean=tuple(m.PIXEL_MEAN),
+        pixel_std=tuple(m.PIXEL_STD),
+        dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
+    )
+
+
+def semantic_segmentor_fields(cfg) -> Dict[str, Any]:
+    """The fields JAX's `build_semantic_segmentor` gives
+    `SemanticSegmentor` (the classes, DEPTH, IGNORE_VALUE, IN_FEATURES, the
+    head's NORM, the pixel statistics, the compute dtype), after
+    `check_supported`."""
+    check_supported(cfg)
+    m = cfg.MODEL
+    return dict(num_classes=m.SEM_SEG_HEAD.NUM_CLASSES, depth=m.RESNETS.DEPTH,
+                ignore_value=m.SEM_SEG_HEAD.IGNORE_VALUE, in_features=tuple(m.SEM_SEG_HEAD.IN_FEATURES),
+                head_norm=m.SEM_SEG_HEAD.NORM, pixel_mean=tuple(m.PIXEL_MEAN), pixel_std=tuple(m.PIXEL_STD),
+                dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE))
+
+
 def build_detector(cfg, device="cuda", training: bool = False):
     """The detector of the tree (`model_family`) on `device` (CUDA unless
     the caller asks for the CPU) in eval mode; `training` adds the C4
@@ -283,6 +328,10 @@ def build_detector(cfg, device="cuda", training: bool = False):
         model = CascadeRCNN(**cascade_rcnn_fields(cfg))
     elif family == "proposal_fpn":
         model = FPNProposalNetwork(**proposal_network_fields(cfg))
+    elif family == "panoptic":
+        model = PanopticFPN(**panoptic_fpn_fields(cfg))
+    elif family == "semantic":
+        model = SemanticSegmentor(**semantic_segmentor_fields(cfg))
     else:
         model = ProposalNetwork(**proposal_network_fields(cfg))
     return model.to(resolve_device(device)).eval()

@@ -74,6 +74,8 @@ class DetBatch(NamedTuple):
     gt_masks: Optional[torch.Tensor] = None
     # (B, G, K, 3) (x, y, visibility) ground-truth keypoints in canvas coords (KEYPOINT_ON)
     gt_keypoints: Optional[torch.Tensor] = None
+    # (B, H, W) int32 semantic labels of the padded canvas, 255 past the image (panoptic and sem-seg sets)
+    sem_seg: Optional[torch.Tensor] = None
 
 
 def normalize(images: torch.Tensor, pixel_mean, pixel_std, dtype, unit_range: bool = True) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Bicubic and bilinear resizes as `jax.image.resize` computes them: bicubic
 with `antialias=False` for NHWC images, bilinear with the default
-`antialias=True` for the attention pool's positional-embedding grid.
+`antialias=True` for the attention pool's positional-embedding grid and
+for the semantic head's NCHW maps (`resize_bilinear_nchw`).
 
 Each resized axis is one (out, in) float32 weight matrix applied with a
 matmul. The weights are those of jax/_src/image/scale.py
@@ -76,6 +77,37 @@ def resize_bilinear_grid(grid: torch.Tensor, size: Tuple[int, int]) -> torch.Ten
         x = torch.einsum("oh,hwc->owc", bilinear_weights(h_in, h_out, grid.device).to(x.dtype), x)
     if w_out != w_in:
         x = torch.einsum("ow,hwc->hoc", bilinear_weights(w_in, w_out, grid.device).to(x.dtype), x)
+    return x
+
+
+def _upsize_axis(x: torch.Tensor, w: torch.Tensor, dim: int) -> torch.Tensor:
+    """x's axis `dim` through the (out, in) bilinear upsize matrix `w`, in
+    float32, rounded once to x's dtype: each row's two taps (the matmul's
+    nonzero terms) as two gathers and a weighted sum."""
+    vals, idx = torch.topk(w, 2, dim=1)
+    shape = [1] * x.dim()
+    shape[dim] = w.shape[0]
+    xf = x.float()
+    y = xf.index_select(dim, idx[:, 0]) * vals[:, 0].reshape(shape) + xf.index_select(dim, idx[:, 1]) * vals[
+        :, 1].reshape(shape)
+    return y.to(x.dtype)
+
+
+def resize_bilinear_nchw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """x (B, C, H, W) -> (B, C, h, w) upsized (h >= H, w >= W), as
+    `jax.image.resize(x_nhwc, (B, h, w, C), "bilinear")` (triangle weights,
+    taps outside the input dropped and the rest renormalised: bilinear with
+    clamped borders): W, then H, as JAX's einsum contracts them, each axis
+    in float32 and rounded to x's dtype, as it rounds each of its two
+    contractions."""
+    h_in, w_in = x.shape[-2:]
+    h_out, w_out = size
+    if h_out < h_in or w_out < w_in:
+        raise ValueError(f"resize_bilinear_nchw upsizes: {(h_in, w_in)} -> {(h_out, w_out)}")
+    if w_out != w_in:
+        x = _upsize_axis(x, bilinear_weights(w_in, w_out, x.device), x.dim() - 1)
+    if h_out != h_in:
+        x = _upsize_axis(x, bilinear_weights(h_in, h_out, x.device), x.dim() - 2)
     return x
 
 

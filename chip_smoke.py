@@ -246,9 +246,26 @@ Phases, each of which fails the run with a non-zero exit:
      one that takes a gradient, as `KernelCalls` records them in the last
      counted step of (a) and (b), in (c)'s step and in an eval batch of
      each, and K4 at the NMS calls recorded in (a) and (b).
+ 19. Panoptic FPN and the semantic segmentor (`panoptic_path`), bf16,
+     seeded random weights: (a) `DefaultTrainer` on
+     configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml (R-50 FPN,
+     MASK_ON, 80 thing and 54 stuff classes, the head's GN, batch 8 at
+     800x1344) over a panoptic fixture of 16 480x640 images (bands of stuff
+     classes, rectangles of thing classes, id-encoded PNGs): 6 steps at
+     K1/K3/K4 8/8/1 (the box and the mask pooler once per level each, the
+     RPN on p2 one NMS), every loss finite (loss_sem_seg too), the FrozenBN
+     statistics bit-equal, the final test through `COCOPanopticEvaluator`
+     (8/0/2 a batch; PQ, PQ_th, PQ_st printed, not judged), an eval batch's
+     ms/image with the host combine and the paste timed apart, the step on
+     a device batch; (b) configs/Misc/semantic_R_50_FPN_1x.yaml (54
+     classes) over a label-map fixture: 3 steps on a device batch at 0/0/0,
+     the loss finite, one eval batch (mIoU printed); (c) K1 and K3 at the
+     calls `KernelCalls` records in (a)'s last step and an eval batch, K4 at
+     its RPN and detection NMS, as in phase 7.
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
-`.../ovd`, `.../fpn`, `.../mask`, `.../keypoint`, `.../cascade`). `launches` counts
+`.../ovd`, `.../fpn`, `.../mask`, `.../keypoint`, `.../cascade`,
+`.../panoptic`). `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
 branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
@@ -258,7 +275,8 @@ plain_r50, 12 steps and the final test; for ovd, (a)'s and (c)'s eval
 batches and (b)'s 9 steps; for fpn, (a)'s 12 steps and final test; for
 mask, (a)'s 12 steps and final test, (b)'s 3 steps and eval batch, (c)'s
 3 steps; for keypoint, (a)'s 6 steps and final test and the C4 keypoint
-step and eval batch; for cascade, (b)'s and the C4 cascade's likewise);
+step and eval batch; for cascade, (b)'s and the C4 cascade's likewise; for
+panoptic, (a)'s 6 steps and final test and (b)'s 3 steps);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -271,8 +289,8 @@ eval batch: K1 2, K3 1, K4 3; for ovd one step and one eval batch: K1 2,
 K3 1, K4 3; for fpn one step and one eval batch: K1 8, K3 4, K4 3; for
 mask (a)'s mask pool, the eval batch's mask pool and (b)'s re-pool, (a)'s
 RPN and eval NMS: K1 9, K3 4, K4 3; for keypoint K1 20, K3 10, K4 3; for
-cascade K1 38, K3 19, K4 3): the largest error and the sums of the times
-and bounds.
+cascade K1 38, K3 19, K4 3; for panoptic K1 16, K3 8, K4 3): the largest
+error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -4131,6 +4149,327 @@ def keypoint_cascade_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+PANOPTIC_NAMES = ("chip_smoke_panoptic_train", "chip_smoke_panoptic_val")
+SEMSEG_NAMES = ("chip_smoke_semseg_train", "chip_smoke_semseg_val")
+PANOPTIC_CONFIG = "COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml"
+SEMSEG_CONFIG = "Misc/semantic_R_50_FPN_1x.yaml"
+PANOPTIC_STEPS, SEMSEG_STEPS = 6, 3
+PANOPTIC_SEED, PANOPTIC_CANDIDATES_SEED = 20, 21
+# the fixture's categories: 30 of COCO's thing classes and 24 stuff classes,
+# the 54 of the semantic head (JAX's loader maps every category into the
+# stuff space)
+PANOPTIC_THINGS, PANOPTIC_STUFF = 30, 24
+
+
+def write_panoptic_fixture(root, names, seed):
+    """A COCO-panoptic fixture of FPN_IMAGES JPEGs of FPN_HW: each image
+    four bands of seeded stuff classes and 3 to 5 rectangles of seeded thing
+    classes over them, their id-encoded PNGs and the json (segments with
+    their bbox and area), registered under `names`."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from cddmsl_torch.data.datasets.coco_panoptic import register_coco_panoptic
+
+    r = np.random.RandomState(seed)
+    h, w = FPN_HW
+    img_dir, pan_dir = os.path.join(root, "panoptic", "images"), os.path.join(root, "panoptic", "png")
+    os.makedirs(img_dir)
+    os.makedirs(pan_dir)
+    categories = ([{"id": i + 1, "name": COCO_CLASSES[i], "isthing": 1} for i in range(PANOPTIC_THINGS)]
+                  + [{"id": 100 + j, "name": f"stuff_{j}", "isthing": 0} for j in range(PANOPTIC_STUFF)])
+    images, anns = [], []
+    for i in range(FPN_IMAGES):
+        ids = np.zeros((h, w), np.int32)
+        cats = {}
+        edges = np.sort(r.choice(np.arange(60, h - 60), 3, replace=False))
+        for band, (y0, y1) in enumerate(zip([0, *edges], [*edges, h])):
+            ids[y0:y1] = band + 1
+            cats[band + 1] = 100 + int(r.randint(PANOPTIC_STUFF))
+        for k in range(int(r.randint(3, 6))):
+            bw, bh = (int(v) for v in r.randint(48, 200, 2))
+            x0, y0 = int(r.randint(0, w - bw)), int(r.randint(0, h - bh))
+            ids[y0:y0 + bh, x0:x0 + bw] = 10 + k
+            cats[10 + k] = 1 + int(r.randint(PANOPTIC_THINGS))
+        shade = {sid: r.randint(0, 256, 3) for sid in cats}
+        img = np.zeros((h, w, 3), np.float64)
+        for sid, color in shade.items():
+            img[ids == sid] = color
+        img = np.clip(img + r.randn(h, w, 3) * 12, 0, 255).astype(np.uint8)
+        fid = f"{i:06d}"
+        Image.fromarray(img).save(os.path.join(img_dir, fid + ".jpg"))
+        png = np.stack([ids % 256, ids // 256, ids // 65536], axis=-1).astype(np.uint8)
+        Image.fromarray(png).save(os.path.join(pan_dir, fid + ".png"))
+        segments = []
+        for sid, cat in cats.items():
+            ys, xs = np.nonzero(ids == sid)
+            if len(ys):
+                segments.append({"id": sid, "category_id": cat, "iscrowd": 0, "area": int(len(ys)),
+                                 "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                                          int(ys.max() - ys.min() + 1)]})
+        images.append({"id": i, "height": h, "width": w, "file_name": fid + ".jpg"})
+        anns.append({"image_id": i, "file_name": fid + ".png", "segments_info": segments})
+    json_path = os.path.join(root, "panoptic", "panoptic.json")
+    with open(json_path, "w") as f:
+        json.dump({"categories": categories, "images": images, "annotations": anns}, f)
+    for name in names:
+        register_coco_panoptic(name, json_path, img_dir, pan_dir)
+
+
+def write_semseg_fixture(root, names, num_classes, seed):
+    """A labelTrainIds fixture in the Cityscapes layout: FPN_IMAGES PNGs of
+    FPN_HW, labels in 80x80 blocks of seeded classes (of `num_classes`),
+    255 on the top 16 rows, images shaded by class; registered under
+    `names` (evaluator "sem_seg")."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog
+    from cddmsl_torch.data.datasets.cityscapes import load_cityscapes_semantic
+
+    r = np.random.RandomState(seed)
+    h, w = FPN_HW
+    img_dir = os.path.join(root, "semseg", "leftImg8bit", "val")
+    gt_dir = os.path.join(root, "semseg", "gtFine", "val")
+    os.makedirs(os.path.join(img_dir, "cityA"))
+    os.makedirs(os.path.join(gt_dir, "cityA"))
+    palette = r.randint(0, 256, (num_classes, 3))
+    for i in range(FPN_IMAGES):
+        gt = np.kron(r.randint(0, num_classes, (h // 80, w // 80)), np.ones((80, 80), np.int64)).astype(np.uint8)
+        img = np.clip(palette[gt] + r.randn(h, w, 3) * 16, 0, 255).astype(np.uint8)
+        gt[:16] = 255
+        base = f"cityA_{i:06d}_000019"
+        Image.fromarray(img).save(os.path.join(img_dir, "cityA", base + "_leftImg8bit.png"))
+        Image.fromarray(gt).save(os.path.join(gt_dir, "cityA", base + "_gtFine_labelTrainIds.png"))
+    for name in names:
+        DatasetCatalog.register(name, lambda: load_cityscapes_semantic(img_dir, gt_dir))
+        MetadataCatalog.get(name).set(stuff_classes=[f"class_{k}" for k in range(num_classes)], ignore_label=255,
+                                      evaluator_type="sem_seg")
+
+
+def panoptic_path(dev, smi, roi_ops, nms_ops):
+    """Phase 19: Panoptic FPN and the semantic segmentor at full width
+    (bf16, seeded random weights, the stem scaled by `unit_scale_stem`),
+    batch 8 at the 800x1344 pad. (a) `DefaultTrainer.train()` on
+    configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml (R-50 FPN,
+    MASK_ON, 80 thing and 54 stuff classes, the head's GN) over a panoptic
+    fixture (`write_panoptic_fixture`): 6 steps at K1/K3/K4 8/8/1 a step
+    (the box and the mask pooler once per level each, one NMS for the RPN on
+    p2) or the run fails, every loss finite (loss_sem_seg too), the
+    FrozenBN statistics bit-equal, the final test through
+    `COCOPanopticEvaluator` at 8/0/2 a batch (PQ, PQ_th and PQ_st printed,
+    not judged); an eval batch's ms/image on the card, its host combine
+    (with the paste) and the paste of every valid detection timed apart;
+    the step on a device batch. (b) configs/Misc/semantic_R_50_FPN_1x.yaml
+    (54 classes) over a label-map fixture (`write_semseg_fixture`): 3 steps
+    on a device batch at 0/0/0 launches, the loss finite, one eval batch
+    through `inference_on_dataset_semseg` (mIoU printed, not judged), the
+    step timed. (c) K1 at every RoIAlign call and K3 at every one that
+    takes a gradient, as `KernelCalls` records them in (a)'s last counted
+    step and in an eval batch, and K4 at the RPN and detection NMS so
+    recorded, each checked and timed as in phase 7. Returns {"panoptic":
+    rows}."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cddmsl_torch.config import get_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, \
+        build_detection_train_loader, to_device
+    from cddmsl_torch.engine.defaults import DefaultTrainer
+    from cddmsl_torch.evaluation.masks import paste_masks_np
+    from cddmsl_torch.evaluation.sem_seg_eval import SemSegEvaluator, inference_on_dataset_semseg, nearest_resize
+    from cddmsl_torch.models.panoptic_fpn import combine_semantic_and_instance_outputs
+
+    class ProbedTrainer(DefaultTrainer):
+        """Probed by `StepProbe`; the last step's kernel calls are recorded
+        into `step_calls` and each step's losses kept."""
+
+        def build_hooks(self):
+            self.probe = StepProbe(roi_ops, nms_ops)
+            return [self.probe] + super().build_hooks()
+
+        def run_step(self, batch):
+            self.step_calls = KernelCalls(PANOPTIC_CANDIDATES_SEED)
+            with self.step_calls.recording("step"):
+                metrics = super().run_step(batch)
+            self.step_losses.append({k: v.detach() for k, v in metrics.items() if k.startswith("loss")})
+            return metrics
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_panoptic_")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+
+    def cfg_of(config, names, steps):
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(here, "configs", config))
+        cfg.merge_from_list(["OUTPUT_DIR", os.path.join(root, "out"), "SEED", "0", "DATASETS.TRAIN",
+                             repr((names[0],)), "DATASETS.TEST", repr((names[1],)), "SOLVER.IMS_PER_BATCH", "8",
+                             "SOLVER.MAX_ITER", str(steps), "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD",
+                             "0"])
+        cfg.freeze()
+        return cfg
+
+    try:
+        write_panoptic_fixture(root, PANOPTIC_NAMES, PANOPTIC_SEED)
+        cfg = cfg_of(PANOPTIC_CONFIG, PANOPTIC_NAMES, PANOPTIC_STEPS)
+        write_semseg_fixture(root, SEMSEG_NAMES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, PANOPTIC_SEED + 1)
+
+        # (a) Panoptic FPN through train()
+        print(f"panoptic (a): configs/{PANOPTIC_CONFIG} (R-{cfg.MODEL.RESNETS.DEPTH} FPN, MASK_ON, "
+              f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} thing and {cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES} stuff classes, the "
+              f"head's {cfg.MODEL.SEM_SEG_HEAD.NORM}, {cfg.SOLVER.IMS_PER_BATCH} images a step padded to "
+              f"{tuple(cfg.TPU.PAD_SIZE_TRAIN)}, {cfg.TPU.COMPUTE_DTYPE}) on a panoptic fixture ({FPN_IMAGES} "
+              f"{FPN_HW[0]}x{FPN_HW[1]} images, {PANOPTIC_THINGS} thing and {PANOPTIC_STUFF} stuff categories)")
+        trainer = ProbedTrainer(cfg, device="cuda")
+        trainer.step_losses = []
+        trainer.resume_or_load(resume=False)
+        unit_scale_stem(trainer.model)
+        buffers = {n: (b, b.clone()) for n, b in trainer.model.named_buffers()}
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches_a = read_launches(roi_ops, nms_ops)
+        step_calls = trainer.step_calls
+        probe = trainer.probe
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        per_step = loop_steps("panoptic", probe, waits, PANOPTIC_STEPS, PANOPTIC_STEPS, ((8, 8, 1), (8, 8, 1)))
+        names = {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_mask", "loss_sem_seg"}
+        losses = [{k: v.item() for k, v in step.items()} for step in trainer.step_losses]
+        if len(losses) != PANOPTIC_STEPS or any(set(step) != names for step in losses) or not all(
+                math.isfinite(v) for step in losses for v in step.values()):
+            fail(f"panoptic: the losses are not the finite {sorted(names)}: {losses}")
+        for i in (0, PANOPTIC_STEPS - 1):
+            print(f"panoptic step {i + 1} losses: {json.dumps({k: round(v, 6) for k, v in losses[i].items()})}")
+        if not all(torch.equal(b, before) for b, before in buffers.values()):
+            fail("panoptic: a FrozenBN statistic moved")
+        print(f"panoptic FrozenBN: {len(buffers)} buffers bit-equal after {PANOPTIC_STEPS} steps")
+        warm = per_step[2:]
+        print(f"panoptic loop, steps 3-{PANOPTIC_STEPS}: {mean([p[0] for p in warm]):.3f} ms/step CUDA events, "
+              f"{mean([p[1] for p in warm]):.3f} ms/step host wall, {mean([p[2] for p in warm]):.3f} ms/step "
+              f"waiting on the loader; whole loop {probe.loop_s * 1e3 / PANOPTIC_STEPS:.3f} ms/step host wall; "
+              f"on {smi}")
+        n_batches = -(-FPN_IMAGES // cfg.MODEL.CLIP.IMS_PER_BATCH_TEST)
+        per_batch = tuple((launches_a[k] - probe.loop_launches[k]) / n_batches for k in keys)
+        if per_batch != (8, 0, 2):
+            fail(f"the panoptic final test launched K1/K3/K4 {per_batch} per batch, expected (8, 0, 2)")
+        res = results[PANOPTIC_NAMES[1]]["panoptic_seg"]
+        if not all(math.isfinite(v) for v in res.values()):
+            fail(f"panoptic: the final test gave {res}")
+        print(f"panoptic final test (COCOPanopticEvaluator): launches per batch K1/K3/K4 {per_batch}; PQ (random "
+              f"weights, not judged) {json.dumps({k: round(res[k], 4) for k in ('PQ', 'PQ_th', 'PQ_st')})}")
+
+        eval_calls = KernelCalls(PANOPTIC_CANDIDATES_SEED)
+        loader, _ = build_detection_test_loader(cfg, PANOPTIC_NAMES[1], pin_memory=True)
+        with loader:
+            batch, metas = next(loader)
+        batch = to_device(batch, dev)
+        n = batch.image.shape[0]
+        with eval_calls.recording("eval"):
+            det, sem = trainer.model.inference(batch)
+        ms = cuda_ms(lambda: trainer.model.inference(batch), 3, warmup=1)
+        comb = cfg.MODEL.PANOPTIC_FPN.COMBINE
+        t0 = time.perf_counter()
+        host = [t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+                for t in (det.boxes, det.scores, det.classes, det.valid, det.masks, sem, batch.image_sizes,
+                          batch.orig_sizes)]
+        t1 = time.perf_counter()
+        boxes, scores, classes, valid, masks, sem_np, sizes, origs = host
+        segments = 0
+        scaled = []
+        for i in range(n):
+            (hh, ww), (oh, ow) = sizes[i], origs[i]
+            sx, sy = ow / ww, oh / hh
+            scaled.append(boxes[i] * np.float32([sx, sy, sx, sy]))
+            segments += len(combine_semantic_and_instance_outputs(
+                scaled[i], scores[i], classes[i], valid[i], nearest_resize(sem_np[i][:hh, :ww], (oh, ow)),
+                overlap_threshold=comb.OVERLAP_THRESH, stuff_area_limit=comb.STUFF_AREA_LIMIT,
+                instances_score_thresh=comb.INSTANCES_CONFIDENCE_THRESH, det_masks=masks[i])[1])
+        t2 = time.perf_counter()
+        pasted = sum(int(paste_masks_np(masks[i][valid[i]], scaled[i][valid[i]], tuple(origs[i])).sum())
+                     for i in range(n))
+        t3 = time.perf_counter()
+        print(f"panoptic eval batch {tuple(batch.image.shape)}: {ms / n:.3f} ms/image CUDA events, "
+              f"{det.valid.sum(1).tolist()} detections an image; on the host {(t1 - t0) * 1e3 / n:.3f} ms/image "
+              f"to read it back, {(t2 - t1) * 1e3 / n:.3f} ms/image the combine ({segments} segments, scores at "
+              f"least {comb.INSTANCES_CONFIDENCE_THRESH} pasted), {(t3 - t2) * 1e3 / n:.3f} ms/image the paste of "
+              f"every valid detection ({pasted} pixels)")
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            train_batch = to_device(next(train_loader), dev)
+        if train_batch.sem_seg is None or train_batch.gt_masks is None:
+            fail("panoptic (a): the training batch has no labels or no canvases")
+        labelled = train_batch.sem_seg[train_batch.sem_seg != 255]
+        print(f"panoptic (a) training batch: labels {tuple(train_batch.sem_seg.shape)} "
+              f"{str(train_batch.sem_seg.dtype)}, {int(labelled.numel())} labelled in classes "
+              f"{int(labelled.min())}..{int(labelled.max())}, canvases {tuple(train_batch.gt_masks.shape)}")
+        time_device_batch("panoptic", trainer, train_batch, what="supervised, loss_mask and loss_sem_seg on")
+        del trainer, train_batch, det, sem
+        torch.cuda.empty_cache()
+
+        # (b) the semantic segmentor: 3 steps on a device batch and an eval batch
+        cfg_b = cfg_of(SEMSEG_CONFIG, SEMSEG_NAMES, SEMSEG_STEPS)
+        trainer = DefaultTrainer(cfg_b, device="cuda")
+        trainer.resume_or_load(resume=False)
+        unit_scale_stem(trainer.model)
+        with build_detection_train_loader(cfg_b, seed=0, pin_memory=True) as train_loader:
+            train_batch = to_device(next(train_loader), dev)
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        step_losses = []
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(SEMSEG_STEPS):
+            step_losses.append(trainer.run_step(train_batch)["loss_sem_seg"].item())
+        e1.record()
+        torch.cuda.synchronize()
+        launches_b = read_launches(roi_ops, nms_ops)
+        if any(launches_b[k] for k in keys) or not all(math.isfinite(v) for v in step_losses):
+            fail(f"semantic (b): {SEMSEG_STEPS} steps launched {launches_b}; losses {step_losses}")
+        print(f"semantic (b): configs/{SEMSEG_CONFIG} ({cfg_b.MODEL.SEM_SEG_HEAD.NUM_CLASSES} classes, the head's "
+              f"{cfg_b.MODEL.SEM_SEG_HEAD.NORM}, {cfg_b.TPU.COMPUTE_DTYPE}) on {tuple(train_batch.image.shape)}: "
+              f"{SEMSEG_STEPS} steps on a device batch, {e0.elapsed_time(e1) / SEMSEG_STEPS:.3f} ms/step CUDA events "
+              f"(the first included), K1/K3/K4 {tuple(launches_b[k] for k in keys)}, loss_sem_seg "
+              f"{[round(v, 6) for v in step_losses]}")
+        time_device_batch("semantic", trainer, train_batch, what="loss_sem_seg")
+        loader, _ = build_detection_test_loader(cfg_b, SEMSEG_NAMES[1], pin_memory=True)
+        with loader:
+            first = next(loader)
+        ms_b = cuda_ms(lambda: trainer.model.inference(to_device(first[0], dev)), 3, warmup=1)
+        res_b = inference_on_dataset_semseg(trainer.model, [first], SemSegEvaluator(SEMSEG_NAMES[1]), dev)
+        print(f"semantic (b) eval batch {tuple(first[0].image.shape)}: {ms_b / first[0].image.shape[0]:.3f} ms/image "
+              f"CUDA events; mIoU (random weights, not judged) {res_b['sem_seg']['mIoU']:.4f}")
+        del trainer, train_batch
+        torch.cuda.empty_cache()
+
+        launches = {k: launches_a[k] + launches_b[k] for k in keys}
+        print(f"panoptic path launches ((a) {PANOPTIC_STEPS} steps and the final test, (b) {SEMSEG_STEPS} steps): "
+              f"{launches}")
+
+        # (c) the kernels at the calls recorded on the path
+        rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+        for calls in (step_calls, eval_calls):
+            add_roi_rows(rows, dev, roi_ops, "panoptic", calls.pools, calls.k3)
+        rows = {name: close_row(row) for name, row in rows.items()}
+        rows["nms"] = nms_row(nms_ops, "panoptic", launches["nms"], step_calls.nms + eval_calls.nms)
+        print(f"panoptic phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return {"panoptic": rows}
+    finally:
+        for name in (*PANOPTIC_NAMES, *SEMSEG_NAMES):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -4198,6 +4537,8 @@ def main() -> int:
     paths["mask"] = mask_path(dev, smi, roi_ops, nms_ops)
     torch.cuda.empty_cache()
     paths.update(keypoint_cascade_path(dev, smi, roi_ops, nms_ops))
+    torch.cuda.empty_cache()
+    paths.update(panoptic_path(dev, smi, roi_ops, nms_ops))
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

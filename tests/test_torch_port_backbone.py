@@ -47,12 +47,13 @@ def fill_params(shapes, seed=0):
     return jax.tree_util.tree_map_with_path(lambda p, s: np.asarray(leaf(p, s), np.float32), shapes)
 
 
-def _inverse_rules():
-    """(port key regex, JAX path builder, layout) for each rule of
-    `convert_jax_params`: the template's back-references become named
-    groups, the pattern's groups take their values back."""
+def _inverse_rules(rules=None):
+    """(port key regex, JAX path builder, layout) for each of `rules` (by
+    default `convert_jax_params`'s for the C4 detector): the template's
+    back-references become named groups, the pattern's groups take their
+    values back."""
     out = []
-    for pattern, template, layout in convert_jax._RULES:
+    for pattern, template, layout in rules or convert_jax._RULES:
         groups = re.findall(r"\(([^()]*)\)", pattern)
         regex, seen = "", set()
         for i, part in enumerate(re.split(r"\\(\d)", template)):
@@ -70,20 +71,28 @@ _INVERSE_LAYOUT = {"conv": lambda s: (s[2], s[3], s[1], s[0]), "dense": lambda s
                    "deconv": lambda s: (s[2], s[3], s[0], s[1])}
 
 
-def jax_param_shapes(model_config):
-    """The JAX GeneralizedRCNN parameter tree (`ShapeDtypeStruct` leaves)
-    of the configuration `model_config` (a port `ModelConfig`), read off the
-    port's training build through the inverse of `convert_jax_params`. It
-    equals `eval_shape` of the JAX model's `init_all`
-    (tests/test_torch_port_train.py holds the two equal) without tracing the
-    JAX model, so `fill_params` fills it with the same values."""
-    rules, tree = _inverse_rules(), {}
+def port_tree_shapes(module, use_text_emb=None, rules=None):
+    """The JAX parameter tree (`ShapeDtypeStruct` leaves) that
+    `convert_jax_params` maps onto `module`'s state dict, read off it
+    through the inverse of the converter's rules for the module's family
+    (the FPN family's for a model with an FPN, DC5's for FPNRCNN on res5,
+    else the C4 detector's) without tracing the JAX model. With the
+    same structure and shapes as `eval_shape` of JAX's `init_all`,
+    `fill_params` fills it with the same values."""
+    if rules is None:
+        from cddmsl_torch.models.backbone.resnet import FPN
+
+        backbone = getattr(module, "backbone", None)
+        rules = (convert_jax._FPN_RULES if isinstance(backbone, FPN)
+                 else convert_jax._DC5_RULES if getattr(module, "dc5", False) else convert_jax._RULES)
+    use_text_emb = getattr(module, "use_text_emb", False) if use_text_emb is None else use_text_emb
+    inverse, tree = _inverse_rules(rules), {}
     # the two classifiers share the torch name `cls_score.weight`
-    other_head = "roi_heads/box_predictor/cls_score" + ("/kernel" if model_config.use_text_emb else "_weight")
-    for key, value in build_model(model_config, device="cpu", training=True).state_dict().items():
+    other_head = "roi_heads/box_predictor/cls_score" + ("/kernel" if use_text_emb else "_weight")
+    for key, value in module.state_dict().items():
         offline = key.startswith(convert_jax._OFFLINE + ".")
         name = "backbone" + key[len(convert_jax._OFFLINE):] if offline else key
-        for regex, pieces, layout in rules:
+        for regex, pieces, layout in inverse:
             m = regex.fullmatch(name)
             if m and pieces[0] == other_head:
                 continue
@@ -101,6 +110,17 @@ def jax_param_shapes(model_config):
             node = node.setdefault(n, {})
         node[leaf] = jax.ShapeDtypeStruct(_INVERSE_LAYOUT[layout](tuple(value.shape)), jnp.float32)
     return {"params": tree}
+
+
+def jax_param_shapes(model_config):
+    """The JAX GeneralizedRCNN parameter tree (`ShapeDtypeStruct` leaves)
+    of the configuration `model_config` (a port `ModelConfig`), read off the
+    port's training build through the inverse of `convert_jax_params`
+    (`port_tree_shapes`). It equals `eval_shape` of the JAX model's
+    `init_all` (tests/test_torch_port_train.py holds the two equal) without
+    tracing the JAX model, so `fill_params` fills it with the same values."""
+    return port_tree_shapes(build_model(model_config, device="cpu", training=True), model_config.use_text_emb,
+                            convert_jax._RULES)
 
 
 @pytest.fixture(scope="module")

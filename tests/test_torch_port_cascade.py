@@ -46,7 +46,7 @@ from cddmsl_torch.config import check_supported, get_cfg, model_family
 from cddmsl_torch.models.build import build_detector, cascade_rcnn_fields, fpn_rcnn_fields
 from cddmsl_torch.models.cascade_rcnn import CascadeRCNN, CascadeROIHeads
 from cddmsl_torch.models.fpn_rcnn import FPNRCNN
-from test_torch_port_backbone import fill_params
+from test_torch_port_backbone import fill_params, port_tree_shapes
 from test_torch_port_fpn import (
     BATCH_A, BATCH_B, D2_PIXELS, NARROW, assert_grads_match, assert_rows_match, close_detection, make_batch,
     torch_batch,
@@ -69,11 +69,12 @@ STAGE_NAMES = {f"loss_{kind}_stage{i}" for kind in ("cls", "box_reg") for i in r
 RPN_NAMES = {"loss_rpn_cls", "loss_rpn_loc"}
 
 
-def cascade_filled(module, batch, seed):
+def cascade_filled(module, batch, seed, port):
     """The module's JAX tree filled by `fill_params`, the RPN head's outputs
-    near its init's 0.01 std and each stage's box regressor at its 0.001."""
-    shapes = jax.eval_shape(lambda r, b: module.init({"params": r}, b, r, method=module.init_all),
-                            jax.random.PRNGKey(0), batch)
+    near its init's 0.01 std and each stage's box regressor at its 0.001;
+    the tree's shapes read off the port's `port` (`port_tree_shapes`: those
+    of `eval_shape` of JAX's `init_all`, without tracing it)."""
+    shapes = port_tree_shapes(port)
     params = fill_params(shapes, seed=seed)
     tree = params["params"]
     for name in ("objectness_logits", "anchor_deltas"):
@@ -111,8 +112,8 @@ def test_the_stage_head_and_its_fc1_layout_equal_jax():
 @pytest.fixture(scope="module")
 def fpn_cascade_runs():
     ba = BATCH_A._replace(gt_masks=jnp.asarray(diamond_canvases(BATCH_A)))
-    model = JaxFPNRCNN(**FPN_CASCADE)
-    params = cascade_filled(model, ba, seed=31)
+    model, ours = JaxFPNRCNN(**FPN_CASCADE), FPNRCNN(**FPN_CASCADE)
+    params = cascade_filled(model, ba, seed=31, port=ours)
     rng = jax.random.PRNGKey(5)
 
     def total(p, b, r):
@@ -123,7 +124,6 @@ def fpn_cascade_runs():
         jax.grad(total, has_aux=True)(p, a, r), model.apply(p, a, method=model.inference),
         model.apply(p, b, method=model.inference),
     ))(params, ba, BATCH_B, rng)
-    ours = FPNRCNN(**FPN_CASCADE)
     ours.load_state_dict(convert_jax_params(params), strict=True)
     with torch.no_grad():
         got = [ours.inference(torch_batch(jb)) for jb in (BATCH_A, BATCH_B)]
@@ -171,7 +171,8 @@ C4_BATCH = make_batch(2, 64, 96, [[64, 96], [48, 80]], [[128, 192], [96, 160]], 
 @pytest.fixture(scope="module")
 def c4_cascade_runs():
     model = JaxCascadeRCNN(num_classes=NARROW["num_classes"], depth=10, pixel_std=D2_PIXELS["pixel_std"])
-    params = cascade_filled(model, C4_BATCH, seed=33)
+    ours = CascadeRCNN(num_classes=NARROW["num_classes"], depth=10, pixel_std=D2_PIXELS["pixel_std"])
+    params = cascade_filled(model, C4_BATCH, seed=33, port=ours)
     rng = jax.random.PRNGKey(7)
 
     def total(p, b, r):
@@ -180,7 +181,6 @@ def c4_cascade_runs():
 
     (grads, losses), det = jax.jit(lambda p, b, r: (
         jax.grad(total, has_aux=True)(p, b, r), model.apply(p, b, method=model.inference)))(params, C4_BATCH, rng)
-    ours = CascadeRCNN(num_classes=NARROW["num_classes"], depth=10, pixel_std=D2_PIXELS["pixel_std"])
     ours.load_state_dict(convert_jax_params(params), strict=True)
     tb = torch_batch(C4_BATCH)
     with torch.no_grad():
@@ -344,7 +344,9 @@ def test_the_cascade_refuses_what_jax_leaves_out_naming_the_key(path, key, value
 
 @pytest.mark.parametrize("path, key", [
     ("Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "MODEL.RESNETS.DEFORM_ON_PER_STAGE"),
-    ("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.SEM_SEG_HEAD"),
+    # Panoptic FPN is ported: the file is refused for its GN tower (its id kept from before)
+    pytest.param("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.RESNETS.NORM",
+                 id="panoptic_fpn_R_101_dconv_cascade_gn_3x-MODEL.SEM_SEG_HEAD"),
 ], ids=lambda v: Path(v).stem if v.endswith(".yaml") else v)
 def test_the_gn_and_deformable_cascade_files_stay_refused(path, key):
     cfg = get_cfg()

@@ -171,14 +171,14 @@ def test_keys_the_port_does_not_read_raise():
         check_supported(cfg)
     register_all()
     MetadataCatalog.get("port_test_lvis_like").set(evaluator_type="lvis", thing_classes=["a"])
-    MetadataCatalog.get("port_test_sem_seg_like").set(evaluator_type="sem_seg", thing_classes=["a"])
+    MetadataCatalog.get("port_test_rotated_like").set(evaluator_type="rotated_coco", thing_classes=["a"])
     try:
         assert type(build_evaluator(cfg, "port_test_lvis_like")).__name__ == "LVISEvaluator"  # ported
-        with pytest.raises(NotImplementedError, match="sem_seg"):
-            build_evaluator(cfg, "port_test_sem_seg_like")
+        with pytest.raises(NotImplementedError, match="rotated_coco"):  # sem_seg is ported (test_torch_port_semseg.py)
+            build_evaluator(cfg, "port_test_rotated_like")
     finally:
         MetadataCatalog.remove("port_test_lvis_like")
-        MetadataCatalog.remove("port_test_sem_seg_like")
+        MetadataCatalog.remove("port_test_rotated_like")
 
 
 # ---------------- fixture and loaders ----------------

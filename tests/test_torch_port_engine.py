@@ -248,7 +248,8 @@ def test_checkpointer_keeps_max_to_keep_and_model_final(tmp_path):
 
 
 def test_train_net_cli_runs_on_the_cpu(fixture_root, tmp_path):
-    env = dict(os.environ, DETECTRON2_DATASETS=str(fixture_root), PYTHONPATH=str(REPO))
+    # one torch thread in the CLI (launch reads OMP_NUM_THREADS): the suite's workers already share the cores
+    env = dict(os.environ, DETECTRON2_DATASETS=str(fixture_root), PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "cddmsl_torch.train_net", "--device", "cpu", "--config-file", str(TINY_RECIPE),
            "OUTPUT_DIR", str(tmp_path / "out")]
     out = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)

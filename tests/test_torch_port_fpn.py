@@ -59,8 +59,8 @@ from cddmsl_torch.models.build import build_detector, fpn_rcnn_fields, proposal_
 from cddmsl_torch.models.fpn_rcnn import FPNRCNN
 from cddmsl_torch.models.poolers import ROIPooler, assign_boxes_to_levels
 from cddmsl_torch.models.rcnn import DetBatch
-from test_torch_port_backbone import fill_params
-from test_torch_port_inference import BOX_ATOL, TIE_GAP, _assert_ranked_rows_match
+from test_torch_port_backbone import fill_params, port_tree_shapes
+from test_torch_port_inference import BOX_ATOL, TIE_GAP, _assert_ranked_rows_match, inference_and_head_inputs
 from torch_goldens import supervised_draw
 
 torch.set_num_threads(1)
@@ -119,12 +119,14 @@ BATCH_A = make_batch(2, 96, 160, [[96, 160], [80, 128]], [[192, 320], [160, 256]
 BATCH_B = make_batch(1, 112, 176, [[112, 176]], [[112, 176]], seed=2)
 
 
-def filled(module, batch, seed, method="init_all"):
+def filled(module, batch, seed, method="init_all", port=None):
     """The module's JAX tree, filled by `fill_params` (no compile), with the
     RPN head's outputs near the 0.01 std of its own init and the box
-    regressor's kernel at the 0.001 std of its own."""
-    shapes = jax.eval_shape(lambda r, b: module.init({"params": r}, b, r, method=getattr(module, method)),
-                            jax.random.PRNGKey(0), batch)
+    regressor's kernel at the 0.001 std of its own. The tree's shapes come
+    from `eval_shape` of the JAX module's `method`, or read off the port's
+    `port` (`port_tree_shapes`: the same tree, without tracing JAX's)."""
+    shapes = port_tree_shapes(port) if port is not None else jax.eval_shape(
+        lambda r, b: module.init({"params": r}, b, r, method=getattr(module, method)), jax.random.PRNGKey(0), batch)
     params = fill_params(shapes, seed=seed)
     tree = params["params"]
     head = tree.get("proposal_generator", {}).get("head")
@@ -298,8 +300,8 @@ def fpn_runs(request):
     batch A, and on both batches the maps, the test proposals and the
     inference; the same in the port from the converted tree."""
     kw = {**NARROW, **TOWERS[request.param], **D2_PIXELS}
-    model = JaxFPNRCNN(**kw)
-    params = filled(model, BATCH_A, seed=21)
+    model, ours = JaxFPNRCNN(**kw), FPNRCNN(**kw)
+    params = filled(model, BATCH_A, seed=21, port=ours)
     rng = jax.random.PRNGKey(9)
 
     def total(p, b, r):
@@ -307,14 +309,12 @@ def fpn_runs(request):
         return sum(losses.values()), losses
 
     def forward(m, b):
-        head, rpn_levels = m._features(b.image)
-        return head, m.proposal_generator(rpn_levels, b.image_sizes, training=False)[0], m.inference(b)
+        return inference_and_head_inputs(m, b)
 
     (grads, losses), out_a, out_b = jax.jit(lambda p, a, b, r: (
         jax.grad(total, has_aux=True)(p, a, r), model.apply(p, a, method=forward), model.apply(p, b, method=forward),
     ))(params, BATCH_A, BATCH_B, rng)
 
-    ours = FPNRCNN(**kw)
     ours.load_state_dict(convert_jax_params(params), strict=True)
     got = []
     with torch.no_grad():

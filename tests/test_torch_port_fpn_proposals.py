@@ -73,7 +73,9 @@ def proposal_runs():
     its proposals-as-detections on both batches; the same in the port."""
     c4 = JaxProposalNetwork(depth=10, **D2_PIXELS)
     fpn = JaxFPNProposalNetwork(**FPN_PROPOSALS, **D2_PIXELS)
-    params = {"c4": filled(c4, BATCH_A, seed=31), "fpn": filled(fpn, BATCH_A, seed=32)}
+    ports = {"c4": ProposalNetwork(depth=10, **D2_PIXELS), "fpn": FPNProposalNetwork(**FPN_PROPOSALS, **D2_PIXELS)}
+    params = {name: filled(module, BATCH_A, seed=seed, port=ports[name])
+              for name, module, seed in (("c4", c4, 31), ("fpn", fpn, 32))}
     rng = jax.random.PRNGKey(4)
 
     def run(model, p, a, b, r):
@@ -87,8 +89,7 @@ def proposal_runs():
     want = jax.jit(lambda ps, a, b, r: {"c4": run(c4, ps["c4"], a, b, r), "fpn": run(fpn, ps["fpn"], a, b, r)})(
         params, BATCH_A, BATCH_B, rng)
     got = {}
-    for name, ours in (("c4", ProposalNetwork(depth=10, **D2_PIXELS)),
-                       ("fpn", FPNProposalNetwork(**FPN_PROPOSALS, **D2_PIXELS))):
+    for name, ours in ports.items():
         ours.load_state_dict(convert_jax_params(params[name]), strict=True)
         dets = [ours.inference(torch_batch(jb)) for jb in (BATCH_A, BATCH_B)]
         with torch.enable_grad():
@@ -191,8 +192,8 @@ def test_fpn_rcnn_on_precomputed_proposals_equals_jax(proposal_batches):
     detections on the test batch, against JAX's on the same batches."""
     kw = {**NARROW, "num_classes": 2, "roi_batch_size_per_image": 16, "load_proposals": True}
     (train, jtrain), (test, jtest) = proposal_batches[0], proposal_batches[-1]
-    model = JaxFPNRCNN(**kw)
-    params = filled(model, jtrain, seed=41)
+    model, ours = JaxFPNRCNN(**kw), FPNRCNN(**kw)
+    params = filled(model, jtrain, seed=41, port=ours)
     rng = jax.random.PRNGKey(6)
 
     def total(p, b, r):
@@ -201,7 +202,6 @@ def test_fpn_rcnn_on_precomputed_proposals_equals_jax(proposal_batches):
 
     (grads, losses), dets = jax.jit(lambda p, a, b, r: (
         jax.grad(total, has_aux=True)(p, a, r), model.apply(p, b, method=model.inference)))(params, jtrain, jtest, rng)
-    ours = FPNRCNN(**kw)
     assert not hasattr(ours, "proposal_generator")
     ours.load_state_dict(convert_jax_params(params), strict=True)
     assert_rows_match(ours.inference(test), dets, "detection", close_detection(1))

@@ -62,7 +62,9 @@ from cddmsl_torch.ops.box_regression import Box2BoxTransform
 from cddmsl_torch.ops.soft_nms import batched_soft_nms, soft_nms
 from cddmsl_torch.solver.build import build_optimizer
 from test_torch_port_backbone import fill_params, jax_param_shapes
-from test_torch_port_inference import BOX_ATOL, SCORE_ATOL, TIE_GAP, _assert_ranked_rows_match
+from test_torch_port_inference import (
+    BOX_ATOL, SCORE_ATOL, TIE_GAP, _assert_ranked_rows_match, inference_and_head_inputs,
+)
 from test_torch_port_train import _jax_draws, _replay, _torch_batch
 
 torch.set_num_threads(1)
@@ -269,8 +271,7 @@ def detector_runs(request):
                               lr_schedule=jax_build_lr_schedule(cfg), donate=False)
 
     def run(m, batch):
-        f = m.backbone(m._normalize(batch.image))["res4"]
-        return m.proposal_generator(f, batch.image_sizes, training=False)[0], m.inference(batch)
+        return inference_and_head_inputs(m, batch)[1:]
 
     rng = jax.random.PRNGKey(3)
     (want_props, want_dets), (new_state, want_metrics) = jax.jit(

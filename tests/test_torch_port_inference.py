@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import linen as nn
 
 from __graft_entry__ import _flagship_cfg, _synthetic_batch
 from cddmsl_tpu.models import DetBatch as JaxDetBatch
@@ -53,6 +54,23 @@ def _inputs():
     return image, image_sizes, orig_sizes
 
 
+def inference_and_head_inputs(m, batch):
+    """Inside a flax method: `m.inference(batch)` and the features and test
+    proposals it hands its `roi_heads`, read off that call
+    (`nn.intercept_methods`), so the tower and the RPN are traced once:
+    (features, proposals, detections)."""
+    seen = []
+
+    def grab(next_fun, args, kwargs, context):
+        if context.module.name == "roi_heads" and context.method_name == "__call__" and not seen:
+            seen.append(args[:2])
+        return next_fun(*args, **kwargs)
+
+    with nn.intercept_methods(grab):
+        detections = m.inference(batch)
+    return (*seen[0], detections)
+
+
 @pytest.fixture(scope="module")
 def both_runs():
     image, image_sizes, orig_sizes = _inputs()
@@ -61,9 +79,7 @@ def both_runs():
     params = fill_params(jax_param_shapes(flagship_config(tiny=True)), seed=5)
 
     def run(m, b):
-        features = m.backbone(m._normalize(b.image))["res4"]
-        proposals, _ = m.proposal_generator(features, b.image_sizes, training=False)
-        return proposals, m.inference(b)
+        return inference_and_head_inputs(m, b)[1:]
 
     zeros = jnp.zeros((2, 1, 4), jnp.float32)
     batch = JaxDetBatch(

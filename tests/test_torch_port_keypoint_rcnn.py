@@ -32,7 +32,6 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -61,6 +60,7 @@ from test_torch_port_fpn import (
 )
 from test_torch_port_inference import BOX_ATOL
 from torch_goldens import QUICK, jax_initial_tree, replaying_trainers, run_schedule, supervised_draw
+from torch_goldens import _momentum, _update_apart, _worst_loss
 
 torch.set_num_threads(1)
 
@@ -120,8 +120,8 @@ def fpn_kp_runs():
     and the inference of both batches (rescaled to the originals); the same
     in the port from the converted tree."""
     ba = BATCH_A._replace(gt_keypoints=jnp.asarray(box_keypoints(BATCH_A)))
-    model = JaxFPNRCNN(**FPN_KP)
-    params = filled(model, ba, seed=23)
+    model, ours = JaxFPNRCNN(**FPN_KP), FPNRCNN(**FPN_KP)
+    params = filled(model, ba, seed=23, port=ours)
     rng = jax.random.PRNGKey(11)
 
     def total(p, b, r):
@@ -132,7 +132,6 @@ def fpn_kp_runs():
         jax.grad(total, has_aux=True)(p, a, r), model.apply(p, a, method=model.inference),
         model.apply(p, b, method=model.inference),
     ))(params, ba, BATCH_B, rng)
-    ours = FPNRCNN(**FPN_KP)
     ours.load_state_dict(convert_jax_params(params), strict=True)
     with torch.no_grad():
         got = [ours.inference(torch_batch(jb)) for jb in (BATCH_A, BATCH_B)]
@@ -279,13 +278,12 @@ def test_keypoint_steps_in_lockstep_with_jax(schedules_root):
     with build_detection_train_loader(cfg, seed=0) as loader:
         batches = [next(loader) for _ in range(3)]
     assert batches[0].gt_keypoints.shape[2:] == (3, 3)
-    model = jax_build_model(jcfg)
-    params = filled(model, _jax_batch(batches[0]), seed=29)
+    model, ours = jax_build_model(jcfg), build_detector(cfg, device="cpu", training=True)
+    params = filled(model, _jax_batch(batches[0]), seed=29, port=ours)
     optimizer = jax_build_optimizer(jcfg, params)
     state = TrainState.create(params, optimizer)
     step = make_train_step(model, optimizer, enable_caption=False, lr_schedule=jax_build_lr_schedule(jcfg),
                            donate=False)
-    ours = build_detector(cfg, device="cpu", training=True)
     ours.load_state_dict(convert_jax_params(params), strict=True)
     trainer = Trainer(ours, build_optimizer(ours, solver_config_from_cfg(cfg)), enable_caption=False)
     for i, batch in enumerate(batches):
@@ -301,19 +299,8 @@ def test_keypoint_steps_in_lockstep_with_jax(schedules_root):
         np.testing.assert_allclose(v.numpy(), want_state[k].numpy(), rtol=0, atol=1e-5, err_msg=k)
 
 
-def _momentum(state):
-    """The momentum of JAX's optimizer state (optax's trace) as the port's
-    tensors by name."""
-    trace, = (t.trace for t in jax.tree_util.tree_leaves(state.opt_state, is_leaf=lambda x: isinstance(
-        x, optax.TraceState)) if isinstance(t, optax.TraceState))
-    return convert_jax_params(jax.device_get(trace))
 
 
-def _worst_loss(got, want):
-    """(the largest relative difference of a loss, that loss); a loss of 0
-    counts as 1e-6."""
-    return max((abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6), k)
-               for k in want if k.startswith("loss_"))
 
 
 @pytest.mark.slow
@@ -377,12 +364,6 @@ def _jax_keypoint_sets(root):
             JaxMetadataCatalog._registry.pop(set_name)
 
 
-def _update_apart(before, after, control_before, control_after):
-    """How far an update (the parameters after a step less before) lies
-    from JAX's, relative to the size of JAX's: the trees are {name:
-    tensor}, the first two JAX's."""
-    apart = sum(float(((control_after[n] - control_before[n]) - (after[n] - before[n])).pow(2).sum()) for n in after)
-    return (apart / sum(float((after[n] - before[n]).pow(2).sum()) for n in after)) ** 0.5
 
 
 @pytest.mark.slow

@@ -634,14 +634,15 @@ REFUSED = [
     ("Misc/scratch_mask_rcnn_R_50_FPN_3x_gn.yaml", "MODEL.RESNETS.NORM"),
     ("Misc/scratch_mask_rcnn_R_50_FPN_9x_syncbn.yaml", "MODEL.RESNETS.NORM"),
     ("Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
-    ("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.SEM_SEG_HEAD"),
+    # Panoptic FPN is ported: the file is refused for its GN tower (its id kept from before)
+    pytest.param("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.RESNETS.NORM",
+                 id="panoptic_fpn_R_101_dconv_cascade_gn_3x-MODEL.SEM_SEG_HEAD"),
     ("Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "MODEL.RESNETS.DEFORM_ON_PER_STAGE"),
     ("Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
     ("LVISv0.5-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
     ("LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
     ("LVISv1-InstanceSegmentation/mask_rcnn_CLIP_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
     ("Cityscapes/mask_rcnn_R_50_FPN.yaml", "DATASETS.TRAIN"),
-    ("COCO-PanopticSegmentation/Base-Panoptic-FPN.yaml", "MODEL.SEM_SEG_HEAD"),
     ("COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml", "TPU.ENABLE_CAPTION_CONSISTENCY"),
 ]
 

@@ -111,8 +111,8 @@ def fpn_mask_runs():
     and the inference of both batches in the resized frame; the same in the
     port from the converted tree."""
     ba = BATCH_A._replace(gt_masks=jnp.asarray(diamond_canvases(BATCH_A)))
-    model = JaxFPNRCNN(**FPN_MASK)
-    params = filled(model, ba, seed=21)
+    model, ours = JaxFPNRCNN(**FPN_MASK), FPNRCNN(**FPN_MASK)
+    params = filled(model, ba, seed=21, port=ours)
     rng = jax.random.PRNGKey(9)
 
     def total(p, b, r):
@@ -125,7 +125,6 @@ def fpn_mask_runs():
     (grads, losses), out_a, out_b = jax.jit(lambda p, a, b, r: (
         jax.grad(total, has_aux=True)(p, a, r), model.apply(p, a, method=infer), model.apply(p, b, method=infer),
     ))(params, ba, BATCH_B, rng)
-    ours = FPNRCNN(**FPN_MASK)
     ours.load_state_dict(convert_jax_params(params), strict=True)
     got = []
     with torch.no_grad():

@@ -9,10 +9,12 @@ initialised at PRNGKey(SEED) and each iteration's sampler draws from
 fold_in(PRNGKey(SEED + 12345), it) (the mean teacher: fold_in(PRNGKey(SEED
 + 999), it), split in three for its supervised and pseudo-labeled
 branches). The port's `init_random_` and torch generators draw other
-numbers, so a replayed trainer loads JAX's tree (its init run eagerly, as
-JAX's trainer runs it: a jitted init rounds two positional embeddings and
-a kernel 1 ulp apart, and the mean-teacher golden holds only from the eager
-tree) and replays those uniforms into the port's `Draw`, site by site.
+numbers, so a replayed trainer loads JAX's tree (its initializers run
+eagerly, as JAX's trainer runs them: a jitted init rounds two positional
+embeddings and a kernel 1 ulp apart, and the mean-teacher golden holds only
+from the eager tree; flax's `lazy_init` runs them so without computing the
+forward, the same tree bit for bit) and replays those uniforms into the
+port's `Draw`, site by site.
 JAX's train step is never compiled.
 """
 
@@ -53,11 +55,19 @@ def jax_cfg(name: str, *opts):
 
 def jax_initial_tree(name: str, *opts):
     """JAX `DefaultTrainer`'s parameters for the schedule, and the mean
-    teacher's discriminator (PRNGKey(1)), as numpy trees."""
+    teacher's discriminator (PRNGKey(1)), as numpy trees; None for the
+    discriminator of a model without a backbone width (PanopticFPN and the
+    SemanticSegmentor, which no mean teacher trains)."""
     cfg = jax_cfg(name, *opts)
     model = jax_build_model(cfg)
     rng = jax.random.PRNGKey(max(cfg.SEED, 0))
-    params = jax.device_get(model.init({"params": rng}, _init_batch(cfg), rng, method=model.init_all))
+    # flax's lazy init: the parameters' initializers run eagerly on the
+    # concrete key, as in `init`, and the forward on the (abstract) batch
+    # is only traced; the tree is the eager init's bit for bit
+    batch = jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), _init_batch(cfg))
+    params = jax.device_get(model.lazy_init({"params": rng}, batch, rng, method=model.init_all))
+    if not getattr(model, "backbone_width", 0):
+        return params, None
     feat = np.zeros((1, 8, 8, model.backbone_width * 16), np.float32)
     dis = jax.device_get(JaxFCDiscriminator(dtype=jnp.float32).init(jax.random.PRNGKey(1), feat))
     return params, dis
@@ -179,3 +189,149 @@ def quick_schedules_weights(weights: str, out_root) -> str:
     path = os.path.join(str(out_root), weights[len(prefix):]) + ".pth"
     assert os.path.exists(path), f"{path} missing: run the producing schedule first"
     return path
+
+
+def jax_own_schedule(name: str, out_dir, scale: float = 0.0, *opts):
+    """JAX's own `DefaultTrainer.train()` on the schedule from its initial
+    tree, every leaf moved by `scale` (times +-1, signs from
+    RandomState(0)); TEST.EXPECTED_RESULTS not checked. Returns (its
+    results, its final parameters as a numpy tree). The schedule's sets
+    must be registered in JAX's catalogs."""
+    from cddmsl_tpu.engine.defaults import DefaultTrainer as JaxDefaultTrainer
+
+    cfg = jax_cfg(name, "OUTPUT_DIR", str(out_dir), "TEST.EXPECTED_RESULTS", "[]", *opts)
+    trainer = JaxDefaultTrainer(cfg)
+    trainer.resume_or_load(resume=False)
+    r = np.random.RandomState(0)
+    trainer.state = trainer.state.replace(params=jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) * (1 + scale * r.choice([-1, 1], np.shape(a)))).astype(np.asarray(a).dtype),
+        jax.device_get(trainer.state.params)))
+    return trainer.train(), jax.device_get(trainer.state.params)
+
+
+def _momentum(state):
+    """The momentum of JAX's optimizer state (optax's trace) as the port's
+    tensors by name."""
+    import optax
+
+    trace, = (t.trace for t in jax.tree_util.tree_leaves(state.opt_state, is_leaf=lambda x: isinstance(
+        x, optax.TraceState)) if isinstance(t, optax.TraceState))
+    return convert_jax_params(jax.device_get(trace))
+
+
+def _worst_loss(got, want):
+    """(the largest relative difference of a loss, that loss); a loss of 0
+    counts as 1e-6."""
+    return max((abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6), k)
+               for k in want if k.startswith("loss_"))
+
+
+def _update_apart(before, after, control_before, control_after):
+    """How far an update (the parameters after a step less before) lies
+    from JAX's, relative to the size of JAX's: the trees are {name:
+    tensor}, the first two JAX's."""
+    apart = sum(float(((control_after[n] - control_before[n]) - (after[n] - before[n])).pow(2).sum()) for n in after)
+    return (apart / sum(float((after[n] - before[n]).pow(2).sum()) for n in after)) ** 0.5
+
+
+def schedule_lockstep(name, jax_train_set, draw_of_step, threads=THREADS, explain=None):
+    """The schedule's steps by JAX's train step from JAX's initial tree on
+    JAX's loader with the trainer's draws, JAX's training set registered as
+    `jax_train_set` (the port's loader reads the schedule's own, which the
+    caller registers). Each batch of the port's loader must be JAX's bit
+    for bit. Before each step the port's `Trainer` (at `threads` torch
+    threads) takes JAX's state (the parameters, the momentum and the
+    count) and takes the same step with `draw_of_step(rng)`; so does JAX's
+    step from that state with every parameter moved by one part in 1e7 (the
+    control: JAX's own float noise). Returns one row per step: the largest
+    relative difference of a loss and the update apart from JAX's (the
+    port's, and the control's), and where `explain(it, model, jax_params,
+    jax_batch, rng, ours, batch)` is given and the port departs past 1e-4
+    (a loss) or 1e-3 (the update) and past 10 times the control, what it
+    says of that step ("explained")."""
+    from cddmsl_tpu.data.build import build_detection_train_loader as jax_build_detection_train_loader
+    from cddmsl_tpu.engine import TrainState, make_train_step
+    from cddmsl_tpu.models import DetBatch as JaxDetBatch
+    from cddmsl_tpu.solver import build_lr_schedule as jax_build_lr_schedule
+    from cddmsl_tpu.solver import build_optimizer as jax_build_optimizer
+    from cddmsl_torch.config import add_ateacher_config, get_cfg, solver_config_from_cfg
+    from cddmsl_torch.data import build_detection_train_loader
+    from cddmsl_torch.engine.train_loop import Trainer
+    from cddmsl_torch.models.build import build_detector
+    from cddmsl_torch.solver.build import build_optimizer
+
+    jcfg = jax_cfg(name, "DATASETS.TRAIN", f"('{jax_train_set}',)")
+    cfg = get_cfg()
+    add_ateacher_config(cfg)
+    cfg.merge_from_file(str(QUICK / name))
+    params, _ = jax_initial_tree(name)
+    model = jax_build_model(jcfg)
+    optimizer = jax_build_optimizer(jcfg, params)
+    state = TrainState.create(params, optimizer)
+    burnup, caption = cfg.SOLVER.CAPTION_BURNUP_ITERS, cfg.TPU.ENABLE_CAPTION_CONSISTENCY
+    step = make_train_step(model, optimizer, enable_caption=caption, caption_burnup_iters=burnup,
+                           lr_schedule=jax_build_lr_schedule(jcfg), donate=False)
+    ours = build_detector(cfg, device="cpu", training=True)
+    trainer = Trainer(ours, build_optimizer(ours, solver_config_from_cfg(cfg)), caption_burnup_iters=burnup,
+                      enable_caption=caption)
+    trainable = [(n, p) for n, p in ours.named_parameters() if p.requires_grad]
+    names = [n for n, _ in trainable]
+    key = jax.random.PRNGKey(max(cfg.SEED, 0) + 12345)
+    r = np.random.RandomState(0)
+    rows = []
+    with build_detection_train_loader(cfg, seed=max(cfg.SEED, 0)) as loader, torch_threads(threads):
+        jax_loader = jax_build_detection_train_loader(jcfg, seed=max(cfg.SEED, 0))
+        for it in range(cfg.SOLVER.MAX_ITER):
+            batch, want_batch = next(loader), next(jax_loader)
+            for field in want_batch._fields:
+                got_field, want_field = getattr(batch, field), getattr(want_batch, field)
+                if got_field is not None or want_field is not None:
+                    np.testing.assert_array_equal(got_field.numpy(), np.asarray(want_field), err_msg=f"{it} {field}")
+            moved = state.replace(params=jax.tree_util.tree_map(
+                lambda a: (np.asarray(a) * (1 + 1e-7 * r.choice([-1, 1], np.shape(a)))).astype(np.float32),
+                jax.device_get(state.params)))
+            before = convert_jax_params(jax.device_get(state.params))
+            ours.load_state_dict(before, strict=True)
+            momentum = _momentum(state)
+            for n, p in trainable:
+                trainer.optimizer.sgd.state[p]["momentum_buffer"] = momentum[n].clone()
+            trainer.optimizer.count = int(state.step)
+            trainer.iteration = it
+            rng = jax.random.fold_in(key, it)
+            jb = JaxDetBatch(**{f: None if getattr(batch, f) is None else jnp.asarray(getattr(batch, f).numpy())
+                                for f in JaxDetBatch._fields})
+            moved_after, control = step(moved, jb, rng)
+            jax_params = state.params
+            state, want = step(state, jb, rng)
+            got = trainer.train_step(batch, draw_of_step(rng))
+            after = convert_jax_params(jax.device_get(state.params))
+            port = {n: p.detach() for n, p in trainable}
+            jax_before, jax_after = {n: before[n] for n in names}, {n: after[n] for n in names}
+            moved_before = convert_jax_params(jax.device_get(moved.params))
+            moved_after = convert_jax_params(jax.device_get(moved_after.params))
+            row = dict(step=it + 1, loss=_worst_loss(got, want),
+                       update=_update_apart(jax_before, jax_after, jax_before, port),
+                       control_loss=_worst_loss(control, want),
+                       control_update=_update_apart(jax_before, jax_after, {n: moved_before[n] for n in names},
+                                                    {n: moved_after[n] for n in names}))
+            print(f"step {it + 1}: the port's losses rtol {row['loss'][0]:.3g} ({row['loss'][1]}), its update "
+                  f"{row['update']:.3g} apart; the control's {row['control_loss'][0]:.3g} "
+                  f"({row['control_loss'][1]}), {row['control_update']:.3g}")
+            if explain is not None and (row["loss"][0] > max(1e-4, 10 * row["control_loss"][0])
+                                        or row["update"] > max(1e-3, 10 * row["control_update"])):
+                ours.load_state_dict(before, strict=True)
+                row["explained"] = explain(it, model, jax_params, jb, rng, ours, batch)
+                print(f"step {it + 1}: {row['explained']}")
+            rows.append(row)
+    return rows
+
+
+def lockstep_summary(rows):
+    """(the port's, the control's): the largest loss difference, the
+    largest update difference and the steps past 1e-4 (losses) or 1e-3
+    (update), over the rows."""
+    def one(loss, update):
+        past = [row["step"] for row in rows if row[loss][0] > 1e-4 or row[update] > 1e-3]
+        return max(row[loss][0] for row in rows), max(row[update] for row in rows), past
+
+    return one("loss", "update"), one("control_loss", "control_update")
