@@ -29,14 +29,24 @@ fc1's rows in the pooled map's HWC order, as the port's stage reads it.
 A JAX `FPNRCNN`, `FPNProposalNetwork`, `PanopticFPN` or
 `SemanticSegmentor` tree (it has `fpn`, or for DC5 a
 `roi_heads` with `box_head_fc1`) converts by the FPN family's rules: the
-tower under `backbone.bottom_up.` (`backbone.` under DC5),
+tower under `backbone.bottom_up.` (`backbone.` under DC5; CLIP's tower by
+the C4 backbone's rules where the tree's tower is CLIP's),
 fpn/lateral_res{l} and output_res{l} to `backbone.fpn_lateral{l}` and
-`backbone.fpn_output{l}`, `box_head_fc{i}` to `roi_heads.box_head.fc{i}`
-(fc1's rows in JAX's HWC order of the pooled map, as the port's head reads
-it), the semantic head's `head_{i}_conv{u}`, `head_{i}_gn{u}` and
+`backbone.fpn_output{l}` (their norms `*_gn` to `.norm`), `box_head_fc{i}`
+to `roi_heads.box_head.fc{i}` (fc1's rows in JAX's HWC order of the pooled
+map, as the port's head reads it), `box_head_conv{i}` and its norm
+(`_gn`, or `_bn` for SyncBN) to `roi_heads.box_head.conv{i}` and `.norm`,
+a mask head's `mask_fcn{i}_gn` / `_bn` to `mask_fcn{i}.norm`, the semantic head's `head_{i}_conv{u}`, `head_{i}_gn{u}` and
 `predictor` to `sem_seg_head.` under the same names. A JAX
 `ProposalNetwork` tree is the plain tower and an RPN head, which
 the default rules map.
+
+A JAX `RetinaNet` tree (a `head` beside the `fpn`) converts the tower and
+the FPN likewise, fpn/top_block_p6 / p7 to `backbone.top_block.p6` / `p7`,
+head/cls_conv{i} and box_conv{i} to detectron2's `head.cls_subnet.{2i}` and
+`head.bbox_subnet.{2i}`, cls_score and bbox_pred to `head.*`; its
+`batch_stats` hold `loss_normalizer`. A tree with `batch_stats` (SyncBN
+models too) converts that collection by the same rules into the buffers.
 
 A JAX `CLIPFastRCNN` tree (it has `offline_proposal_generator`) converts
 by its own rules, chosen by the module and not by a tower's name: its
@@ -205,16 +215,37 @@ _CLIP_FAST_RCNN_RULES: Tuple[Tuple[str, str, str], ...] = (
 
 
 
-def _fpn_family_rules(tower: str):
-    """FPNRCNN and FPNProposalNetwork with the tower under `tower`."""
+def _under(rules, tower: str):
+    """`rules` of a tower named `backbone` with its torch keys under `tower`."""
+    return tuple((pattern, template.replace("backbone", tower, 1), layout) for pattern, template, layout in rules)
+
+
+# the FPN's convs, their norms (JAX names a SyncBN there `_gn` too) and
+# RetinaNet's learned p6/p7
+_FPN_CONV_RULES: Tuple[Tuple[str, str, str], ...] = (
+    (r"fpn/(lateral|output)_res(\d)/kernel", r"backbone.fpn_\1\2.weight", "conv"),
+    (r"fpn/(lateral|output)_res(\d)/bias", r"backbone.fpn_\1\2.bias", "copy"),
+    (rf"fpn/(lateral|output)_res(\d)_gn/{_BN}", r"backbone.fpn_\1\2.norm.\3", "copy"),
+    (r"fpn/top_block_p([67])/kernel", r"backbone.top_block.p\1.weight", "conv"),
+    (r"fpn/top_block_p([67])/bias", r"backbone.top_block.p\1.bias", "copy"),
+)
+
+
+def _fpn_family_rules(tower: str, bottom_up=None):
+    """FPNRCNN and FPNProposalNetwork with the tower under `tower`: the
+    plain one, or `bottom_up` (CLIP's, under the FPN)."""
     return (
-        *((pattern, template.replace("backbone", tower, 1), layout)
-          for pattern, template, layout in _d2_tower_rules("backbone")),
-        (r"fpn/(lateral|output)_res(\d)/kernel", r"backbone.fpn_\1\2.weight", "conv"),
-        (r"fpn/(lateral|output)_res(\d)/bias", r"backbone.fpn_\1\2.bias", "copy"),
+        *_under(bottom_up or _d2_tower_rules("backbone"), tower),
+        *_FPN_CONV_RULES,
         *_rpn_rules("proposal_generator"),
         (r"roi_heads/box_head_fc([12])/kernel", r"roi_heads.box_head.fc\1.weight", "dense"),
         (r"roi_heads/box_head_fc([12])/bias", r"roi_heads.box_head.fc\1.bias", "copy"),
+        (r"roi_heads/box_head_conv(\d)/kernel", r"roi_heads.box_head.conv\1.weight", "conv"),
+        (r"roi_heads/box_head_conv(\d)/bias", r"roi_heads.box_head.conv\1.bias", "copy"),
+        (r"roi_heads/box_head_conv(\d)_gn/(weight|bias)", r"roi_heads.box_head.conv\1.norm.\2", "copy"),
+        (rf"roi_heads/box_head_conv(\d)_bn/{_BN}", r"roi_heads.box_head.conv\1.norm.\2", "copy"),
+        (r"roi_heads/mask_head/(mask_fcn\d+)_gn/(weight|bias)", r"roi_heads.mask_head.\1.norm.\2", "copy"),
+        (rf"roi_heads/mask_head/(mask_fcn\d+)_bn/{_BN}", r"roi_heads.mask_head.\1.norm.\2", "copy"),
         *_BOX_PREDICTOR_RULES,
         *_MASK_HEAD_RULES,
         *_keypoint_head_rules("kp_head"),
@@ -226,7 +257,20 @@ def _fpn_family_rules(tower: str):
 
 
 _FPN_RULES = _fpn_family_rules("backbone.bottom_up")
+_CLIP_FPN_RULES = _fpn_family_rules("backbone.bottom_up", _BACKBONE_RULES)
 _DC5_RULES = _fpn_family_rules("backbone")
+# RetinaNet: the head's tower convs i -> detectron2's Sequential entries 2i
+# (the odd ones are its ReLUs); the EMA normalizer of `batch_stats`
+_RETINANET_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_under(_d2_tower_rules("backbone"), "backbone.bottom_up"),
+    *_FPN_CONV_RULES,
+    *((rf"head/{j}_conv{i}/{part}", f"head.{t}_subnet.{2 * i}.{torch_part}", layout)
+      for j, t in (("cls", "cls"), ("box", "bbox")) for i in range(16)
+      for part, torch_part, layout in (("kernel", "weight", "conv"), ("bias", "bias", "copy"))),
+    (r"head/(cls_score|bbox_pred)/kernel", r"head.\1.weight", "conv"),
+    (r"head/(cls_score|bbox_pred)/bias", r"head.\1.bias", "copy"),
+    (r"loss_normalizer", r"loss_normalizer", "copy"),
+)
 _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     *_mapper_rules("clip_project"),
     (r"gpt/(wte|wpe)", r"gpt.transformer.\1.weight", "copy"),
@@ -280,25 +324,46 @@ def _convert(params: Mapping[str, Any], rules, what: str, twins=_BACKBONE_TWINS)
             if m:
                 arr = _LAYOUT[layout](np.asarray(val, dtype=np.float32))
                 key = m.expand(template)
-                state[tower + key[len("backbone"):] if twin else key] = torch.tensor(np.ascontiguousarray(arr))
+                state[tower + key[len("backbone"):] if twin else key] = torch.tensor(np.ascontiguousarray(arr)).reshape(arr.shape)
                 break
         else:
             raise KeyError(f"{what}: no mapping for JAX parameter {path!r}")
     return state
 
 
-def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX GeneralizedRCNN, FPNRCNN, ProposalNetwork, FPNProposalNetwork or
-    CLIPFastRCNN params (with or without the
-    top-level 'params' key) -> state dict; raises on a key it does not
-    map."""
-    tree = params["params"] if set(params) == {"params"} else params
+def jax_family_rules(tree: Mapping[str, Any]):
+    """(the rules of the JAX tree's family, its name): RetinaNet (a `head`
+    beside the `fpn`), the FPN family over CLIP's tower or the plain one,
+    DC5, CLIPFastRCNN, else the C4 detector's."""
     if "offline_proposal_generator" in tree:
-        return _convert(tree, _CLIP_FAST_RCNN_RULES, "convert_jax_params (CLIPFastRCNN)", twins=())
+        return _CLIP_FAST_RCNN_RULES, "CLIPFastRCNN"
     if "fpn" in tree:
-        return _convert(tree, _FPN_RULES, "convert_jax_params (FPN)", twins=())
+        if "head" in tree:
+            return _RETINANET_RULES, "RetinaNet"
+        if "layer1_0" in tree.get("backbone", {}):
+            return _CLIP_FPN_RULES, "CLIP FPN"
+        return _FPN_RULES, "FPN"
     if "box_head_fc1" in tree.get("roi_heads", {}):
-        return _convert(tree, _DC5_RULES, "convert_jax_params (DC5)", twins=())
+        return _DC5_RULES, "DC5"
+    return _RULES, ""
+
+
+def convert_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX GeneralizedRCNN, FPNRCNN, ProposalNetwork, FPNProposalNetwork,
+    RetinaNet or CLIPFastRCNN params (with or without the top-level
+    'params' key) -> state dict; raises on a key it does not map. Variables
+    that hold a `batch_stats` collection beside 'params' (SyncBN's running
+    statistics, RetinaNet's loss normalizer) convert both: the state's
+    leaves go to the buffers of the same module."""
+    if "batch_stats" in params:
+        state = convert_jax_params({"params": params["params"]})
+        rules, name = jax_family_rules(params["params"])
+        state.update(_convert(params["batch_stats"], rules, f"convert_jax_params ({name} batch_stats)", twins=()))
+        return state
+    tree = params["params"] if set(params) == {"params"} else params
+    rules, name = jax_family_rules(tree)
+    if name:
+        return _convert(tree, rules, f"convert_jax_params ({name})", twins=())
     return _convert(tree, _RULES, "convert_jax_params")
 
 
@@ -339,7 +404,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fills every parameter and FrozenBN buffer from `generator` (a CPU
     generator): He-normal convs, 1/sqrt(fan_in) linears, FrozenBN with
     running_var in [0.5, 1.5], LayerNorm scales in [0.5, 1.5], small
-    RPN/box-regression heads, a unit-normal mapper prefix; for GPT-2,
+    RPN/box-regression heads (RetinaNet's dense head at std 0.01, its
+    classifier's bias at its prior; GN and SyncBN stay at weight 1, bias
+    0), a unit-normal mapper prefix; for GPT-2,
     1/sqrt(fan_in) Conv1D weights and normal token (0.02) and position
     (0.01) embeddings, as the JAX package initialises them; for the text
     tower 1/sqrt(fan_in) attention and projection weights and normal (0.02)
@@ -364,11 +431,12 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             uniform(mod.running_var, 0.5, 1.5)
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
-            head = name.startswith(("proposal_generator", "offline_proposal_generator"))
+            # the RPN heads' and RetinaNet's dense head's convs at detectron2's std 0.01
+            head = name.startswith(("proposal_generator", "offline_proposal_generator", "head."))
             mask_predictor = name.endswith("mask_head.predictor")
             normal(mod.weight, 0.01 if head else 0.001 if mask_predictor else (2.0 / fan_in) ** 0.5)
-            if mod.bias is not None:
-                mod.bias.zero_()
+            if mod.bias is not None:  # a classifier's prior (RetinaNet's cls_score) where it has one
+                mod.bias.fill_(getattr(mod, "prior_bias", 0.0))
         elif isinstance(mod, nn.LayerNorm):
             uniform(mod.weight, 0.5, 1.5)
             uniform(mod.bias, -0.1, 0.1)

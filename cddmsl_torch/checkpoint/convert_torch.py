@@ -27,7 +27,12 @@ d2_rcnn file raises, as JAX's loader does (KeyError there): the arch has no
 trainable RPN. Its offline tower and RPN head come from
 MODEL.CLIP.BB_RPN_WEIGHTS (`load_bb_rpn_weights`): detectron2's
 "backbone.*" ResNet keys and "proposal_generator.rpn_head.*".
-Only the keys the JAX converters take
+Of the GN and SyncBN files (Misc/*_gn, *_syncbn) the tower's norms load
+whole but for SyncBN's running statistics, and of a norm after an FPN, box
+head or mask head conv only the bias, and only where JAX's converter names
+that norm as its module does (`_FPN_CONVS`, `_BOX_HEAD_GN`): JAX writes the
+norm's weight under a name its modules do not read, and it puts the
+running statistics among the parameters. Only the keys the JAX converters take
 are read: the rest of the file, and every tensor of the model it names no
 key for, is left as it is. Neither JAX converter takes a keypoint head
 (roi_heads.keypoint_head.*) or a cascade's stages (roi_heads.box_head.{i}.*,
@@ -48,6 +53,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ..models.backbone.batch_norm import GroupNorm32, running_state
 from ..models.backbone.resnet import FPN, D2ResNet
 
 logger = logging.getLogger(__name__)
@@ -91,33 +97,47 @@ _LINEAR_BOX_PREDICTOR = re.compile(r"cls_score\.(weight|bias)|bbox_pred\.(weight
 _D2_RESNET = re.compile(
     r"(stem\.conv1|res\d\.\d+\.(conv[123]|shortcut))\.(weight|norm\.(weight|bias|running_mean|running_var))"
 )
-# `convert_d2_fpn_rcnn`'s FPN convs and fc box head (no GN variants: FPN.NORM
-# and ROI_BOX_HEAD.NORM are refused)
-_FPN_CONVS = re.compile(r"fpn_(lateral|output)\d\.(weight|bias)")
-_BOX_HEAD = re.compile(r"fc[12]\.(weight|bias)")
-# `convert_d2_fpn_rcnn`'s mask head without its GN norms (ROI_MASK_HEAD.NORM is refused)
+# `convert_d2_fpn_rcnn`'s FPN convs, conv and fc box head and mask head. Of a
+# norm after a head's conv JAX's converter takes the bias alone: it writes the
+# weight as `scale`, which GroupNorm32 and SyncBatchNorm do not read, and it
+# names the norm `_gn`, so a SyncBN box or mask head (JAX's `_bn`) takes
+# neither (the FPN names its SyncBN `_gn` and takes the bias)
+_FPN_CONVS = re.compile(r"fpn_(lateral|output)\d\.(weight|bias|norm\.bias)")
+_BOX_HEAD = re.compile(r"fc[12]\.(weight|bias)|conv\d\.weight")
+_BOX_HEAD_GN = re.compile(r"fc[12]\.(weight|bias)|conv\d\.(weight|norm\.bias)")
 _MASK_HEAD = re.compile(r"(mask_fcn\d+|deconv|predictor)\.(weight|bias)")
+_MASK_HEAD_GN = re.compile(r"(mask_fcn\d+|deconv|predictor)\.(weight|bias)|mask_fcn\d+\.norm\.bias")
+# `convert_d2_retinanet`'s FPN, top block and head
+_RETINANET_FPN = re.compile(r"fpn_(lateral|output)\d\.(weight|bias)|top_block\.p[67]\.(weight|bias)")
+_RETINANET_HEAD = re.compile(r"(cls|bbox)_subnet\.\d+\.(weight|bias)|(cls_score|bbox_pred)\.(weight|bias)")
 
 
 def _load_mask_head(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int:
     """roi_heads.mask_head.* as they are (detectron2's layouts are the
-    port's) into a model with a mask head; nothing otherwise."""
+    port's) into a model with a mask head, a GN head's norm biases too;
+    nothing otherwise."""
     head = getattr(getattr(model, "roi_heads", None), "mask_head", None)
     if head is None:
         return 0
-    return _load_prefixed(head, sd, "roi_heads.mask_head.", f"{path}: mask head", _MASK_HEAD)
+    taken = _MASK_HEAD_GN if getattr(head, "conv_norm", "") == "GN" else _MASK_HEAD
+    return _load_prefixed(head, sd, "roi_heads.mask_head.", f"{path}: mask head", taken)
 
 
 @torch.no_grad()
 def _load_prefixed(module: nn.Module, sd: Dict[str, torch.Tensor], prefix: str, what: str,
                    taken: re.Pattern) -> int:
+    """The keys of `sd` under `prefix` that `taken` matches into `module`'s
+    tensors of the same names. Running state (SyncBN's statistics) is not
+    taken: JAX's converters put a file's running statistics among the
+    parameters, where its SyncBatchNorm does not read them."""
     own = module.state_dict()
+    state = set(running_state(module))
     n = 0
     for key, val in sd.items():
         if not key.startswith(prefix):
             continue
         name = key[len(prefix):]
-        if name not in own or not taken.fullmatch(name):
+        if name not in own or name in state or not taken.fullmatch(name):
             continue
         if tuple(own[name].shape) != tuple(val.shape):
             raise ValueError(f"{what}: {key} has shape {tuple(val.shape)}, the model's {name} {tuple(own[name].shape)}")
@@ -206,7 +226,7 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
     elif dialect == "d2_fpn":
         load_d2_fpn(model, sd, path)
     elif dialect == "d2_retinanet":
-        raise NotImplementedError(f"{path}: loading a {dialect!r} checkpoint is not ported")
+        load_d2_retinanet(model, sd, path)
     else:
         raise ValueError(f"Cannot detect checkpoint dialect of {path}")
     return dialect
@@ -236,14 +256,34 @@ def load_d2_fpn(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int
                             f"{path}: RPN head", _RPN_HEAD)
     if hasattr(model, "roi_heads"):
         rh, fc1 = model.roi_heads, "roi_heads.box_head.fc1.weight"
-        c, r = model.backbone.out_channels, rh.pooler_resolution
+        # fc1 reads the last box conv's map, else the pooled FPN map
+        convs = sorted(k for k in sd if re.fullmatch(r"roi_heads\.box_head\.conv\d\.weight", k))
+        c, r = sd[convs[-1]].shape[0] if convs else model.backbone.out_channels, rh.pooler_resolution
         if fc1 in sd and sd[fc1].shape[1] == c * r * r:
             sd = {**sd, fc1: fc1_from_chw(sd[fc1], c, r)}
-        n += _load_prefixed(rh.box_head, sd, "roi_heads.box_head.", f"{path}: box head", _BOX_HEAD)
+        gn = isinstance(getattr(getattr(rh.box_head, "conv1", None), "norm", None), GroupNorm32)
+        n += _load_prefixed(rh.box_head, sd, "roi_heads.box_head.", f"{path}: box head",
+                            _BOX_HEAD_GN if gn else _BOX_HEAD)
         n += _load_prefixed(rh.box_predictor, sd, "roi_heads.box_predictor.", f"{path}: box predictor",
                             _LINEAR_BOX_PREDICTOR)
         n += _load_mask_head(model, sd, path)
     return n
+
+
+def load_d2_retinanet(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int:
+    """A detectron2 RetinaNet file (JAX's `convert_d2_retinanet`) into the
+    port's RetinaNet: "backbone.bottom_up.*" into the tower, the FPN's
+    lateral and output convs (res3..res5) and top_block.p6 / p7, and
+    head.cls_subnet / bbox_subnet / cls_score / bbox_pred as they are
+    (detectron2's names are the port's). The loss normalizer is not in the
+    file and stays. Returns how many tensors were loaded."""
+    if not hasattr(model, "head") or not isinstance(getattr(model, "backbone", None), FPN):
+        raise NotImplementedError(f"{path}: loading a 'd2_retinanet' checkpoint into a model other than RetinaNet "
+                                  "is not ported (it loads into MODEL.META_ARCHITECTURE RetinaNet)")
+    n = _load_prefixed(model.backbone.bottom_up, sd, "backbone.bottom_up.", f"{path}: RetinaNet bottom-up",
+                       _D2_RESNET)
+    n += _load_prefixed(model.backbone, sd, "backbone.", f"{path}: FPN convs and top block", _RETINANET_FPN)
+    return n + _load_prefixed(model.head, sd, "head.", f"{path}: RetinaNet head", _RETINANET_HEAD)
 
 
 def load_bb_rpn_weights(model: nn.Module, path: str) -> int:

@@ -31,9 +31,11 @@ GeneralizedRCNN above (`ModelConfig`), or the FPN family, which
 `models.build.build_detector` builds from the tree: FPNRCNN on
 build_resnet_fpn_backbone, its DC5 form at RESNETS.RES5_DILATION 2, and
 MODEL.META_ARCHITECTURE ProposalNetwork on res4 or on the FPN.
-`check_supported` holds that family to `_family_checks`, and PanopticFPN
-and the SemanticSegmentor (MODEL.META_ARCHITECTURE) to
-`_segmentation_checks`.
+`check_supported` holds that family to `_family_checks` (FPNRCNN takes
+RESNETS/FPN/ROI_BOX_HEAD/ROI_MASK_HEAD.NORM GN or SyncBN, the conv box
+head and, at MODEL.BACKBONE.NAME build_clip_resnet_fpn_backbone, CLIP's
+tower), PanopticFPN and the SemanticSegmentor (MODEL.META_ARCHITECTURE) to
+`_segmentation_checks`, and RetinaNet to `_retinanet_checks`.
 """
 
 import dataclasses
@@ -250,10 +252,9 @@ _SUPPORTED_RUN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("INPUT.MIN_SIZE_TRAIN_SAMPLING", lambda v: v in ("choice", "range")),
     ("INPUT.CROP.ENABLED", _falsy),
     ("INPUT.FORMAT", lambda v: v in ("RGB", "BGR")),
-    ("DATALOADER.SAMPLER_TRAIN", lambda v: v == "TrainingSampler"),
+    ("DATALOADER.SAMPLER_TRAIN", lambda v: v in ("TrainingSampler", "RepeatFactorTrainingSampler")),
     *_SUPPORTED_SOLVER,
     ("TEST.AUG.ENABLED", _falsy),
-    ("TEST.PRECISE_BN.ENABLED", _falsy),
     ("TPU.SPATIAL_PARTITION", _falsy),
     ("TPU.FSDP", _falsy),
     ("TPU.PIPELINE_AXIS", _falsy),
@@ -284,7 +285,6 @@ _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 # samples, the conv-upsample head without a norm)
 _SUPPORTED_MASK: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.ROI_MASK_HEAD.NAME", lambda v: v == "MaskRCNNConvUpsampleHead"),
-    ("MODEL.ROI_MASK_HEAD.NORM", _falsy),
     ("MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", lambda v: v == 14),
     ("MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO", lambda v: v == 0),
     ("MODEL.ROI_MASK_HEAD.POOLER_TYPE", lambda v: v == "ROIAlignV2"),
@@ -296,11 +296,15 @@ _SUPPORTED_MASK: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 
 
 def _mask_checks(cfg) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """With MODEL.MASK_ON; ROI_MASK_HEAD.NORM only FPNRCNN's head reads
+    (`_family_checks`; its cascade's does not, `_cascade_checks`):
+    elsewhere it is held at ""."""
     if not cfg.MODEL.MASK_ON:
         return ()
     # the mean-teacher trainer's batches carry no canvases
     semisup = (("SEMISUPNET.Trainer", lambda v: v == "default"),) if "SEMISUPNET" in cfg else ()
-    return _SUPPORTED_MASK + semisup
+    norm = () if model_family(cfg) in ("fpn", "dc5") else (("MODEL.ROI_MASK_HEAD.NORM", _falsy),)
+    return _SUPPORTED_MASK + norm + semisup
 
 
 def _keypoint_checks(cfg, family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
@@ -346,11 +350,20 @@ def _cascade_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...
                    ("MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", lambda v: v == 0.0),
                    ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", lambda v: v == "smooth_l1"),
                    ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT", lambda v: v == 1.0),
-                   ("MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK", _falsy)]
+                   ("MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK", _falsy),
+                   ("MODEL.ROI_BOX_HEAD.NUM_CONV", lambda v: v == 0),
+                   ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v in (0, 2)),
+                   ("MODEL.ROI_BOX_HEAD.NORM", _falsy),
+                   ("MODEL.ROI_MASK_HEAD.NORM", _falsy)]
     return tuple(checks)
 
 
 FPN_TOWER = "build_resnet_fpn_backbone"
+CLIP_FPN_TOWER = "build_clip_resnet_fpn_backbone"
+RETINANET_TOWER = "build_retinanet_resnet_fpn_backbone"
+# the norms JAX's `_make_norm` builds: FrozenBN ("BN" and "" too), GN, SyncBN
+TRAINABLE_NORMS = ("FrozenBN", "BN", "", "GN", "SyncBN")
+HEAD_NORMS = ("", "GN", "SyncBN")
 FPN_IN_FEATURES = ["res2", "res3", "res4", "res5"]
 FPN_RPN_FEATURES = ["p2", "p3", "p4", "p5", "p6"]
 FPN_HEAD_FEATURES = ["p2", "p3", "p4", "p5"]
@@ -365,9 +378,11 @@ def model_family(cfg) -> str:
     (ProposalNetwork on the FPN or on res4) or "cascade_c4" (CascadeRCNN on
     res4: MODEL.META_ARCHITECTURE CascadeRCNN, or ROI_HEADS.NAME
     CascadeROIHeads without an fpn_backbone), "panoptic" (PanopticFPN) or
-    "semantic" (SemanticSegmentor)."""
+    "semantic" (SemanticSegmentor), "retinanet" (RetinaNet)."""
     m = cfg.MODEL
     fpn = "fpn_backbone" in m.BACKBONE.NAME
+    if m.META_ARCHITECTURE == "RetinaNet":
+        return "retinanet"
     if m.META_ARCHITECTURE in SEGMENTATION_ARCHS:
         return SEGMENTATION_ARCHS[m.META_ARCHITECTURE]
     if m.META_ARCHITECTURE == "ProposalNetwork":
@@ -393,6 +408,7 @@ def _describe(cfg, family: str) -> str:
         "cascade_c4": "the C4 cascade (JAX's CascadeRCNN on res4)",
         "panoptic": "Panoptic FPN (JAX's PanopticFPN)",
         "semantic": "the semantic segmentor (JAX's SemanticSegmentor)",
+        "retinanet": "RetinaNet (JAX's RetinaNet)",
     }[family]
 
 
@@ -415,12 +431,14 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
     def eq(*wants):
         return lambda v: (list(v) if isinstance(v, (list, tuple)) else v) in wants
 
-    tower = {"fpn": eq(FPN_TOWER), "proposal_fpn": eq(FPN_TOWER), "dc5": eq(D2_TOWER),
+    tower = {"fpn": eq(FPN_TOWER, CLIP_FPN_TOWER), "proposal_fpn": eq(FPN_TOWER), "dc5": eq(D2_TOWER),
              "proposal_c4": lambda v: "fpn_backbone" not in v, "cascade_c4": lambda v: "fpn_backbone" not in v}[family]
+    # FPNRCNN builds its tower with RESNETS.NORM, the others with FrozenBN
+    norms = TRAINABLE_NORMS if family in ("fpn", "dc5") else ("FrozenBN",)
     checks = [
         ("MODEL.BACKBONE.NAME", tower),
         ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
-        ("MODEL.RESNETS.NORM", eq("FrozenBN")),
+        ("MODEL.RESNETS.NORM", eq(*norms)),
         ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
         ("MODEL.RESNETS.STEM_OUT_CHANNELS", eq(64)),
         ("MODEL.RESNETS.RES2_OUT_CHANNELS", eq(256)),
@@ -445,7 +463,8 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
         ("TPU.EMBED_DIM", _falsy),
     ]
     if fpn:
-        checks += [("MODEL.FPN.IN_FEATURES", eq(FPN_IN_FEATURES, [])), ("MODEL.FPN.NORM", _falsy),
+        checks += [("MODEL.FPN.IN_FEATURES", eq(FPN_IN_FEATURES, [])),
+                   ("MODEL.FPN.NORM", eq(*HEAD_NORMS) if family == "fpn" else _falsy),
                    ("MODEL.FPN.FUSE_TYPE", eq("sum"))]
     if family != "fpn":
         checks += [("MODEL.KEYPOINT_ON", _falsy)]
@@ -462,13 +481,88 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
             ("MODEL.ROI_HEADS.IN_FEATURES", eq(FPN_HEAD_FEATURES if fpn else ["res5"], ["res4"])),
             ("MODEL.ROI_BOX_HEAD.NAME", eq("", "FastRCNNConvFCHead")),
             ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", eq(7, 14)),
-            ("MODEL.ROI_BOX_HEAD.NUM_CONV", eq(0)),
-            ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v in (0, 2)),
-            ("MODEL.ROI_BOX_HEAD.NORM", _falsy),
+            ("MODEL.ROI_BOX_HEAD.NUM_FC", lambda v: v in (0, 1, 2)),
+            ("MODEL.ROI_BOX_HEAD.NORM", eq(*HEAD_NORMS)),
             ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", eq("smooth_l1", "giou")),
             ("MODEL.PROPOSAL_GENERATOR.NAME", lambda v: v in ("RPN", "PrecomputedProposals")),
         ]
+    if family in ("fpn", "dc5"):
+        checks += [("MODEL.ROI_MASK_HEAD.NORM", eq(*HEAD_NORMS))]
     return tuple(checks)
+
+
+def _clip_fpn_checks(cfg) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """Under BACKBONE.NAME build_clip_resnet_fpn_backbone JAX's FPNRCNN
+    builds CLIP's ModifiedResNet (3, 4, 6, 3) of width TPU.BACKBONE_WIDTH
+    or WIDTH_PER_GROUP: it reads no other tower key, so DEPTH is held at 50
+    and the plain tower's keys at what the CLIP tower is."""
+    if cfg.MODEL.BACKBONE.NAME != CLIP_FPN_TOWER:
+        return ()
+    return (
+        ("MODEL.RESNETS.DEPTH", lambda v: v == 50),
+        ("MODEL.RESNETS.NORM", lambda v: v in ("FrozenBN", "BN", "")),
+        ("MODEL.RESNETS.NUM_GROUPS", lambda v: v == 1),
+        ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True),
+        ("MODEL.RESNETS.RES5_DILATION", lambda v: v == 1),
+    )
+
+
+def _retinanet_checks() -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+    """What `models.build.retinanet_fields` implements, as JAX's
+    `build_retinanet` reads the tree: RETINANET.{NUM_CLASSES,
+    IOU_THRESHOLDS, IOU_LABELS, FOCAL_LOSS_*, SMOOTH_L1_LOSS_BETA,
+    BBOX_REG_LOSS_TYPE, *_TEST}, RESNETS.DEPTH, the anchor sizes (one group
+    broadcast over the five levels, or five groups of one length) and the
+    first aspect ratios, the pixel statistics, TEST.DETECTIONS_PER_IMAGE.
+    The keys it does not read are accepted at the value its module computes
+    with (or the tree's default): the five levels p3..p7, four head convs,
+    the prior 0.01, unit box weights, the plain tower of width 64 with
+    FrozenBN on res3..res5 and the FPN of 256 without a norm. RETINANET.NORM
+    GN is refused: JAX's head names one GroupNorm per level under one name
+    and fails at init."""
+
+    def eq(*wants):
+        return lambda v: (list(v) if isinstance(v, (list, tuple)) else v) in wants
+
+    def sizes_ok(groups):
+        groups = [list(g) if isinstance(g, (list, tuple)) else [g] for g in groups]
+        return len(groups) in (1, 5) and len({len(g) for g in groups}) == 1
+
+    return (
+        ("MODEL.BACKBONE.NAME", eq(RETINANET_TOWER, CLIP_TOWER)),
+        ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
+        ("MODEL.RESNETS.OUT_FEATURES", eq(["res3", "res4", "res5"], ["res4"])),
+        ("MODEL.RESNETS.NORM", eq("FrozenBN")),
+        ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True),
+        ("MODEL.RESNETS.NUM_GROUPS", eq(1)),
+        ("MODEL.RESNETS.WIDTH_PER_GROUP", eq(64)),
+        ("MODEL.RESNETS.STEM_OUT_CHANNELS", eq(64)),
+        ("MODEL.RESNETS.RES2_OUT_CHANNELS", eq(256)),
+        ("MODEL.RESNETS.RES5_DILATION", eq(1)),
+        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
+        ("MODEL.FPN.IN_FEATURES", eq(["res3", "res4", "res5"], [])),
+        ("MODEL.FPN.OUT_CHANNELS", eq(256)),
+        ("MODEL.FPN.NORM", _falsy),
+        ("MODEL.FPN.FUSE_TYPE", eq("sum")),
+        ("MODEL.RETINANET.IN_FEATURES", eq(["p3", "p4", "p5", "p6", "p7"])),
+        ("MODEL.RETINANET.NUM_CONVS", eq(4)),
+        ("MODEL.RETINANET.PRIOR_PROB", eq(0.01)),
+        ("MODEL.RETINANET.BBOX_REG_WEIGHTS", eq([1.0, 1.0, 1.0, 1.0])),
+        ("MODEL.RETINANET.NORM", _falsy),
+        ("MODEL.RETINANET.BBOX_REG_LOSS_TYPE", eq("smooth_l1", "giou")),
+        ("MODEL.ANCHOR_GENERATOR.SIZES", sizes_ok),
+        ("MODEL.MASK_ON", _falsy),
+        ("MODEL.KEYPOINT_ON", _falsy),
+        ("MODEL.LOAD_PROPOSALS", _falsy),
+        ("MODEL.PROPOSAL_GENERATOR.NAME", eq("RPN")),
+        ("MODEL.CONSISTENCY_BRANCH", _falsy),
+        ("MODEL.PRE_TRAINED_RCLIP_PATH", _falsy),
+        ("MODEL.VISION_TO_LANG_PATH", _falsy),
+        ("MODEL.CLIP.OPENSET_TEST_NUM_CLASSES", lambda v: v is None),
+        ("TPU.BACKBONE_LAYERS", _falsy),
+        ("TPU.BACKBONE_WIDTH", _falsy),
+        ("TPU.EMBED_DIM", _falsy),
+    )
 
 
 SEGMENTATION_ARCHS = {"PanopticFPN": "panoptic", "SemanticSegmentor": "semantic"}
@@ -485,8 +579,9 @@ def _segmentation_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]]
     image with the mask head under MASK_ON, and the semantic head on p2..p5
     (128 channels, common stride 4, ignore 255); a key it does not read is
     accepted at the tree's default or at the value JAX computes with, and
-    any other value raises. The GN and deformable towers, the FPN's GN and
-    the cascade heads wait on ROADMAP A4 and B2; COMBINE.ENABLED False is
+    any other value raises. The GN tower and FPN (JAX's PanopticFPN builds
+    them only with its deformable tower and cascade heads) wait on ROADMAP
+    B2; COMBINE.ENABLED False is
     refused because JAX's test always combines. The semantic segmentor
     reads DEPTH, the head's classes, norm, ignore value and IN_FEATURES
     (any of p2..p5, in order) and nothing of the instance branch."""
@@ -579,10 +674,13 @@ def _segmentation_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]]
 
 
 def _check_family(cfg, family: str) -> None:
-    if family in ("panoptic", "semantic"):
+    if family == "retinanet":
+        checks = _retinanet_checks() + _SUPPORTED_RUN
+    elif family in ("panoptic", "semantic"):
         checks = _segmentation_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg)
     else:
-        checks = _family_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg) + _keypoint_checks(cfg, family)
+        checks = (_family_checks(family) + _clip_fpn_checks(cfg) + _SUPPORTED_RUN + _mask_checks(cfg)
+                  + _keypoint_checks(cfg, family))
     if cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads" or family == "cascade_c4":
         checks += _cascade_checks(family)
     if "SEMISUPNET" in cfg:  # the mean teacher builds the C4 detector only
@@ -613,6 +711,9 @@ _SUPPORTED_SEMISUP: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.RPN.LOSS", lambda v: v == "CrossEntropy"),
     ("MODEL.ROI_HEADS.LOSS", lambda v: v == "CrossEntropy"),
 )
+# the mean teacher's two-crop loader draws with TrainingSampler whatever
+# DATALOADER.SAMPLER_TRAIN says
+_SUPPORTED_ATEACHER = (("DATALOADER.SAMPLER_TRAIN", lambda v: v == "TrainingSampler"),)
 
 
 def _global_batches(cfg) -> Tuple[Tuple[str, int], ...]:
@@ -640,8 +741,10 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
     if family != "c4":
         _check_family(cfg, family)
     else:
-        checks = (_SUPPORTED + (_SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ()) + _mask_checks(cfg)
-                  + _keypoint_checks(cfg, family))
+        semisup = _SUPPORTED_SEMISUP if "SEMISUPNET" in cfg else ()
+        if semisup and cfg.SEMISUPNET.Trainer == "ateacher":
+            semisup += _SUPPORTED_ATEACHER
+        checks = _SUPPORTED + semisup + _mask_checks(cfg) + _keypoint_checks(cfg, family)
         if cfg.MODEL.BACKBONE.NAME == D2_TOWER:
             checks += _SUPPORTED_D2
         else:

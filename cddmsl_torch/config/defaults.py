@@ -67,6 +67,25 @@ def get_cfg() -> CfgNode:
     _C.MODEL.FPN.NORM = ""
     _C.MODEL.FPN.FUSE_TYPE = "sum"
 
+    # RetinaNet (MODEL.META_ARCHITECTURE RetinaNet): JAX's build_retinanet
+    # reads all but IN_FEATURES, NUM_CONVS, PRIOR_PROB and BBOX_REG_WEIGHTS
+    _C.MODEL.RETINANET = CfgNode()
+    _C.MODEL.RETINANET.NUM_CLASSES = 80
+    _C.MODEL.RETINANET.IN_FEATURES = ["p3", "p4", "p5", "p6", "p7"]
+    _C.MODEL.RETINANET.NUM_CONVS = 4
+    _C.MODEL.RETINANET.IOU_THRESHOLDS = [0.4, 0.5]
+    _C.MODEL.RETINANET.IOU_LABELS = [0, -1, 1]
+    _C.MODEL.RETINANET.PRIOR_PROB = 0.01
+    _C.MODEL.RETINANET.SCORE_THRESH_TEST = 0.05
+    _C.MODEL.RETINANET.TOPK_CANDIDATES_TEST = 1000
+    _C.MODEL.RETINANET.NMS_THRESH_TEST = 0.5
+    _C.MODEL.RETINANET.BBOX_REG_WEIGHTS = [1.0, 1.0, 1.0, 1.0]
+    _C.MODEL.RETINANET.FOCAL_LOSS_GAMMA = 2.0
+    _C.MODEL.RETINANET.FOCAL_LOSS_ALPHA = 0.25
+    _C.MODEL.RETINANET.SMOOTH_L1_LOSS_BETA = 0.1
+    _C.MODEL.RETINANET.BBOX_REG_LOSS_TYPE = "smooth_l1"
+    _C.MODEL.RETINANET.NORM = ""
+
     # "RPN", or "PrecomputedProposals" (proposals from DATASETS.PROPOSAL_FILES_*)
     _C.MODEL.PROPOSAL_GENERATOR = CfgNode()
     _C.MODEL.PROPOSAL_GENERATOR.NAME = "RPN"
@@ -238,7 +257,8 @@ def get_cfg() -> CfgNode:
     _C.DATALOADER = CfgNode()
     _C.DATALOADER.NUM_WORKERS = 4  # the prefetch depth of the train loader
     _C.DATALOADER.ASPECT_RATIO_GROUPING = True
-    _C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"
+    _C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"  # or "RepeatFactorTrainingSampler" (LVIS)
+    _C.DATALOADER.REPEAT_THRESHOLD = 0.0
     _C.DATALOADER.FILTER_EMPTY_ANNOTATIONS = True
 
     _C.SOLVER = CfgNode()
@@ -273,6 +293,7 @@ def get_cfg() -> CfgNode:
     _C.TEST.AUG.ENABLED = False
     _C.TEST.PRECISE_BN = CfgNode()
     _C.TEST.PRECISE_BN.ENABLED = False
+    _C.TEST.PRECISE_BN.NUM_ITER = 200
 
     _C.TPU = CfgNode()
     _C.TPU.MESH_SHAPE = [-1]

@@ -49,6 +49,7 @@ import json
 import os
 import queue
 import threading
+from collections import Counter
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,6 +90,44 @@ class TrainingSampler:
                 yield from g.permutation(self.size).tolist()
             else:
                 yield from range(self.size)
+
+
+class RepeatFactorTrainingSampler:
+    """The LVIS recipe's class-rebalancing sampler (JAX's
+    `RepeatFactorTrainingSampler`): an image's repeat factor is the largest,
+    over its categories c, of max(1, sqrt(t / f(c))), f(c) the fraction of
+    images holding c; each epoch one RandomState(seed) draws `rand(n)` to
+    round the fractional parts stochastically, then permutes the repeated
+    indices. The stream is JAX's, index for index."""
+
+    def __init__(self, dataset_dicts: List[dict], repeat_thresh: float, seed: int = 0):
+        self.seed = seed
+        counts: Counter = Counter()
+        per_image = []
+        for d in dataset_dicts:
+            cats = {a["category_id"] for a in d.get("annotations", [])}
+            per_image.append(cats)
+            counts.update(cats)
+        n = len(dataset_dicts)
+        rep_cat = {c: max(1.0, np.sqrt(repeat_thresh / (cnt / n))) for c, cnt in counts.items()}
+        self.repeat_factors = np.asarray([max([rep_cat[c] for c in cats], default=1.0) for cats in per_image],
+                                         np.float64)
+
+    def __iter__(self) -> Iterator[int]:
+        g = np.random.RandomState(self.seed)
+        rep, n = self.repeat_factors, len(self.repeat_factors)
+        while True:
+            rands = g.rand(n)
+            counts = np.floor(rep) + (rands < (rep - np.floor(rep)))
+            yield from g.permutation(np.repeat(np.arange(n), counts.astype(np.int64))).tolist()
+
+
+def train_sampler(cfg, dicts: List[dict], seed: int):
+    """DATALOADER.SAMPLER_TRAIN's sampler over `dicts`: RepeatFactorTrainingSampler
+    at REPEAT_THRESHOLD, else TrainingSampler."""
+    if cfg.DATALOADER.SAMPLER_TRAIN == "RepeatFactorTrainingSampler":
+        return RepeatFactorTrainingSampler(dicts, cfg.DATALOADER.REPEAT_THRESHOLD, seed=seed)
+    return TrainingSampler(len(dicts), seed=seed)
 
 
 class InferenceSampler:
@@ -317,7 +356,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
         mapper = SemSegDatasetMapper(cfg, is_train=True)
     else:
         mapper = DatasetMapper(cfg, is_train=True)
-    sampler = TrainingSampler(len(dicts), seed=seed)
+    sampler = train_sampler(cfg, dicts, seed)
     batch_size = cfg.SOLVER.IMS_PER_BATCH
     parts = cfg.SOLVER.ACCUM_STEPS
     if batch_size % (parts * world):

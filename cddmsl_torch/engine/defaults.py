@@ -39,6 +39,7 @@ folds 1 into the step's key.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
@@ -66,9 +67,11 @@ from ..evaluation import (
 from ..evaluation.masks import paste_masks_np
 from ..evaluation.panoptic_eval import COCOPanopticEvaluator, inference_on_dataset_panoptic
 from ..evaluation.sem_seg_eval import SemSegEvaluator, inference_on_dataset_semseg
+from ..models.backbone.batch_norm import running_state, update_bn_stats
 from ..models.build import build_detector, build_model
 from ..models.caption import ClipCaptionModel
 from ..models.gpt2 import GPT2Config
+from ..models.sampling import generator_draw, rank_draw
 from ..parallel import comm
 from ..solver.build import build_optimizer
 from ..utils.events import CommonMetricPrinter, EventStorage, JSONWriter
@@ -341,11 +344,55 @@ class DefaultTrainer:
         {...}}}, on every rank. A panoptic set goes through
         `inference_on_dataset_panoptic` with MODEL.PANOPTIC_FPN.COMBINE's
         thresholds ({"panoptic_seg": PQ ...}), a sem-seg set through
-        `inference_on_dataset_semseg` ({"sem_seg": mIoU ...})."""
+        `inference_on_dataset_semseg` ({"sem_seg": mIoU ...}). With
+        TEST.PRECISE_BN the model evaluates with re-estimated running
+        statistics (`_precise_bn`)."""
         cfg = cfg or self.cfg
         model = self.model if model is None else model
         if self.openset_model is not None:
             model = self._openset(cfg, model)
+        with self._precise_bn(cfg, model):
+            return self._test(cfg, model)
+
+    @contextlib.contextmanager
+    def _precise_bn(self, cfg: CfgNode, model: torch.nn.Module):
+        """TEST.PRECISE_BN (JAX's `_maybe_precise_bn`): for the block the
+        model's running state is re-estimated as the mean of the statistics
+        of NUM_ITER training batches (`update_bn_stats`) from a loader
+        seeded max(SEED, 0) + 777, the draws of each forward from max(SEED,
+        0) + 778; afterwards the training state goes on from its own EMA.
+        Nothing happens without running state (FrozenBN models)."""
+        state = running_state(model)
+        if not (cfg.TEST.PRECISE_BN.ENABLED and state):
+            yield
+            return
+        seed = max(cfg.SEED, 0)
+        loader = build_detection_train_loader(cfg, seed=seed + 777, pin_memory=self.device.type == "cuda")
+        generator = torch.Generator(device=self.device)
+
+        def forward(batch):
+            generator.manual_seed(seed + 778)
+            batch = self.batch_to_device(batch)  # a rank draws its rows of the global draws, as in the step
+            model.cddmsl_losses(batch, rank_draw(generator_draw(generator), batch.image.shape[0]), False, True, False)
+
+        n_iter = cfg.TEST.PRECISE_BN.NUM_ITER
+        logger.info("PreciseBN: re-estimating the running state over %d batches", n_iter)
+        try:
+            means = update_bn_stats(model, forward, (next(loader) for _ in range(n_iter)))
+        finally:
+            loader.close()
+        kept = {k: v.clone() for k, v in state.items()}
+        with torch.no_grad():
+            for k, v in state.items():
+                v.copy_(means[k])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for k, v in state.items():
+                    v.copy_(kept[k])
+
+    def _test(self, cfg: CfgNode, model: torch.nn.Module) -> Dict[str, dict]:
         world = comm.get_world_size()
         batch_size = -(-cfg.MODEL.CLIP.IMS_PER_BATCH_TEST // world) * world
         results = {}

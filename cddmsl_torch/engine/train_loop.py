@@ -19,6 +19,14 @@ rows (parallel/comm.py), and `Optimizer.step` averages the gradients over
 the ranks once, after the last microbatch, before clipping. The result is
 the single process's step on the global batch.
 
+The model's running state (SyncBN's statistics, RetinaNet's loss
+normalizer: models/backbone/batch_norm.py) moves in the supervised forward
+of each microbatch, in order, as JAX threads `batch_stats` through its step
+and its accumulation scan; the consistency branches read it without moving
+it (they run on the C4 detector, which has no such state: JAX's branches
+read the state as the step began). It lives in buffers, which the optimizer never sees and the checkpoint
+saves with the parameters.
+
 With `consistency_branch` "image" or "image_region" every step, from step 0
 (no burn-up), adds the language-free InfoNCE of that branch, times
 `consistency_weight`, to the same loss dict and the same update, as
@@ -37,6 +45,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from ..models.backbone.batch_norm import updating_running_state
 from ..models.caption import ClipCaptionModel, pseudo_labeling_loss, unsupervised_kl_loss
 from ..models.rcnn import DetBatch, GeneralizedRCNN
 from ..models.sampling import Draw, generator_draw, rank_draw
@@ -92,7 +101,9 @@ class Trainer:
         self.consistency_weight = consistency_weight
 
     def _losses(self, batch: DetBatch, draw: Draw, caption_on: bool) -> Dict[str, torch.Tensor]:
-        losses = self.model.cddmsl_losses(batch, draw, caption_on, self.kd_regularization, self.enable_caption)
+        # the supervised forward is the mutable apply; the branches read the state it left
+        with updating_running_state(self.model):
+            losses = self.model.cddmsl_losses(batch, draw, caption_on, self.kd_regularization, self.enable_caption)
         branch = self.consistency_branch
         if branch:
             model = self.model

@@ -142,7 +142,10 @@ class ModifiedResNet(nn.Module):
     res5 only when the call asks for it; the RoI head runs layer4
     (`res5_forward`) and the attention pool on pooled crops."""
 
-    def __init__(self, layers: Sequence[int], output_dim: int, heads: int, width: int = 64, input_resolution: int = 224):
+    def __init__(self, layers: Sequence[int], output_dim: int, heads: int, width: int = 64, input_resolution: int = 224,
+                 attnpool: bool = True):
+        """Without `attnpool` the tower has no attention pool: the FPN's
+        bottom-up (JAX's tree holds none there, as nothing calls it)."""
         super().__init__()
         w = width
         self.conv1 = Conv2d(3, w // 2, 3, stride=2, padding=1)
@@ -158,7 +161,8 @@ class ModifiedResNet(nn.Module):
         self.layer2 = self._make_layer(w * 2, layers[1], stride=2)
         self.layer3 = self._make_layer(w * 4, layers[2], stride=2)
         self.layer4 = self._make_layer(w * 8, layers[3], stride=2)
-        self.attnpool = AttentionPool2d(input_resolution // 32, w * 32, heads, output_dim)
+        self.attnpool = AttentionPool2d(input_resolution // 32, w * 32, heads, output_dim) if attnpool else None
+        self.out_channels = {f"res{i + 2}": w * 4 * 2 ** i for i in range(4)}
 
     def _make_layer(self, planes: int, blocks: int, stride: int = 1) -> nn.Sequential:
         mods = [Bottleneck(self._inplanes, planes, stride)]
@@ -174,9 +178,14 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, out_features: Sequence[str] = ("res4",)) -> Dict[str, torch.Tensor]:
         """x: (N, H, W, 3) in the compute dtype -> the maps `out_features`
-        names of {"res4": (N, H/16, W/16, C4), "res5": (N, H/32, W/32, C5)}."""
-        x = self.layer3(self.layer2(self.layer1(self._stem(_nchw(x)))))
-        out = {"res4": _nhwc(x)} if "res4" in out_features else {}
+        names of {"res2": (N, H/4, W/4, C2), ..., "res4": (N, H/16, W/16, C4),
+        "res5": (N, H/32, W/32, C5)}; layer4 runs only for res5."""
+        x = self._stem(_nchw(x))
+        out = {}
+        for name, stage in (("res2", self.layer1), ("res3", self.layer2), ("res4", self.layer3)):
+            x = stage(x)
+            if name in out_features:
+                out[name] = _nhwc(x)
         if "res5" in out_features:
             out["res5"] = _nhwc(self.layer4(x))
         return out

@@ -1,13 +1,17 @@
 """The plain detectron2 ResNet and its FPN (counterparts of
 cddmsl_tpu/models/backbone/resnet.py `D2ResNet`, `D2Bottleneck` and `FPN`,
-as JAX's GeneralizedRCNN and FPNRCNN build them: FrozenBN, no deformable
+as JAX's GeneralizedRCNN, FPNRCNN and RetinaNet build them: no deformable
 stage).
 
 `D2ResNet` takes RESNETS.NUM_GROUPS x WIDTH_PER_GROUP bottleneck channels
 (ResNeXt: a grouped 3x3), the stride in the 1x1 or in the 3x3
 (STRIDE_IN_1X1), and RES5_DILATION: at 2 res5 keeps stride 16 and dilates
-its 3x3s (the DC5 family). `FPN` puts detectron2's lateral and output convs
-on res2..res5 and adds p6, a stride-2 subsample of p5.
+its 3x3s (the DC5 family), and RESNETS.NORM (`norm`): FrozenBN, or the
+trainable GN and SyncBN of models/backbone/batch_norm.py (JAX's
+`_make_norm`). `FPN` puts detectron2's lateral and output convs on res2..res5
+(res3..res5 for RetinaNet), with FPN.NORM after each (the convs then have no
+bias), and adds p6, a stride-2 subsample of p5, or RetinaNet's learned
+p6/p7 (detectron2's LastLevelP6P7).
 
 Layout and dtypes as in clip_resnet.py: NHWC at the public methods, NCHW in
 `torch.channels_last` inside, float32 parameters cast to the activations'
@@ -25,18 +29,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import D2_RESNET_SPECS
-from .clip_resnet import FrozenBatchNorm2d, _nchw, _nhwc
+from .batch_norm import head_norm, make_norm
+from .clip_resnet import _nchw, _nhwc
 
 
 class ConvNorm(nn.Conv2d):
-    """A bias-free conv followed by its FrozenBN (detectron2's Conv2d with
-    `norm`); its float32 weight is cast to the input's dtype."""
+    """A bias-free conv followed by its norm (detectron2's Conv2d with
+    `norm`: FrozenBN by default); its float32 weight is cast to the input's
+    dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0, dilation: int = 1,
-                 groups: int = 1):
+                 groups: int = 1, norm: str = "FrozenBN"):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding, dilation=dilation, groups=groups,
                          bias=False)
-        self.norm = FrozenBatchNorm2d(cout)
+        self.norm = make_norm(norm, cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding, self.dilation, self.groups)
@@ -44,18 +50,19 @@ class ConvNorm(nn.Conv2d):
 
 
 class D2Bottleneck(nn.Module):
-    """1x1 -> 3x3 (grouped, dilated) -> 1x1, each with FrozenBN, the stride
+    """1x1 -> 3x3 (grouped, dilated) -> 1x1, each with its norm, the stride
     in the first 1x1 or in the 3x3, and a projection shortcut where the
     stride or the width changes."""
 
     def __init__(self, cin: int, bottleneck: int, cout: int, stride: int = 1, stride_in_1x1: bool = True,
-                 dilation: int = 1, groups: int = 1):
+                 dilation: int = 1, groups: int = 1, norm: str = "FrozenBN"):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
-        self.conv1 = ConvNorm(cin, bottleneck, 1, stride=s1)
-        self.conv2 = ConvNorm(bottleneck, bottleneck, 3, stride=s3, padding=dilation, dilation=dilation, groups=groups)
-        self.conv3 = ConvNorm(bottleneck, cout, 1)
-        self.shortcut = ConvNorm(cin, cout, 1, stride=stride) if stride > 1 or cin != cout else None
+        self.conv1 = ConvNorm(cin, bottleneck, 1, stride=s1, norm=norm)
+        self.conv2 = ConvNorm(bottleneck, bottleneck, 3, stride=s3, padding=dilation, dilation=dilation, groups=groups,
+                              norm=norm)
+        self.conv3 = ConvNorm(bottleneck, cout, 1, norm=norm)
+        self.shortcut = ConvNorm(cin, cout, 1, stride=stride, norm=norm) if stride > 1 or cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.conv1(x))
@@ -65,12 +72,12 @@ class D2Bottleneck(nn.Module):
 
 
 class Stem(nn.Module):
-    """7x7/2 conv, FrozenBN, ReLU, 3x3/2 max-pool over a pad of 1 (the pad
+    """7x7/2 conv, its norm, ReLU, 3x3/2 max-pool over a pad of 1 (the pad
     never wins the max: JAX pads with -inf)."""
 
-    def __init__(self, cout: int = 64):
+    def __init__(self, cout: int = 64, norm: str = "FrozenBN"):
         super().__init__()
-        self.conv1 = ConvNorm(3, cout, 7, stride=2, padding=3)
+        self.conv1 = ConvNorm(3, cout, 7, stride=2, padding=3, norm=norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(F.relu(self.conv1(x)), 3, stride=2, padding=1)
@@ -83,19 +90,21 @@ class D2ResNet(nn.Module):
     as CLIPFastRCNN's offline tower does (JAX's tree holds no res5 there).
     `num_groups` x `width_per_group` is res2's bottleneck width (doubling
     each stage), `res2_out_channels` its output width; with
-    `res5_dilation` 2 res5 keeps res4's stride."""
+    `res5_dilation` 2 res5 keeps res4's stride. `norm` is every conv's
+    (RESNETS.NORM)."""
 
     def __init__(self, depth: int = 50, res5: bool = True, num_groups: int = 1, width_per_group: int = 64,
-                 stride_in_1x1: bool = True, res5_dilation: int = 1, res2_out_channels: int = 256):
+                 stride_in_1x1: bool = True, res5_dilation: int = 1, res2_out_channels: int = 256,
+                 norm: str = "FrozenBN"):
         super().__init__()
-        self.stem = Stem(64)
+        self.stem = Stem(64, norm)
         cin, bottleneck, cout = 64, num_groups * width_per_group, res2_out_channels
         self.out_channels = {}
         for i, n in enumerate(D2_RESNET_SPECS[depth][:4 if res5 else 3]):
             name = f"res{i + 2}"
             dilation = res5_dilation if name == "res5" else 1
             stride = 1 if i == 0 or dilation > 1 else 2
-            kw = dict(stride_in_1x1=stride_in_1x1, dilation=dilation, groups=num_groups)
+            kw = dict(stride_in_1x1=stride_in_1x1, dilation=dilation, groups=num_groups, norm=norm)
             blocks = [D2Bottleneck(cin, bottleneck, cout, stride, **kw)]
             blocks += [D2Bottleneck(cout, bottleneck, cout, **kw) for _ in range(1, n)]
             self.add_module(name, nn.Sequential(*blocks))
@@ -126,6 +135,20 @@ def _conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
 
 
+class NormConv2d(nn.Conv2d):
+    """detectron2's Conv2d with an optional `norm` after it (a head's
+    FPN.NORM or ROI_*_HEAD.NORM): with a norm the conv has no bias. Its
+    float32 weight is cast to the input's dtype; NCHW in and out."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0, norm: str = ""):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=norm == "")
+        self.norm = head_norm(norm, cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _conv(self, x)
+        return y if self.norm is None else self.norm(y)
+
+
 def _nearest_index(m: int, n: int, device) -> torch.Tensor:
     """jax.image.resize's "nearest" source rows for m -> n:
     floor((i + 0.5) * m / n) in float32, rounded as numpy rounds each
@@ -148,30 +171,54 @@ def resize_nearest(x: torch.Tensor, hw) -> torch.Tensor:
 
 
 class FPN(nn.Module):
-    """detectron2's FPN over a `D2ResNet` (`bottom_up`): a 1x1 lateral conv
-    on each of res2..res5, the top-down sum with the coarser level resized
-    by nearest neighbour to the lateral's size (not a fixed x2: at a pad
-    that is a multiple of 16 and not of 32 p5 is not half of p4), a 3x3
-    output conv per level, and p6 = p5[::2, ::2] (a 1x1 max-pool of stride
-    2)."""
+    """detectron2's FPN over a bottom-up tower (`bottom_up`: a `D2ResNet`,
+    or CLIP's ModifiedResNet under MODEL.BACKBONE.NAME
+    build_clip_resnet_fpn_backbone): a 1x1 lateral conv on each of the
+    tower's `in_levels` (res2..res5, or res3..res5), the top-down sum with
+    the coarser level resized by nearest neighbour to the lateral's size
+    (not a fixed x2: at a pad that is a multiple of 16 and not of 32 p5 is
+    not half of p4), a 3x3 output conv per level, each conv followed by
+    `norm` (FPN.NORM: "", GN or SyncBN; without a bias under a norm), and
+    the top block: `top_block` "p6", p6 = p5[::2, ::2] (a 1x1 max-pool of
+    stride 2), or "p6p7", RetinaNet's two learned stride-2 3x3 convs fed
+    from the last bottom-up map (res5, not p5), p7 reading relu(p6).
+    Outputs are named by stride (p{level}); JAX names them by position
+    (p2.. over in_levels), which only its converters see."""
 
-    def __init__(self, bottom_up: D2ResNet, out_channels: int = 256):
+    def __init__(self, bottom_up: nn.Module, out_channels: int = 256, in_levels=(2, 3, 4, 5), norm: str = "",
+                 top_block: str = "p6"):
         super().__init__()
+        if top_block not in ("p6", "p6p7"):
+            raise ValueError(f"FPN top block {top_block!r}: p6 or p6p7")
         self.bottom_up = bottom_up
         self.out_channels = out_channels
-        for level in range(2, 6):
-            cin = bottom_up.out_channels[f"res{level}"]
-            self.add_module(f"fpn_lateral{level}", nn.Conv2d(cin, out_channels, 1))
-            self.add_module(f"fpn_output{level}", nn.Conv2d(out_channels, out_channels, 3, padding=1))
+        self.in_levels = tuple(in_levels)
+        self.top_block_kind = top_block
+        in_channels = bottom_up.out_channels
+        for level in self.in_levels:
+            cin = in_channels[f"res{level}"]
+            self.add_module(f"fpn_lateral{level}", NormConv2d(cin, out_channels, 1, norm=norm))
+            self.add_module(f"fpn_output{level}", NormConv2d(out_channels, out_channels, 3, padding=1, norm=norm))
+        if top_block == "p6p7":
+            last = in_channels[f"res{self.in_levels[-1]}"]
+            self.top_block = nn.Module()
+            self.top_block.p6 = nn.Conv2d(last, out_channels, 3, stride=2, padding=1)
+            self.top_block.p7 = nn.Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (N, H, W, 3) -> {"p2": (N, H/4, W/4, C), ..., "p6"}, NHWC."""
-        feats = self.bottom_up(x, ("res2", "res3", "res4", "res5"))
-        laterals = [_conv(getattr(self, f"fpn_lateral{level}"), _nchw(feats[f"res{level}"])) for level in range(2, 6)]
+        """x: (N, H, W, 3) -> {"p2": (N, H/4, W/4, C), ..., "p6"} (or p3..p7
+        with the p6p7 top block), NHWC."""
+        feats = self.bottom_up(x, tuple(f"res{level}" for level in self.in_levels))
+        laterals = [getattr(self, f"fpn_lateral{level}")(_nchw(feats[f"res{level}"])) for level in self.in_levels]
         results = [laterals[-1]]
         for lat in laterals[-2::-1]:
             results.insert(0, lat + resize_nearest(results[0], lat.shape[2:]))
-        out = {f"p{level}": _nhwc(_conv(getattr(self, f"fpn_output{level}"), r))
-               for level, r in zip(range(2, 6), results)}
-        out["p6"] = out["p5"][:, ::2, ::2]
+        out = {f"p{level}": _nhwc(getattr(self, f"fpn_output{level}")(r)) for level, r in zip(self.in_levels, results)}
+        last = self.in_levels[-1]
+        if self.top_block_kind == "p6p7":
+            p6 = _conv(self.top_block.p6, _nchw(feats[f"res{last}"]))
+            out[f"p{last + 1}"] = _nhwc(p6)
+            out[f"p{last + 2}"] = _nhwc(_conv(self.top_block.p7, F.relu(p6)))
+        else:
+            out[f"p{last + 1}"] = out[f"p{last}"][:, ::2, ::2]
         return out

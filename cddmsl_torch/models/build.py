@@ -1,7 +1,7 @@
 """Config -> model (counterpart of cddmsl_tpu/models/build.py `build_model`
 with `build_generalized_rcnn`, `build_fpn_rcnn`, `build_cascade_rcnn`,
 `build_proposal_network`, `build_panoptic_fpn` and
-`build_semantic_segmentor`, and of `build_clip_fast_rcnn` and
+`build_semantic_segmentor`, `build_retinanet`, and of `build_clip_fast_rcnn` and
 `build_pretrain_fast_rcnn`).
 
 `build_detector` dispatches as JAX's `build_model` does
@@ -12,7 +12,8 @@ single-level DC5 form, CascadeRCNN on res4 (ROI_HEADS.NAME
 CascadeROIHeads without an fpn_backbone, or META_ARCHITECTURE
 CascadeRCNN), ProposalNetwork (META_ARCHITECTURE) on res4 or on the
 FPN, PanopticFPN and SemanticSegmentor (META_ARCHITECTURE; JAX's
-`build_panoptic_fpn` and `build_semantic_segmentor`)."""
+`build_panoptic_fpn` and `build_semantic_segmentor`) and RetinaNet
+(META_ARCHITECTURE; `build_retinanet`)."""
 
 from typing import Any, Dict
 
@@ -29,6 +30,7 @@ from .extra_meta_archs import FPNProposalNetwork, ProposalNetwork
 from .fpn_rcnn import FPNRCNN
 from .panoptic_fpn import PanopticFPN
 from .rcnn import GeneralizedRCNN
+from .retinanet import RetinaNet
 from .semantic_seg import SemanticSegmentor
 
 
@@ -188,7 +190,10 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
     the mask head's (MASK_ON, ROI_MASK_HEAD.{NUM_CONV, CONV_DIM,
     CLS_AGNOSTIC_MASK}, TPU.MASK_CANVAS_STRIDE), the keypoint head's
     (KEYPOINT_ON, ROI_KEYPOINT_HEAD.{NUM_KEYPOINTS, CONV_DIMS, LOSS_WEIGHT},
-    the normaliser), the cascade (ROI_HEADS.NAME CascadeROIHeads) and the
+    the normaliser), the cascade (ROI_HEADS.NAME CascadeROIHeads), the CLIP
+    bottom-up (BACKBONE.NAME build_clip_resnet_fpn_backbone), the norms
+    (RESNETS.NORM, FPN.NORM, ROI_BOX_HEAD.NORM, ROI_MASK_HEAD.NORM), the
+    conv box head (ROI_BOX_HEAD.NUM_CONV, CONV_DIM, NUM_FC or 2) and the
     compute dtype."""
     check_supported(cfg)
     m = cfg.MODEL
@@ -234,6 +239,14 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
         keypoint_loss_weight=m.ROI_KEYPOINT_HEAD.LOSS_WEIGHT,
         keypoint_loss_normalizer=keypoint_loss_normalizer(cfg),
         cascade=m.ROI_HEADS.NAME == "CascadeROIHeads",
+        backbone_type="clip" if "clip" in m.BACKBONE.NAME else "d2_resnet",
+        backbone_norm=m.RESNETS.NORM,
+        fpn_norm=m.FPN.NORM,
+        box_num_conv=m.ROI_BOX_HEAD.NUM_CONV,
+        box_conv_dim=m.ROI_BOX_HEAD.CONV_DIM,
+        box_num_fc=m.ROI_BOX_HEAD.NUM_FC or 2,
+        box_conv_norm=m.ROI_BOX_HEAD.NORM,
+        mask_conv_norm=m.ROI_MASK_HEAD.NORM,
         dc5=m.RESNETS.RES5_DILATION == 2,
         load_proposals=m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals",
         dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
@@ -314,6 +327,38 @@ def semantic_segmentor_fields(cfg) -> Dict[str, Any]:
                 dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE))
 
 
+def retinanet_fields(cfg) -> Dict[str, Any]:
+    """The fields JAX's `build_retinanet` gives `RetinaNet`, after
+    `check_supported`: RETINANET.NUM_CLASSES, DEPTH, the anchor size groups
+    (one group broadcast over the five levels), the first aspect ratios,
+    the matcher's thresholds and labels, the focal loss's alpha and gamma,
+    the smooth-L1 beta, the box loss's type, the test's threshold, NMS and
+    top-k, TEST.DETECTIONS_PER_IMAGE, the pixel statistics and the compute
+    dtype."""
+    check_supported(cfg)
+    m, r = cfg.MODEL, cfg.MODEL.RETINANET
+    sizes = tuple(tuple(float(x) for x in (g if isinstance(g, (list, tuple)) else [g])) for g in m.ANCHOR_GENERATOR.SIZES)
+    return dict(
+        num_classes=r.NUM_CLASSES,
+        depth=m.RESNETS.DEPTH,
+        anchor_sizes=sizes * 5 if len(sizes) == 1 else sizes,
+        aspect_ratios=tuple(float(a) for a in m.ANCHOR_GENERATOR.ASPECT_RATIOS[0]),
+        iou_thresholds=tuple(r.IOU_THRESHOLDS),
+        iou_labels=tuple(r.IOU_LABELS),
+        focal_alpha=r.FOCAL_LOSS_ALPHA,
+        focal_gamma=r.FOCAL_LOSS_GAMMA,
+        smooth_l1_beta=r.SMOOTH_L1_LOSS_BETA,
+        box_reg_loss_type=r.BBOX_REG_LOSS_TYPE,
+        score_thresh=r.SCORE_THRESH_TEST,
+        nms_thresh=r.NMS_THRESH_TEST,
+        topk_candidates=r.TOPK_CANDIDATES_TEST,
+        detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
+        pixel_mean=tuple(m.PIXEL_MEAN),
+        pixel_std=tuple(m.PIXEL_STD),
+        dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
+    )
+
+
 def build_detector(cfg, device="cuda", training: bool = False):
     """The detector of the tree (`model_family`) on `device` (CUDA unless
     the caller asks for the CPU) in eval mode; `training` adds the C4
@@ -332,6 +377,8 @@ def build_detector(cfg, device="cuda", training: bool = False):
         model = PanopticFPN(**panoptic_fpn_fields(cfg))
     elif family == "semantic":
         model = SemanticSegmentor(**semantic_segmentor_fields(cfg))
+    elif family == "retinanet":
+        model = RetinaNet(**retinanet_fields(cfg))
     else:
         model = ProposalNetwork(**proposal_network_fields(cfg))
     return model.to(resolve_device(device)).eval()

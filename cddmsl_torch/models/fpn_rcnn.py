@@ -3,7 +3,10 @@ of cddmsl_tpu/models/fpn_rcnn.py `FPNRCNN`, box, mask, keypoint and
 cascade paths): detectron2's
 Base-RCNN-FPN (ResNet or ResNeXt + FPN, the RPN over p2..p6,
 `StandardROIHeads` pooling 7x7 from p2..p5, and with `mask_on` 14x14 for
-the mask head) and, with `dc5`, Base-RCNN-DilatedC5 (the dilated res5 as
+the mask head; the trainable GN or SyncBN through the tower, the FPN, the
+conv box head and the mask head of the Misc *_gn / *_syncbn files; CLIP's
+ModifiedResNet as the bottom-up of the LVIS transfer recipe) and, with
+`dc5`, Base-RCNN-DilatedC5 (the dilated res5 as
 the one map of the RPN, all anchor sizes on it, and of the heads). Either
 box loss may be the GIoU one (`rpn_box_reg_loss_type`,
 `box_reg_loss_type`). `keypoint_on` adds the keypoint head's 14x14 pool
@@ -22,6 +25,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
+from .backbone.clip_resnet import ModifiedResNet
 from .backbone.resnet import FPN, D2ResNet
 from .fast_rcnn import DetectionResult
 from .rcnn import DetBatch, normalize, rescale_detections
@@ -83,6 +87,15 @@ class FPNRCNN(nn.Module):
         keypoint_loss_weight: float = 1.0,
         keypoint_loss_normalizer: float = -1.0,
         cascade: bool = False,
+        backbone_type: str = "d2_resnet",
+        clip_layers: Sequence[int] = (3, 4, 6, 3),
+        backbone_norm: str = "FrozenBN",
+        fpn_norm: str = "",
+        box_num_conv: int = 0,
+        box_conv_dim: int = 256,
+        box_num_fc: int = 2,
+        box_conv_norm: str = "",
+        mask_conv_norm: str = "",
         dtype: torch.dtype = torch.float32,
     ):
         """`backbone_width` is WIDTH_PER_GROUP (TPU.BACKBONE_WIDTH where
@@ -93,16 +106,31 @@ class FPNRCNN(nn.Module):
         (ROI_KEYPOINT_HEAD.*; `keypoint_loss_normalizer` -1 divides by the
         visible keypoints). `cascade` builds the cascade heads, which take
         only the classes, the sampler's keys, the test keys and the mask
-        head's, as JAX's."""
+        head's, as JAX's. `backbone_type` "clip" puts CLIP's ModifiedResNet
+        of `clip_layers` and width `backbone_width` under the FPN
+        (BACKBONE.NAME build_clip_resnet_fpn_backbone); `backbone_norm`,
+        `fpn_norm`, `box_conv_norm` and `mask_conv_norm` are RESNETS.NORM,
+        FPN.NORM, ROI_BOX_HEAD.NORM and ROI_MASK_HEAD.NORM, `box_num_conv`,
+        `box_conv_dim` and `box_num_fc` the conv box head's shape
+        (ROI_BOX_HEAD.NUM_CONV, CONV_DIM, NUM_FC)."""
         super().__init__()
         self.dtype = dtype
         self.dc5 = dc5
         self.load_proposals = load_proposals
         self.use_text_emb = use_text_emb
         self.pixel_mean, self.pixel_std = tuple(pixel_mean), tuple(pixel_std)
-        tower = D2ResNet(depth, num_groups=num_groups, width_per_group=backbone_width, stride_in_1x1=stride_in_1x1,
-                         res5_dilation=2 if dc5 else 1, res2_out_channels=res2_out_channels)
-        self.backbone = tower if dc5 else FPN(tower, fpn_out_channels)
+        if backbone_type == "clip":
+            if dc5:
+                raise ValueError("the CLIP bottom-up has no DC5 form")
+            tower = ModifiedResNet(tuple(clip_layers), emb_dim, backbone_width * 32 // 64, backbone_width,
+                                   attnpool=False)
+        elif backbone_type == "d2_resnet":
+            tower = D2ResNet(depth, num_groups=num_groups, width_per_group=backbone_width,
+                             stride_in_1x1=stride_in_1x1, res5_dilation=2 if dc5 else 1,
+                             res2_out_channels=res2_out_channels, norm=backbone_norm)
+        else:
+            raise ValueError(f"FPNRCNN backbone_type {backbone_type!r}: d2_resnet or clip")
+        self.backbone = tower if dc5 else FPN(tower, fpn_out_channels, norm=fpn_norm)
         channels = res2_out_channels * 8 if dc5 else fpn_out_channels
         if not load_proposals:
             self.proposal_generator = FPNRPN(
@@ -123,11 +151,11 @@ class FPNRCNN(nn.Module):
                 box_reg_loss_type=rpn_box_reg_loss_type,
             )
         mask_head = dict(num_conv=mask_num_conv, conv_dim=mask_conv_dim, cls_agnostic=mask_cls_agnostic,
-                         canvas_stride=mask_canvas_stride) if mask_on else None
+                         canvas_stride=mask_canvas_stride, conv_norm=mask_conv_norm) if mask_on else None
         if cascade:
             if keypoint_on:
                 raise ValueError("the cascade heads have no keypoint branch")
-            mask_head = None if mask_head is None else {**mask_head, "cls_agnostic": False}
+            mask_head = None if mask_head is None else {**mask_head, "cls_agnostic": False, "conv_norm": ""}
             self.roi_heads = CascadeROIHeads(
                 num_classes=num_classes, in_channels=channels, pooler_scales=(1 / 16,) if dc5 else FPN_SCALES,
                 batch_size_per_image=roi_batch_size_per_image, positive_fraction=roi_positive_fraction,
@@ -156,6 +184,10 @@ class FPNRCNN(nn.Module):
             keypoint_head=dict(num_keypoints=num_keypoints, conv_dims=tuple(keypoint_conv_dims),
                                loss_weight=keypoint_loss_weight, loss_normalizer=keypoint_loss_normalizer)
             if keypoint_on else None,
+            box_num_conv=box_num_conv,
+            box_conv_dim=box_conv_dim,
+            box_num_fc=box_num_fc,
+            box_conv_norm=box_conv_norm,
         )
 
     def features(self, images: torch.Tensor):

@@ -5,7 +5,8 @@ cddmsl_tpu/models/mask_head.py `MaskRCNNConvUpsampleHead`,
 
 The head (detectron2's names: mask_fcn{i}, deconv, predictor) reads the
 pooled regions (N, P, P, C) NHWC: NUM_CONV 3x3 ReLU convs (0 on C4, where it
-reads res5's 7x7 crops; 4 on the FPN), a 2x2 stride-2 ReLU deconv, and a 1x1
+reads res5's 7x7 crops; 4 on the FPN; each followed by ROI_MASK_HEAD.NORM, GN
+or SyncBN, where set), a 2x2 stride-2 ReLU deconv, and a 1x1
 predictor of K channels, or 1 with CLS_AGNOSTIC_MASK -> (N, 2P, 2P, K)
 logits in float32. It computes in its input's dtype.
 
@@ -34,16 +35,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import comm
+from .backbone.resnet import NormConv2d
 
 
 class MaskRCNNConvUpsampleHead(nn.Module):
     def __init__(self, in_channels: int, num_classes: int, num_conv: int = 0, conv_dim: int = 256,
-                 cls_agnostic: bool = False):
+                 cls_agnostic: bool = False, conv_norm: str = ""):
+        """`conv_norm` (ROI_MASK_HEAD.NORM: "", GN or SyncBN) follows each
+        mask_fcn, which then has no bias."""
         super().__init__()
         self.num_conv = num_conv
+        self.conv_norm = conv_norm
         c = in_channels
         for i in range(num_conv):
-            setattr(self, f"mask_fcn{i + 1}", nn.Conv2d(c, conv_dim, 3, padding=1))
+            setattr(self, f"mask_fcn{i + 1}", NormConv2d(c, conv_dim, 3, padding=1, norm=conv_norm))
             c = conv_dim
         self.deconv = nn.ConvTranspose2d(c, conv_dim, 2, stride=2)
         self.predictor = nn.Conv2d(conv_dim, 1 if cls_agnostic else num_classes, 1)
@@ -53,8 +58,7 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         x = x.permute(0, 3, 1, 2)
         dt = x.dtype
         for i in range(self.num_conv):
-            conv = getattr(self, f"mask_fcn{i + 1}")
-            x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1))
+            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
         x = F.relu(F.conv_transpose2d(x, self.deconv.weight.to(dt), self.deconv.bias.to(dt), stride=2))
         x = F.conv2d(x, self.predictor.weight.to(dt), self.predictor.bias.to(dt))
         return x.permute(0, 2, 3, 1).float()

@@ -49,6 +49,7 @@ from .keypoint_head import KRCNNConvDeconvUpsampleHead, decode_keypoint_heatmaps
 from .mask_head import MaskRCNNConvUpsampleHead, foreground_rows, mask_branch_losses, mask_rcnn_inference
 from .matcher import Matcher
 from .poolers import ROIPooler
+from .backbone.resnet import NormConv2d
 from .rpn import Proposals
 from .sampling import Draw, gather_selected, subsample_labels
 
@@ -136,7 +137,10 @@ class ProposalSampling(nn.Module):
         branches, each on the same leading rows."""
         if self.mask_head is None and self.keypoint_head is None:
             return losses
-        f = self._fg_rows(classes, valid)
+        # a SyncBN mask head takes its batch statistics over every sampled
+        # row, as JAX's head runs on them all
+        all_rows = self.mask_head is not None and self.mask_head.conv_norm == "SyncBN"
+        f = boxes.shape[1] if all_rows else self._fg_rows(classes, valid)
         if self.mask_head is not None:
             losses["loss_mask"] = self._mask_losses(mask_regions_fn, boxes, classes, valid, matched_idx, gt_masks, f)
         if self.keypoint_head is not None:
@@ -329,25 +333,48 @@ class CLIPRes5ROIHeads(ProposalSampling):
 
 
 class FastRCNNFCHead(nn.Module):
-    """Two ReLU fcs on the flattened pooled map (detectron2's box_head.fc1,
-    fc2): fc1 reads it in HWC order."""
+    """detectron2's FastRCNNConvFCHead as JAX's `CLIPStandardROIHeads`
+    builds it: `num_conv` 3x3 ReLU convs of `conv_dim` on the pooled map
+    (box_head.conv{i}, each followed by `conv_norm`, GN or SyncBN, and then
+    without a bias; ROI_BOX_HEAD.NUM_CONV / CONV_DIM / NORM), then `num_fc`
+    ReLU fcs (box_head.fc1 of `fc_dim`, and with 2 fc2 of `out_dim`); fc1
+    reads the map flattened in HWC order. The output is `out_dim` wide with
+    two fcs, else `fc_dim`."""
 
-    def __init__(self, in_features: int, fc_dim: int = 1024, out_dim: int = 1024):
+    def __init__(self, in_features: int, fc_dim: int = 1024, out_dim: int = 1024, num_conv: int = 0,
+                 conv_dim: int = 256, num_fc: int = 2, conv_norm: str = "", in_channels: int = 0):
         super().__init__()
+        if num_fc not in (1, 2):
+            raise ValueError(f"ROI_BOX_HEAD.NUM_FC {num_fc}: 1 or 2")
+        self.num_conv, self.num_fc = num_conv, num_fc
+        c = in_channels
+        for i in range(num_conv):
+            setattr(self, f"conv{i + 1}", NormConv2d(c, conv_dim, 3, padding=1, norm=conv_norm))
+            c = conv_dim
+        if num_conv:
+            in_features = in_features // in_channels * conv_dim
         self.fc1 = nn.Linear(in_features, fc_dim)
-        self.fc2 = nn.Linear(fc_dim, out_dim)
+        self.fc2 = nn.Linear(fc_dim, out_dim) if num_fc == 2 else None
+        self.out_dim = out_dim if num_fc == 2 else fc_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, P, P, C) pooled regions -> (N, out_dim)."""
+        if self.num_conv:
+            x = x.permute(0, 3, 1, 2)
+            for i in range(self.num_conv):
+                x = F.relu(getattr(self, f"conv{i + 1}")(x))
+            x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[0], -1)
-        for fc in (self.fc1, self.fc2):
+        for fc in (self.fc1, self.fc2)[:self.num_fc]:
             x = F.relu(F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype)))
         return x
 
 
 class StandardROIHeads(ProposalSampling):
     """The FPN family's box heads: `pooler_scales` one per level (one level
-    for DC5), a 2-fc head of `fc_dim` then `emb_dim`, the linear or
-    text-embedding predictor; smooth-L1 at `smooth_l1_beta`, or 1 - GIoU
+    for DC5), a 2-fc head of `fc_dim` then `emb_dim` (or `FastRCNNFCHead`'s
+    convs and one fc: `box_num_conv`, `box_conv_dim`, `box_num_fc`,
+    `box_conv_norm`), the linear or text-embedding predictor; smooth-L1 at `smooth_l1_beta`, or 1 - GIoU
     (`box_reg_loss_type`). `mask_head` (`_init_mask_branch`) adds the mask
     branch and `keypoint_head` (`_init_keypoint_branch`) the keypoint
     branch, each with its own 14x14 pooler over the same levels."""
@@ -373,6 +400,10 @@ class StandardROIHeads(ProposalSampling):
         box_reg_loss_type: str = "smooth_l1",
         mask_head: Optional[dict] = None,
         keypoint_head: Optional[dict] = None,
+        box_num_conv: int = 0,
+        box_conv_dim: int = 256,
+        box_num_fc: int = 2,
+        box_conv_norm: str = "",
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -386,8 +417,9 @@ class StandardROIHeads(ProposalSampling):
         self.box_reg_loss_type = box_reg_loss_type
         self.pooler_resolution = pooler_resolution
         self.pooler = ROIPooler(pooler_resolution, pooler_scales, sampling_ratio=0, min_level=2)
-        self.box_head = FastRCNNFCHead(pooler_resolution * pooler_resolution * in_channels, fc_dim, emb_dim)
-        self.box_predictor = FastRCNNOutputLayers(num_classes, emb_dim, temperature, use_text_emb,
+        self.box_head = FastRCNNFCHead(pooler_resolution * pooler_resolution * in_channels, fc_dim, emb_dim,
+                                       box_num_conv, box_conv_dim, box_num_fc, box_conv_norm, in_channels)
+        self.box_predictor = FastRCNNOutputLayers(num_classes, self.box_head.out_dim, temperature, use_text_emb,
                                                   cls_agnostic_bbox_reg)
         self.box2box = Box2BoxTransform((10.0, 10.0, 5.0, 5.0))
         self.matcher = Matcher((0.5,), (0, 1), allow_low_quality_matches=False)

@@ -1,10 +1,10 @@
 """The semantic branch and the semantic segmentor (counterparts of
-cddmsl_tpu/models/backbone/batch_norm.py `GroupNorm32` and
 cddmsl_tpu/models/extra_meta_archs.py `SemSegFPNHead` and
 `SemanticSegmentor`).
 
 `SemSegFPNHead` runs, on each FPN level, a 3x3 conv of 128 channels (with
-`norm` "GN" a bias-free conv and `GroupNorm32`), ReLU, and per 2x step down
+`norm` "GN" a bias-free conv and `GroupNorm32` of
+models/backbone/batch_norm.py), ReLU, and per 2x step down
 to the common stride 4 a bilinear resize as `jax.image.resize` computes it,
 followed by another conv block except after the last step; the levels are
 summed and a 1x1 predictor gives the class logits, cast to float32.
@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.resize import resize_bilinear_nchw
 from ..parallel import comm
+from .backbone.batch_norm import GroupNorm32
 from .backbone.resnet import FPN, D2ResNet, _conv
 from .rcnn import DetBatch, normalize
 from .sampling import Draw
@@ -39,23 +40,6 @@ LEVEL_STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32}
 # what JAX's head computes with: the FPN's 256 channels in, 128 in its
 # convs, the levels upsampled to stride 4
 IN_CHANNELS, CONV_DIM, COMMON_STRIDE = 256, 128, 4
-
-
-class GroupNorm32(nn.Module):
-    """detectron2's get_norm("GN"): min(32, C) groups, eps 1e-5, the
-    statistics and the affine map in float32 whatever the input's dtype,
-    the result cast back to it (as JAX's `GroupNorm32`)."""
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.num_groups = min(32, channels)
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, C, ...) -> the same shape and dtype."""
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(), 1e-5)
-        return y.to(x.dtype)
 
 
 class SemSegFPNHead(nn.Module):

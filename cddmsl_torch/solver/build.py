@@ -89,16 +89,22 @@ def parameter_is_frozen(name: str, freeze_at: int = 2, use_text_emb: bool = True
     teacher, text tower and concept pool always,
     the text-embedding classifier rows (`use_text_emb`; the linear
     classifier trains), and the student `backbone`'s stem (freeze_at >= 1)
-    and first freeze_at - 1 stages (the part named exactly `backbone`: never
-    the teacher's). The stem and stages are the CLIP tower's names, as in
-    JAX: FREEZE_AT freezes nothing of the plain tower (stem, res2, ...).
-    FrozenBN statistics are buffers, not parameters. A frozen parameter gets
+    and first freeze_at - 1 stages (the part named exactly `backbone`, or
+    the FPN's `backbone.bottom_up`: never the teacher's). The stem and
+    stages are the CLIP tower's names, as in JAX: FREEZE_AT freezes nothing
+    of the plain tower (stem, res2, ...). FrozenBN statistics are buffers,
+    not parameters; the weight and bias of GN and SyncBN are parameters and
+    train (JAX freezes a norm only where its running statistics are
+    parameters, FrozenBN's), SyncBN's running statistics and RetinaNet's
+    loss normalizer are buffers the step moves. A frozen parameter gets
     neither an update nor weight decay, as JAX's masked chain gives it none."""
     if name.startswith(_ALWAYS_FROZEN) or name in _ALWAYS_FROZEN_NAMES:
         return True
     if use_text_emb and name == "roi_heads.box_predictor.cls_score.weight":
         return True
     parts = name.split(".")
+    if parts[:2] == ["backbone", "bottom_up"]:  # the FPN's tower: JAX's `backbone` beside its `fpn`
+        parts = ["backbone"] + parts[2:]
     if parts[0] == "backbone" and len(parts) > 1:
         head = parts[1]
         if freeze_at >= 1 and head in _STEM:

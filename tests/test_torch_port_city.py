@@ -266,7 +266,6 @@ def test_a_tensor_of_another_shape_raises_where_jax_skips_it(tiny_params, tmp_pa
 
 
 @pytest.mark.parametrize("dialect, key", [("d2_fpn", "backbone.bottom_up.stem.conv1.weight"),
-                                          ("d2_retinanet", "head.cls_subnet.0.weight"),
                                           ("lang", "lang_encoder.token_embedding.weight"), ("unknown", "w")])
 def test_other_dialects_raise_naming_the_dialect(tmp_path, dialect, key):
     sd = {key: torch.zeros(2)}
@@ -275,6 +274,23 @@ def test_other_dialects_raise_naming_the_dialect(tmp_path, dialect, key):
     error, match = (ValueError, "Cannot detect") if dialect == "unknown" else (NotImplementedError, dialect)
     with pytest.raises(error, match=match):
         load_rcnn_weights(model, _detectron2_file(tmp_path / "x.pth", sd))
+
+
+@pytest.mark.parametrize("dialect, key", [("d2_retinanet", "head.cls_subnet.0.weight")])
+def test_a_dialect_of_another_family_loads_into_its_own(tmp_path, dialect, key):
+    """A d2_retinanet file (RetinaNet is ported) loads into a RetinaNet and
+    raises naming its dialect in the C4 detector, as a d2_fpn file does."""
+    from cddmsl_torch.models.retinanet import RetinaNet
+
+    retinanet = RetinaNet(num_classes=3, depth=10, backbone_width=8, res2_out_channels=32, fpn_out_channels=16,
+                          head_conv_dims=(8,))
+    sd = {key: torch.randn(retinanet.state_dict()[key].shape)}
+    assert detect_dialect(sd) == jax_detect_dialect(sd) == dialect
+    path = _detectron2_file(tmp_path / "x.pth", sd)
+    assert load_rcnn_weights(retinanet, path) == dialect
+    assert torch.equal(retinanet.state_dict()[key], sd[key])
+    with pytest.raises(NotImplementedError, match=dialect):
+        load_rcnn_weights(build_model(model_config_from_cfg(_tiny_cfg()), device="cpu"), path)
 
 
 def _trainer(cfg, seed):

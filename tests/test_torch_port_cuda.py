@@ -18,8 +18,9 @@ bit for bit; K4 exactly, at the edges of its 64-row blocks (N of 1, 63, 64,
 65; max_out reached inside a block and above N), at a threshold of 0, on
 boxes off 16-byte alignment, with no valid row, with tied duplicates, over
 a batch of images, class-shifted, and with scores of -inf where max_out
-covers N. The panoptic and semantic models' steps on the card against the
-CPU at depth 10 (each test says its tolerances).
+covers N. The panoptic and semantic models', RetinaNet's and the GN and
+SyncBN Mask R-CNNs' steps on the card against the CPU at depth 10 (each
+test says its tolerances), and K4 on RetinaNet's merged candidates.
 """
 
 import pytest
@@ -591,3 +592,119 @@ def test_the_semantic_segmentor_on_the_card_equals_the_cpu(dev):
     assert got_g.keys() == want_g.keys()
     for name, w in want_g.items():
         torch.testing.assert_close(got_g[name], w, rtol=0, atol=1e-4 * float(w.abs().max()) + 1e-8, msg=name)
+
+
+def _unpadded_detection_batch(seed, classes=20, masks=False, proposals=0):
+    """Two 96x160 images without padding, three boxes each (with canvases
+    of their rectangles where `masks`, and `proposals` precomputed
+    proposals an image): the norms' statistics and the ReLUs see no
+    constant padded region, where cuDNN's sums and the CPU's part by ulps
+    that ties then decide (test_the_semantic_segmentor_...)."""
+    from cddmsl_torch.models.rcnn import DetBatch
+
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand((2, 3, 2), generator=g) * torch.tensor([80.0, 48.0])
+    boxes = torch.cat([xy, xy + 16 + torch.rand((2, 3, 2), generator=g) * torch.tensor([60.0, 40.0])], -1)
+    canvas = torch.zeros((2, 3, 24, 40))
+    for i in range(2):
+        for j in range(3):
+            x0, y0, x1, y1 = (boxes[i, j] / 4).round().int().tolist()
+            canvas[i, j, y0:y1, x0:x1] = 1.0
+    sizes = torch.tensor([[96, 160], [96, 160]])
+    pxy = torch.rand((2, proposals, 2), generator=g) * torch.tensor([120.0, 70.0])
+    props = torch.cat([pxy, pxy + 8 + torch.rand((2, proposals, 2), generator=g) * 40], -1)
+    return DetBatch(torch.rand((2, 96, 160, 3), generator=g) * 255, sizes, sizes * 2, boxes,
+                    torch.randint(0, classes, (2, 3), generator=g), torch.ones((2, 3), dtype=torch.bool),
+                    gt_masks=canvas if masks else None, proposal_boxes=props if proposals else None,
+                    proposal_scores=torch.zeros((2, proposals)) if proposals else None,
+                    proposal_valid=torch.ones((2, proposals), dtype=torch.bool) if proposals else None)
+
+
+def _site_draw(device):
+    import zlib
+
+    return lambda site, shape: torch.rand(shape, generator=torch.Generator().manual_seed(zlib.crc32(site.encode()))
+                                          ).to(device)
+
+
+def _step_update_apart(dev, model, batch, solver):
+    """One `Trainer` step on the CPU and on the card from `model`'s state,
+    the same batch and site-seeded draws: (losses per device, |card's
+    update - CPU's| / |CPU's update| over the parameters and buffers)."""
+    import copy
+
+    from cddmsl_torch.engine.train_loop import Trainer
+    from cddmsl_torch.solver.build import build_optimizer
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    out = []
+    for device in ("cpu", dev):
+        m = copy.deepcopy(model).to(device)
+        trainer = Trainer(m, build_optimizer(m, solver), enable_caption=False)
+        b = type(batch)(*(None if f is None else f.to(device) for f in batch))
+        losses = trainer.train_step(b, _site_draw(device))
+        out.append(({k: v.item() for k, v in losses.items() if k.startswith("loss")},
+                    {k: v.detach().cpu() for k, v in m.state_dict().items()}))
+    (want_l, want), (got_l, got) = out
+    keys = [k for k in want if want[k].is_floating_point()]
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in keys)
+    den = sum(float(((want[k].double() - before[k].double()) ** 2).sum()) for k in keys)
+    assert den > 0
+    return want_l, got_l, (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("norm", ["GN", "SyncBN"])
+def test_the_norm_mask_rcnns_step_on_the_card_as_on_the_cpu(dev, norm):
+    """A narrow FPN Mask R-CNN with `norm` through the tower, the FPN, a
+    conv box head and the mask head, one float32 step (TF32 off) on an
+    unpadded batch with 40 precomputed proposals an image: the losses
+    within 1e-4 relative, the update (the parameters and SyncBN's running
+    statistics) within 1e-4 of its norm. Precomputed, because the RPN's
+    top-k and NMS choose among proposals by scores that float noise
+    reorders: with the RPN, the CPU's own float32 GN step lies 3e-3 of the
+    update's norm from its float64 step, with precomputed proposals 6e-6."""
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.config import SolverConfig
+    from cddmsl_torch.models.fpn_rcnn import FPNRCNN
+
+    model = init_random_(FPNRCNN(num_classes=20, depth=10, backbone_width=8, res2_out_channels=32, fpn_out_channels=32,
+                                 fc_dim=64, emb_dim=48, rpn_pre_nms_topk=(64, 48), rpn_post_nms_topk=(32, 24),
+                                 roi_batch_size_per_image=32, pixel_std=(57.375, 57.12, 58.395), mask_on=True,
+                                 mask_num_conv=2, mask_conv_dim=16, backbone_norm=norm, fpn_norm=norm, box_num_conv=2,
+                                 box_conv_dim=16, box_num_fc=1, box_conv_norm=norm, mask_conv_norm=norm,
+                                 load_proposals=True),
+                         torch.Generator().manual_seed(21))
+    want, got, apart = _step_update_apart(dev, model, _unpadded_detection_batch(4, masks=True, proposals=40),
+                                          SolverConfig(base_lr=0.02, warmup_iters=0))
+    assert set(got) == {"loss_cls", "loss_box_reg", "loss_mask"}
+    assert all(abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-7 for k in want), (got, want)
+    assert apart <= 1e-4, apart
+
+
+def test_retinanet_steps_on_the_card_as_on_the_cpu_and_k4_takes_its_candidates(dev):
+    """A narrow RetinaNet, one float32 step on an unpadded batch: the
+    focal and box losses within 1e-4 relative, the update (the normalizer
+    too) within 1e-4 of its norm; then K4 on the merged candidates of its
+    five levels, class-shifted, on seeded scores, exactly as the plain
+    version keeps them."""
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.config import SolverConfig
+    from cddmsl_torch.models.retinanet import RetinaNet
+    from cddmsl_torch.ops.nms import class_shifted
+
+    model = init_random_(RetinaNet(num_classes=20, depth=10, backbone_width=8, res2_out_channels=32,
+                                   fpn_out_channels=32, head_conv_dims=(16, 16), topk_candidates=200,
+                                   pixel_std=(57.375, 57.12, 58.395)), torch.Generator().manual_seed(22))
+    batch = _unpadded_detection_batch(5)
+    want, got, apart = _step_update_apart(dev, model, batch, SolverConfig(base_lr=0.01, warmup_iters=0))
+    assert set(got) == {"loss_cls", "loss_box_reg"}
+    assert all(abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-7 for k in want), (got, want)
+    assert apart <= 1e-4, apart
+    cands = model.candidates(batch)
+    boxes = torch.cat([c[0] for c in cands], 1)
+    classes = torch.cat([c[2] for c in cands], 1)
+    scores = 0.05 + 0.95 * torch.rand(classes.shape, generator=torch.Generator().manual_seed(23))
+    valid = torch.ones(classes.shape, dtype=torch.bool)
+    shifted = class_shifted(boxes, classes, valid)
+    assert shifted.shape == (2, 5 * 200, 4)  # the top 200 of each of the five levels
+    assert_k4_equals_plain(shifted.to(dev), scores.to(dev), valid.to(dev), 0.5, 100)

@@ -147,7 +147,7 @@ def _text_emb_cfg():
 @pytest.mark.parametrize("key, value", [
     ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"), ("MODEL.LOAD_PROPOSALS", True),
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 2), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
-    ("TPU.MOE.NUM_EXPERTS", 4), ("TEST.PRECISE_BN.ENABLED", True), ("TPU.QUANT_EVAL", True),
+    ("TPU.MOE.NUM_EXPERTS", 4), ("TPU.QUANT_EVAL", True),
     ("TPU.PAD_BUCKETS", [[800, 1088], [800, 1344]]),
 ])
 def test_unsupported_values_raise_naming_their_key(key, value):
@@ -159,6 +159,20 @@ def test_unsupported_values_raise_naming_their_key(key, value):
     cfg.merge_from_list([key, repr(value)])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg)
+
+
+# refused until PreciseBN was ported; on a model without running state (FrozenBN: this C4 detector) it changes
+# nothing, as JAX's `_maybe_precise_bn` returns the parameters as they are
+@pytest.mark.parametrize("key, value", [("TEST.PRECISE_BN.ENABLED", True)])
+def test_supported_values_are_taken(key, value):
+    from cddmsl_torch.models.backbone.batch_norm import running_state
+    from cddmsl_torch.models.build import build_detector
+
+    cfg = _text_emb_cfg()
+    cfg.merge_from_list([key, repr(value)])
+    check_supported(cfg)
+    with torch.device("meta"):
+        assert not running_state(build_detector(cfg, device="meta"))
 
 
 def test_keys_the_port_does_not_read_raise():

@@ -440,19 +440,48 @@ def test_the_config_is_accepted_and_takes_the_jax_builders_fields(path):
     assert type(model).__name__ == type(want).__name__
 
 
-def _fpn_cfg():
-    cfg = get_cfg()
-    cfg.merge_from_file(str(ACCEPTED[0]))
-    check_supported(cfg, world=1)
-    return cfg
+# refused until the trainable norms, the conv box head and the CLIP FPN tower were ported; JAX's FPNRCNN builds them
+_FPN_TAKEN = [
+    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"),
+    ("MODEL.RESNETS.NORM", "GN"), ("MODEL.FPN.NORM", "GN"), ("MODEL.ROI_BOX_HEAD.NUM_CONV", 4),
+    ("MODEL.ROI_BOX_HEAD.NUM_FC", 1), ("MODEL.ROI_BOX_HEAD.NORM", "GN"),
+]
+
+
+def _fpn_key_cfgs(key, value):
+    cfgs = _both(ACCEPTED[0])
+    for cfg in cfgs:
+        if key.startswith("MODEL.ROI_MASK_HEAD."):
+            cfg.merge_from_list(["MODEL.MASK_ON", "True"])
+        if key.startswith("MODEL.ROI_KEYPOINT_HEAD."):
+            cfg.merge_from_list(["MODEL.KEYPOINT_ON", "True"])
+        if key.startswith("MODEL.ROI_BOX_CASCADE_HEAD."):
+            cfg.merge_from_list(["MODEL.ROI_HEADS.NAME", "CascadeROIHeads"])
+        cfg.merge_from_list([key, repr(value) if not isinstance(value, str) else value])
+    return cfgs
+
+
+@pytest.mark.parametrize("key, value", _FPN_TAKEN)
+def test_the_fpn_family_takes_the_norms_and_the_clip_tower_with_the_jax_builders_fields(key, value):
+    ours, ref = _fpn_key_cfgs(key, value)
+    check_supported(ours, world=1)
+    want = jax_build_model(ref)
+    for name, got in fpn_rcnn_fields(ours).items():
+        expect = getattr(want, name)
+        if name == "dtype":
+            assert str(got).split(".")[-1] == jnp.dtype(expect).name
+        elif name == "backbone_width":
+            assert got == (expect or 64), name
+        else:
+            assert got == (tuple(expect) if isinstance(expect, (list, tuple)) else expect), name
+    with torch.device("meta"):
+        assert type(build_detector(ours, device="meta")).__name__ == "FPNRCNN"
 
 
 @pytest.mark.parametrize("key, value", [
-    ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"),
+    ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"),
     ("MODEL.ROI_BOX_CASCADE_HEAD.IOUS", [0.5, 0.55, 0.6]),
-    ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"), ("MODEL.BACKBONE.NAME", "build_regnet_fpn_backbone"),
-    ("MODEL.RESNETS.NORM", "GN"), ("MODEL.FPN.NORM", "GN"), ("MODEL.ROI_BOX_HEAD.NUM_CONV", 4),
-    ("MODEL.ROI_BOX_HEAD.NUM_FC", 1), ("MODEL.ROI_BOX_HEAD.NORM", "GN"),
+    ("MODEL.BACKBONE.NAME", "build_regnet_fpn_backbone"),
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]),
     ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", "diou"), ("MODEL.RPN.BBOX_REG_LOSS_TYPE", "diou"),
     ("MODEL.RESNETS.DEPTH", 18), ("MODEL.RESNETS.DEPTH", 34), ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 14 * 2),
@@ -463,14 +492,7 @@ def test_the_fpn_family_refuses_what_it_leaves_out_naming_the_key(key, value):
     keys are refused at other values (a mask head's under MODEL.MASK_ON, a
     keypoint head's under MODEL.KEYPOINT_ON, the cascade's under
     ROI_HEADS.NAME CascadeROIHeads)."""
-    cfg = _fpn_cfg()
-    if key.startswith("MODEL.ROI_MASK_HEAD."):
-        cfg.merge_from_list(["MODEL.MASK_ON", "True"])
-    if key.startswith("MODEL.ROI_KEYPOINT_HEAD."):
-        cfg.merge_from_list(["MODEL.KEYPOINT_ON", "True"])
-    if key.startswith("MODEL.ROI_BOX_CASCADE_HEAD."):
-        cfg.merge_from_list(["MODEL.ROI_HEADS.NAME", "CascadeROIHeads"])
-    cfg.merge_from_list([key, repr(value) if not isinstance(value, str) else value])
+    cfg = _fpn_key_cfgs(key, value)[0]
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg, world=1)
 

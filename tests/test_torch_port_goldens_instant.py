@@ -5,8 +5,8 @@ detector with the linear classifier, batch 8, TPU.MESH_SHAPE [8] in one
 process (the plain step with the caption branches from step 3, the mean
 teacher, the image and image_region branches, the caption pseudo-label
 branches on a tiny GPT-2), Panoptic FPN at depth 10 over the synthetic
-panoptic fixture (PQ) and the semantic segmentor over the stripes fixture
-(mIoU). They pin no metric: each finishes with finite losses, saves
+panoptic fixture (PQ), the semantic segmentor over the stripes fixture
+(mIoU) and RetinaNet at depth 10 (VOC AP of its focal-loss detections). They pin no metric: each finishes with finite losses, saves
 model_final and ends in a test pass; the panoptic and semantic schedules
 then evaluate again with `--eval-only` from model_final, with the same
 results. The port's own seeded weights and draws (no JAX program)."""
@@ -32,6 +32,7 @@ SCHEDULES = {
     "panoptic_fpn_instant_test.yaml": ("synthetic_panoptic_val", "panoptic_seg",
                                        ("loss_cls", "loss_rpn_cls", "loss_box_reg", "loss_sem_seg")),
     "semantic_R_50_FPN_instant_test.yaml": ("synthetic_semseg_val", "sem_seg", ("loss_sem_seg",)),
+    "retinanet_R_50_FPN_instant_test.yaml": VOC[:2] + (("loss_cls", "loss_box_reg"),),
 }
 SEGMENTATION_SETS = [f"synthetic_{kind}_{split}" for kind in ("panoptic", "semseg") for split in ("train", "val")]
 

@@ -463,10 +463,27 @@ def _plain():
     ("MODEL.RESNETS.RES2_OUT_CHANNELS", 64), ("MODEL.RESNETS.NORM", "GN"), ("MODEL.RESNETS.OUT_FEATURES", ["res5"]),
     ("TPU.ENABLE_CAPTION_CONSISTENCY", True), ("MODEL.CONSISTENCY_BRANCH", "image"), ("TPU.BACKBONE_WIDTH", 16),
     ("TPU.EMBED_DIM", 1024), ("MODEL.PRE_TRAINED_RCLIP_PATH", "rclip.pth"), ("MODEL.ROI_HEADS.SOFT_NMS_METHOD", "box"),
-    ("MODEL.CLIP.BB_RPN_WEIGHTS", "rpn.pth"), ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"),
+    ("MODEL.CLIP.BB_RPN_WEIGHTS", "rpn.pth"),
 ])
 def test_the_plain_tower_refuses_what_it_does_not_compute_naming_the_key(key, value):
     cfg = _plain()
     cfg.merge_from_list([key, repr(value) if not isinstance(value, str) else value])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg, world=1)
+
+
+# refused until the CLIP FPN bottom-up was ported: the name takes the file to JAX's FPNRCNN over CLIP's RN50
+@pytest.mark.parametrize("key, value", [("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone")])
+def test_the_plain_tower_file_under_the_clip_fpn_name_builds_jax_fpnrcnn(key, value):
+    from cddmsl_torch.config import model_family
+    from cddmsl_torch.models.build import fpn_rcnn_fields
+
+    ours, ref = _both(ACCEPTED[0])
+    for c in (ours, ref):
+        c.merge_from_list([key, value])
+    check_supported(ours, world=1)
+    want = jax_build_model(ref)
+    assert model_family(ours) == "fpn" and type(want).__name__ == "FPNRCNN"
+    fields = fpn_rcnn_fields(ours)
+    assert fields["backbone_type"] == want.backbone_type == "clip"
+    assert fields["num_classes"] == want.num_classes and fields["backbone_width"] == (want.backbone_width or 64)

@@ -575,12 +575,23 @@ ACCEPTED = (
     "COCO-InstanceSegmentation/mask_rcnn_R_101_C4_3x.yaml", "COCO-InstanceSegmentation/mask_rcnn_CLIP_R_50_C4_1x.yaml",
     "VOC-Experiments/mask_rcnn_CLIP_R_50_C4_1x.yaml", "quick_schedules/segm_training_acc_test.yaml",
     "quick_schedules/segm_inference_acc_test.yaml",
+    # refused until the trainable norms, the RepeatFactor sampler and the CLIP FPN tower were ported
+    "Misc/mask_rcnn_R_50_FPN_3x_gn.yaml", "Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml",
+    "Misc/scratch_mask_rcnn_R_50_FPN_3x_gn.yaml", "Misc/scratch_mask_rcnn_R_50_FPN_9x_syncbn.yaml",
+    "LVISv0.5-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
+    "LVISv1-InstanceSegmentation/mask_rcnn_CLIP_R_50_FPN_1x.yaml",
 )
 C4_FIELDS = ("backbone_type", "num_classes", "use_text_emb", "pooler_resolution", "mask_on", "mask_num_conv",
              "mask_conv_dim", "mask_cls_agnostic", "mask_canvas_stride", "cls_agnostic_bbox_reg")
 
 
-@pytest.mark.parametrize("path", ACCEPTED, ids=lambda p: Path(p).stem)
+def _accepted_id(path):
+    """The file's stem; an LVIS file's with its folder (the stems repeat)."""
+    p = Path(path)
+    return f"{p.parent.name}-{p.stem}" if p.parent.name.startswith("LVIS") else p.stem
+
+
+@pytest.mark.parametrize("path", ACCEPTED, ids=_accepted_id)
 def test_mask_configs_are_accepted_with_the_jax_builders_fields(path):
     """Accepted at world 1, every field the port's builder gives equal to
     JAX's module's (FPNRCNN, or GeneralizedRCNN's mask and head fields), and
@@ -629,19 +640,12 @@ def test_faster_rcnn_takes_giou(key):
 
 
 REFUSED = [
-    ("Misc/mask_rcnn_R_50_FPN_3x_gn.yaml", "MODEL.RESNETS.NORM"),
-    ("Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml", "MODEL.RESNETS.NORM"),
-    ("Misc/scratch_mask_rcnn_R_50_FPN_3x_gn.yaml", "MODEL.RESNETS.NORM"),
-    ("Misc/scratch_mask_rcnn_R_50_FPN_9x_syncbn.yaml", "MODEL.RESNETS.NORM"),
     ("Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
     # Panoptic FPN is ported: the file is refused for its GN tower (its id kept from before)
     pytest.param("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.RESNETS.NORM",
                  id="panoptic_fpn_R_101_dconv_cascade_gn_3x-MODEL.SEM_SEG_HEAD"),
     ("Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "MODEL.RESNETS.DEFORM_ON_PER_STAGE"),
     ("Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
-    ("LVISv0.5-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
-    ("LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
-    ("LVISv1-InstanceSegmentation/mask_rcnn_CLIP_R_50_FPN_1x.yaml", "DATALOADER.REPEAT_THRESHOLD"),
     ("Cityscapes/mask_rcnn_R_50_FPN.yaml", "DATASETS.TRAIN"),
     ("COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml", "TPU.ENABLE_CAPTION_CONSISTENCY"),
 ]
@@ -655,19 +659,40 @@ def test_mask_configs_the_port_refuses_name_their_key(path, key):
         check_supported(cfg, world=1)
 
 
-@pytest.mark.parametrize("key, value", [
+_MASK_KEYS = [
     ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_MASK_HEAD.NORM", "SyncBN"),
     ("MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", 28), ("MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO", 2),
     ("MODEL.ROI_MASK_HEAD.POOLER_TYPE", "ROIAlign"), ("MODEL.ROI_MASK_HEAD.NAME", "MaskRCNNConvGNHead"),
     ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"),
-])
-@pytest.mark.parametrize("family", ["fpn", "c4"])
-def test_the_mask_keys_jax_does_not_compute_with_are_refused(family, key, value):
+]
+# FPNRCNN's mask head takes ROI_MASK_HEAD.NORM GN and SyncBN (the trainable norms are ported); the C4 head does not
+_MASK_NORM_TAKEN = [("fpn", "MODEL.ROI_MASK_HEAD.NORM", "GN"), ("fpn", "MODEL.ROI_MASK_HEAD.NORM", "SyncBN")]
+_MASK_REFUSED = [(f, k, v) for f in ("fpn", "c4") for k, v in _MASK_KEYS if (f, k, v) not in _MASK_NORM_TAKEN]
+
+
+def _mask_key_cfg(family, key, value):
     path = ("COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml" if family == "fpn"
             else "COCO-InstanceSegmentation/mask_rcnn_CLIP_R_50_C4_1x.yaml")
-    cfg = _cfg(path)[0]
-    if key.startswith("MODEL.ROI_KEYPOINT_HEAD."):  # a keypoint head's key, under MODEL.KEYPOINT_ON
-        cfg.merge_from_list(["MODEL.KEYPOINT_ON", "True"])
-    cfg.merge_from_list([key, value if isinstance(value, str) else repr(value)])
+    cfgs = _cfg(path)
+    for cfg in cfgs:
+        if key.startswith("MODEL.ROI_KEYPOINT_HEAD."):  # a keypoint head's key, under MODEL.KEYPOINT_ON
+            cfg.merge_from_list(["MODEL.KEYPOINT_ON", "True"])
+        cfg.merge_from_list([key, value if isinstance(value, str) else repr(value)])
+    return cfgs
+
+
+@pytest.mark.parametrize("family, key, value", _MASK_NORM_TAKEN, ids=lambda v: str(v))
+def test_the_fpn_mask_head_takes_its_norm_as_jax_builds_it(family, key, value):
+    ours, ref = _mask_key_cfg(family, key, value)
+    check_supported(ours, world=1)
+    assert fpn_rcnn_fields(ours)["mask_conv_norm"] == jax_build_model(ref).mask_conv_norm == value
+    with torch.device("meta"):
+        head = build_detector(ours, device="meta").roi_heads.mask_head
+    assert head.conv_norm == value and head.mask_fcn1.bias is None and head.mask_fcn1.norm is not None
+
+
+@pytest.mark.parametrize("family, key, value", _MASK_REFUSED, ids=lambda v: str(v))
+def test_the_mask_keys_jax_does_not_compute_with_are_refused(family, key, value):
+    cfg = _mask_key_cfg(family, key, value)[0]
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         check_supported(cfg, world=1)

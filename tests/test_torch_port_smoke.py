@@ -38,6 +38,31 @@ from cddmsl_torch.ops import roi_align as roi_ops
 from cddmsl_torch.solver.build import build_optimizer
 
 
+def test_no_two_top_level_definitions_of_chip_smoke_share_a_name():
+    """A later `def` of a name silently replaces the earlier one, which
+    other phases may still call with its own arguments."""
+    import ast
+    import collections
+    from pathlib import Path
+
+    tree = ast.parse(Path(chip_smoke.__file__).read_text())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets if isinstance(t, ast.Name)]
+    assert [k for k, v in collections.Counter(names).items() if v > 1] == []
+
+
+@pytest.mark.parametrize("test", [True, False])
+def test_train_cfg_is_a_probed_run_at_batch_8_with_its_options(tmp_path, test):
+    cfg = chip_smoke.train_cfg(str(tmp_path), "Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml", ("a", "b"), 3,
+                               "TEST.PRECISE_BN.NUM_ITER", "2", test=test)
+    assert cfg.MODEL.RESNETS.NORM == "SyncBN" and cfg.TEST.PRECISE_BN.NUM_ITER == 2
+    assert (cfg.SOLVER.IMS_PER_BATCH, cfg.SOLVER.MAX_ITER, cfg.SOLVER.CHECKPOINT_PERIOD) == (8, 3, 0)
+    assert cfg.DATASETS.TRAIN == ("a",) and cfg.DATASETS.TEST == (("b",) if test else ())
+    assert cfg.OUTPUT_DIR == str(tmp_path / "out")
+    with pytest.raises(AttributeError, match="frozen"):
+        cfg.SEED = 1
+
+
 def test_training_roi_align_calls_are_the_steps_own(monkeypatch):
     cfg, solver = flagship_config(tiny=True), flagship_solver_config(tiny=True)
     model = build_model(cfg, device="cpu", training=True)
@@ -305,6 +330,52 @@ def test_bf16_max_abs_err_holds_a_kernel_to_rtol_and_zeros(case, passes):
     else:
         with pytest.raises(SystemExit, match="chip_smoke FAILED"):
             chip_smoke.bf16_max_abs_err(case, got, want)
+
+
+@pytest.mark.parametrize("case, passes", [
+    ("5e-6 of the samples' magnitude where they cancel", True),
+    ("2e-5 of the samples' magnitude where they cancel", False),
+    ("1.5% of |want| where they partly cancel", True),
+    ("3% of |want| where they partly cancel", False),
+])
+def test_k1_is_held_relative_to_the_samples_it_sums(case, passes):
+    """On a map with negative values an output can cancel to near zero,
+    where fp32 sums in another order part by far more than 2e-2 of |want|:
+    K1's check allows 1e-5 of the samples' magnitude (`k1_scale`, the plain
+    version on the map's absolute values) besides, and stays rtol 2e-2 of
+    |want| where the samples cancel only in part, as most outputs of a
+    signed map do (2e-2 of the samples' magnitude would pass 3% there). One
+    output of channel 0 is made to cancel by shifting the channel (each
+    output inside the map weighs its samples to a sum of one); the error is
+    put there or at an output whose |want| is about 0.3 of its samples'."""
+    g = torch.Generator().manual_seed(3)
+    feats = torch.rand((1, 12, 16, 8), generator=g) - 0.5
+    boxes = torch.tensor([[1.0, 1.0, 9.0, 7.0], [2.5, 0.5, 13.0, 11.0]])
+    args = (torch.zeros(2, dtype=torch.int32), boxes, (7, 7), 1.0, 0, True)
+    cancelled = (0, 3, 3, 0)
+    feats[..., 0] -= roi_ops.roi_align_batched_plain(feats, *args)[cancelled] * (1 - 1e-4)
+    want = roi_ops.roi_align_batched_plain(feats, *args)
+    assert torch.equal(chip_smoke.k1_scale(roi_ops, feats.bfloat16(), *args),
+                       roi_ops.roi_align_batched_plain(feats.bfloat16().float().abs(), *args))
+    samples = chip_smoke.k1_scale(roi_ops, feats, *args)
+    assert 0 < want[cancelled].abs() < 2e-4 * samples[cancelled]
+    part = torch.unravel_index(torch.argmin((want.abs() / samples - 0.3).abs()), want.shape)
+    assert 0.2 < want[part].abs() / samples[part] < 0.5
+    got = want.clone()
+    frac = float(case.split(" of ")[0].rstrip("%")) / (100 if "%" in case else 1)
+    if "where they cancel" in case:
+        got[cancelled] += frac * samples[cancelled]
+    else:
+        got[part] += frac * want[part].abs()
+    got = got.bfloat16()
+    if "where they cancel" in case:
+        with pytest.raises(SystemExit, match="chip_smoke FAILED"):  # |want| alone fails it
+            chip_smoke.bf16_max_abs_err("K1", got, want)
+    if passes:
+        assert chip_smoke.bf16_max_abs_err("K1", got, want, samples) > 0
+    else:
+        with pytest.raises(SystemExit, match="chip_smoke FAILED"):
+            chip_smoke.bf16_max_abs_err("K1", got, want, samples)
 
 
 @pytest.mark.parametrize("tamper, want_err", [(None, 0.0), ("an index moved by 3", 3.0), ("a row short", float("inf"))])
