@@ -13,7 +13,9 @@ embedding, the mapper's prefix and the (K, D) class embeddings copy as they
 are. The offline backbone maps as the backbone does. The plain tower
 (`D2ResNet`: stem_conv1, stem_bn1, res{s}_{i}/conv{1,2,3}, bn{1,2,3},
 shortcut, shortcut_bn) maps to detectron2's names (backbone.stem.conv1,
-its .norm, backbone.res{s}.{i}.conv{1,2,3}, .shortcut and their .norm);
+its .norm, backbone.res{s}.{i}.conv{1,2,3}, .shortcut and their .norm;
+a deformable block's raw 3x3 `conv2_kernel` to conv2.weight and its
+`conv2_offset` kernel and bias to conv2_offset.weight and .bias);
 the linear classifier's cls_score Dense to `cls_score.weight` and `.bias`.
 The mask head (roi_heads/mask_head: mask_fcn{i}, deconv, predictor) keeps
 detectron2's names; its flax deconv kernel (kh, kw, in, out), whose taps
@@ -150,6 +152,9 @@ def _d2_tower_rules(name: str):
         (rf"{name}/res(\d)_(\d+)/(conv[123]|shortcut)/kernel", rf"{name}.res\1.\2.\3.weight", "conv"),
         (rf"{name}/res(\d)_(\d+)/bn([123])/{_BN}", rf"{name}.res\1.\2.conv\3.norm.\4", "copy"),
         (rf"{name}/res(\d)_(\d+)/shortcut_bn/{_BN}", rf"{name}.res\1.\2.shortcut.norm.\3", "copy"),
+        (rf"{name}/res(\d)_(\d+)/conv2_kernel", rf"{name}.res\1.\2.conv2.weight", "conv"),
+        (rf"{name}/res(\d)_(\d+)/conv2_offset/kernel", rf"{name}.res\1.\2.conv2_offset.weight", "conv"),
+        (rf"{name}/res(\d)_(\d+)/conv2_offset/bias", rf"{name}.res\1.\2.conv2_offset.bias", "copy"),
     )
 
 
@@ -403,7 +408,8 @@ def convert_jax_caption_params(params: Mapping[str, Any]) -> Dict[str, torch.Ten
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fills every parameter and FrozenBN buffer from `generator` (a CPU
     generator): He-normal convs, 1/sqrt(fan_in) linears, FrozenBN with
-    running_var in [0.5, 1.5], LayerNorm scales in [0.5, 1.5], small
+    running_var in [0.5, 1.5], LayerNorm scales in [0.5, 1.5], zero
+    deformable offset convs (`conv2_offset`, as JAX initialises them), small
     RPN/box-regression heads (RetinaNet's dense head at std 0.01, its
     classifier's bias at its prior; GN and SyncBN stay at weight 1, bias
     0), a unit-normal mapper prefix; for GPT-2,
@@ -429,6 +435,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             uniform(mod.bias, -0.1, 0.1)
             uniform(mod.running_mean, -0.1, 0.1)
             uniform(mod.running_var, 0.5, 1.5)
+        elif isinstance(mod, nn.Conv2d) and name.endswith("conv2_offset"):  # zero: a deformable block starts plain
+            mod.weight.zero_()
+            mod.bias.zero_()
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             # the RPN heads' and RetinaNet's dense head's convs at detectron2's std 0.01

@@ -93,9 +93,12 @@ _TEXT = re.compile(
 _RPN_HEAD = re.compile(r"(conv|objectness_logits|anchor_deltas)\.(weight|bias)")
 _BOX_PREDICTOR = re.compile(r"cls_score\.weight|bbox_pred\.(weight|bias)")
 _LINEAR_BOX_PREDICTOR = re.compile(r"cls_score\.(weight|bias)|bbox_pred\.(weight|bias)")
-# `convert_d2_resnet`'s keys without the deformable ones
+# `convert_d2_resnet`'s keys: a deformable block's 3x3 is conv2.weight beside
+# conv2_offset.{weight,bias} (`_deform_blocks_agree` drops a conv2.weight that
+# JAX's loader would put where the module does not read it)
 _D2_RESNET = re.compile(
-    r"(stem\.conv1|res\d\.\d+\.(conv[123]|shortcut))\.(weight|norm\.(weight|bias|running_mean|running_var))"
+    r"(stem\.conv1|res\d\.\d+\.(conv[123]|shortcut))\.(weight|norm\.(weight|bias|running_mean|running_var))|"
+    r"res\d\.\d+\.conv2_offset\.(weight|bias)"
 )
 # `convert_d2_fpn_rcnn`'s FPN convs, conv and fc box head and mask head. Of a
 # norm after a head's conv JAX's converter takes the bias alone: it writes the
@@ -110,6 +113,18 @@ _MASK_HEAD_GN = re.compile(r"(mask_fcn\d+|deconv|predictor)\.(weight|bias)|mask_
 # `convert_d2_retinanet`'s FPN, top block and head
 _RETINANET_FPN = re.compile(r"fpn_(lateral|output)\d\.(weight|bias)|top_block\.p[67]\.(weight|bias)")
 _RETINANET_HEAD = re.compile(r"(cls|bbox)_subnet\.\d+\.(weight|bias)|(cls_score|bbox_pred)\.(weight|bias)")
+
+
+def _deform_blocks_agree(tower: nn.Module, sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """`sd` without the res{s}.{i}.conv2.weight of a block that is
+    deformable in the file (it holds that block's conv2_offset) and not in
+    `tower`, or the other way round: JAX's `convert_d2_resnet` writes a
+    deformable block's 3x3 as `conv2_kernel` and a plain one's as
+    conv2/kernel, and each module reads only its own."""
+    in_file = {m.group(1) for k in sd if (m := re.match(re.escape(prefix) + r"(res\d\.\d+)\.conv2_offset\.", k))}
+    in_tower = {k[: -len(".conv2_offset.weight")] for k in tower.state_dict() if k.endswith(".conv2_offset.weight")}
+    drop = {f"{prefix}{b}.conv2.weight" for b in in_file ^ in_tower}
+    return {k: v for k, v in sd.items() if k not in drop}
 
 
 def _load_mask_head(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int:
@@ -198,7 +213,8 @@ def load_rcnn_weights(model: nn.Module, path: str) -> str:
         prefix = "visual." if dialect == "oai_clip" else "backbone."
         for tower in backbones:
             if plain:
-                _load_prefixed(tower, sd, prefix, f"{path}: {dialect} plain ResNet", _D2_RESNET)
+                _load_prefixed(tower, _deform_blocks_agree(tower, sd, prefix), prefix,
+                               f"{path}: {dialect} plain ResNet", _D2_RESNET)
             else:
                 _load_prefixed(tower, sd, prefix, f"{path}: {dialect} visual tower", _VISUAL)
         text_prefix, marker = ("", "transformer.") if dialect == "oai_clip" else ("lang_encoder.", "lang_encoder.")
@@ -242,14 +258,16 @@ def fc1_from_chw(weight: torch.Tensor, channels: int, resolution: int) -> torch.
 def load_d2_fpn(model: nn.Module, sd: Dict[str, torch.Tensor], path: str) -> int:
     """A detectron2 FPN-family file (JAX's `convert_d2_fpn_rcnn`) into an FPN
     detector or FPN ProposalNetwork: "backbone.bottom_up.*" (detectron2's
-    ResNet names) into the tower, backbone.fpn_lateral{l} / fpn_output{l},
+    ResNet names, a deformable block's conv2_offset too) into the tower, backbone.fpn_lateral{l} / fpn_output{l},
     the RPN head, roi_heads.box_head.fc1 (permuted from CHW to HWC where it
     reads the pooled map) and fc2, and the linear box predictor as it is
     (background last). Returns how many tensors were loaded."""
     if not isinstance(getattr(model, "backbone", None), FPN):
         raise NotImplementedError(f"{path}: loading a 'd2_fpn' checkpoint into a model without an FPN is not "
                                   "ported (it loads into MODEL.BACKBONE.NAME build_resnet_fpn_backbone)")
-    n = _load_prefixed(model.backbone.bottom_up, sd, "backbone.bottom_up.", f"{path}: FPN bottom-up", _D2_RESNET)
+    tower = model.backbone.bottom_up
+    n = _load_prefixed(tower, _deform_blocks_agree(tower, sd, "backbone.bottom_up."), "backbone.bottom_up.",
+                       f"{path}: FPN bottom-up", _D2_RESNET)
     n += _load_prefixed(model.backbone, sd, "backbone.", f"{path}: FPN convs", _FPN_CONVS)
     if hasattr(model, "proposal_generator"):
         n += _load_prefixed(model.proposal_generator.rpn_head, sd, "proposal_generator.rpn_head.",

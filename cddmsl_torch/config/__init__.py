@@ -33,9 +33,13 @@ build_resnet_fpn_backbone, its DC5 form at RESNETS.RES5_DILATION 2, and
 MODEL.META_ARCHITECTURE ProposalNetwork on res4 or on the FPN.
 `check_supported` holds that family to `_family_checks` (FPNRCNN takes
 RESNETS/FPN/ROI_BOX_HEAD/ROI_MASK_HEAD.NORM GN or SyncBN, the conv box
-head and, at MODEL.BACKBONE.NAME build_clip_resnet_fpn_backbone, CLIP's
-tower), PanopticFPN and the SemanticSegmentor (MODEL.META_ARCHITECTURE) to
-`_segmentation_checks`, and RetinaNet to `_retinanet_checks`.
+head, the deformable stages (RESNETS.DEFORM_ON_PER_STAGE, DEFORM_MODULATED)
+and, at MODEL.BACKBONE.NAME build_clip_resnet_fpn_backbone, CLIP's tower),
+PanopticFPN and the SemanticSegmentor (MODEL.META_ARCHITECTURE) to
+`_segmentation_checks` (PanopticFPN takes the GN tower and FPN, the
+deformable stages and the cascade heads), and RetinaNet to
+`_retinanet_checks`. A deformable stage with RESNETS.NUM_GROUPS above 1
+is refused naming NUM_GROUPS: JAX's block asserts one group there.
 """
 
 import dataclasses
@@ -203,6 +207,10 @@ def _falsy(v) -> bool:
     return not v
 
 
+# RandomCrop's INPUT.CROP.TYPE (data/transforms.py)
+CROP_TYPES = ("relative", "relative_range", "absolute", "absolute_range")
+
+
 # (key, the values the port implements); every other value raises
 _SUPPORTED_BACKBONE: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.BACKBONE.NAME", lambda v: v == CLIP_TOWER),
@@ -213,8 +221,7 @@ _SUPPORTED_BACKBONE: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 # the detector's towers. The detector reads res4 alone (the C4 head runs res5
 # on the crops), so OUT_FEATURES [res4, res5] changes nothing it computes, as
 # in JAX. The shape keys hold the one value either tower is built with (the
-# JAX build reads none of them); deformable stages wait on a port of
-# ops/deform_conv.py.
+# JAX build reads none of them, nor the deformable stages).
 _SUPPORTED_TOWERS: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.BACKBONE.NAME", lambda v: v in (CLIP_TOWER, D2_TOWER)),
     ("MODEL.RESNETS.OUT_FEATURES", lambda v: list(v) in (["res4"], ["res4", "res5"])),
@@ -250,8 +257,10 @@ _SUPPORTED_DTYPE = (("TPU.COMPUTE_DTYPE", lambda v: v in ("bfloat16", "float32")
 # and the TPU switches
 _SUPPORTED_RUN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("INPUT.MIN_SIZE_TRAIN_SAMPLING", lambda v: v in ("choice", "range")),
-    ("INPUT.CROP.ENABLED", _falsy),
+    ("INPUT.CROP.TYPE", lambda v: v in CROP_TYPES),
     ("INPUT.FORMAT", lambda v: v in ("RGB", "BGR")),
+    # JAX's deformable blocks take one offset group whatever the tree says
+    ("MODEL.RESNETS.DEFORM_NUM_GROUPS", lambda v: v == 1),
     ("DATALOADER.SAMPLER_TRAIN", lambda v: v in ("TrainingSampler", "RepeatFactorTrainingSampler")),
     *_SUPPORTED_SOLVER,
     ("TEST.AUG.ENABLED", _falsy),
@@ -433,13 +442,15 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
 
     tower = {"fpn": eq(FPN_TOWER, CLIP_FPN_TOWER), "proposal_fpn": eq(FPN_TOWER), "dc5": eq(D2_TOWER),
              "proposal_c4": lambda v: "fpn_backbone" not in v, "cascade_c4": lambda v: "fpn_backbone" not in v}[family]
-    # FPNRCNN builds its tower with RESNETS.NORM, the others with FrozenBN
+    # FPNRCNN builds its tower with RESNETS.NORM and the deformable stages,
+    # the others with FrozenBN and none
     norms = TRAINABLE_NORMS if family in ("fpn", "dc5") else ("FrozenBN",)
     checks = [
         ("MODEL.BACKBONE.NAME", tower),
         ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
         ("MODEL.RESNETS.NORM", eq(*norms)),
-        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
+        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", (lambda v: len(v) == 4) if family in ("fpn", "dc5")
+         else (lambda v: not any(v))),
         ("MODEL.RESNETS.STEM_OUT_CHANNELS", eq(64)),
         ("MODEL.RESNETS.RES2_OUT_CHANNELS", eq(256)),
         ("MODEL.RESNETS.RES5_DILATION", eq(2 if family == "dc5" else 1)),
@@ -495,7 +506,8 @@ def _clip_fpn_checks(cfg) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
     """Under BACKBONE.NAME build_clip_resnet_fpn_backbone JAX's FPNRCNN
     builds CLIP's ModifiedResNet (3, 4, 6, 3) of width TPU.BACKBONE_WIDTH
     or WIDTH_PER_GROUP: it reads no other tower key, so DEPTH is held at 50
-    and the plain tower's keys at what the CLIP tower is."""
+    and the plain tower's keys at what the CLIP tower is (no deformable
+    stage)."""
     if cfg.MODEL.BACKBONE.NAME != CLIP_FPN_TOWER:
         return ()
     return (
@@ -504,6 +516,7 @@ def _clip_fpn_checks(cfg) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
         ("MODEL.RESNETS.NUM_GROUPS", lambda v: v == 1),
         ("MODEL.RESNETS.STRIDE_IN_1X1", lambda v: v is True),
         ("MODEL.RESNETS.RES5_DILATION", lambda v: v == 1),
+        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
     )
 
 
@@ -569,31 +582,34 @@ SEGMENTATION_ARCHS = {"PanopticFPN": "panoptic", "SemanticSegmentor": "semantic"
 SEM_SEG_FEATURES = ["p2", "p3", "p4", "p5"]
 
 
-def _segmentation_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
+def _segmentation_checks(family: str, cascade: bool = False) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]:
     """What `models.build.panoptic_fpn_fields` and `semantic_segmentor_fields`
     implement, as JAX's `build_panoptic_fpn` and `build_semantic_segmentor`
     read the tree. PanopticFPN computes with a tower of RESNETS.DEPTH,
-    STRIDE_IN_1X1 and TPU.BACKBONE_WIDTH under FrozenBN, the FPN without
-    p6, an RPN on p2 alone (one anchor size, 32, at stride 4; pre-NMS top-k
-    256 / 128, post-NMS 64 / 32), the standard heads sampling 64 rows an
+    STRIDE_IN_1X1, TPU.BACKBONE_WIDTH, RESNETS.NORM (FrozenBN or GN) and
+    the deformable stages, the FPN without p6 under FPN.NORM ("" or GN), an
+    RPN on p2 alone (one anchor size, 32, at stride 4; pre-NMS top-k 256 /
+    128, post-NMS 64 / 32), the standard heads or, at ROI_HEADS.NAME
+    CascadeROIHeads, the cascade's three stages (class-agnostic boxes
+    whatever ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG says), sampling 64 rows an
     image with the mask head under MASK_ON, and the semantic head on p2..p5
     (128 channels, common stride 4, ignore 255); a key it does not read is
     accepted at the tree's default or at the value JAX computes with, and
-    any other value raises. The GN tower and FPN (JAX's PanopticFPN builds
-    them only with its deformable tower and cascade heads) wait on ROADMAP
-    B2; COMBINE.ENABLED False is
+    any other value raises. COMBINE.ENABLED False is
     refused because JAX's test always combines. The semantic segmentor
     reads DEPTH, the head's classes, norm, ignore value and IN_FEATURES
-    (any of p2..p5, in order) and nothing of the instance branch."""
+    (any of p2..p5, in order) and nothing of the instance branch: its
+    tower is FrozenBN without deformable stages."""
 
     def eq(*wants):
         return lambda v: (list(v) if isinstance(v, (list, tuple)) else v) in wants
 
+    panoptic = family == "panoptic"
     checks = [
         ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
-        ("MODEL.RESNETS.NORM", eq("FrozenBN")),
-        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", lambda v: not any(v)),
-        ("MODEL.FPN.NORM", _falsy),
+        ("MODEL.RESNETS.NORM", eq("FrozenBN", "BN", "", "GN") if panoptic else eq("FrozenBN")),
+        ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", (lambda v: len(v) == 4) if panoptic else (lambda v: not any(v))),
+        ("MODEL.FPN.NORM", eq("", "GN") if panoptic else _falsy),
         ("MODEL.BACKBONE.NAME", eq(CLIP_TOWER, FPN_TOWER)),
         ("MODEL.RESNETS.OUT_FEATURES", eq(["res4"], FPN_IN_FEATURES)),
         ("MODEL.RESNETS.STEM_OUT_CHANNELS", eq(64)),
@@ -630,7 +646,8 @@ def _segmentation_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]]
     return tuple(checks + [
         ("MODEL.SEM_SEG_HEAD.IN_FEATURES", eq(SEM_SEG_FEATURES)),
         ("MODEL.PANOPTIC_FPN.COMBINE.ENABLED", lambda v: v is True),
-        ("MODEL.ROI_HEADS.NAME", eq("CLIPRes5ROIHeads", "StandardROIHeads", "CLIPStandardROIHeads")),
+        ("MODEL.ROI_HEADS.NAME", eq("CLIPRes5ROIHeads", "StandardROIHeads", "CLIPStandardROIHeads",
+                                    "CascadeROIHeads")),
         ("MODEL.ROI_HEADS.IN_FEATURES", eq(["res4"], FPN_HEAD_FEATURES)),
         ("MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", eq(512, 64)),
         ("MODEL.ROI_HEADS.POSITIVE_FRACTION", eq(0.25)),
@@ -644,7 +661,7 @@ def _segmentation_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]]
         ("MODEL.ROI_BOX_HEAD.NUM_FC", eq(0, 2)),
         ("MODEL.ROI_BOX_HEAD.FC_DIM", eq(1024)),
         ("MODEL.ROI_BOX_HEAD.NORM", _falsy),
-        ("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", _falsy),
+        ("MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG", (lambda v: True) if cascade else _falsy),
         ("MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA", eq(0.0)),
         ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", eq("smooth_l1")),
         ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT", eq(1.0)),
@@ -677,7 +694,8 @@ def _check_family(cfg, family: str) -> None:
     if family == "retinanet":
         checks = _retinanet_checks() + _SUPPORTED_RUN
     elif family in ("panoptic", "semantic"):
-        checks = _segmentation_checks(family) + _SUPPORTED_RUN + _mask_checks(cfg)
+        cascade = cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads"
+        checks = _segmentation_checks(family, cascade) + _SUPPORTED_RUN + _mask_checks(cfg)
     else:
         checks = (_family_checks(family) + _clip_fpn_checks(cfg) + _SUPPORTED_RUN + _mask_checks(cfg)
                   + _keypoint_checks(cfg, family))
@@ -685,6 +703,11 @@ def _check_family(cfg, family: str) -> None:
         checks += _cascade_checks(family)
     if "SEMISUPNET" in cfg:  # the mean teacher builds the C4 detector only
         checks += (("SEMISUPNET.Trainer", lambda v: v == "default"),)
+    groups = cfg.MODEL.RESNETS.NUM_GROUPS
+    if any(cfg.MODEL.RESNETS.DEFORM_ON_PER_STAGE) and groups != 1 and family in ("fpn", "dc5", "panoptic"):
+        raise NotImplementedError(
+            f"MODEL.RESNETS.NUM_GROUPS = {groups!r} is not ported with deformable stages for "
+            f"{_describe(cfg, family)}: JAX's deformable block asserts NUM_GROUPS == 1 and its init fails")
     for key, ok in checks:
         value = _lookup(cfg, key)
         if not ok(value):

@@ -58,6 +58,10 @@ def get_cfg() -> CfgNode:
     _C.MODEL.RESNETS.WIDTH_PER_GROUP = 64
     _C.MODEL.RESNETS.RES5_DILATION = 1
     _C.MODEL.RESNETS.DEFORM_ON_PER_STAGE = [False, False, False, False]
+    # DCN v2 (a mask beside the offsets); JAX's deformable blocks take one
+    # offset group, whatever DEFORM_NUM_GROUPS says
+    _C.MODEL.RESNETS.DEFORM_MODULATED = False
+    _C.MODEL.RESNETS.DEFORM_NUM_GROUPS = 1
 
     # the FPN family (build_resnet_fpn_backbone): the lateral and output
     # convs' width; JAX's FPNRCNN always takes res2..res5 and adds p6
@@ -242,6 +246,8 @@ def get_cfg() -> CfgNode:
     _C.INPUT.RANDOM_FLIP = "horizontal"
     _C.INPUT.CROP = CfgNode()
     _C.INPUT.CROP.ENABLED = False
+    _C.INPUT.CROP.TYPE = "relative_range"
+    _C.INPUT.CROP.SIZE = [0.9, 0.9]
     _C.INPUT.FORMAT = "BGR"
 
     _C.DATASETS = CfgNode()

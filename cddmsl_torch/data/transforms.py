@@ -1,8 +1,9 @@
 """Host-side geometric transforms of the training recipe (the port's copy of
 the part of cddmsl_tpu/data/transforms.py that `build_augmentation` gives
-the VOC recipe): `ResizeShortestEdge` (a choice of short sides, or a range,
-at train time; one size at test time) and the horizontal `RandomFlip`; and
-the strong photometric augmentation of the mean-teacher loader
+the training recipes): `ResizeShortestEdge` (a choice of short sides, or a
+range, at train time; one size at test time), the horizontal `RandomFlip`,
+and under INPUT.CROP.ENABLED a `RandomCrop` of the image before the resize;
+and the strong photometric augmentation of the mean-teacher loader
 (`build_strong_augmentation_fn`).
 
 Augmentations draw from the caller's `np.random.RandomState` in the JAX
@@ -101,6 +102,29 @@ class HFlipTransform(Transform):
         return coords
 
 
+class CropTransform(Transform):
+    """The (h, w) window at (y0, x0): boxes and points move by its corner;
+    the mappers clip the boxes to the window afterwards."""
+
+    def __init__(self, x0: int, y0: int, w: int, h: int):
+        self.x0, self.y0, self.w, self.h = x0, y0, w, h
+
+    def apply_image(self, img: np.ndarray) -> np.ndarray:
+        return img[self.y0 : self.y0 + self.h, self.x0 : self.x0 + self.w]
+
+    def apply_box(self, boxes: np.ndarray) -> np.ndarray:
+        boxes = boxes.astype(np.float32).copy()
+        boxes[:, 0::2] -= self.x0
+        boxes[:, 1::2] -= self.y0
+        return boxes
+
+    def apply_coords(self, coords: np.ndarray) -> np.ndarray:
+        coords = coords.astype(np.float32).copy()
+        coords[:, 0] -= self.x0
+        coords[:, 1] -= self.y0
+        return coords
+
+
 class TransformList(Transform):
     def __init__(self, tfms: Sequence[Transform]):
         self.transforms = list(tfms)
@@ -171,6 +195,41 @@ class RandomFlip(Augmentation):
         return NoOpTransform()
 
 
+class RandomCrop(Augmentation):
+    """A random window (detectron2's RandomCrop, JAX's draws in JAX's
+    order): "relative" takes crop_size of each side, "relative_range" a
+    fraction drawn per side (rand(2)) in [crop_size, 1], "absolute" crop_size
+    pixels, "absolute_range" sides drawn in [crop_size[0], crop_size[1]]
+    (randint per side); each side capped at the image's, the corner drawn
+    uniformly (randint for y0, then x0)."""
+
+    def __init__(self, crop_type: str, crop_size: Sequence[float]):
+        if crop_type not in ("relative", "relative_range", "absolute", "absolute_range"):
+            raise ValueError(f"RandomCrop type {crop_type!r}")
+        self.crop_type = crop_type
+        self.crop_size = tuple(crop_size)
+
+    def _crop_hw(self, h: int, w: int, rng) -> Tuple[int, int]:
+        ch, cw = self.crop_size
+        if self.crop_type == "relative":
+            return int(h * ch + 0.5), int(w * cw + 0.5)
+        if self.crop_type == "relative_range":
+            lo = np.asarray(self.crop_size, np.float32)
+            ch, cw = lo + rng.rand(2) * (1 - lo)
+            return int(h * ch + 0.5), int(w * cw + 0.5)
+        if self.crop_type == "absolute":
+            return min(h, int(ch)), min(w, int(cw))
+        return (rng.randint(min(h, int(ch)), min(h, int(cw)) + 1),
+                rng.randint(min(w, int(ch)), min(w, int(cw)) + 1))
+
+    def get_transform(self, img, rng) -> Transform:
+        h, w = img.shape[:2]
+        ch, cw = self._crop_hw(h, w, rng)
+        y0 = rng.randint(h - ch + 1)
+        x0 = rng.randint(w - cw + 1)
+        return CropTransform(x0, y0, cw, ch)
+
+
 def create_keypoint_hflip_indices(meta) -> np.ndarray:
     """The metadata's keypoint_names and keypoint_flip_map -> for each
     keypoint the index of its mirror (itself where the map names none)."""
@@ -201,16 +260,17 @@ def transform_keypoint_annotations(keypoints: np.ndarray, tfms: TransformList, i
 
 
 def build_augmentation(cfg, is_train: bool) -> List[Augmentation]:
-    """Train: ResizeShortestEdge(MIN_SIZE_TRAIN, MAX_SIZE_TRAIN, sampling),
-    then a horizontal flip unless INPUT.RANDOM_FLIP is "none". Test:
+    """Train: RandomCrop(INPUT.CROP.TYPE, SIZE) first where INPUT.CROP.ENABLED,
+    ResizeShortestEdge(MIN_SIZE_TRAIN, MAX_SIZE_TRAIN, sampling), then a
+    horizontal flip unless INPUT.RANDOM_FLIP is "none". Test:
     ResizeShortestEdge(MIN_SIZE_TEST, MAX_SIZE_TEST)."""
     if not is_train:
         return [ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)]
-    if cfg.INPUT.CROP.ENABLED:
-        raise NotImplementedError("INPUT.CROP.ENABLED: RandomCrop is not ported")
     augs: List[Augmentation] = [
         ResizeShortestEdge(tuple(cfg.INPUT.MIN_SIZE_TRAIN), cfg.INPUT.MAX_SIZE_TRAIN, cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING)
     ]
+    if cfg.INPUT.CROP.ENABLED:
+        augs.insert(0, RandomCrop(cfg.INPUT.CROP.TYPE, cfg.INPUT.CROP.SIZE))
     if cfg.INPUT.RANDOM_FLIP != "none":
         augs.append(RandomFlip(0.5))
     return augs

@@ -1,14 +1,16 @@
 """The plain detectron2 ResNet and its FPN (counterparts of
 cddmsl_tpu/models/backbone/resnet.py `D2ResNet`, `D2Bottleneck` and `FPN`,
-as JAX's GeneralizedRCNN, FPNRCNN and RetinaNet build them: no deformable
-stage).
+as JAX's GeneralizedRCNN, FPNRCNN, PanopticFPN and RetinaNet build them).
 
 `D2ResNet` takes RESNETS.NUM_GROUPS x WIDTH_PER_GROUP bottleneck channels
 (ResNeXt: a grouped 3x3), the stride in the 1x1 or in the 3x3
 (STRIDE_IN_1X1), and RES5_DILATION: at 2 res5 keeps stride 16 and dilates
 its 3x3s (the DC5 family), and RESNETS.NORM (`norm`): FrozenBN, or the
 trainable GN and SyncBN of models/backbone/batch_norm.py (JAX's
-`_make_norm`). `FPN` puts detectron2's lateral and output convs on res2..res5
+`_make_norm`), and RESNETS.DEFORM_ON_PER_STAGE / DEFORM_MODULATED
+(`deform_on_per_stage`, `deform_modulated`): every 3x3 of a stage so
+marked is deformable (ops/deform_conv.py), v1, or v2 with a mask. `FPN`
+puts detectron2's lateral and output convs on res2..res5
 (res3..res5 for RetinaNet), with FPN.NORM after each (the convs then have no
 bias), and adds p6, a stride-2 subsample of p5, or RetinaNet's learned
 p6/p7 (detectron2's LastLevelP6P7).
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import D2_RESNET_SPECS
+from ...ops.deform_conv import deform_conv2d
 from .batch_norm import head_norm, make_norm
 from .clip_resnet import _nchw, _nhwc
 
@@ -52,21 +55,44 @@ class ConvNorm(nn.Conv2d):
 class D2Bottleneck(nn.Module):
     """1x1 -> 3x3 (grouped, dilated) -> 1x1, each with its norm, the stride
     in the first 1x1 or in the 3x3, and a projection shortcut where the
-    stride or the width changes."""
+    stride or the width changes. With `deform` the 3x3 is deformable
+    (detectron2's DeformBottleneckBlock, JAX's `deform` branch):
+    `conv2_offset`, a 3x3 conv with a bias at conv2's stride and dilation,
+    zero at init, predicts 18 offset channels ((dy, dx) per tap), and under
+    `deform_modulated` 9 more whose sigmoid is the mask (DCN v2); conv2's
+    kernel then samples there (`deform_conv2d`, in float32 inside a
+    bfloat16 tower, as JAX casts). A deformable 3x3 is not grouped."""
 
     def __init__(self, cin: int, bottleneck: int, cout: int, stride: int = 1, stride_in_1x1: bool = True,
-                 dilation: int = 1, groups: int = 1, norm: str = "FrozenBN"):
+                 dilation: int = 1, groups: int = 1, norm: str = "FrozenBN", deform: bool = False,
+                 deform_modulated: bool = False):
         super().__init__()
+        if deform and groups != 1:
+            raise ValueError("a deformable 3x3 with groups > 1 is not built (JAX asserts NUM_GROUPS == 1 there)")
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = ConvNorm(cin, bottleneck, 1, stride=s1, norm=norm)
         self.conv2 = ConvNorm(bottleneck, bottleneck, 3, stride=s3, padding=dilation, dilation=dilation, groups=groups,
                               norm=norm)
+        self.deform_modulated = deform_modulated
+        self.conv2_offset = nn.Conv2d(bottleneck, (3 if deform_modulated else 2) * 9, 3, stride=s3,
+                                      padding=dilation, dilation=dilation) if deform else None
+        if deform:
+            nn.init.zeros_(self.conv2_offset.weight)
+            nn.init.zeros_(self.conv2_offset.bias)
         self.conv3 = ConvNorm(bottleneck, cout, 1, norm=norm)
         self.shortcut = ConvNorm(cin, cout, 1, stride=stride, norm=norm) if stride > 1 or cin != cout else None
 
+    def _deform_conv2(self, x: torch.Tensor) -> torch.Tensor:
+        c2, dt = self.conv2, torch.promote_types(x.dtype, torch.float32)
+        off = _conv(self.conv2_offset, x).to(dt)
+        mask = torch.sigmoid(off[:, 18:]) if self.deform_modulated else None
+        y = deform_conv2d(x.to(dt), off[:, :18], c2.weight, mask, stride=c2.stride[0], padding=c2.padding[0],
+                          dilation=c2.dilation[0], layout="NCHW")
+        return c2.norm(y.to(x.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.conv1(x))
-        out = F.relu(self.conv2(out))
+        out = F.relu(self.conv2(out) if self.conv2_offset is None else self._deform_conv2(out))
         out = self.conv3(out)
         return F.relu(out + (x if self.shortcut is None else self.shortcut(x)))
 
@@ -91,11 +117,13 @@ class D2ResNet(nn.Module):
     `num_groups` x `width_per_group` is res2's bottleneck width (doubling
     each stage), `res2_out_channels` its output width; with
     `res5_dilation` 2 res5 keeps res4's stride. `norm` is every conv's
-    (RESNETS.NORM)."""
+    (RESNETS.NORM); `deform_on_per_stage` (res2..res5) makes every block
+    of a stage deformable, v2 under `deform_modulated`."""
 
     def __init__(self, depth: int = 50, res5: bool = True, num_groups: int = 1, width_per_group: int = 64,
                  stride_in_1x1: bool = True, res5_dilation: int = 1, res2_out_channels: int = 256,
-                 norm: str = "FrozenBN"):
+                 norm: str = "FrozenBN", deform_on_per_stage: Sequence[bool] = (False,) * 4,
+                 deform_modulated: bool = False):
         super().__init__()
         self.stem = Stem(64, norm)
         cin, bottleneck, cout = 64, num_groups * width_per_group, res2_out_channels
@@ -104,7 +132,8 @@ class D2ResNet(nn.Module):
             name = f"res{i + 2}"
             dilation = res5_dilation if name == "res5" else 1
             stride = 1 if i == 0 or dilation > 1 else 2
-            kw = dict(stride_in_1x1=stride_in_1x1, dilation=dilation, groups=num_groups, norm=norm)
+            kw = dict(stride_in_1x1=stride_in_1x1, dilation=dilation, groups=num_groups, norm=norm,
+                      deform=bool(deform_on_per_stage[i]), deform_modulated=deform_modulated)
             blocks = [D2Bottleneck(cin, bottleneck, cout, stride, **kw)]
             blocks += [D2Bottleneck(cout, bottleneck, cout, **kw) for _ in range(1, n)]
             self.add_module(name, nn.Sequential(*blocks))
@@ -132,7 +161,7 @@ class D2ResNet(nn.Module):
 
 def _conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding, layer.dilation)
 
 
 class NormConv2d(nn.Conv2d):

@@ -193,8 +193,9 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
     the normaliser), the cascade (ROI_HEADS.NAME CascadeROIHeads), the CLIP
     bottom-up (BACKBONE.NAME build_clip_resnet_fpn_backbone), the norms
     (RESNETS.NORM, FPN.NORM, ROI_BOX_HEAD.NORM, ROI_MASK_HEAD.NORM), the
-    conv box head (ROI_BOX_HEAD.NUM_CONV, CONV_DIM, NUM_FC or 2) and the
-    compute dtype."""
+    conv box head (ROI_BOX_HEAD.NUM_CONV, CONV_DIM, NUM_FC or 2), the
+    deformable stages (RESNETS.DEFORM_ON_PER_STAGE, DEFORM_MODULATED) and
+    the compute dtype."""
     check_supported(cfg)
     m = cfg.MODEL
     return dict(
@@ -247,6 +248,8 @@ def fpn_rcnn_fields(cfg) -> Dict[str, Any]:
         box_num_fc=m.ROI_BOX_HEAD.NUM_FC or 2,
         box_conv_norm=m.ROI_BOX_HEAD.NORM,
         mask_conv_norm=m.ROI_MASK_HEAD.NORM,
+        deform_on_per_stage=tuple(m.RESNETS.DEFORM_ON_PER_STAGE),
+        deform_modulated=m.RESNETS.DEFORM_MODULATED,
         dc5=m.RESNETS.RES5_DILATION == 2,
         load_proposals=m.PROPOSAL_GENERATOR.NAME == "PrecomputedProposals",
         dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE),
@@ -287,12 +290,12 @@ def cascade_rcnn_fields(cfg) -> Dict[str, Any]:
 
 
 def panoptic_fpn_fields(cfg) -> Dict[str, Any]:
-    """The fields JAX's `build_panoptic_fpn` gives `PanopticFPN` that the
-    port implements (the thing and stuff classes, DEPTH, the two loss
-    weights, the head's NORM, STRIDE_IN_1X1, TPU.BACKBONE_WIDTH, the mask
+    """The fields JAX's `build_panoptic_fpn` gives `PanopticFPN` (the thing
+    and stuff classes, DEPTH, the two loss weights, the head's NORM,
+    RESNETS.NORM, FPN.NORM, STRIDE_IN_1X1, the deformable stages, the
+    cascade at ROI_HEADS.NAME CascadeROIHeads, TPU.BACKBONE_WIDTH, the mask
     head's, the pixel statistics, the compute dtype), after
-    `check_supported` (which refuses the GN, deformable and cascade
-    fields)."""
+    `check_supported`."""
     check_supported(cfg)
     m = cfg.MODEL
     return dict(
@@ -302,7 +305,12 @@ def panoptic_fpn_fields(cfg) -> Dict[str, Any]:
         instance_loss_weight=m.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT,
         sem_seg_loss_weight=m.SEM_SEG_HEAD.LOSS_WEIGHT,
         sem_seg_norm=m.SEM_SEG_HEAD.NORM,
+        backbone_norm=m.RESNETS.NORM,
+        fpn_norm=m.FPN.NORM,
         stride_in_1x1=m.RESNETS.STRIDE_IN_1X1,
+        deform_on_per_stage=tuple(m.RESNETS.DEFORM_ON_PER_STAGE),
+        deform_modulated=m.RESNETS.DEFORM_MODULATED,
+        cascade=m.ROI_HEADS.NAME == "CascadeROIHeads",
         backbone_width=cfg.TPU.BACKBONE_WIDTH or 64,
         mask_on=m.MASK_ON,
         mask_num_conv=m.ROI_MASK_HEAD.NUM_CONV,

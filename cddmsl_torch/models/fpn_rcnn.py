@@ -4,7 +4,8 @@ cascade paths): detectron2's
 Base-RCNN-FPN (ResNet or ResNeXt + FPN, the RPN over p2..p6,
 `StandardROIHeads` pooling 7x7 from p2..p5, and with `mask_on` 14x14 for
 the mask head; the trainable GN or SyncBN through the tower, the FPN, the
-conv box head and the mask head of the Misc *_gn / *_syncbn files; CLIP's
+conv box head and the mask head of the Misc *_gn / *_syncbn files; the
+deformable stages of the Misc *_dconv_* files (DCN v1 or v2); CLIP's
 ModifiedResNet as the bottom-up of the LVIS transfer recipe) and, with
 `dc5`, Base-RCNN-DilatedC5 (the dilated res5 as
 the one map of the RPN, all anchor sizes on it, and of the heads). Either
@@ -96,6 +97,8 @@ class FPNRCNN(nn.Module):
         box_num_fc: int = 2,
         box_conv_norm: str = "",
         mask_conv_norm: str = "",
+        deform_on_per_stage: Sequence[bool] = (False,) * 4,
+        deform_modulated: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         """`backbone_width` is WIDTH_PER_GROUP (TPU.BACKBONE_WIDTH where
@@ -112,7 +115,9 @@ class FPNRCNN(nn.Module):
         `fpn_norm`, `box_conv_norm` and `mask_conv_norm` are RESNETS.NORM,
         FPN.NORM, ROI_BOX_HEAD.NORM and ROI_MASK_HEAD.NORM, `box_num_conv`,
         `box_conv_dim` and `box_num_fc` the conv box head's shape
-        (ROI_BOX_HEAD.NUM_CONV, CONV_DIM, NUM_FC)."""
+        (ROI_BOX_HEAD.NUM_CONV, CONV_DIM, NUM_FC); `deform_on_per_stage` and
+        `deform_modulated` the plain tower's deformable stages
+        (RESNETS.DEFORM_ON_PER_STAGE, DEFORM_MODULATED)."""
         super().__init__()
         self.dtype = dtype
         self.dc5 = dc5
@@ -127,7 +132,8 @@ class FPNRCNN(nn.Module):
         elif backbone_type == "d2_resnet":
             tower = D2ResNet(depth, num_groups=num_groups, width_per_group=backbone_width,
                              stride_in_1x1=stride_in_1x1, res5_dilation=2 if dc5 else 1,
-                             res2_out_channels=res2_out_channels, norm=backbone_norm)
+                             res2_out_channels=res2_out_channels, norm=backbone_norm,
+                             deform_on_per_stage=tuple(deform_on_per_stage), deform_modulated=deform_modulated)
         else:
             raise ValueError(f"FPNRCNN backbone_type {backbone_type!r}: d2_resnet or clip")
         self.backbone = tower if dc5 else FPN(tower, fpn_out_channels, norm=fpn_norm)

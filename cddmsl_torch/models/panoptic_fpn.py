@@ -1,15 +1,20 @@
 """Panoptic FPN (counterpart of cddmsl_tpu/models/panoptic_fpn.py
 `PanopticFPN` and `combine_semantic_and_instance_outputs`).
 
-One FPN tower (detectron2's ResNet under FrozenBN, p2..p5) feeds the
-instance branch and the semantic branch:
+One FPN tower (detectron2's ResNet, p2..p5) feeds the instance branch and
+the semantic branch. The tower takes RESNETS.NORM (FrozenBN, or GN),
+FPN.NORM and the deformable stages (RESNETS.DEFORM_ON_PER_STAGE,
+DEFORM_MODULATED), as JAX's module builds them for
+Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x:
 - the RPN on p2 alone, as JAX's module runs it: one anchor size (32) and
   three aspect ratios at stride 4, pre-NMS top-k 256 in training and 128 at
   test, post-NMS 64 and 32 (kernel K4 for its NMS);
 - the FPN family's `StandardROIHeads` (JAX's `CLIPStandardROIHeads` with
   the linear classifier): 7x7 pools of p2..p5 (K1, and K3 in the
   backward), two fcs of 1024, 64 sampled rows an image, and with `mask_on`
-  the mask head on its 14x14 pools;
+  the mask head on its 14x14 pools; or with `cascade` (ROI_HEADS.NAME
+  CascadeROIHeads) models/cascade_rcnn.py's three stages on p2..p5, 64
+  sampled rows an image, with the mask branch under `mask_on`;
 - `SemSegFPNHead` on p2..p5, its logits resized to the padded image.
 
 The losses are the RPN's and the heads', each times `instance_loss_weight`,
@@ -31,6 +36,7 @@ from torch import nn
 from ..evaluation.masks import paste_masks_np
 from ..ops.resize import resize_bilinear_nchw
 from .backbone.resnet import FPN, D2ResNet
+from .cascade_rcnn import CascadeROIHeads
 from .fast_rcnn import DetectionResult
 from .fpn_rcnn import FPN_SCALES
 from .rcnn import DetBatch, normalize
@@ -48,25 +54,30 @@ class PanopticFPN(nn.Module):
                  pixel_mean: Sequence[float] = (103.53, 116.28, 123.675), pixel_std: Sequence[float] = (1.0, 1.0, 1.0),
                  sem_seg_norm: str = "", stride_in_1x1: bool = True, backbone_width: int = 64, mask_on: bool = False,
                  mask_num_conv: int = 4, mask_conv_dim: int = 256, mask_canvas_stride: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
-        """The fields of JAX's `build_panoptic_fpn` that the port implements:
-        the thing and stuff classes, the tower's depth, stride placement and
-        bottleneck width (TPU.BACKBONE_WIDTH), both loss weights, the head's
-        norm ("" or "GN"), the mask head's (MASK_ON, ROI_MASK_HEAD.NUM_CONV,
-        CONV_DIM, TPU.MASK_CANVAS_STRIDE), the pixel statistics and the
-        compute dtype."""
+                 backbone_norm: str = "FrozenBN", fpn_norm: str = "", deform_on_per_stage: Sequence[bool] = (False,) * 4,
+                 deform_modulated: bool = False, cascade: bool = False, dtype: torch.dtype = torch.float32):
+        """The fields of JAX's `build_panoptic_fpn`: the thing and stuff
+        classes, the tower's depth, stride placement, bottleneck width
+        (TPU.BACKBONE_WIDTH), norm (RESNETS.NORM) and deformable stages,
+        the FPN's norm, both loss weights, the head's norm ("" or "GN"), the
+        cascade heads (`cascade`), the mask head's (MASK_ON,
+        ROI_MASK_HEAD.NUM_CONV, CONV_DIM, TPU.MASK_CANVAS_STRIDE), the pixel
+        statistics and the compute dtype."""
         super().__init__()
         self.dtype = dtype
         self.instance_loss_weight = instance_loss_weight
         self.sem_seg_loss_weight = sem_seg_loss_weight
         self.pixel_mean, self.pixel_std = tuple(pixel_mean), tuple(pixel_std)
-        self.backbone = FPN(D2ResNet(depth, width_per_group=backbone_width, stride_in_1x1=stride_in_1x1), 256)
+        tower = D2ResNet(depth, width_per_group=backbone_width, stride_in_1x1=stride_in_1x1, norm=backbone_norm,
+                         deform_on_per_stage=tuple(deform_on_per_stage), deform_modulated=deform_modulated)
+        self.backbone = FPN(tower, 256, norm=fpn_norm)
         self.proposal_generator = RPN(256, stride=4, anchor_sizes=(32,), pre_nms_topk_train=256,
                                       pre_nms_topk_test=128, post_nms_topk_train=64, post_nms_topk_test=32)
         mask_head = dict(num_conv=mask_num_conv, conv_dim=mask_conv_dim, cls_agnostic=False,
                          canvas_stride=mask_canvas_stride) if mask_on else None
-        self.roi_heads = StandardROIHeads(num_classes=num_classes, in_channels=256, pooler_scales=FPN_SCALES,
-                                          batch_size_per_image=64, mask_head=mask_head)
+        heads = CascadeROIHeads if cascade else StandardROIHeads
+        self.roi_heads = heads(num_classes=num_classes, in_channels=256, pooler_scales=FPN_SCALES,
+                               batch_size_per_image=64, mask_head=mask_head)
         self.sem_seg_head = SemSegFPNHead(sem_seg_classes, norm=sem_seg_norm)
 
     def features(self, images: torch.Tensor) -> List[torch.Tensor]:

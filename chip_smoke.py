@@ -283,11 +283,23 @@ Phases, each of which fails the run with a non-zero exit:
      proposals: the losses to rtol 1e-4, the update to 1e-4 of its norm);
      (d) K4 at (a)'s eval-batch NMS over the five levels' candidates on
      seeded scores, K1, K3 and K4 at the calls `KernelCalls` records in
-     (b)'s and (c)'s last step and eval batch.
+     (b)'s and (c)'s last step and eval batch;
+ 21. the deformable towers (`deformable_path`), each offset conv seeded to
+     offsets of about a pixel: a narrow DCN v2 Mask R-CNN and a narrow
+     GN, DCN v1, cascade Panoptic FPN step on the card against the CPU
+     (fp32, unpadded, precomputed proposals: the losses to rtol 1e-4, the
+     update to 1e-4 of its norm); Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5
+     (6 steps at 8/8/1, an eval batch at 8/0/2) and
+     Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x (3 steps at 16/16/1, an
+     eval batch at 16/0/2) at batch 8, every loss finite; the step on a
+     device batch beside phase 17's, the peak card memory, each
+     deform_conv2d shape of a step timed forward and with its backward
+     beside its bound; K1, K3 and K4 at the calls `KernelCalls` records.
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
 `.../ovd`, `.../fpn`, `.../mask`, `.../keypoint`, `.../cascade`,
-`.../panoptic`, `nms/retinanet`, `.../lvis_fpn`, `.../gn`, `.../syncbn`).
+`.../panoptic`, `nms/retinanet`, `.../lvis_fpn`, `.../gn`, `.../syncbn`,
+`.../dconv`, `.../dconv_panoptic`).
 `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
@@ -301,7 +313,8 @@ mask, (a)'s 12 steps and final test, (b)'s 3 steps and eval batch, (c)'s
 step and eval batch; for cascade, (b)'s and the C4 cascade's likewise; for
 panoptic, (a)'s 6 steps and final test and (b)'s 3 steps; for retinanet,
 6 steps, the final test and an eval batch; for lvis_fpn, gn and syncbn, 3
-steps and an eval batch each);
+steps and an eval batch each; for dconv 6 steps and an eval batch, for
+dconv_panoptic 3 and one);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -314,9 +327,9 @@ eval batch: K1 2, K3 1, K4 3; for ovd one step and one eval batch: K1 2,
 K3 1, K4 3; for fpn one step and one eval batch: K1 8, K3 4, K4 3; for
 mask (a)'s mask pool, the eval batch's mask pool and (b)'s re-pool, (a)'s
 RPN and eval NMS: K1 9, K3 4, K4 3; for keypoint K1 20, K3 10, K4 3; for
-cascade K1 38, K3 19, K4 3; for panoptic, lvis_fpn, gn and syncbn K1 16,
-K3 8, K4 3; for retinanet K4 1): the largest error and the sums of the
-times and bounds.
+cascade K1 38, K3 19, K4 3; for panoptic, lvis_fpn, gn, syncbn and dconv
+K1 16, K3 8, K4 3; for dconv_panoptic K1 32, K3 16, K4 3; for retinanet
+K4 1): the largest error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -1162,9 +1175,15 @@ def first_eval_batch(cfg, name, dev):
     return to_device(batch, dev)
 
 
+# each `time_device_batch` label's ms/step (CUDA events), for the phases that
+# print a step beside an earlier phase's on the same machine
+DEVICE_STEP_MS = {}
+
+
 def time_device_batch(label, trainer, batch, reps=5, what="caption on"):
     """The loop's step on a batch already on the card (no loader, no
-    hooks), after 2 warm-up steps: CUDA events and host wall, printed."""
+    hooks), after 2 warm-up steps: CUDA events and host wall, printed and
+    kept in DEVICE_STEP_MS[label]."""
     shape = tuple(batch.image.shape) if hasattr(batch, "image") else [tuple(b.image.shape) for p in batch for b in p]
     for _ in range(2):
         trainer.run_step(batch)
@@ -1176,8 +1195,9 @@ def time_device_batch(label, trainer, batch, reps=5, what="caption on"):
         trainer.run_step(batch)
     end.record()
     torch.cuda.synchronize()
+    DEVICE_STEP_MS[label] = start.elapsed_time(end) / reps
     print(f"{label} step on a batch already on the card ({shape}, {what}): "
-          f"{start.elapsed_time(end) / reps:.3f} ms/step CUDA events, "
+          f"{DEVICE_STEP_MS[label]:.3f} ms/step CUDA events, "
           f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms/step host wall ({reps} steps)")
 
 
@@ -4596,24 +4616,13 @@ def narrow_norm_model(norm, load_proposals=False):
                    box_conv_dim=16, box_num_fc=1, box_conv_norm=norm, mask_conv_norm=norm, load_proposals=load_proposals)
 
 
-def check_tiny_norms_against_cpu(dev):
-    """One fp32 training step (TF32 off) of a narrow GN and a narrow SyncBN
-    Mask R-CNN on the card (K1, K3) and on the CPU (plain versions), the
-    same weights, batch and draws: the losses to rtol 1e-4 and the update
-    (the parameters and the running statistics) to 1e-4 of its norm. Two
-    96x160 images without padding (over a zero-padded region the norms
-    take in constant maps, where cuDNN's and the CPU's convolutions leave
-    the values some ulps apart and the statistics magnify them) and 40
-    precomputed proposals an image (the RPN's top-k and NMS choose by
-    scores that float noise reorders: with the RPN, the CPU's own float32
-    GN step lies 3e-3 of the update's norm from its float64 step)."""
-    from cddmsl_torch.checkpoint.convert_jax import init_random_
-    from cddmsl_torch.config import SolverConfig
-    from cddmsl_torch.engine.train_loop import Trainer
+def tiny_unpadded_batch(seed, stuff_classes=0):
+    """Two unpadded 96x160 images with 3 boxes each, their stride-4 box
+    canvases and 40 precomputed proposals an image, from `seed`; with
+    `stuff_classes` labels of that many classes in 8x8 blocks too."""
     from cddmsl_torch.models.rcnn import DetBatch
-    from cddmsl_torch.solver.build import build_optimizer
 
-    gen = torch.Generator().manual_seed(PHASE20_SEED)
+    gen = torch.Generator().manual_seed(seed)
     b, g, h, w = 2, 3, 96, 160
     xy = torch.rand((b, g, 2), generator=gen) * torch.tensor([w * 0.5, h * 0.5])
     wh = 16 + torch.rand((b, g, 2), generator=gen) * torch.tensor([w * 0.4, h * 0.4])
@@ -4630,30 +4639,68 @@ def check_tiny_norms_against_cpu(dev):
                      gt_classes=torch.randint(0, 20, (b, g), generator=gen), gt_valid=torch.ones((b, g), dtype=bool),
                      proposal_boxes=proposals, proposal_scores=torch.zeros((b, 40)),
                      proposal_valid=torch.ones((b, 40), dtype=torch.bool), gt_masks=canvases)
+    if stuff_classes:
+        blocks = torch.randint(0, stuff_classes, (b, h // 8, w // 8), generator=gen)
+        batch = batch._replace(sem_seg=blocks.repeat_interleave(8, 1).repeat_interleave(8, 2).int())
+    return batch
+
+
+def step_card_vs_cpu(label, make_model, batch, dev, tol=1e-4):
+    """One fp32 training step (TF32 off) of `make_model()` (a CPU model) on
+    the card (K1, K3) and on the CPU (plain versions), the same weights,
+    batch and draws: the losses to rtol `tol` and the update (the
+    parameters and the running state) to `tol` of its norm, or the run
+    fails; printed."""
+    from cddmsl_torch.config import SolverConfig
+    from cddmsl_torch.engine.train_loop import Trainer
+    from cddmsl_torch.models.rcnn import DetBatch
+    from cddmsl_torch.solver.build import build_optimizer
+
+    model = make_model()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    results = {}
+    for device in ("cpu", dev):
+        twin = copy.deepcopy(model).to(device)
+        trainer = Trainer(twin, build_optimizer(twin, SolverConfig(base_lr=0.02, warmup_iters=0)),
+                          enable_caption=False)
+        metrics = trainer.train_step(DetBatch(*(None if f is None else f.to(device) for f in batch)),
+                                     site_draw(device))
+        results[str(device)] = ({k: v.item() for k, v in metrics.items() if k.startswith("loss")},
+                                {k: v.detach().cpu() for k, v in twin.state_dict().items()})
+    (want, want_sd), (got, got_sd) = results["cpu"], results[str(dev)]
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+    keys = [k for k in want_sd if want_sd[k].is_floating_point()]
+    num = sum(float(((got_sd[k].double() - want_sd[k].double()) ** 2).sum()) for k in keys)
+    den = sum(float(((want_sd[k].double() - before[k].double()) ** 2).sum()) for k in keys)
+    update_err = (num / den) ** 0.5
+    if not (loss_err <= tol and update_err <= tol and den > 0 and all(math.isfinite(v) for v in got.values())):
+        fail(f"{label} training step on the card disagrees with the CPU: loss rel err {loss_err}, update err "
+             f"{update_err} of its norm; card {got}, CPU {want}")
+    h, w = batch.image.shape[1:3]
+    print(f"{label} fp32 training step card vs CPU (unpadded {batch.image.shape[0]}x{h}x{w}, "
+          f"{batch.proposal_boxes.shape[1]} precomputed proposals an image): losses max rel err {loss_err:.3g} "
+          f"(tol {tol:g}), the update (parameters and running state) {update_err:.3g} of its norm (tol {tol:g})")
+
+
+def check_tiny_norms_against_cpu(dev):
+    """One fp32 training step (TF32 off) of a narrow GN and a narrow SyncBN
+    Mask R-CNN on the card (K1, K3) and on the CPU (plain versions), the
+    same weights, batch and draws (`step_card_vs_cpu`): the losses to rtol
+    1e-4 and the update (the parameters and the running statistics) to
+    1e-4 of its norm. Two 96x160 images without padding (over a
+    zero-padded region the norms take in constant maps, where cuDNN's and
+    the CPU's convolutions leave the values some ulps apart and the
+    statistics magnify them) and 40 precomputed proposals an image (the
+    RPN's top-k and NMS choose by scores that float noise reorders: with
+    the RPN, the CPU's own float32 GN step lies 3e-3 of the update's norm
+    from its float64 step)."""
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+
+    batch = tiny_unpadded_batch(PHASE20_SEED)
     for norm in ("GN", "SyncBN"):
-        results = {}
-        for device in ("cpu", dev):
-            model = init_random_(narrow_norm_model(norm, load_proposals=True),
-                                 torch.Generator().manual_seed(PHASE20_SEED + 1)).to(device)
-            before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-            trainer = Trainer(model, build_optimizer(model, SolverConfig(base_lr=0.02, warmup_iters=0)),
-                              enable_caption=False)
-            metrics = trainer.train_step(DetBatch(*(None if f is None else f.to(device) for f in batch)),
-                                         site_draw(device))
-            results[str(device)] = ({k: v.item() for k, v in metrics.items() if k.startswith("loss")},
-                                    {k: v.detach().cpu() for k, v in model.state_dict().items()})
-        (want, want_sd), (got, got_sd) = results["cpu"], results[str(dev)]
-        loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
-        keys = [k for k in want_sd if want_sd[k].is_floating_point()]
-        num = sum(float(((got_sd[k].double() - want_sd[k].double()) ** 2).sum()) for k in keys)
-        den = sum(float(((want_sd[k].double() - before[k].double()) ** 2).sum()) for k in keys)
-        update_err = (num / den) ** 0.5
-        if not (loss_err <= 1e-4 and update_err <= 1e-4 and den > 0):
-            fail(f"tiny {norm} training step on the card disagrees with the CPU: loss rel err {loss_err}, update "
-                 f"err {update_err} of its norm; card {got}, CPU {want}")
-        print(f"tiny {norm} fp32 training step card vs CPU (unpadded 2x{h}x{w}, 40 precomputed proposals an image): "
-              f"losses max rel err {loss_err:.3g} "
-              f"(tol 1e-4), the update (parameters and running statistics) {update_err:.3g} of its norm (tol 1e-4)")
+        step_card_vs_cpu(f"tiny {norm}", lambda: init_random_(narrow_norm_model(norm, load_proposals=True),
+                                                               torch.Generator().manual_seed(PHASE20_SEED + 1)),
+                         batch, dev)
 
 
 def batch_statistics(model, forward, batch):
@@ -4922,6 +4969,320 @@ def retinanet_lvis_norms_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 21: the deformable towers. (a) the dconv Mask R-CNN (DCN v2 on
+# res3..res5) over phase 16's COCO fixture, 6 steps and an eval batch; (b)
+# Panoptic FPN's R-101 with GN, DCN v1 and the cascade with masks over phase
+# 19's panoptic fixture, 3 steps and an eval batch; a narrow step of each on
+# the card against the CPU; deform_conv2d's calls timed; K1, K3 and K4 at the
+# calls recorded on both paths
+DCONV_CONFIG = "Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml"
+DCONV_PANOPTIC_CONFIG = "Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml"
+DCONV_NAMES = ("chip_smoke_dconv_train", "chip_smoke_dconv_val")
+DCONV_PANOPTIC_NAMES = ("chip_smoke_dconv_panoptic_train", "chip_smoke_dconv_panoptic_val")
+DCONV_STEPS, DCONV_PANOPTIC_STEPS = 6, 3
+DCONV_SEED, DCONV_CANDIDATES_SEED = 22, 23
+DCONV_OFFSET_PX = 1.0  # the seeded offsets' RMS, in pixels of the block's input map
+
+
+def deformable_blocks(model):
+    """The model's deformable bottlenecks (a `conv2_offset` each), in order."""
+    from cddmsl_torch.models.backbone.resnet import D2Bottleneck
+
+    return [m for m in model.modules() if isinstance(m, D2Bottleneck) and m.conv2_offset is not None]
+
+
+@torch.no_grad()
+def seed_offsets(model, images, seed, px=DCONV_OFFSET_PX):
+    """Each `conv2_offset` of `model` seeded with unit-normal weights and no
+    bias, then scaled, in two passes of `images` through the tower, so that
+    its offsets' RMS is `px` pixels (a zero offset conv, as at init, leaves
+    the tower a plain one; DCN v2's mask logits scale with the offsets).
+    Returns the mean |offset| of each block after."""
+    gen = torch.Generator().manual_seed(seed)
+    convs = [b.conv2_offset for b in deformable_blocks(model)]
+    for conv in convs:
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen).to(conv.weight))
+        conv.bias.zero_()
+
+    def offsets():  # each block's offsets, in the order the tower calls them
+        with recorded_deform_calls() as calls:
+            model.features(images)
+        return [args[1].float() for args, _ in calls]
+
+    for _ in range(2):
+        for conv, off in zip(convs, offsets()):
+            conv.weight.mul_(px / off.pow(2).mean().sqrt().item())
+    return [off.abs().mean().item() for off in offsets()]
+
+
+class FixedProposals(torch.nn.Module):
+    """An RPN in place of a model's own that hands every call the batch's
+    precomputed proposals and no loss (the narrow card-vs-CPU steps: the
+    RPN's top-k and NMS choose by scores that float noise reorders)."""
+
+    def __init__(self, boxes, valid):
+        super().__init__()
+        self.boxes, self.valid = boxes, valid
+
+    def forward(self, features, image_sizes, training=False, **unused):
+        from cddmsl_torch.models.rpn import Proposals
+
+        dev = features.device
+        valid = self.valid.to(dev)
+        scores = torch.zeros(valid.shape, device=dev)
+        return Proposals(boxes=self.boxes.to(dev), scores=scores, valid=valid), {}
+
+
+def narrow_dconv_model():
+    """The narrow FPN Mask R-CNN of the CPU tests with DCN v2 on res3..res5,
+    on the batch's precomputed proposals, its offsets seeded."""
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.models.fpn_rcnn import FPNRCNN
+
+    model = FPNRCNN(num_classes=20, depth=10, backbone_width=8, res2_out_channels=32, fpn_out_channels=32,
+                    fc_dim=64, emb_dim=48, rpn_pre_nms_topk=(64, 48), rpn_post_nms_topk=(32, 24),
+                    roi_batch_size_per_image=32, pixel_mean=(103.53, 116.28, 123.675),
+                    pixel_std=(57.375, 57.12, 58.395), mask_on=True, mask_num_conv=2, mask_conv_dim=16,
+                    deform_on_per_stage=(False, True, True, True), deform_modulated=True, load_proposals=True)
+    init_random_(model, torch.Generator().manual_seed(DCONV_SEED))
+    seed_offsets(model, tiny_unpadded_batch(DCONV_SEED).image, DCONV_SEED)
+    return model
+
+
+def narrow_dconv_panoptic_model(batch):
+    """The narrow Panoptic FPN of the CPU tests (depth 10, a bottleneck of
+    64) with the file's GN tower and FPN, DCN v1 on res3..res5 with the
+    stride in the 3x3 and the cascade with masks, on `batch`'s precomputed
+    proposals, its offsets seeded. At a bottleneck of 8 each of the tower's
+    GN groups is one channel and the float32 step is ill-conditioned (float
+    noise moves its update by more than the check's 1e-4 of its norm;
+    tests/test_torch_port_smoke.py measures both widths)."""
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.models.panoptic_fpn import PanopticFPN
+
+    model = PanopticFPN(num_classes=20, sem_seg_classes=6, depth=10, backbone_width=64, mask_on=True,
+                        mask_num_conv=2, mask_conv_dim=16, sem_seg_norm="GN", pixel_mean=(103.53, 116.28, 123.675),
+                        pixel_std=(57.375, 57.12, 58.395), backbone_norm="GN", fpn_norm="GN", stride_in_1x1=False,
+                        deform_on_per_stage=(False, True, True, True), cascade=True)
+    init_random_(model, torch.Generator().manual_seed(DCONV_SEED + 1))
+    seed_offsets(model, batch.image, DCONV_SEED + 1)
+    model.proposal_generator = FixedProposals(batch.proposal_boxes, batch.proposal_valid)
+    return model
+
+
+@contextlib.contextmanager
+def recorded_deform_calls():
+    """Within the block each `deform_conv2d` call of the towers is kept:
+    (its arguments detached, its keywords)."""
+    from cddmsl_torch.models.backbone import resnet
+
+    real, calls = resnet.deform_conv2d, []
+
+    def record(x, offsets, weight, mask=None, **kw):
+        calls.append(((x.detach(), offsets.detach(), weight.detach(), None if mask is None else mask.detach()), kw))
+        return real(x, offsets, weight, mask, **kw)
+
+    resnet.deform_conv2d = record
+    try:
+        yield calls
+    finally:
+        resnet.deform_conv2d = real
+
+
+def deform_bound_ms(n, c, h, w, ho, wo, cout, modulated):
+    """The least time of one `deform_conv2d` forward on the card: the larger
+    of its bytes (the (n, c, h, w) map, the offsets and the mask read once,
+    the (n, cout, ho, wo) output written once, fp32) over HBM3's rate and
+    its FLOPs (the im2col product's 2 x positions x 9c x cout, the bilinear
+    step's 4 multiply-adds per channel and tap) over fp32's peak."""
+    positions = n * ho * wo
+    flops = 2 * positions * 9 * c * cout + 8 * positions * 9 * c
+    moved = 4 * (n * c * h * w + positions * (27 if modulated else 18) + positions * cout)
+    return max(moved / H100_BYTES_PER_S, flops / H100_FP32_FLOP_PER_S) * 1e3
+
+
+def deform_call_ms(calls, label, smi):
+    """The recorded `deform_conv2d` calls timed on the card: the first call
+    of each shape again on its own inputs, forward alone and forward with
+    the backward of a random cotangent (CUDA events), times the number of
+    calls of that shape, beside the bound of the forward
+    (`deform_bound_ms`). Printed per shape and summed; returns (forward
+    ms, forward and backward ms, bound ms, calls)."""
+    from cddmsl_torch.ops.deform_conv import deform_conv2d
+
+    per_stage = collections.OrderedDict()
+    for (x, offsets, weight, mask), kw in calls:
+        n, c, h, w = x.shape
+        ho, wo, cout = offsets.shape[2], offsets.shape[3], weight.shape[0]
+        key = f"{h}x{w}x{c} -> {ho}x{wo}x{cout} stride {kw.get('stride', 1)}{' v2' if mask is not None else ''}"
+        if key in per_stage:
+            per_stage[key][0] += 1
+            continue
+        bound = deform_bound_ms(n, c, h, w, ho, wo, cout, mask is not None)
+        fwd = cuda_ms(lambda: deform_conv2d(x, offsets, weight, mask, **kw), 3, warmup=1)
+        leaves = [t.clone().requires_grad_() for t in (x, offsets, weight)] + (
+            [] if mask is None else [mask.clone().requires_grad_()])
+        cot = torch.randn((n, cout, ho, wo), device=x.device)
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                out = deform_conv2d(*leaves[:3], leaves[3] if mask is not None else None, **kw)
+                torch.autograd.backward(out, cot)
+
+        both = cuda_ms(fwd_bwd, 3, warmup=1)
+        per_stage[key] = [1, fwd, both, bound]
+    for key, (k, fwd, both, bound) in per_stage.items():
+        print(f"deform_conv2d {label} {k} calls {key} (batch {calls[0][0][0].shape[0]}, fp32): {fwd:.3f} ms "
+              f"forward, {both:.3f} ms forward and backward, forward bound {bound:.4f} ms (a call)")
+    totals = [sum(v[0] * v[i] for v in per_stage.values()) for i in (1, 2, 3)]
+    print(f"deform_conv2d {label}: {len(calls)} calls a step, {totals[0]:.3f} ms forward, {totals[1]:.3f} ms forward "
+          f"and backward, forward bound {totals[2]:.4f} ms (CUDA events, a call of each shape alone times its "
+          f"calls; on {smi})")
+    return (*totals, len(calls))
+
+
+def deformable_path(dev, smi, roi_ops, nms_ops):
+    """Phase 21: the deformable towers at full width (bf16, seeded random
+    weights, the stem scaled by `unit_scale_stem`, each offset conv seeded
+    to offsets of about a pixel by `seed_offsets`: at init the offset convs
+    are zero and the tower a plain one), batch 8 at the 800x1344 pad.
+    (a) `DefaultTrainer.train()` on configs/Misc/
+    mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml (R-50 FPN, DCN v2 on the 13
+    blocks of res3..res5) over phase 16's COCO fixture with its polygons: 6
+    steps at K1/K3/K4 8/8/1 a step or the run fails, every loss finite, then
+    an eval batch at 8/0/2. (b) configs/Misc/
+    panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml (R-101 with GN, GN FPN, DCN
+    v1 on the 30 blocks of res3..res5 with the stride in the 3x3, the
+    cascade with masks) over phase 19's panoptic fixture: 3 steps at
+    16/16/1 a step (three stages and the mask pooler on four levels, the
+    RPN on p2), every loss finite, an eval batch at 16/0/2. For each: the
+    step on a device batch (beside phase 17's plain mask step), each
+    deform_conv2d call of a step timed alone (`deform_call_ms`), the peak of
+    the card's memory in the steps, the eval batch's ms/image. (c) A narrow
+    step of each on the card against the CPU (fp32, unpadded, precomputed
+    proposals; `step_card_vs_cpu`: losses to rtol 1e-4, the update to 1e-4
+    of its norm). (d) K1 and K3 at every RoIAlign call and K4 at the RPN and
+    detection NMS that `KernelCalls` records in each path's last counted
+    step and eval batch, checked and timed as in phase 7. Returns
+    {"dconv": rows, "dconv_panoptic": rows}."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.coco import register_coco_instances
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_coco
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cddmsl_dconv_")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    out = {}
+    try:
+        # (c) the narrow steps first: a disagreement fails the run before the long paths
+        step_card_vs_cpu("tiny dconv (DCN v2)", narrow_dconv_model, tiny_unpadded_batch(DCONV_SEED), dev)
+        pan_batch = tiny_unpadded_batch(DCONV_SEED + 1, stuff_classes=6)
+        step_card_vs_cpu("tiny panoptic dconv (GN, DCN v1, cascade)",
+                         lambda: narrow_dconv_panoptic_model(pan_batch), pan_batch, dev)
+        print(f"deformable phase: the narrow steps in {time.perf_counter() - t_phase:.1f} s wall")
+
+        json_path, img_root = make_synthetic_coco(os.path.join(root, "coco"), n=FPN_IMAGES, seed=16,
+                                                  classes=COCO_CLASSES, hw=FPN_HW)
+        for name in DCONV_NAMES:
+            register_coco_instances(name, json_path, img_root)
+        write_panoptic_fixture(root, DCONV_PANOPTIC_NAMES, PANOPTIC_SEED)
+        paths = (
+            ("dconv", DCONV_CONFIG, DCONV_NAMES, DCONV_STEPS, (8, 8, 1), (8, 0, 2),
+             {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_mask"}),
+            ("dconv_panoptic", DCONV_PANOPTIC_CONFIG, DCONV_PANOPTIC_NAMES, DCONV_PANOPTIC_STEPS, (16, 16, 1),
+             (16, 0, 2), {"loss_rpn_cls", "loss_rpn_loc", "loss_mask", "loss_sem_seg",
+                          *(f"loss_{k}_stage{i}" for k in ("cls", "box_reg") for i in range(3))}),
+        )
+        for label, config, names, steps, want_step, want_eval, loss_names in paths:
+            t_path = time.perf_counter()
+            cfg = train_cfg(root, config, names, steps, test=False)
+            trainer = recording_trainer_class(roi_ops, nms_ops, DCONV_CANDIDATES_SEED)(cfg, device="cuda")
+            trainer.resume_or_load(resume=False)
+            model = trainer.model
+            unit_scale_stem(model)
+            with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+                train_batch = to_device(next(train_loader), dev)
+            offsets = seed_offsets(model, train_batch.image, DCONV_SEED)
+            m = cfg.MODEL.RESNETS
+            print(f"{label}: configs/{config} (R-{m.DEPTH} {m.NORM}, FPN.NORM {cfg.MODEL.FPN.NORM!r}, DCN "
+                  f"{'v2' if m.DEFORM_MODULATED else 'v1'} on {len(offsets)} blocks of "
+                  f"{[s for s, on in zip(('res2', 'res3', 'res4', 'res5'), m.DEFORM_ON_PER_STAGE) if on]}, "
+                  f"STRIDE_IN_1X1 {m.STRIDE_IN_1X1}, {cfg.MODEL.ROI_HEADS.NAME}, MASK_ON {cfg.MODEL.MASK_ON}, "
+                  f"{cfg.SOLVER.IMS_PER_BATCH} images a step padded to {tuple(cfg.TPU.PAD_SIZE_TRAIN)}, "
+                  f"{cfg.TPU.COMPUTE_DTYPE}); seeded offsets mean |offset| {min(offsets):.3f}..{max(offsets):.3f} "
+                  f"px over the blocks")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+            trainer.train()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = read_launches(roi_ops, nms_ops)
+            step_calls, probe = trainer.step_calls, trainer.probe
+            waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+            per_step = loop_steps(label, probe, waits, steps, steps, (want_step, want_step))
+            losses = [{k: v.item() for k, v in step.items()} for step in trainer.step_losses]
+            if len(losses) != steps or any(set(step) != loss_names for step in losses) or not all(
+                    math.isfinite(v) for step in losses for v in step.values()):
+                fail(f"{label}: the losses are not the finite {sorted(loss_names)}: {losses}")
+            for i in (0, steps - 1):
+                print(f"{label} step {i + 1} losses: {json.dumps({k: round(v, 6) for k, v in losses[i].items()})}")
+            warm = per_step[1:]
+            print(f"{label} loop, steps 2-{steps}: {mean([p[0] for p in warm]):.3f} ms/step CUDA events, "
+                  f"{mean([p[2] for p in warm]):.3f} ms/step waiting on the loader; peak card memory in the "
+                  f"steps {peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); on {smi}")
+
+            eval_batch = first_eval_batch(cfg, names[1], dev)
+            n_img = eval_batch.image.shape[0]
+            eval_calls = KernelCalls(DCONV_CANDIDATES_SEED)
+            reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+            with eval_calls.recording("eval"):
+                model.inference(eval_batch)
+            per_batch = read_launches(roi_ops, nms_ops)
+            if tuple(per_batch[k] for k in keys) != want_eval:
+                fail(f"{label}: an eval batch launched K1/K3/K4 {per_batch}, expected {want_eval}")
+            ms = cuda_ms(lambda: model.inference(eval_batch), 3, warmup=1)
+            print(f"{label} eval batch {tuple(eval_batch.image.shape)}: {ms / n_img:.3f} ms/image CUDA events, "
+                  f"K1/K3/K4 {want_eval}")
+            launches = {k: launches[k] + per_batch[k] for k in keys}
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            time_device_batch(label, trainer, train_batch, reps=3, what="supervised, DCN on")
+            print(f"{label} step on a device batch {DEVICE_STEP_MS[label]:.3f} ms beside phase 17's plain R-50 FPN "
+                  f"Mask R-CNN step {DEVICE_STEP_MS.get('mask', float('nan')):.3f} ms (same card, same batch shape); "
+                  f"peak card memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+            with recorded_deform_calls() as dcalls, torch.enable_grad():
+                trainer.run_step(train_batch)
+            deform = deform_call_ms(dcalls, label, smi)
+            if deform[3] != len(offsets):
+                fail(f"{label}: a step made {deform[3]} deform_conv2d calls, expected {len(offsets)}")
+            print(f"{label}: deform_conv2d's calls, forward and backward, {deform[1]:.3f} ms beside the "
+                  f"{DEVICE_STEP_MS[label]:.3f} ms step ({deform[1] / DEVICE_STEP_MS[label]:.1%}; the calls timed alone)")
+            print(f"{label} path launches ({steps} steps and an eval batch): {launches}")
+            rows = {name: new_row(launches[name]) for name in ("roi_align_fwd", "roi_align_bwd")}
+            for calls in (step_calls, eval_calls):
+                add_roi_rows(rows, dev, roi_ops, label, calls.pools, calls.k3)
+            rows = {name: close_row(row) for name, row in rows.items()}
+            rows["nms"] = nms_row(nms_ops, label, launches["nms"], step_calls.nms + eval_calls.nms)
+            out[label] = rows
+            print(f"{label} path: {time.perf_counter() - t_path:.1f} s wall")
+            del trainer, model, train_batch, eval_batch
+            torch.cuda.empty_cache()
+        print(f"deformable phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return out
+    finally:
+        for name in (*DCONV_NAMES, *DCONV_PANOPTIC_NAMES):
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -4993,6 +5354,8 @@ def main() -> int:
     paths.update(panoptic_path(dev, smi, roi_ops, nms_ops))
     torch.cuda.empty_cache()
     paths.update(retinanet_lvis_norms_path(dev, smi, roi_ops, nms_ops))
+    torch.cuda.empty_cache()
+    paths.update(deformable_path(dev, smi, roi_ops, nms_ops))
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

@@ -89,12 +89,16 @@ def port_tree_shapes(module, use_text_emb=None, rules=None):
     inverse, tree = _inverse_rules(rules), {}
     # the two classifiers share the torch name `cls_score.weight`
     other_head = "roi_heads/box_predictor/cls_score" + ("/kernel" if use_text_emb else "_weight")
-    for key, value in module.state_dict().items():
+    state = module.state_dict()
+    # a deformable block's 3x3 is JAX's raw `conv2_kernel`, a plain one's conv2/kernel
+    deform = {k[: -len(".conv2_offset.weight")] for k in state if k.endswith(".conv2_offset.weight")}
+    for key, value in state.items():
         offline = key.startswith(convert_jax._OFFLINE + ".")
         name = "backbone" + key[len(convert_jax._OFFLINE):] if offline else key
+        raw = key.endswith(".conv2.weight") and key[: -len(".conv2.weight")] in deform
         for regex, pieces, layout in inverse:
             m = regex.fullmatch(name)
-            if m and pieces[0] == other_head:
+            if m and (pieces[0] == other_head or raw != pieces[-1].endswith("conv2_kernel")):
                 continue
             if m:
                 groups = [m.group(f"g{i}") for i in range(1, len(pieces))]

@@ -445,6 +445,8 @@ _FPN_TAKEN = [
     ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.BACKBONE.NAME", "build_clip_resnet_fpn_backbone"),
     ("MODEL.RESNETS.NORM", "GN"), ("MODEL.FPN.NORM", "GN"), ("MODEL.ROI_BOX_HEAD.NUM_CONV", 4),
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 1), ("MODEL.ROI_BOX_HEAD.NORM", "GN"),
+    # the deformable stages, ported since (test_torch_port_dconv.py)
+    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]),
 ]
 
 
@@ -482,7 +484,7 @@ def test_the_fpn_family_takes_the_norms_and_the_clip_tower_with_the_jax_builders
     ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"),
     ("MODEL.ROI_BOX_CASCADE_HEAD.IOUS", [0.5, 0.55, 0.6]),
     ("MODEL.BACKBONE.NAME", "build_regnet_fpn_backbone"),
-    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]),
+    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [True, True, True]),  # not one flag a stage (JAX indexes four)
     ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", "diou"), ("MODEL.RPN.BBOX_REG_LOSS_TYPE", "diou"),
     ("MODEL.RESNETS.DEPTH", 18), ("MODEL.RESNETS.DEPTH", 34), ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 14 * 2),
     ("MODEL.CONSISTENCY_BRANCH", "image"), ("MODEL.CLIP.FOCAL_SCALED_LOSS", 0.5),

@@ -209,8 +209,8 @@ def test_two_lvis_steps_through_train_net(tmp_path, monkeypatch):
 
 # ---------------- the census ----------------
 # the YAML files the port still refuses, with the key each names: CLIPFastRCNN (JAX's trainer cannot build
-# it), the plain C4 files held by the caption consistency, the deformable towers (ROADMAP B2), the rotated
-# boxes (B3) and Cityscapes' instance sets (A6)
+# it), the plain C4 files held by the caption consistency, the X-152 32x8d deformable tower (JAX's deformable
+# block fails at init with 32 groups), the rotated boxes (B3) and Cityscapes' instance sets (A6)
 CENSUS_REFUSED = {
     "COCO-Detection/faster_rcnn_R_50_C4_1x.yaml": "TPU.ENABLE_CAPTION_CONSISTENCY",
     "COCO-InstanceSegmentation/CLIP_fast_rcnn_R_50_C4_ovd.yaml": "MODEL.META_ARCHITECTURE",
@@ -227,17 +227,15 @@ CENSUS_REFUSED = {
     "LVISv1-InstanceSegmentation/CLIP_fast_rcnn_R_50_C4_custom_img.yaml": "MODEL.META_ARCHITECTURE",
     "LVISv1-InstanceSegmentation/CLIP_fast_rcnn_R_50_C4_zsinf.yaml": "MODEL.META_ARCHITECTURE",
     "LVISv1-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml": "TPU.ENABLE_CAPTION_CONSISTENCY",
-    "Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml": "MODEL.RESNETS.DEFORM_ON_PER_STAGE",
-    "Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml": "MODEL.RESNETS.DEFORM_MODULATED",
-    "Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml": "MODEL.RESNETS.DEFORM_MODULATED",
-    "Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml": "MODEL.RESNETS.NORM",
+    "Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml": "MODEL.RESNETS.NUM_GROUPS",
     "Misc/rotated_faster_rcnn.yaml": "MODEL.META_ARCHITECTURE",
 }
 CENSUS = sorted(str(p.relative_to(REPO / "configs")) for p in (REPO / "configs").rglob("*.yaml"))
 
 
 def test_the_census_is_100_of_120():
-    assert len(CENSUS) == 120 and set(CENSUS_REFUSED) <= set(CENSUS) and len(CENSUS) - len(CENSUS_REFUSED) == 100
+    """103 of the 120 since the deformable stages (the name is the census's at its first count)."""
+    assert len(CENSUS) == 120 and set(CENSUS_REFUSED) <= set(CENSUS) and len(CENSUS) - len(CENSUS_REFUSED) == 103
 
 
 @pytest.mark.parametrize("path", CENSUS)

@@ -639,13 +639,11 @@ def test_faster_rcnn_takes_giou(key):
     check_supported(c4, world=1)
 
 
+# the two dconv_c3-c5 files and the panoptic dconv-GN-cascade one are accepted since the deformable stages were
+# ported (test_torch_port_dconv.py, _dconv_panoptic.py); the X-152 file names its 32 groups (its id kept)
 REFUSED = [
-    ("Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
-    # Panoptic FPN is ported: the file is refused for its GN tower (its id kept from before)
-    pytest.param("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", "MODEL.RESNETS.NORM",
-                 id="panoptic_fpn_R_101_dconv_cascade_gn_3x-MODEL.SEM_SEG_HEAD"),
-    ("Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "MODEL.RESNETS.DEFORM_ON_PER_STAGE"),
-    ("Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml", "MODEL.RESNETS.DEFORM_MODULATED"),
+    pytest.param("Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "MODEL.RESNETS.NUM_GROUPS",
+                 id="cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv-MODEL.RESNETS.DEFORM_ON_PER_STAGE"),
     ("Cityscapes/mask_rcnn_R_50_FPN.yaml", "DATASETS.TRAIN"),
     ("COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml", "TPU.ENABLE_CAPTION_CONSISTENCY"),
 ]

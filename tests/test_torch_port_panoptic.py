@@ -424,9 +424,11 @@ def test_the_full_width_builds():
 
 
 @pytest.mark.parametrize("path, opts, key", [
-    ("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", (), "MODEL.RESNETS.NORM"),
-    (OPENED[1], ("MODEL.ROI_HEADS.NAME", "CascadeROIHeads"), "MODEL.ROI_HEADS.NAME"),
-    (OPENED[1], ("MODEL.FPN.NORM", "GN"), "MODEL.FPN.NORM"),
+    # the dconv-GN-cascade file, the cascade and FPN.NORM GN are ported (test_torch_port_dconv_panoptic.py):
+    # a norm and heads the port's Panoptic FPN does not build, under the same ids
+    ("Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml", ("MODEL.RESNETS.NORM", "SyncBN"), "MODEL.RESNETS.NORM"),
+    (OPENED[1], ("MODEL.ROI_HEADS.NAME", "Res5ROIHeads"), "MODEL.ROI_HEADS.NAME"),
+    (OPENED[1], ("MODEL.FPN.NORM", "SyncBN"), "MODEL.FPN.NORM"),
     (OPENED[1], ("MODEL.PANOPTIC_FPN.COMBINE.ENABLED", "False"), "MODEL.PANOPTIC_FPN.COMBINE.ENABLED"),
     (OPENED[1], ("MODEL.RPN.POST_NMS_TOPK_TRAIN", "500"), "MODEL.RPN.POST_NMS_TOPK_TRAIN"),
     (OPENED[1], ("MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "128"), "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE"),

@@ -478,3 +478,150 @@ def test_mean_teacher_kernel_calls_are_the_steps_own(monkeypatch, tmp_path):
             assert torch.equal(x, y)
         assert got[3:] == want[3:]
     assert len(nms_calls) == 4 and nms_calls[1][3:] == (0.5, 100)  # the teacher's detection NMS (eval_kernel_calls)
+
+
+# ---------------- phase 21: the deformable towers ----------------
+@pytest.mark.parametrize("label, config, modulated, blocks", [
+    ("dconv", chip_smoke.DCONV_CONFIG, True, 13), ("dconv_panoptic", chip_smoke.DCONV_PANOPTIC_CONFIG, False, 30),
+])
+def test_phase_21_trains_the_dconv_files_at_batch_8(tmp_path, label, config, modulated, blocks):
+    """The files as phase 21 runs them: DCN v2 on R-50's res3..res5 (13
+    blocks) and DCN v1 on R-101's (30, with GN, the stride in the 3x3 and
+    the cascade), batch 8, no final test (an eval batch instead)."""
+    from cddmsl_torch.config import check_supported
+    from cddmsl_torch.models.build import build_detector
+
+    steps = chip_smoke.DCONV_STEPS if label == "dconv" else chip_smoke.DCONV_PANOPTIC_STEPS
+    cfg = chip_smoke.train_cfg(str(tmp_path), config, ("a", "b"), steps, test=False)
+    check_supported(cfg, world=1)
+    m = cfg.MODEL.RESNETS
+    assert list(m.DEFORM_ON_PER_STAGE) == [False, True, True, True] and m.DEFORM_MODULATED is modulated
+    assert (cfg.SOLVER.IMS_PER_BATCH, cfg.SOLVER.MAX_ITER, cfg.DATASETS.TEST) == (8, steps, ())
+    if label == "dconv_panoptic":
+        assert (m.DEPTH, m.NORM, cfg.MODEL.FPN.NORM, m.STRIDE_IN_1X1) == (101, "GN", "GN", False)
+        assert cfg.MODEL.ROI_HEADS.NAME == "CascadeROIHeads" and cfg.MODEL.MASK_ON
+    with torch.device("meta"):
+        model = build_detector(cfg, device="meta")
+    assert len(chip_smoke.deformable_blocks(model)) == blocks
+
+
+@pytest.mark.parametrize("which", ["dconv", "dconv_panoptic"])
+def test_seed_offsets_moves_every_tap_by_about_a_pixel(which):
+    """A zero offset conv (the init) leaves the tower a plain one; after
+    `seed_offsets` each block's offsets have an RMS of DCONV_OFFSET_PX over
+    the images it was seeded on (the two passes agree within a few %), and
+    the tower's output differs from the plain tower's."""
+    batch = chip_smoke.tiny_unpadded_batch(5, stuff_classes=6)
+    if which == "dconv":
+        model = chip_smoke.narrow_dconv_model()
+        init_random_(model, torch.Generator().manual_seed(1))
+    else:
+        model = chip_smoke.narrow_dconv_panoptic_model(batch)
+        init_random_(model, torch.Generator().manual_seed(1))
+    convs = [b.conv2_offset for b in chip_smoke.deformable_blocks(model)]
+    assert len(convs) == 3 and all(not c.weight.any() for c in convs)
+    def p2(images):  # FPNRCNN's features are (the heads' levels, the RPN's), Panoptic FPN's its levels
+        levels = model.features(images)
+        return levels[0][0] if isinstance(levels[0], list) else levels[0]
+
+    with torch.no_grad():
+        plain = p2(batch.image)
+        mean_abs = chip_smoke.seed_offsets(model, batch.image, 7)
+        with chip_smoke.recorded_deform_calls() as calls:
+            moved = p2(batch.image)
+    assert len(calls) == 3 and all(0.3 < v < 1.2 for v in mean_abs)
+    for (args, kw) in calls:
+        rms = float(args[1].float().pow(2).mean().sqrt())
+        assert abs(rms - chip_smoke.DCONV_OFFSET_PX) < 0.1, rms
+        assert kw["layout"] == "NCHW" and (args[3] is not None) == (which == "dconv")
+    assert not torch.allclose(plain, moved)
+
+
+@pytest.mark.parametrize("which", ["dconv", "dconv_panoptic"])
+def test_kernel_calls_are_wired_on_both_deformable_paths(monkeypatch, which):
+    """`KernelCalls` records a narrow deformable model's step and eval
+    batch as phase 21's paths make them: the dconv Mask R-CNN's box and mask
+    pools on four levels (8 a step, all with a gradient; 8 an eval batch)
+    and its RPN and detection NMS; the panoptic dconv cascade's three stage
+    pools and the mask pool (16 a step and an eval batch), its RPN on p2 and
+    the detection NMS; each recorded call replays to what the model got."""
+    from test_torch_port_cascade import recorded_kernel_calls
+
+    from cddmsl_torch.config import SolverConfig
+    from cddmsl_torch.models.fpn_rcnn import FPNRCNN
+    from cddmsl_torch.models.panoptic_fpn import PanopticFPN
+
+    batch = chip_smoke.tiny_unpadded_batch(5, stuff_classes=6)
+    batch = batch._replace(proposal_boxes=None, proposal_scores=None, proposal_valid=None)
+    common = dict(num_classes=20, depth=10, backbone_width=8, mask_on=True, mask_num_conv=2, mask_conv_dim=16,
+                  pixel_mean=(103.53, 116.28, 123.675), pixel_std=(57.375, 57.12, 58.395),
+                  deform_on_per_stage=(False, True, True, True))
+    if which == "dconv":
+        model = FPNRCNN(**common, res2_out_channels=32, fpn_out_channels=32, fc_dim=64, emb_dim=48,
+                        rpn_pre_nms_topk=(64, 48), rpn_post_nms_topk=(32, 24), roi_batch_size_per_image=32,
+                        deform_modulated=True)
+        per_step = 8
+    else:
+        model = PanopticFPN(**common, sem_seg_classes=6, sem_seg_norm="GN", backbone_norm="GN", fpn_norm="GN",
+                            stride_in_1x1=False, cascade=True)
+        per_step = 16
+    init_random_(model, torch.Generator().manual_seed(2))
+    chip_smoke.seed_offsets(model, batch.image, 3)
+    trainer = Trainer(model, build_optimizer(model, SolverConfig(base_lr=0.001, warmup_iters=0)),
+                      enable_caption=False)
+    step = recorded_kernel_calls(monkeypatch, "step", lambda: trainer.train_step(batch, chip_smoke.site_draw("cpu")))
+    assert len(step.pools) == len(step.k3) == per_step and len(step.nms) == 1
+    with torch.no_grad():
+        ev = recorded_kernel_calls(monkeypatch, "eval", lambda: model.inference(batch))
+    assert len(ev.pools) == per_step and not ev.k3 and len(ev.nms) == 2
+
+
+def test_deform_bound_counts_each_byte_once_and_the_products_flops():
+    """One res4 call of R-101 at batch 8 (50x84x256 -> 50x84x256, DCN v1):
+    the im2col product's FLOPs over fp32's peak exceed the bytes' time."""
+    n, c, h, w, cout = 8, 256, 50, 84, 256
+    positions = n * h * w
+    flops = 2 * positions * 9 * c * cout + 8 * positions * 9 * c
+    moved = 4 * (n * c * h * w + positions * 18 + positions * cout)
+    want = max(flops / chip_smoke.H100_FP32_FLOP_PER_S, moved / chip_smoke.H100_BYTES_PER_S) * 1e3
+    assert chip_smoke.deform_bound_ms(n, c, h, w, h, w, cout, False) == pytest.approx(want, rel=1e-12)
+    assert want == pytest.approx(flops / chip_smoke.H100_FP32_FLOP_PER_S * 1e3)
+    assert chip_smoke.deform_bound_ms(n, c, h, w, h, w, cout, True) >= chip_smoke.deform_bound_ms(
+        n, c, h, w, h, w, cout, False)
+
+
+def _update_under_noise(make_model, batch):
+    """One fp32 step of `make_model()` on the CPU, and of the same model
+    with every weight moved by 1e-7 of its value: the two updates apart,
+    over the first update's norm."""
+    import copy
+
+    from cddmsl_torch.config import SolverConfig
+
+    model = make_model()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    moved = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for p in moved.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    after = []
+    for m in (model, moved):
+        trainer = Trainer(m, build_optimizer(m, SolverConfig(base_lr=0.02, warmup_iters=0)), enable_caption=False)
+        trainer.train_step(batch, chip_smoke.site_draw("cpu"))
+        after.append(m.state_dict())
+    keys = [k for k in before if before[k].is_floating_point()]
+    num = sum(float(((after[1][k].double() - after[0][k].double()) ** 2).sum()) for k in keys)
+    den = sum(float(((after[0][k].double() - before[k].double()) ** 2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def test_the_narrow_panoptic_dconv_step_is_well_conditioned():
+    """Phase 21 holds the narrow panoptic dconv step on the card to the
+    CPU's within 1e-4 of the update's norm: at its bottleneck of 64 float
+    noise (weights moved by 1e-7) moves the CPU's own update by well under
+    that (at 8, where each of the tower's GN groups is one channel, it
+    moves it by more)."""
+    batch = chip_smoke.tiny_unpadded_batch(chip_smoke.DCONV_SEED + 1, stuff_classes=6)
+    apart = _update_under_noise(lambda: chip_smoke.narrow_dconv_panoptic_model(batch), batch)
+    assert apart < 5e-5, apart

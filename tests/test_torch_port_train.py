@@ -367,6 +367,21 @@ def test_train_entry_refuses_a_missing_card():
 
 
 # ---------------- the whole tiny step ----------------
+def keeping_gradients(optimizer):
+    """`optimizer` with the gradient `make_train_step` hands it (the
+    losses' gradient with respect to every parameter, before the chain's
+    clipping and masking) kept beside its state: (state, gradient)."""
+
+    def init(params):
+        return optimizer.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        updates, inner = optimizer.update(grads, state[0], params)
+        return updates, (inner, grads)
+
+    return optax.GradientTransformation(init, update)
+
+
 @pytest.fixture(scope="module")
 def step_runs():
     cfg = _flagship_cfg(tiny=True)
@@ -379,23 +394,15 @@ def step_runs():
     rng = jax.random.PRNGKey(1)
     burnup = cfg.SOLVER.CAPTION_BURNUP_ITERS
 
-    optimizer = jax_build_optimizer(cfg, params)
+    optimizer = keeping_gradients(jax_build_optimizer(cfg, params))
     state = TrainState.create(params, optimizer).replace(step=jnp.asarray(burnup + 1, jnp.int32))
     step_fn = make_train_step(
         model, optimizer, caption_burnup_iters=burnup, lr_schedule=jax_build_lr_schedule(cfg), donate=False
     )
-
-    def losses_and_grads(p, b, r):
-        def total(p):
-            losses = model.apply(p, b, r, True, True, True, method=model.cddmsl_losses)
-            return sum(losses.values()), losses
-
-        return jax.grad(total, has_aux=True)(p)
-
-    # one program for the gradients and the step, so the module compiles once
-    (grads, losses), (new_state, metrics) = jax.jit(
-        lambda p, s, b, r: (losses_and_grads(p, b, r), step_fn.__wrapped__(s, b, r))
-    )(params, state, jb, rng)
+    # one program: the step, whose optimizer keeps the gradient it was handed
+    new_state, metrics = step_fn(state, jb, rng)
+    grads = new_state.opt_state[1]
+    losses = {k: v for k, v in metrics.items() if k in LOSS_NAMES}
     mask = trainable_mask(params)
     mask_arrays = jax.tree_util.tree_map(lambda m, p: np.full(p.shape, m, np.float32), mask, params)
 
