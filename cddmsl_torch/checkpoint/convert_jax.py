@@ -50,6 +50,12 @@ head/cls_conv{i} and box_conv{i} to detectron2's `head.cls_subnet.{2i}` and
 `batch_stats` hold `loss_normalizer`. A tree with `batch_stats` (SyncBN
 models too) converts that collection by the same rules into the buffers.
 
+A JAX `RotatedFastRCNN` tree (its `roi_heads` has `fc1`) converts the
+plain tower (a BasicBlock's conv1, conv2, bn1, bn2, shortcut and
+shortcut_bn map as a bottleneck's do), the RPN head and
+roi_heads/{fc1, fc2} to `roi_heads.box_head.fc1/fc2`, cls_score and
+bbox_pred to `roi_heads.box_predictor.*`.
+
 A JAX `CLIPFastRCNN` tree (it has `offline_proposal_generator`) converts
 by its own rules, chosen by the module and not by a tower's name: its
 `offline_backbone` is the plain `D2ResNet` (detectron2's names under
@@ -276,6 +282,16 @@ _RETINANET_RULES: Tuple[Tuple[str, str, str], ...] = (
     (r"head/(cls_score|bbox_pred)/bias", r"head.\1.bias", "copy"),
     (r"loss_normalizer", r"loss_normalizer", "copy"),
 )
+# RotatedFastRCNN: the plain tower, the rotated RPN's head and RROIHeads' fcs
+# (fc1's rows in the pooled map's HWC order, as the port's head reads it)
+_ROTATED_RULES: Tuple[Tuple[str, str, str], ...] = (
+    *_D2_BACKBONE_RULES,
+    *_rpn_rules("proposal_generator"),
+    (r"roi_heads/(fc[12])/kernel", r"roi_heads.box_head.\1.weight", "dense"),
+    (r"roi_heads/(fc[12])/bias", r"roi_heads.box_head.\1.bias", "copy"),
+    (r"roi_heads/(cls_score|bbox_pred)/kernel", r"roi_heads.box_predictor.\1.weight", "dense"),
+    (r"roi_heads/(cls_score|bbox_pred)/bias", r"roi_heads.box_predictor.\1.bias", "copy"),
+)
 _CAPTION_RULES: Tuple[Tuple[str, str, str], ...] = (
     *_mapper_rules("clip_project"),
     (r"gpt/(wte|wpe)", r"gpt.transformer.\1.weight", "copy"),
@@ -350,6 +366,8 @@ def jax_family_rules(tree: Mapping[str, Any]):
         return _FPN_RULES, "FPN"
     if "box_head_fc1" in tree.get("roi_heads", {}):
         return _DC5_RULES, "DC5"
+    if "fc1" in tree.get("roi_heads", {}):
+        return _ROTATED_RULES, "RotatedFastRCNN"
     return _RULES, ""
 
 

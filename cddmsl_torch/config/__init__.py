@@ -40,6 +40,14 @@ PanopticFPN and the SemanticSegmentor (MODEL.META_ARCHITECTURE) to
 deformable stages and the cascade heads), and RetinaNet to
 `_retinanet_checks`. A deformable stage with RESNETS.NUM_GROUPS above 1
 is refused naming NUM_GROUPS: JAX's block asserts one group there.
+RESNETS.DEPTH 18 and 34 build BasicBlock towers (`BASIC_BLOCK_DEPTHS`)
+for the detectors that read the tower's widths from it (the FPN family,
+RetinaNet, PanopticFPN, the semantic segmentor); the detectors on res4 or
+res5 at fixed widths (the C4 heads, ProposalNetwork and the cascade on
+res4, DC5) take the bottleneck depths alone (`BOTTLENECK_DEPTHS`).
+MODEL.META_ARCHITECTURE RotatedFastRCNN is refused as CLIPFastRCNN is:
+JAX's trainer cannot build it; `models.build.build_rotated_fast_rcnn`
+builds it from the tree.
 """
 
 import dataclasses
@@ -60,9 +68,15 @@ RESNET_SPECS = {50: ((3, 4, 6, 3), 64), 101: ((3, 4, 23, 3), 64), 200: ((4, 6, 1
 EMBED_DIMS = {50: 1024, 101: 512, 200: 640}
 IMAGE_RESOLUTIONS = {50: 224, 101: 224, 200: 288}
 # MODEL.RESNETS.DEPTH -> bottleneck blocks per stage of the plain tower
-# (cddmsl_tpu/models/backbone/resnet.py; 10 is the tests' depth). Depths 18
-# and 34 take BasicBlocks, which are not ported.
-D2_RESNET_SPECS = {10: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+# (cddmsl_tpu/models/backbone/resnet.py; 10 is the tests' depth); depths 18
+# and 34 stack BasicBlocks (`BASIC_BLOCK_DEPTHS`)
+D2_RESNET_SPECS = {10: (1, 1, 1, 1), 18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+                   152: (3, 8, 36, 3)}
+BASIC_BLOCK_DEPTHS = (18, 34)
+# the depths of the detectors that read res4 or res5 at fixed widths (1024
+# into the C4 RPN, 2048 into the C4 heads): BasicBlock towers are not
+# ported there
+BOTTLENECK_DEPTHS = tuple(d for d in D2_RESNET_SPECS if d not in BASIC_BLOCK_DEPTHS)
 CLIP_TOWER, D2_TOWER = "build_clip_resnet_backbone", "build_resnet_backbone"
 # MODEL.CONSISTENCY_BRANCH values, as the JAX DefaultTrainer asserts them
 CONSISTENCY_BRANCHES = ("", "image", "image_region", "caption_pl_img", "caption_pl_region")
@@ -144,6 +158,7 @@ class ModelConfig:
 class SolverConfig:
     base_lr: float = 0.001
     momentum: float = 0.9
+    nesterov: bool = False  # SOLVER.NESTEROV
     weight_decay: float = 1e-4
     gamma: float = 0.1
     steps: Tuple[int, ...] = (30000,)  # WarmupMultiStepLR milestones
@@ -237,7 +252,7 @@ _SUPPORTED_TOWERS: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
 # what the plain tower does not have or take: its depth's own widths, no
 # attention pool, no CLIP embedding, no offline copy
 _SUPPORTED_D2: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
-    ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
+    ("MODEL.RESNETS.DEPTH", lambda v: v in BOTTLENECK_DEPTHS),
     ("TPU.BACKBONE_LAYERS", _falsy),
     ("TPU.BACKBONE_WIDTH", _falsy),
     ("TPU.EMBED_DIM", _falsy),
@@ -247,7 +262,6 @@ _SUPPORTED_D2: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.VISION_TO_LANG_PATH", _falsy),
 )
 _SUPPORTED_SOLVER: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
-    ("SOLVER.NESTEROV", _falsy),
     ("SOLVER.LR_SCHEDULER_NAME", lambda v: v in ("WarmupMultiStepLR", "WarmupCosineLR")),
     ("SOLVER.WARMUP_METHOD", lambda v: v in ("linear", "constant")),
     ("SOLVER.CLIP_GRADIENTS.CLIP_TYPE", lambda v: v in ("value", "norm")),
@@ -270,7 +284,8 @@ _SUPPORTED_RUN: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("TPU.MOE.NUM_EXPERTS", _falsy),
     ("TPU.QUANT_EVAL", _falsy),
     ("TPU.ASYNC_CHECKPOINT", _falsy),
-    ("TPU.PAD_BUCKETS", _falsy),
+    # a ladder of (h, w) pad sizes for the train loader (data/build.py `_bucket_for`)
+    ("TPU.PAD_BUCKETS", lambda v: all(len(b) == 2 and min(b) > 0 for b in v)),
     *_SUPPORTED_DTYPE,
 )
 _SUPPORTED: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
@@ -298,9 +313,6 @@ _SUPPORTED_MASK: Tuple[Tuple[str, Callable[[Any], bool]], ...] = (
     ("MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO", lambda v: v == 0),
     ("MODEL.ROI_MASK_HEAD.POOLER_TYPE", lambda v: v == "ROIAlignV2"),
     ("TPU.MASK_CANVAS_STRIDE", lambda v: v >= 1),
-    # Cityscapes' instance sets need cityscapes_eval, which is not ported
-    ("DATASETS.TRAIN", lambda v: not any(n.startswith("cityscapes_fine_instance_seg") for n in v)),
-    ("DATASETS.TEST", lambda v: not any(n.startswith("cityscapes_fine_instance_seg") for n in v)),
 )
 
 
@@ -447,7 +459,7 @@ def _family_checks(family: str) -> Tuple[Tuple[str, Callable[[Any], bool]], ...]
     norms = TRAINABLE_NORMS if family in ("fpn", "dc5") else ("FrozenBN",)
     checks = [
         ("MODEL.BACKBONE.NAME", tower),
-        ("MODEL.RESNETS.DEPTH", lambda v: v in D2_RESNET_SPECS),
+        ("MODEL.RESNETS.DEPTH", lambda v: v in (D2_RESNET_SPECS if fpn else BOTTLENECK_DEPTHS)),
         ("MODEL.RESNETS.NORM", eq(*norms)),
         ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", (lambda v: len(v) == 4) if family in ("fpn", "dc5")
          else (lambda v: not any(v))),
@@ -760,6 +772,11 @@ def check_supported(cfg, world: Optional[int] = None) -> None:
             "MODEL.META_ARCHITECTURE = 'CLIPFastRCNN' is not ported for training or the tools: JAX's trainer "
             "cannot build this arch either (the module has no init_all or cddmsl_losses); build it with "
             "models.build.build_clip_fast_rcnn")
+    if cfg.MODEL.META_ARCHITECTURE == "RotatedFastRCNN":
+        raise NotImplementedError(
+            "MODEL.META_ARCHITECTURE = 'RotatedFastRCNN' is not ported for training or the tools: JAX's trainer "
+            "cannot build this arch either (the module has no init_all or cddmsl_losses, and no mapper makes a "
+            "RotatedDetBatch); build it with models.build.build_rotated_fast_rcnn")
     family = model_family(cfg)
     if family != "c4":
         _check_family(cfg, family)
@@ -969,6 +986,7 @@ def solver_config_from_cfg(cfg) -> SolverConfig:
     return SolverConfig(
         base_lr=s.BASE_LR,
         momentum=s.MOMENTUM,
+        nesterov=s.NESTEROV,
         weight_decay=s.WEIGHT_DECAY,
         gamma=s.GAMMA,
         steps=tuple(s.STEPS),

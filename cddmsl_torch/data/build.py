@@ -251,10 +251,22 @@ def _pinned(batch: DetBatch) -> DetBatch:
     return DetBatch(*(None if f is None else f.pin_memory() for f in batch))
 
 
-def _bucket_for(sample: dict, pad_hw: Tuple[int, int]) -> Tuple[int, int]:
-    """The pad bucket of a sample: landscape (short, long) or portrait
-    (long, short) after its orientation."""
+def _bucket_for(sample: dict, pad_hw: Tuple[int, int],
+                buckets: Optional[Sequence[Tuple[int, int]]] = None) -> Tuple[int, int]:
+    """The pad bucket of a sample: with `buckets` (TPU.PAD_BUCKETS) the
+    smallest ladder entry, by area, that holds it in its orientation (ties
+    to the lower (h, w)); else, or when none holds it, landscape (short,
+    long) or portrait (long, short) of `pad_hw` after its orientation."""
     h, w = sample["image"].shape[:2]
+    if buckets:
+        cands = []
+        for bh, bw in buckets:
+            lo, hi = min(bh, bw), max(bh, bw)
+            key = (lo, hi) if w >= h else (hi, lo)
+            if h <= key[0] and w <= key[1]:
+                cands.append((key[0] * key[1], key))
+        if cands:
+            return min(cands)[1]
     H, W = min(pad_hw), max(pad_hw)
     return (H, W) if w >= h else (W, H)
 
@@ -363,6 +375,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
         raise ValueError(f"SOLVER.IMS_PER_BATCH {batch_size} does not split into {parts} microbatch(es) over "
                          f"{world} rank(s)")
     pad_hw = tuple(cfg.TPU.PAD_SIZE_TRAIN)
+    ladder = [tuple(b) for b in cfg.TPU.PAD_BUCKETS]
     max_gt = cfg.TPU.MAX_GT_BOXES
     mask_stride = cfg.TPU.MASK_CANVAS_STRIDE if cfg.MODEL.MASK_ON else 0
     num_kp = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS if cfg.MODEL.KEYPOINT_ON else 0
@@ -373,7 +386,7 @@ def build_detection_train_loader(cfg, seed: int = 0, pin_memory: bool = False, r
         buckets = {}
         for idx in sampler:
             sample = mapper(dicts[idx], rng)
-            key = _bucket_for(sample, pad_hw) if aspect_grouping else (max(pad_hw), max(pad_hw))
+            key = _bucket_for(sample, pad_hw, ladder) if aspect_grouping else (max(pad_hw), max(pad_hw))
             buckets.setdefault(key, []).append(sample)
             if len(buckets[key]) == batch_size:
                 group, buckets[key] = buckets[key], []

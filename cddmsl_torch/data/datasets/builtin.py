@@ -17,6 +17,9 @@
                     65 / 48 base / 17 novel classes)
   * LVIS:           lvis_{v1,v0.5}_{train,val} (LVIS json over the COCO
                     images, evaluator "lvis")
+  * instance:       cityscapes_fine_instance_seg_{train,val} (the
+                    Cityscapes boxes and classes with no masks, evaluator
+                    "pascal_voc", as JAX registers them)
 
   * panoptic:       coco_2017_{train,val}_panoptic (COCO panoptic json and
                     PNGs, evaluator "coco_panoptic_seg") and
@@ -25,7 +28,7 @@
   * semantic:       cityscapes_fine_sem_seg_{train,val} (labelTrainIds PNGs,
                     evaluator "sem_seg")
 
-The Cityscapes-instance names of the JAX package are not ported. The dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
+The dataset root is $DETECTRON2_DATASETS (default "./datasets"); nothing is read
 from disk until a dataset is requested.
 """
 
@@ -103,6 +106,10 @@ def register_all(root: str = None) -> None:
             # LVIS images live in the COCO folders
             register_lvis_instances(f"lvis_{version}_{split}",
                                     os.path.join(root, "lvis", f"lvis_{version}_{split}.json"), coco)
+    # detectron2's names of the instance sets: boxes and classes, no masks, VOC-scored (as in JAX)
+    for split in ("train", "val"):
+        register_cityscapes(f"cityscapes_fine_instance_seg_{split}", os.path.join(city, "leftImg8bit", split),
+                            os.path.join(city, "gtFine", split))
     register_all_cityscapes_panoptic(root)
     for split in ("train", "val"):
         register_cityscapes_semantic(f"cityscapes_fine_sem_seg_{split}", os.path.join(city, "leftImg8bit", split),

@@ -64,8 +64,10 @@ from ..device import resolve_device
 from ..evaluation import (
     COCOEvaluator, LVISEvaluator, PascalVOCDetectionEvaluator, inference_on_dataset, print_csv_format, verify_results,
 )
+from ..evaluation.cityscapes_eval import CityscapesInstanceEvaluator
 from ..evaluation.masks import paste_masks_np
 from ..evaluation.panoptic_eval import COCOPanopticEvaluator, inference_on_dataset_panoptic
+from ..evaluation.rotated_coco_eval import RotatedCOCOEvaluator
 from ..evaluation.sem_seg_eval import SemSegEvaluator, inference_on_dataset_semseg
 from ..models.backbone.batch_norm import running_state, update_bn_stats
 from ..models.build import build_detector, build_model
@@ -121,9 +123,12 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
     TEST.KEYPOINT_OKS_SIGMAS where set), which writes its detections to
     OUTPUT_DIR/inference/coco_instances_results_<name>.json, for an
     "lvis" set the LVIS evaluator, for a "sem_seg" set the sem-seg
-    evaluator and for a panoptic set ("coco_panoptic_seg",
-    "cityscapes_panoptic_seg") the PQ evaluator. Other evaluator types are
-    not ported."""
+    evaluator, for a panoptic set ("coco_panoptic_seg",
+    "cityscapes_panoptic_seg") the PQ evaluator, for "cityscapes_instance"
+    the Cityscapes instance evaluator (segm under MODEL.MASK_ON, else its
+    bbox proxy) and for "rotated_coco" the rotated-box COCO evaluator.
+    Cityscapes' instance sets are "pascal_voc" sets, as JAX registers them.
+    Other evaluator types are not ported."""
     ev_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "pascal_voc")
     if ev_type == "pascal_voc":
         target = ARTISTIC_6_CLASSES if dataset_name in _SIX_CLASS_SETS else None
@@ -140,6 +145,11 @@ def build_evaluator(cfg: CfgNode, dataset_name: str):
         return SemSegEvaluator(dataset_name)
     if ev_type in ("coco_panoptic_seg", "cityscapes_panoptic_seg"):
         return COCOPanopticEvaluator(dataset_name)
+    if ev_type == "cityscapes_instance":
+        # mask-level AP with masks, the bbox proxy (with a warning) without
+        return CityscapesInstanceEvaluator(dataset_name, tasks=("segm",) if cfg.MODEL.MASK_ON else ("bbox",))
+    if ev_type == "rotated_coco":
+        return RotatedCOCOEvaluator(dataset_name)
     raise NotImplementedError(f"evaluator type {ev_type!r} of {dataset_name} is not ported")
 
 

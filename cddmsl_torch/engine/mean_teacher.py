@@ -160,8 +160,9 @@ class MeanTeacherTrainer(DefaultTrainer):
         teacher = copy.deepcopy(self.model).requires_grad_(False)
         width = model_config_from_cfg(cfg).backbone_width * 16
         disc = init_discriminator_(FCDiscriminator(width), torch.Generator().manual_seed(1)).to(self.device)
-        # optax.sgd(schedule, momentum): no weight decay, no clipping
-        dis_solver = dataclasses.replace(solver_config_from_cfg(cfg), weight_decay=0.0, clip_enabled=False)
+        # optax.sgd(schedule, momentum): no weight decay, no clipping, no Nesterov
+        dis_solver = dataclasses.replace(solver_config_from_cfg(cfg), weight_decay=0.0, clip_enabled=False,
+                                         nesterov=False)
         dis_optimizer = Optimizer(list(disc.parameters()), dis_solver)
         self.state = MTState(self.model, teacher, disc, self.optimizer, dis_optimizer)
         self.teacher, self.discriminator, self.dis_optimizer = teacher, disc, dis_optimizer

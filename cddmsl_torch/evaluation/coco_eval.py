@@ -135,7 +135,19 @@ class COCOEvaluator:
     `tasks` ("bbox", "segm", "keypoints"; APs is NaN for keypoints) and,
     with `output_json`, writes the detections in the COCO results schema.
     `kpt_oks_sigmas` (TEST.KEYPOINT_OKS_SIGMAS) overrides the set's
-    keypoint_oks_sigmas metadata."""
+    keypoint_oks_sigmas metadata.
+
+    The bbox task's box layout is three hooks, which RotatedCOCOEvaluator
+    overrides (XYWHA): `box_dim`, `_box_area` and `_box_iou`, which gives
+    the (D, G) IoU matrix or None for the axis-aligned one."""
+
+    box_dim = 4
+
+    def _box_area(self, boxes: np.ndarray) -> np.ndarray:
+        return _box_area(boxes)
+
+    def _box_iou(self, dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> Optional[np.ndarray]:
+        return None
 
     def __init__(self, dataset_name: str, output_json: Optional[str] = None, tasks: Sequence[str] = ("bbox",),
                  kpt_oks_sigmas=None):
@@ -271,9 +283,9 @@ class COCOEvaluator:
         segm = task == "segm"
         for img in self._images:
             gt_list = gt_imgs.get(img, [])
-            gts = np.array([b for b, _, _ in gt_list]).reshape(-1, 4)
+            gts = np.array([b for b, _, _ in gt_list]).reshape(-1, self.box_dim)
             iscrowd = np.array([cr for _, cr, _ in gt_list], bool)
-            areas = np.array([rle_area(r) if r else 0.0 for _, _, r in gt_list]) if segm else _box_area(gts)
+            areas = np.array([rle_area(r) if r else 0.0 for _, _, r in gt_list]) if segm else self._box_area(gts)
             gt_ignore = iscrowd | (areas < area_lo) | (areas > area_hi)
             gkps = self._gt_kps.get(c, {}).get(img, [])
             if task == "keypoints":
@@ -284,9 +296,9 @@ class COCOEvaluator:
             det_list = det_imgs.get(img, [])
             if not det_list:
                 continue
-            det_boxes = np.array([b for _, b, _ in det_list]).reshape(-1, 4)
+            det_boxes = np.array([b for _, b, _ in det_list]).reshape(-1, self.box_dim)
             det_scores = np.array([s for s, _, _ in det_list])
-            ious = None
+            ious = self._box_iou(det_boxes, gts, iscrowd) if task == "bbox" else None
             if segm:
                 det_rles, gt_rles = [r for _, _, r in det_list], [r for _, _, r in gt_list]
                 if any(r is None for r in det_rles + gt_rles):
@@ -300,7 +312,8 @@ class COCOEvaluator:
                                    np.stack(gkps) if gkps else np.zeros((0, 1, 3)), gts, self.kpt_oks_sigmas)
             scores, tp, ign = _eval_image(det_boxes, det_scores, gts, gt_ignore, iscrowd, IOU_THRESHOLDS, ious)
             # unmatched detections outside the area range are ignored
-            d_areas = np.array([rle_area(r) for _, _, r in det_list], np.float64) if segm else _box_area(det_boxes)
+            d_areas = (np.array([rle_area(r) for _, _, r in det_list], np.float64) if segm
+                       else self._box_area(det_boxes))
             order = np.argsort(-det_scores, kind="stable")
             out_of_range = ((d_areas < area_lo) | (d_areas > area_hi))[order]
             ign = ign | (out_of_range[None, :] & ~tp)

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...config import D2_RESNET_SPECS
+from ...config import BASIC_BLOCK_DEPTHS, D2_RESNET_SPECS
 from ...ops.deform_conv import deform_conv2d
 from .batch_norm import head_norm, make_norm
 from .clip_resnet import _nchw, _nhwc
@@ -97,6 +97,23 @@ class D2Bottleneck(nn.Module):
         return F.relu(out + (x if self.shortcut is None else self.shortcut(x)))
 
 
+class D2BasicBlock(nn.Module):
+    """Two 3x3 convs, each with FrozenBN, and a projection shortcut where
+    the stride or the width changes (detectron2's BasicBlock of ResNet-18
+    and -34, JAX's `D2BasicBlock`: FrozenBN whatever RESNETS.NORM says,
+    never dilated, grouped or deformable)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = ConvNorm(cin, cout, 3, stride=stride, padding=1)
+        self.conv2 = ConvNorm(cout, cout, 3, padding=1)
+        self.shortcut = ConvNorm(cin, cout, 1, stride=stride) if stride > 1 or cin != cout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(F.relu(self.conv1(x)))
+        return F.relu(out + (x if self.shortcut is None else self.shortcut(x)))
+
+
 class Stem(nn.Module):
     """7x7/2 conv, its norm, ReLU, 3x3/2 max-pool over a pad of 1 (the pad
     never wins the max: JAX pads with -inf)."""
@@ -118,7 +135,10 @@ class D2ResNet(nn.Module):
     each stage), `res2_out_channels` its output width; with
     `res5_dilation` 2 res5 keeps res4's stride. `norm` is every conv's
     (RESNETS.NORM); `deform_on_per_stage` (res2..res5) makes every block
-    of a stage deformable, v2 under `deform_modulated`."""
+    of a stage deformable, v2 under `deform_modulated`. Depths 18 and 34
+    stack `D2BasicBlock`s from a res2 of 64 channels, as JAX's tower does
+    whatever RES2_OUT_CHANNELS, NORM, NUM_GROUPS and the deformable stages
+    say (its stem takes `norm`)."""
 
     def __init__(self, depth: int = 50, res5: bool = True, num_groups: int = 1, width_per_group: int = 64,
                  stride_in_1x1: bool = True, res5_dilation: int = 1, res2_out_channels: int = 256,
@@ -126,7 +146,8 @@ class D2ResNet(nn.Module):
                  deform_modulated: bool = False):
         super().__init__()
         self.stem = Stem(64, norm)
-        cin, bottleneck, cout = 64, num_groups * width_per_group, res2_out_channels
+        basic = depth in BASIC_BLOCK_DEPTHS
+        cin, bottleneck, cout = 64, num_groups * width_per_group, 64 if basic else res2_out_channels
         self.out_channels = {}
         for i, n in enumerate(D2_RESNET_SPECS[depth][:4 if res5 else 3]):
             name = f"res{i + 2}"
@@ -134,8 +155,11 @@ class D2ResNet(nn.Module):
             stride = 1 if i == 0 or dilation > 1 else 2
             kw = dict(stride_in_1x1=stride_in_1x1, dilation=dilation, groups=num_groups, norm=norm,
                       deform=bool(deform_on_per_stage[i]), deform_modulated=deform_modulated)
-            blocks = [D2Bottleneck(cin, bottleneck, cout, stride, **kw)]
-            blocks += [D2Bottleneck(cout, bottleneck, cout, **kw) for _ in range(1, n)]
+            if basic:
+                blocks = [D2BasicBlock(cin if j == 0 else cout, cout, stride if j == 0 else 1) for j in range(n)]
+            else:
+                blocks = [D2Bottleneck(cin, bottleneck, cout, stride, **kw)]
+                blocks += [D2Bottleneck(cout, bottleneck, cout, **kw) for _ in range(1, n)]
             self.add_module(name, nn.Sequential(*blocks))
             self.out_channels[name] = cout
             cin, bottleneck, cout = cout, bottleneck * 2, cout * 2

@@ -12,15 +12,17 @@ single-level DC5 form, CascadeRCNN on res4 (ROI_HEADS.NAME
 CascadeROIHeads without an fpn_backbone, or META_ARCHITECTURE
 CascadeRCNN), ProposalNetwork (META_ARCHITECTURE) on res4 or on the
 FPN, PanopticFPN and SemanticSegmentor (META_ARCHITECTURE; JAX's
-`build_panoptic_fpn` and `build_semantic_segmentor`) and RetinaNet
-(META_ARCHITECTURE; `build_retinanet`)."""
+`build_panoptic_fpn` and `build_semantic_segmentor`), RetinaNet
+(META_ARCHITECTURE; `build_retinanet`) and RotatedFastRCNN
+(META_ARCHITECTURE; `build_rotated_fast_rcnn`, which `check_supported`
+does not pass: JAX's trainer cannot build it)."""
 
 from typing import Any, Dict
 
 import torch
 
 from ..config import (
-    EMBED_DIMS, RESNET_SPECS, ModelConfig, check_clip_fast_rcnn_supported, check_pretrain_supported, check_supported,
+    D2_RESNET_SPECS, EMBED_DIMS, RESNET_SPECS, ModelConfig, check_clip_fast_rcnn_supported, check_pretrain_supported, check_supported,
     keypoint_loss_normalizer, model_config_from_cfg, model_family,
 )
 from ..device import compute_dtype, resolve_device
@@ -31,6 +33,7 @@ from .fpn_rcnn import FPNRCNN
 from .panoptic_fpn import PanopticFPN
 from .rcnn import GeneralizedRCNN
 from .retinanet import RetinaNet
+from .rotated_rcnn import RotatedFastRCNN
 from .semantic_seg import SemanticSegmentor
 
 
@@ -165,6 +168,27 @@ def build_clip_fast_rcnn(cfg, device="cuda") -> CLIPFastRCNN:
     MODEL.CLIP.TEXT_EMB_PATH next."""
     device = resolve_device(device)
     return CLIPFastRCNN(**clip_fast_rcnn_fields(cfg)).to(device).eval()
+
+
+def rotated_fast_rcnn_fields(cfg) -> Dict[str, Any]:
+    """What JAX's `build_rotated_fast_rcnn` reads: ROI_HEADS.NUM_CLASSES,
+    RESNETS.DEPTH, PIXEL_MEAN / PIXEL_STD and TPU.COMPUTE_DTYPE (every other
+    key is left to the module's defaults, as in JAX)."""
+    m = cfg.MODEL
+    if m.META_ARCHITECTURE != "RotatedFastRCNN":
+        raise ValueError(f"MODEL.META_ARCHITECTURE = {m.META_ARCHITECTURE!r}: this builder takes RotatedFastRCNN")
+    if m.RESNETS.DEPTH not in D2_RESNET_SPECS:
+        raise NotImplementedError(f"MODEL.RESNETS.DEPTH = {m.RESNETS.DEPTH!r} is not ported for RotatedFastRCNN")
+    return dict(num_classes=m.ROI_HEADS.NUM_CLASSES, depth=m.RESNETS.DEPTH, pixel_mean=tuple(m.PIXEL_MEAN),
+                pixel_std=tuple(m.PIXEL_STD), dtype=compute_dtype(cfg.TPU.COMPUTE_DTYPE))
+
+
+def build_rotated_fast_rcnn(cfg, device="cuda") -> RotatedFastRCNN:
+    """The rotated Faster R-CNN (MODEL.META_ARCHITECTURE RotatedFastRCNN)
+    from the tree (`rotated_fast_rcnn_fields`) on `device` (CUDA unless the
+    caller asks for the CPU) in eval mode, with the modules' default
+    weights (`init_random_` or a converted JAX tree next)."""
+    return RotatedFastRCNN(**rotated_fast_rcnn_fields(cfg)).to(resolve_device(device)).eval()
 
 
 def fpn_anchor_sizes(cfg) -> tuple:
@@ -372,6 +396,8 @@ def build_detector(cfg, device="cuda", training: bool = False):
     the caller asks for the CPU) in eval mode; `training` adds the C4
     detector's training modules (`build_model`). Weights as `build_model`
     leaves them."""
+    if cfg.MODEL.META_ARCHITECTURE == "RotatedFastRCNN":
+        return build_rotated_fast_rcnn(cfg, device)
     family = model_family(cfg)
     if family == "c4":
         return build_model(model_config_from_cfg(cfg), device=device, training=training)

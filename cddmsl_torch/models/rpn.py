@@ -43,20 +43,23 @@ class Proposals(NamedTuple):
 
 
 class StandardRPNHead(nn.Module):
-    """3x3 conv + two sibling 1x1 convs (detectron2 `rpn_head` key names)."""
+    """3x3 conv + two sibling 1x1 convs (detectron2 `rpn_head` key names);
+    the 3x3 has `conv_dim` outputs (in_channels unless given: the rotated
+    RPN's is 1024 whatever its input, as in JAX)."""
 
-    def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4):
+    def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4, conv_dim: Optional[int] = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
-        self.objectness_logits = nn.Conv2d(in_channels, num_anchors, 1)
-        self.anchor_deltas = nn.Conv2d(in_channels, num_anchors * box_dim, 1)
+        conv_dim = conv_dim or in_channels
+        self.conv = nn.Conv2d(in_channels, conv_dim, 3, padding=1)
+        self.objectness_logits = nn.Conv2d(conv_dim, num_anchors, 1)
+        self.anchor_deltas = nn.Conv2d(conv_dim, num_anchors * box_dim, 1)
 
     @staticmethod
     def _conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype), padding=layer.padding)
 
     def forward(self, x: torch.Tensor):
-        """x: (B, C, H, W) channels_last -> logits (B, A, H, W), deltas (B, A*4, H, W)."""
+        """x: (B, C, H, W) channels_last -> logits (B, A, H, W), deltas (B, A*box_dim, H, W)."""
         t = F.relu(self._conv(self.conv, x))
         return self._conv(self.objectness_logits, t), self._conv(self.anchor_deltas, t)
 

@@ -1,4 +1,5 @@
-"""Box2BoxTransform: (dx, dy, dw, dh) delta encode/apply (counterpart of
+"""Box2BoxTransform: (dx, dy, dw, dh) delta encode/apply, and
+Box2BoxTransformRotated for (cx, cy, w, h, angle) boxes (counterparts of
 cddmsl_tpu/ops/box_regression.py)."""
 
 import math
@@ -65,3 +66,46 @@ class Box2BoxTransform:
             dim=-1,
         )
         return out.reshape(shape)
+
+
+class Box2BoxTransformRotated:
+    """5-parameter rotated-box deltas (counterpart of JAX's
+    `Box2BoxTransformRotated`): boxes are (cx, cy, w, h, angle in degrees);
+    the angle delta is the wrapped difference in radians times wa, and
+    predicted angles are wrapped to [-180, 180). Both wraps are floor
+    modulo (`torch.remainder`, as jnp's `%`; `fmod` keeps the sign of a
+    negative angle)."""
+
+    def __init__(self, weights: Sequence[float] = (10.0, 10.0, 5.0, 5.0, 1.0),
+                 scale_clamp: float = _DEFAULT_SCALE_CLAMP):
+        self.weights = tuple(float(w) for w in weights)
+        self.scale_clamp = scale_clamp
+
+    def get_deltas(self, src: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """(..., 5),(..., 5) XYWHA -> (..., 5) deltas; widths and heights
+        get a 1e-4 floor so padded rows stay finite."""
+        wx, wy, ww, wh, wa = self.weights
+        sw = torch.clamp(src[..., 2], min=1e-4)
+        sh = torch.clamp(src[..., 3], min=1e-4)
+        dx = wx * (target[..., 0] - src[..., 0]) / sw
+        dy = wy * (target[..., 1] - src[..., 1]) / sh
+        dw = ww * torch.log(torch.clamp(target[..., 2], min=1e-4) / sw)
+        dh = wh * torch.log(torch.clamp(target[..., 3], min=1e-4) / sh)
+        da = torch.remainder(target[..., 4] - src[..., 4] + 180.0, 360.0) - 180.0
+        da = da * (wa * math.pi / 180.0)
+        return torch.stack([dx, dy, dw, dh, da], dim=-1)
+
+    def apply_deltas(self, deltas: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """deltas (..., K*5), boxes (..., 5) -> (..., K*5)."""
+        wx, wy, ww, wh, wa = self.weights
+        boxes = boxes.to(deltas.dtype)
+        shape = deltas.shape
+        d = deltas.reshape(shape[:-1] + (-1, 5))
+        cx, cy, w, h, a = (boxes[..., i][..., None] for i in range(5))
+        pred_cx = d[..., 0] / wx * w + cx
+        pred_cy = d[..., 1] / wy * h + cy
+        pred_w = torch.exp(torch.clamp(d[..., 2] / ww, max=self.scale_clamp)) * w
+        pred_h = torch.exp(torch.clamp(d[..., 3] / wh, max=self.scale_clamp)) * h
+        pred_a = a + d[..., 4] * (180.0 / math.pi) / wa
+        pred_a = torch.remainder(pred_a + 180.0, 360.0) - 180.0
+        return torch.stack([pred_cx, pred_cy, pred_w, pred_h, pred_a], dim=-1).reshape(shape)

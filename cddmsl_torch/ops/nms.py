@@ -51,14 +51,16 @@ def _score_order(scores: torch.Tensor, valid: torch.Tensor):
     return torch.sort(torch.where(valid, scores, float("-inf")), dim=-1, descending=True, stable=True)
 
 
-def _greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, max_keep: int) -> torch.Tensor:
+def _greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, max_keep: int,
+                 iou=pairwise_iou) -> torch.Tensor:
     """Greedy keep mask over boxes already in score order. Tiles of rows are
     decided in order: each is first suppressed by the rows kept before it,
     then resolved by iterating `kept <- active & ~suppressed_by(kept)` to its
     fixpoint, which is the greedy answer because the suppression mask is
-    strictly upper-triangular. Stops once `max_keep` rows are kept."""
+    strictly upper-triangular. Stops once `max_keep` rows are kept. `iou`
+    is the pairwise overlap (the rotated NMS passes its own)."""
     n = boxes.shape[0]
-    sup = torch.triu(pairwise_iou(boxes, boxes) > iou_threshold, diagonal=1)
+    sup = torch.triu(iou(boxes, boxes) > iou_threshold, diagonal=1)
     keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
     n_kept = 0
     for start in range(0, n, _TILE):

@@ -126,7 +126,10 @@ class Optimizer:
         self.cfg = cfg
         self.schedule = build_lr_schedule(cfg)
         self.count = 0
-        self.sgd = torch.optim.SGD(params, lr=0.0, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+        # SOLVER.NESTEROV: torch's nesterov step is optax's trace(nesterov=True),
+        # new_trace = g + mu * trace, update = g + mu * new_trace
+        self.sgd = torch.optim.SGD(params, lr=0.0, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                                   nesterov=cfg.nesterov and cfg.momentum > 0)
 
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)

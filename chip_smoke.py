@@ -86,7 +86,7 @@ Phases, each of which fails the run with a non-zero exit:
   9. the consistency path: each MODEL.CONSISTENCY_BRANCH (image,
      image_region, caption_pl_img, caption_pl_region) in turn through
      `DefaultTrainer.train()` on the VOC recipe (batch 8, bf16) with phase
-     7's fixture: 5 steps, the caption branch from step 3; the pl branches
+     7's fixture: 4 steps, the caption branch from step 3; the pl branches
      with a full-width GPT-2 caption model in fp32 decoding 20 tokens. Per
      step: the K1/K3/K4 launches of `BRANCH_LAUNCHES`, every loss finite
      under JAX's names, the frozen parameters (the caption model's too)
@@ -295,15 +295,32 @@ Phases, each of which fails the run with a non-zero exit:
      device batch beside phase 17's, the peak card memory, each
      deform_conv2d shape of a step timed forward and with its backward
      beside its bound; K1, K3 and K4 at the calls `KernelCalls` records.
+ 22. the rotated family, Cityscapes' instance sets and test-time
+     augmentation (`rotated_cityscapes_path`): (a) Misc/rotated_faster_rcnn
+     (R-18 BasicBlocks, RRPN, RROIHeads, bf16, seeded random weights)
+     through `build_rotated_fast_rcnn`, 3 steps of the port's optimizer on
+     8 seeded 800x1344 images with 40 of 100 XYWHA boxes each, every loss
+     finite, inference and `RotatedCOCOEvaluator` (AP not judged); each
+     rotated op (plain torch: the RRPN match's IoU, `nms_rotated` 512 -> 128
+     and 256 -> 32, `roi_align_rotated` of 8x64 boxes) held against the CPU
+     on a small case and timed beside its bound; (b)
+     Cityscapes/mask_rcnn_R_50_FPN through `DefaultTrainer.train()` on its
+     own set names over a 1024x2048 fixture at the 1024x2048 pad: 3 steps
+     at 8/8/1, the final VOC test at 8/0/2 a batch, the step on a device
+     batch; (c) `GeneralizedRCNNWithTTA` around (b)'s model on an eval
+     batch at 16/0/5; K1, K3 and K4 at the calls `KernelCalls` records,
+     K4 also on seeded candidates at the TTA merge's shape, each image
+     keeping at least `TTA_MIN_KEPT` of them.
 The line before the last is the kernels' JSON, one row per kernel and path
 (`roi_align_fwd/inference`, ..., `nms/language_tools`, `.../plain_r50`,
 `.../ovd`, `.../fpn`, `.../mask`, `.../keypoint`, `.../cascade`,
 `.../panoptic`, `nms/retinanet`, `.../lvis_fpn`, `.../gn`, `.../syncbn`,
-`.../dconv`, `.../dconv_panoptic`).
+`.../dconv`, `.../dconv_panoptic`, `.../cityscapes`, `roi_align_fwd/tta`,
+`nms/tta`).
 `launches` counts
 that path's whole run (for train_net, 12 steps and the final test; for
 adverse_weather, 8 steps and the final test; for consistency, the four
-branches' 5 steps; for mean_teacher, 6 steps, the threshold's choice and
+branches' 4 steps; for mean_teacher, 6 steps, the threshold's choice and
 the teacher's test; for ddp, both ranks of world 2 under gloo; for
 pretrain, 6 steps; for language_tools, the region features' batches; for
 plain_r50, 12 steps and the final test; for ovd, (a)'s and (c)'s eval
@@ -314,7 +331,8 @@ step and eval batch; for cascade, (b)'s and the C4 cascade's likewise; for
 panoptic, (a)'s 6 steps and final test and (b)'s 3 steps; for retinanet,
 6 steps, the final test and an eval batch; for lvis_fpn, gn and syncbn, 3
 steps and an eval batch each; for dconv 6 steps and an eval batch, for
-dconv_panoptic 3 and one);
+dconv_panoptic 3 and one; for cityscapes 3 steps and the final test; for
+tta the two inferences and the merge);
 `max_abs_err`, `ms`, `plain_ms` and `bound_ms` cover the `launches_timed`
 launches checked and timed at the path's shapes (one inference; one
 training step; for train_net and adverse_weather also K1 and K4 of one
@@ -329,7 +347,8 @@ mask (a)'s mask pool, the eval batch's mask pool and (b)'s re-pool, (a)'s
 RPN and eval NMS: K1 9, K3 4, K4 3; for keypoint K1 20, K3 10, K4 3; for
 cascade K1 38, K3 19, K4 3; for panoptic, lvis_fpn, gn, syncbn and dconv
 K1 16, K3 8, K4 3; for dconv_panoptic K1 32, K3 16, K4 3; for retinanet
-K4 1): the largest error and the sums of the times and bounds.
+K4 1; for cityscapes K1 16, K3 8, K4 3; for tta K1 16, K4 5): the largest
+error and the sums of the times and bounds.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -366,6 +385,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the plain versions beside each kernel are timed once after a warm-up: each
+# takes 10-1000x its kernel, and their repeats were a tenth of the script
+PLAIN_REPS = dict(reps=1, warmup=1)
 
 
 def random_boxes(gen, n, w, h, dev, min_size=4.0, max_size=400.0):
@@ -670,7 +694,7 @@ def nms_row(nms_ops, label, launches, calls):
         ms = cuda_ms(lambda: nms_ops.nms(boxes, scores, thr, k, valid=valid), 10)
         order_ms = cuda_ms(lambda: nms_ops._score_order(scores, valid), 10)
         plain = cuda_ms(lambda: [nms_ops.nms_plain(boxes[i], scores[i], thr, k, valid=valid[i]) for i in range(b)],
-                        3, warmup=1)
+                        **PLAIN_REPS)
         work = [nms_work(nms_ops, boxes[i], scores[i], valid[i], thr, k) for i in range(b)]
         bound = sum(x[0] for x in work)
         walk = [walk_extent(nms_ops, idx[i], ok[i], scores[i], valid[i], k) for i in range(b)]
@@ -868,7 +892,7 @@ def inference_path(dev, smi, roi_ops, nms_ops, k4_cases):
                               roi_ops.roi_align_batched_plain(k1_args[0].float(), *k1_args[1:]),
                               k1_scale(roi_ops, *k1_args))
     k1_ms = cuda_ms(lambda: roi_ops.roi_align_forward(*k1_args), 20)
-    k1_plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*k1_args), 3, warmup=1)
+    k1_plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*k1_args), **PLAIN_REPS)
     k1_bound, k1_by = roi_bounds_ms(k1_args[0], R, read_map_pixels(*k1_args[:3]))
     print(f"roi_align_fwd inference {R}x14x14x{features.shape[-1]} {features.dtype}: max abs err {k1_err:.4g} "
           f"(rtol 2e-2), {k1_ms:.4f} ms kernel, {k1_plain_ms:.4f} ms plain, bound {k1_bound:.5f} ms ({k1_by})")
@@ -1053,7 +1077,7 @@ def add_roi_rows(rows, dev, roi_ops, label, calls, k3_calls):
             samples = k1_scale(roi_ops, *k1_args) if name == "roi_align_fwd" else None  # K3's gradient is positive
             err = bf16_max_abs_err(f"{name} {label} {call}", kernel(*args), plain(*fp32_args), samples)
             ms = cuda_ms(lambda: kernel(*args), 10)
-            plain_ms = cuda_ms(lambda: plain(*args), 3, warmup=1)
+            plain_ms = cuda_ms(lambda: plain(*args), **PLAIN_REPS)
             add_to_row(rows[name], err, ms, plain_ms, bound, by)
             share = f", {active} of them finite" if active != R else ""
             print(f"{name} {label} {call} {R}x{pooled}x{pooled}x{feats.shape[-1]}{share} over {tuple(feats.shape)} "
@@ -1088,7 +1112,7 @@ def step_kernel_rows(dev, model, batch, draw, launches, roi_ops, nms_ops, label,
         err = bf16_max_abs_err(f"roi_align_fwd {label} eval {set_name}", roi_ops.roi_align_forward(*args),
                                roi_ops.roi_align_batched_plain(feats.float(), *args[1:]), k1_scale(roi_ops, *args))
         ms = cuda_ms(lambda: roi_ops.roi_align_forward(*args), 10)
-        plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*args), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: roi_ops.roi_align_batched_plain(*args), **PLAIN_REPS)
         bound, by = roi_bounds_ms(feats, R, read_map_pixels(feats, bidx, rois))
         add_to_row(rows["roi_align_fwd"], err, ms, plain_ms, bound, by)
         print(f"roi_align_fwd {label} eval {set_name} {R}x14x14x{feats.shape[-1]} over {tuple(feats.shape)} "
@@ -1578,9 +1602,9 @@ def adverse_weather_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
-# phase 9: each MODEL.CONSISTENCY_BRANCH for 5 steps, the caption branch at
-# 0-based iterations past 1 (steps 3-5)
-CONSISTENCY_STEPS, CONSISTENCY_BURNUP = 5, 1
+# phase 9: each MODEL.CONSISTENCY_BRANCH for 4 steps, the caption branch at
+# 0-based iterations past 1 (steps 3-4)
+CONSISTENCY_STEPS, CONSISTENCY_BURNUP = 4, 1
 # the VOC recipe's losses (KD off) and each branch's own, under JAX's names
 MAIN_LOSSES = ("loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "cont_loss", "cont_loss_region")
 BRANCH_LOSS = {"image": "image_cont_loss", "image_region": "image_region_cont_loss",
@@ -1612,7 +1636,7 @@ def branch_kernel_calls(model, batch, draw, site):
 def consistency_path(dev, smi, roi_ops, nms_ops):
     """MODEL.CONSISTENCY_BRANCH at full width: for each branch in turn,
     `DefaultTrainer` on the VOC recipe (batch 8, bf16) with phase 7's
-    fixture, `train()` for 5 steps (the caption branch from step 3), per
+    fixture, `train()` for 4 steps (the caption branch from step 3), per
     step the launches, the losses under JAX's names and the frozen
     parameters (the caption model's too); then the step on a batch on the
     card, for the pl branches the pl step and its decode, and for the
@@ -1720,15 +1744,15 @@ def consistency_path(dev, smi, roi_ops, nms_ops):
 
             with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
                 batch = to_device(next(train_loader), dev)
-            time_device_batch(f"consistency {branch}", trainer, batch, reps=3)
+            time_device_batch(f"consistency {branch}", trainer, batch, reps=1)
             model, draw = trainer.model, trainer.state.draw
             if cap is not None:
-                pl_ms = cuda_ms(lambda: trainer.caption_pl_step(batch, draw), 3, warmup=1)
+                pl_ms = cuda_ms(lambda: trainer.caption_pl_step(batch, draw), 1, warmup=1)
                 with torch.no_grad():
                     p_src = (model.caption_pl_prefixes(batch)[0] if branch == "caption_pl_img"
                              else model.caption_pl_region_prefixes(batch, draw)[0])
                 n_len = cfg.MODEL.CAPTION_PL_MAX_LEN
-                gen_ms = cuda_ms(lambda: generate(cap, p_src, max_len=n_len), 3, warmup=1)
+                gen_ms = cuda_ms(lambda: generate(cap, p_src, max_len=n_len), 1, warmup=1)
                 t0 = time.perf_counter()
                 _, live = generate(cap, p_src, max_len=n_len)
                 torch.cuda.synchronize()
@@ -5283,6 +5307,397 @@ def deformable_path(dev, smi, roi_ops, nms_ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+ROTATED_CONFIG = "Misc/rotated_faster_rcnn.yaml"
+ROTATED_HW, ROTATED_BATCH, ROTATED_GT, ROTATED_VALID_GT, ROTATED_STEPS = (800, 1344), 8, 100, 40, 3
+ROTATED_SEED = 22
+CITY_INST_CONFIG = "Cityscapes/mask_rcnn_R_50_FPN.yaml"
+CITY_INST_NAMES = ("cityscapes_fine_instance_seg_train", "cityscapes_fine_instance_seg_val")
+CITY_INST_STEPS, CITY_INST_IMAGES, CITY_INST_HW = 3, 8, (1024, 2048)
+CITY_INST_CANDIDATES_SEED = 23
+# the TTA merge keeps about max_det (100) of its 2 x 100 seeded candidates
+TTA_MIN_KEPT = 90
+# rotated IoU, flops counted from ops/rotated.py: the circle test of every
+# pair; a clipped pair's four edges, its area and IoU; each vertex a clip
+# step reads (its side of the edge), each crossing it emits (the
+# interpolation) and each vertex of the clipped ring (the shoelace term)
+ROTATED_OPS_PER_PAIR, ROTATED_OPS_PER_CLIPPED_PAIR = 10, 14
+ROTATED_OPS_PER_READ, ROTATED_OPS_PER_CROSSING, ROTATED_OPS_PER_RING_VERTEX = 5, 8, 4
+# rotated RoIAlign: flops per pooled value, S x S = 4 samples of 4 weighted
+# corners and the mean
+ROTATED_POOL_OPS_PER_VALUE = 68
+
+
+def tta_merge_candidates(shape, num_classes, hw, seed, dev):
+    """Seeded candidates at the TTA merge's shape (B, 2n), as
+    `batched_nms` hands them to K4 (class-shifted): n boxes an image on a
+    canvas of `hw` (`random_boxes`), each of `num_classes` classes, then
+    each again as the flipped pass finds it, every side moved by up to 2 px;
+    scores uniform in [0.05, 1), every candidate valid. A few steps from
+    random weights leave the merge almost no valid detection, an empty
+    problem. Returns (boxes, scores, valid)."""
+    from cddmsl_torch.ops.nms import class_shifted
+
+    (b, n2), n = shape, shape[1] // 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    first = torch.stack([random_boxes(gen, n, hw[1], hw[0], dev) for _ in range(b)])
+    again = first + (torch.rand(first.shape, generator=gen, device=dev) * 4 - 2)
+    classes = (torch.rand(b, n, generator=gen, device=dev) * num_classes).long().clamp(max=num_classes - 1)
+    valid = torch.ones(b, n2, dtype=torch.bool, device=dev)
+    boxes = class_shifted(torch.cat([first, again], 1), classes.repeat(1, 2), valid)
+    return boxes, 0.05 + 0.95 * torch.rand(b, n2, generator=gen, device=dev), valid
+
+
+def rotated_batch(b, hw, n_gt, n_valid, seed, dev):
+    """A seeded `RotatedDetBatch` on `dev`: uniform images of `hw`, each with
+    `n_valid` of `n_gt` XYWHA ground-truth boxes (centers anywhere on the
+    image, sides 16..400 px, any angle) of 8 classes, the rest zero and not
+    valid."""
+    from cddmsl_torch.models.rotated_rcnn import RotatedDetBatch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = hw
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+    boxes = torch.stack([u(b, n_gt) * w, u(b, n_gt) * h, 16 + u(b, n_gt) * 384, 16 + u(b, n_gt) * 284,
+                         u(b, n_gt) * 360 - 180], -1)
+    valid = torch.arange(n_gt, device=dev)[None].expand(b, -1) < n_valid
+    boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    classes = (u(b, n_gt) * 8).long().clamp(max=7)
+    sizes = torch.tensor([hw] * b, dtype=torch.int32, device=dev)
+    return RotatedDetBatch(u(b, h, w, 3) * 255, sizes, boxes, classes, valid)
+
+
+@contextlib.contextmanager
+def recorded_rotated_calls():
+    """The inputs of `models.rotated_rcnn`'s rotated ops while open:
+    {"iou": [(boxes1, boxes2)], "nms": [(boxes, scores, thr, max_out,
+    valid)], "pool": [(features, boxes, pooled, scale)]}."""
+    from cddmsl_torch.models import rotated_rcnn as rr
+
+    calls = {"iou": [], "nms": [], "pool": []}
+    real = (rr.pairwise_iou_rotated, rr.nms_rotated, rr.roi_align_rotated)
+
+    def iou(b1, b2):
+        calls["iou"].append((b1.detach().clone(), b2.detach().clone()))
+        return real[0](b1, b2)
+
+    def nms(boxes, scores, thr, max_out, valid=None):
+        calls["nms"].append((boxes.clone(), scores.clone(), thr, max_out, valid.clone()))
+        return real[1](boxes, scores, thr, max_out, valid=valid)
+
+    def pool(features, boxes, output_size, scale, *rest):
+        calls["pool"].append((features.detach(), boxes.detach().clone(), output_size[0], scale))
+        return real[2](features, boxes, output_size, scale, *rest)
+
+    rr.pairwise_iou_rotated, rr.nms_rotated, rr.roi_align_rotated = iou, nms, pool
+    try:
+        yield calls
+    finally:
+        rr.pairwise_iou_rotated, rr.nms_rotated, rr.roi_align_rotated = real
+
+
+def rotated_iou_bound_ms(b1, b2):
+    """(bound ms, bound_by, pairs clipped) of `pairwise_iou_rotated` on
+    these boxes: the boxes read and the IoU written once in fp32; the circle
+    test on every pair and the clip on the pairs this data brings near, at
+    the vertices and crossings its steps meet on them (`clip_work`)."""
+    from cddmsl_torch.ops.rotated import clip_work
+
+    n, m = b1.shape[0], b2.shape[0]
+    clipped, read, crossed, ring = clip_work(b1, b2)
+    t_bytes = ((n + m) * 20 + n * m * 4) / H100_BYTES_PER_S
+    ops = (n * m * ROTATED_OPS_PER_PAIR + clipped * ROTATED_OPS_PER_CLIPPED_PAIR + read * ROTATED_OPS_PER_READ
+           + crossed * ROTATED_OPS_PER_CROSSING + ring * ROTATED_OPS_PER_RING_VERTEX)
+    t_ops = ops / H100_FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", clipped
+
+
+def rotated_pool_bound_ms(features, boxes, pooled, scale):
+    """(bound ms, bound_by, map pixels) of `roi_align_rotated`: the map
+    pixels some sample weighs by more than 0 (once each), the boxes and the
+    fp32 output; 68 flops per pooled value."""
+    from cddmsl_torch.ops.rotated import rotated_samples
+
+    B, H, W, C = features.shape
+    y0, x0, y1, x1, ly, lx, ok = rotated_samples(boxes, (H, W), (pooled, pooled), scale)
+    seen = torch.zeros(B, H * W, dtype=torch.bool, device=features.device)
+    base = torch.arange(B, device=features.device)[:, None]
+    for yi, xi, wt in ((y0, x0, (1 - ly) * (1 - lx)), (y0, x1, (1 - ly) * lx), (y1, x0, ly * (1 - lx)),
+                       (y1, x1, ly * lx)):
+        hit = (ok & (wt[..., 0] > 0)).reshape(B, -1)
+        flat = (yi * W + xi).reshape(B, -1)
+        seen[base.expand_as(flat)[hit], flat[hit]] = True
+    pixels = int(seen.sum())
+    values = boxes.shape[0] * boxes.shape[1] * pooled * pooled * C
+    t_bytes = (pixels * C * features.element_size() + boxes.numel() * 4 + values * 4) / H100_BYTES_PER_S
+    t_ops = values * ROTATED_POOL_OPS_PER_VALUE / H100_FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", pixels
+
+
+def rotated_ops_on_card(calls, smi):
+    """Each rotated op at the path's shapes (the calls of one training step
+    and one inference, `recorded_rotated_calls`): held against the CPU on a
+    small case of its own inputs (IoU within 1e-4, NMS indices equal, the
+    pool within 1e-5 of its largest value), then timed alone on the card
+    beside its bound."""
+    from cddmsl_torch.ops import rotated as rot
+
+    b1, b2 = calls["iou"][0]  # the RRPN match of the first image: ground truth x anchors
+    small = (b1[:8], b2[::64][:4096])
+    err = (rot.pairwise_iou_rotated(*small).cpu() - rot.pairwise_iou_rotated(*(t.cpu() for t in small))).abs().max()
+    if not err <= 1e-4:
+        fail(f"rotated IoU: the card and the CPU differ by {err} on {tuple(small[0].shape)} x {tuple(small[1].shape)}")
+    ms = cuda_ms(lambda: rot.pairwise_iou_rotated(b1, b2), 2, warmup=1)
+    bound, by, clipped = rotated_iou_bound_ms(b1, b2)
+    print(f"rotated IoU (the RRPN match, one image) {tuple(b1.shape)} x {tuple(b2.shape)}: {ms:.3f} ms plain torch "
+          f"on the card, bound {bound:.4f} ms ({by}; {clipped} of {b1.shape[0] * b2.shape[0]} pairs clipped); card "
+          f"against CPU on {tuple(small[0].shape)} x {tuple(small[1].shape)}: max abs err {float(err):.3g} (tol "
+          f"1e-4); on {smi}")
+    for boxes, scores, thr, k, valid in calls["nms"][:1] + [c for c in calls["nms"] if c[3] != calls["nms"][0][3]][:1]:
+        n = boxes.shape[0]
+        got = rot.nms_rotated(boxes[:64], scores[:64], thr, 16, valid[:64])
+        want = rot.nms_rotated(boxes[:64].cpu(), scores[:64].cpu(), thr, 16, valid[:64].cpu())
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            fail(f"nms_rotated {n} -> {k}: the card and the CPU keep different boxes on the first 64")
+        ms = cuda_ms(lambda: rot.nms_rotated(boxes, scores, thr, k, valid), 3, warmup=1)
+        iou_bound, by, clipped = rotated_iou_bound_ms(boxes, boxes)
+        print(f"nms_rotated {n} -> {k} at {thr}: {ms:.3f} ms plain torch on the card (one image), bound "
+              f"{iou_bound:.4f} ms (its IoU matrix; {by}; {clipped} pairs clipped); equal to the CPU on its first "
+              f"64 rows")
+    for feats, boxes, pooled, scale in calls["pool"][:1]:
+        small_b = boxes[:1, :8]
+        want = rot.roi_align_rotated(feats[:1].float().cpu(), small_b.cpu(), (pooled, pooled), scale)
+        got = rot.roi_align_rotated(feats[:1].float(), small_b, (pooled, pooled), scale).cpu()
+        err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        if not err <= 1e-5:
+            fail(f"roi_align_rotated: the card and the CPU differ by {err} of the largest value")
+        ms = cuda_ms(lambda: rot.roi_align_rotated(feats, boxes, (pooled, pooled), scale), 3, warmup=1)
+        bound, by, pixels = rotated_pool_bound_ms(feats, boxes, pooled, scale)
+        print(f"roi_align_rotated {tuple(boxes.shape[:2])} boxes at {pooled}x{pooled} over {tuple(feats.shape)} "
+              f"{feats.dtype}: {ms:.3f} ms plain torch on the card (forward), bound {bound:.4f} ms ({by}; {pixels} "
+              f"of {feats[..., 0].numel()} map pixels read); card against CPU on 8 boxes: {err:.3g} of the largest "
+              f"value (tol 1e-5)")
+
+
+def rotated_cityscapes_path(dev, smi, roi_ops, nms_ops):
+    """Phase 22. (a) Rotated Faster R-CNN at full width:
+    configs/Misc/rotated_faster_rcnn.yaml through `build_rotated_fast_rcnn`
+    (R-18 BasicBlocks to res4 of 256 channels, RRPN of 60 anchors a cell,
+    RROIHeads of 8 classes, bf16, seeded random weights, the stem scaled),
+    batch 8 of 800x1344 seeded images with 40 of 100 XYWHA ground-truth
+    boxes each: 3 steps of the port's optimizer on the four losses (finite
+    or the run fails), timed; inference and `RotatedCOCOEvaluator` on its
+    detections (AP not judged); each rotated op at the step's and the
+    inference's shapes, held against the CPU on a small case and timed
+    (`rotated_ops_on_card`). The rotated ops are plain torch on the card: no
+    hand kernel runs in (a). (b) Cityscapes/mask_rcnn_R_50_FPN.yaml through
+    `DefaultTrainer.train()` on its own set names (cityscapes_fine_instance_
+    seg_{train,val}, VOC-scored, no masks) over a 1024x2048 Cityscapes
+    fixture, padded to 1024x2048: 3 steps at K1/K3/K4 8/8/1 or the run
+    fails, the final VOC test at 8/0/2 a batch, the step on a device batch;
+    K1/K3/K4 at the calls `KernelCalls` records in the last step and an
+    eval batch. (c) `GeneralizedRCNNWithTTA` around (b)'s model on that
+    eval batch: 16/0/5 (two inferences and the merge) or the run fails, the
+    merge's K4 held against `nms_plain` on `tta_merge_candidates` at its
+    shape (each image keeping at least `TTA_MIN_KEPT` or the run fails), K1
+    at the passes' calls. Returns
+    {"cityscapes": rows, "tta": rows}."""
+    import os
+    import shutil
+    import tempfile
+
+    from cddmsl_torch.checkpoint.convert_jax import init_random_
+    from cddmsl_torch.config import get_cfg, solver_config_from_cfg
+    from cddmsl_torch.data import DatasetCatalog, MetadataCatalog, build_detection_train_loader, to_device
+    from cddmsl_torch.data.datasets.builtin import register_all
+    from cddmsl_torch.data.datasets.cityscapes import register_cityscapes
+    from cddmsl_torch.data.datasets.synthetic import make_synthetic_cityscapes
+    from cddmsl_torch.evaluation.rotated_coco_eval import RotatedCOCOEvaluator
+    from cddmsl_torch.models import tta as tta_module
+    from cddmsl_torch.models.build import build_rotated_fast_rcnn
+    from cddmsl_torch.models.sampling import generator_draw
+    from cddmsl_torch.solver.build import build_optimizer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cddmsl_rotated_city_")
+    keys = ("roi_align_fwd", "roi_align_bwd", "nms")
+    out = {}
+    try:
+        # (a) the rotated model
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(here, "configs", ROTATED_CONFIG))
+        model = build_rotated_fast_rcnn(cfg, device=dev)
+        init_random_(model, torch.Generator().manual_seed(ROTATED_SEED))
+        unit_scale_stem(model)
+        optimizer = build_optimizer(model, solver_config_from_cfg(cfg))
+        batch = rotated_batch(ROTATED_BATCH, ROTATED_HW, ROTATED_GT, ROTATED_VALID_GT, ROTATED_SEED, dev)
+        draw = generator_draw(torch.Generator(device=dev).manual_seed(ROTATED_SEED))
+        print(f"rotated (a): configs/{ROTATED_CONFIG} (R-{cfg.MODEL.RESNETS.DEPTH} BasicBlocks, res4 "
+              f"{model.backbone.out_channels['res4']} channels, {model.proposal_generator.num_anchors} anchors a cell, "
+              f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, {cfg.TPU.COMPUTE_DTYPE}, seeded random weights) on "
+              f"{ROTATED_BATCH} images of {ROTATED_HW[0]}x{ROTATED_HW[1]}, {ROTATED_VALID_GT} of {ROTATED_GT} "
+              f"XYWHA boxes each")
+
+        def step():
+            optimizer.zero_grad()
+            with torch.enable_grad():
+                losses = model(batch, draw)
+                sum(losses.values()).backward()
+            optimizer.step()
+            return losses
+
+        step_ms, all_losses = [], []
+        for i in range(ROTATED_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if i == ROTATED_STEPS - 1:
+                with recorded_rotated_calls() as calls:
+                    start.record()
+                    losses = step()
+                    end.record()
+            else:
+                start.record()
+                losses = step()
+                end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            all_losses.append({k: v.item() for k, v in losses.items()})
+        names = {"loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg"}
+        if any(set(x) != names or not all(map(math.isfinite, x.values())) for x in all_losses):
+            fail(f"rotated: the losses are not the finite {sorted(names)}: {all_losses}")
+        for i, (ms, x) in enumerate(zip(step_ms, all_losses)):
+            print(f"rotated step {i + 1}: {ms:.3f} ms CUDA events, losses "
+                  f"{json.dumps({k: round(v, 6) for k, v in x.items()})}")
+        with recorded_rotated_calls() as infer_calls:
+            det = model.inference(batch)
+        infer_ms = cuda_ms(lambda: model.inference(batch), 2, warmup=0)
+        evaluator = RotatedCOCOEvaluator()
+        evaluator.class_names = [str(c) for c in range(cfg.MODEL.ROI_HEADS.NUM_CLASSES)]
+        evaluator.num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+        host = [t.float().cpu().numpy() for t in (det.boxes, det.scores, det.classes, det.valid, batch.gt_boxes,
+                                                  batch.gt_classes, batch.gt_valid)]
+        for i in range(ROTATED_BATCH):
+            boxes, scores, classes, valid, gt, gc, gv = (h[i] for h in host)
+            valid, gv = valid.astype(bool), gv.astype(bool)
+            evaluator.process_gt(i, gt[gv], gc[gv])
+            evaluator.process(i, boxes[valid], scores[valid], classes[valid])
+        ap = evaluator.evaluate()["bbox"]
+        print(f"rotated inference: {infer_ms / ROTATED_BATCH:.3f} ms/image CUDA events, "
+              f"{int(host[3].sum())} detections over {ROTATED_BATCH} images; RotatedCOCOEvaluator (random weights, "
+              f"not judged) {json.dumps({k: round(ap[k], 4) for k in ('AP', 'AP50', 'AP75')})}")
+        calls["nms"] += infer_calls["nms"]
+        rotated_ops_on_card(calls, smi)
+        del model, optimizer, batch, det, calls, infer_calls
+        torch.cuda.empty_cache()
+        print(f"rotated path: {time.perf_counter() - t_phase:.1f} s wall")
+
+        # (b) the Cityscapes file on its own set names
+        t_city = time.perf_counter()
+        register_all()  # the builtin names first, then the file's two on the fixture
+        for split, name, seed in (("train", CITY_INST_NAMES[0], 0), ("val", CITY_INST_NAMES[1], 1)):
+            city = make_synthetic_cityscapes(root, n=CITY_INST_IMAGES, seed=ROTATED_SEED + seed, hw=CITY_INST_HW,
+                                             split=split, foggy=False)
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+            register_cityscapes(name, os.path.join(city, "leftImg8bit", split), os.path.join(city, "gtFine", split))
+        pad = repr(list(CITY_INST_HW))
+        cfg = train_cfg(root, CITY_INST_CONFIG, CITY_INST_NAMES, CITY_INST_STEPS, "TPU.PAD_SIZE_TRAIN", pad,
+                        "TPU.PAD_SIZE_TEST", pad, "MODEL.CLIP.IMS_PER_BATCH_TEST", "8")
+        trainer = recording_trainer_class(roi_ops, nms_ops, CITY_INST_CANDIDATES_SEED)(cfg, device="cuda")
+        trainer.resume_or_load(resume=False)
+        model = trainer.model
+        unit_scale_stem(model)
+        print(f"cityscapes (b): configs/{CITY_INST_CONFIG} (R-{cfg.MODEL.RESNETS.DEPTH} FPN, MASK_ON, "
+              f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, sets {list(cfg.DATASETS.TRAIN)} / {list(cfg.DATASETS.TEST)} "
+              f"(evaluator {MetadataCatalog.get(CITY_INST_NAMES[1]).evaluator_type}), MIN_SIZE_TRAIN "
+              f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)}, MAX_SIZE {cfg.INPUT.MAX_SIZE_TRAIN}, pad {tuple(cfg.TPU.PAD_SIZE_TRAIN)}, "
+              f"{cfg.SOLVER.IMS_PER_BATCH} images a step, {cfg.TPU.COMPUTE_DTYPE}) on {CITY_INST_IMAGES} + "
+              f"{CITY_INST_IMAGES} fixture images of {CITY_INST_HW[0]}x{CITY_INST_HW[1]}")
+        torch.cuda.synchronize()
+        reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+        results = trainer.train()
+        torch.cuda.synchronize()
+        launches = read_launches(roi_ops, nms_ops)
+        probe, step_calls = trainer.probe, trainer.step_calls
+        waits = [v for _, v in trainer.storage.histories()["data_time"]._values]
+        loop_steps("cityscapes", probe, waits, CITY_INST_STEPS, CITY_INST_STEPS, ((8, 8, 1), (8, 8, 1)))
+        losses = [{k: v.item() for k, v in x.items()} for x in trainer.step_losses]
+        names = {"loss_cls", "loss_box_reg", "loss_rpn_cls", "loss_rpn_loc", "loss_mask"}
+        if any(set(x) != names or not all(map(math.isfinite, x.values())) for x in losses):
+            fail(f"cityscapes: the losses are not the finite {sorted(names)}: {losses}")
+        print(f"cityscapes step {CITY_INST_STEPS} losses: {json.dumps({k: round(v, 6) for k, v in losses[-1].items()})}"
+              f" (loss_mask against the sets' empty masks)")
+        per_batch = tuple((launches[k] - probe.loop_launches[k]) / -(-CITY_INST_IMAGES // 8) for k in keys)
+        if per_batch != (8, 0, 2):
+            fail(f"the cityscapes final test launched K1/K3/K4 {per_batch} per batch, expected (8, 0, 2)")
+        voc = results[CITY_INST_NAMES[1]]["bbox"]
+        print(f"cityscapes final test (PascalVOCDetectionEvaluator, as JAX scores the sets): K1/K3/K4 {per_batch} a "
+              f"batch; AP50 (random weights, not judged) {voc['AP50']:.4f}")
+        with build_detection_train_loader(cfg, seed=0, pin_memory=True) as train_loader:
+            train_batch = to_device(next(train_loader), dev)
+        time_device_batch("cityscapes", trainer, train_batch, reps=2, what="supervised, MASK_ON")
+        eval_batch = first_eval_batch(cfg, CITY_INST_NAMES[1], dev)
+        eval_calls = KernelCalls(CITY_INST_CANDIDATES_SEED)
+        with eval_calls.recording("eval"):
+            model.inference(eval_batch)
+        ms = cuda_ms(lambda: model.inference(eval_batch), 2, warmup=1)
+        print(f"cityscapes eval batch {tuple(eval_batch.image.shape)}: {ms / eval_batch.image.shape[0]:.3f} ms/image "
+              f"CUDA events; path launches ({CITY_INST_STEPS} steps and the final test): {launches}")
+        rows = {name: new_row(launches[name]) for name in keys[:2]}
+        for kc in (step_calls, eval_calls):
+            add_roi_rows(rows, dev, roi_ops, "cityscapes", kc.pools, kc.k3)
+        rows = {name: close_row(row) for name, row in rows.items()}
+        rows["nms"] = nms_row(nms_ops, "cityscapes", launches["nms"], step_calls.nms + eval_calls.nms)
+        out["cityscapes"] = rows
+        print(f"cityscapes path: {time.perf_counter() - t_city:.1f} s wall")
+
+        # (c) test-time augmentation around (b)'s model
+        tta = tta_module.GeneralizedRCNNWithTTA(model)
+        merges, real_merge = [], tta_module.batched_nms
+
+        def merge(boxes, scores, idxs, thr, max_out, valid):
+            merges.append((*tta_merge_candidates(scores.shape, model.roi_heads.num_classes, CITY_INST_HW,
+                                                 CITY_INST_CANDIDATES_SEED, scores.device), thr, max_out))
+            return real_merge(boxes, scores, idxs, thr, max_out, valid=valid)
+
+        tta_calls = KernelCalls(CITY_INST_CANDIDATES_SEED)
+        tta_module.batched_nms = merge
+        try:
+            reset_launches(roi_ops.KERNEL, nms_ops.KERNEL)
+            with tta_calls.recording("tta"):
+                merged = tta(eval_batch)
+            torch.cuda.synchronize()
+            tta_launches = read_launches(roi_ops, nms_ops)
+        finally:
+            tta_module.batched_nms = real_merge
+        if tuple(tta_launches[k] for k in keys) != (16, 0, 5):
+            fail(f"tta launched K1/K3/K4 {tta_launches}, expected (16, 0, 5): two inferences and the merge")
+        for boxes, scores, valid, thr, k in merges:
+            kept = nms_ops.nms(boxes, scores, thr, k, valid=valid)[1].sum(1).tolist()
+            if min(kept) < TTA_MIN_KEPT:
+                fail(f"tta: the merge kept {kept} of {scores.shape[1]} seeded candidates an image, fewer than "
+                     f"{TTA_MIN_KEPT}")
+        tta_ms = cuda_ms(lambda: tta(eval_batch), 2, warmup=0)
+        print(f"tta (c): GeneralizedRCNNWithTTA (flip, merge NMS 0.5, 100 kept) on the eval batch: {tta_ms / 8:.3f} "
+              f"ms/image CUDA events beside {ms / 8:.3f} without; {int(merged.valid.sum())} merged detections; "
+              f"launches {tta_launches}")
+        tta_rows = {"roi_align_fwd": new_row(tta_launches["roi_align_fwd"])}
+        add_roi_rows(tta_rows, dev, roi_ops, "tta", tta_calls.pools, [])
+        tta_rows = {"roi_align_fwd": close_row(tta_rows["roi_align_fwd"])}
+        tta_rows["nms"] = nms_row(nms_ops, "tta", tta_launches["nms"], merges + tta_calls.nms)
+        out["tta"] = tta_rows
+        del trainer, model, train_batch, eval_batch, tta
+        torch.cuda.empty_cache()
+        print(f"rotated_cityscapes phase: {time.perf_counter() - t_phase:.1f} s wall")
+        return out
+    finally:
+        for name in CITY_INST_NAMES:
+            if name in DatasetCatalog:
+                DatasetCatalog.remove(name)
+                MetadataCatalog.remove(name)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -5356,6 +5771,8 @@ def main() -> int:
     paths.update(retinanet_lvis_norms_path(dev, smi, roi_ops, nms_ops))
     torch.cuda.empty_cache()
     paths.update(deformable_path(dev, smi, roi_ops, nms_ops))
+    torch.cuda.empty_cache()
+    paths.update(rotated_cityscapes_path(dev, smi, roi_ops, nms_ops))
 
     meta = {
         "roi_align_fwd": ("cddmsl_torch/csrc/roi_align.cu", "cddmsl_tpu/ops/pallas/roi_align_pallas.py:94"),

@@ -183,12 +183,23 @@ def c4_cascade_runs():
         jax.grad(total, has_aux=True)(p, b, r), model.apply(p, b, method=model.inference)))(params, C4_BATCH, rng)
     ours.load_state_dict(convert_jax_params(params), strict=True)
     tb = torch_batch(C4_BATCH)
-    with torch.no_grad():
-        got_det = ours.inference(tb)
-    with torch.enable_grad():
-        got_losses = ours.losses(tb, supervised_draw(rng))
-        sum(got_losses.values()).backward()
-    return dict(want=(det, losses, convert_jax_params(grads)), got=(got_det, got_losses), model=ours)
+    got = {}
+
+    def infer():
+        with torch.no_grad():
+            got["det"] = ours.inference(tb)
+
+    def step():
+        with torch.enable_grad():
+            got["losses"] = ours.losses(tb, supervised_draw(rng))
+            sum(got["losses"].values()).backward()
+
+    # the step and the eval batch, recorded as phase 18 records them (the C4
+    # case of `test_kernel_calls_are_what_a_cascade_step_and_eval_batch_launch`)
+    with pytest.MonkeyPatch.context() as mp:
+        calls = (recorded_kernel_calls(mp, "step", step), recorded_kernel_calls(mp, "eval", infer))
+    return dict(want=(det, losses, convert_jax_params(grads)), got=(got["det"], got["losses"]), model=ours,
+                calls=calls)
 
 
 def test_c4_cascade_losses_and_gradients_equal_jax(c4_cascade_runs):
@@ -406,13 +417,15 @@ def recorded_kernel_calls(monkeypatch, what, run, candidates_seed=3):
 
 
 @pytest.mark.parametrize("kind", ["fpn", "c4"])
-def test_kernel_calls_are_what_a_cascade_step_and_eval_batch_launch(kind, monkeypatch):
+def test_kernel_calls_are_what_a_cascade_step_and_eval_batch_launch(kind, monkeypatch, request):
     """Phase 18 checks K1, K3 and K4 at the calls that `KernelCalls` records
     (`recorded_kernel_calls` holds each against what the model got): a
     cascade step's three stage pools per level (each stage on the boxes the
     earlier stages refined) and the FPN's mask pool, all with a gradient,
     and its RPN NMS; an eval batch's pools without a gradient, its RPN NMS
-    and its detection NMS."""
+    and its detection NMS. The FPN cascade takes a trainer's step from a
+    seeded init; the full-width C4 cascade's step and eval batch are those
+    of its JAX comparison (`c4_cascade_runs`), recorded there."""
     import chip_smoke
     from cddmsl_torch.config import SolverConfig
     from cddmsl_torch.engine.train_loop import Trainer
@@ -421,13 +434,13 @@ def test_kernel_calls_are_what_a_cascade_step_and_eval_batch_launch(kind, monkey
     if kind == "fpn":
         model, batch = FPNRCNN(**FPN_CASCADE), BATCH_A
         tb = torch_batch(batch, gt_masks=torch.from_numpy(diamond_canvases(batch)).to(torch.uint8))
+        init_random_(model, torch.Generator().manual_seed(6))
+        trainer = Trainer(model, build_optimizer(model, SolverConfig(warmup_iters=0)), enable_caption=False)
+        draw = chip_smoke.site_draw("cpu")
+        step = recorded_kernel_calls(monkeypatch, "step", lambda: trainer.train_step(tb, draw))
+        test = recorded_kernel_calls(monkeypatch, "eval", lambda: model.inference(tb))
     else:
-        model, tb = CascadeRCNN(num_classes=NARROW["num_classes"], depth=10), torch_batch(C4_BATCH)
-    init_random_(model, torch.Generator().manual_seed(6))
-    trainer = Trainer(model, build_optimizer(model, SolverConfig(warmup_iters=0)), enable_caption=False)
-    draw = chip_smoke.site_draw("cpu")
-    step = recorded_kernel_calls(monkeypatch, "step", lambda: trainer.train_step(tb, draw))
+        step, test = request.getfixturevalue("c4_cascade_runs")["calls"]
     pools = 16 if kind == "fpn" else 3  # 3 stages x 4 levels and the mask pooler's 4, or 3 stages on res4
     assert len(step.pools) == pools and step.k3 == [call for call, *_ in step.pools] and len(step.nms) == 1
-    test = recorded_kernel_calls(monkeypatch, "eval", lambda: model.inference(tb))
     assert len(test.pools) == pools and test.k3 == [] and len(test.nms) == 2

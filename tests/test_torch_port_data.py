@@ -148,7 +148,8 @@ def _text_emb_cfg():
     ("MODEL.ROI_MASK_HEAD.NORM", "GN"), ("MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE", "ROIPool"), ("MODEL.LOAD_PROPOSALS", True),
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 2), ("MODEL.CONSISTENCY_BRANCH", "image_text"), ("TPU.FSDP", True),
     ("TPU.MOE.NUM_EXPERTS", 4), ("TPU.QUANT_EVAL", True),
-    ("TPU.PAD_BUCKETS", [[800, 1088], [800, 1344]]),
+    # a ladder of pairs is taken since TPU.PAD_BUCKETS was ported; this id now holds an entry that is no pair
+    ("TPU.PAD_BUCKETS", [[800, 1088, 1344]]),
 ])
 def test_unsupported_values_raise_naming_their_key(key, value):
     """A mask head's key is refused under MODEL.MASK_ON and a keypoint
@@ -186,13 +187,18 @@ def test_keys_the_port_does_not_read_raise():
     register_all()
     MetadataCatalog.get("port_test_lvis_like").set(evaluator_type="lvis", thing_classes=["a"])
     MetadataCatalog.get("port_test_rotated_like").set(evaluator_type="rotated_coco", thing_classes=["a"])
+    # detectron2's Cityscapes sem-seg type, which JAX's build_evaluator raises on too
+    MetadataCatalog.get("port_test_city_sem_like").set(evaluator_type="cityscapes_sem_seg", stuff_classes=["a"])
     try:
         assert type(build_evaluator(cfg, "port_test_lvis_like")).__name__ == "LVISEvaluator"  # ported
-        with pytest.raises(NotImplementedError, match="rotated_coco"):  # sem_seg is ported (test_torch_port_semseg.py)
-            build_evaluator(cfg, "port_test_rotated_like")
+        # ported since the rotated family (test_torch_port_rotated.py); sem_seg since test_torch_port_semseg.py
+        assert type(build_evaluator(cfg, "port_test_rotated_like")).__name__ == "RotatedCOCOEvaluator"
+        with pytest.raises(NotImplementedError, match="cityscapes_sem_seg"):
+            build_evaluator(cfg, "port_test_city_sem_like")
     finally:
         MetadataCatalog.remove("port_test_lvis_like")
         MetadataCatalog.remove("port_test_rotated_like")
+        MetadataCatalog.remove("port_test_city_sem_like")
 
 
 # ---------------- fixture and loaders ----------------

@@ -447,6 +447,8 @@ _FPN_TAKEN = [
     ("MODEL.ROI_BOX_HEAD.NUM_FC", 1), ("MODEL.ROI_BOX_HEAD.NORM", "GN"),
     # the deformable stages, ported since (test_torch_port_dconv.py)
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True]),
+    # the BasicBlock towers, ported since (test_torch_port_rotated.py)
+    ("MODEL.RESNETS.DEPTH", 18), ("MODEL.RESNETS.DEPTH", 34),
 ]
 
 
@@ -486,7 +488,10 @@ def test_the_fpn_family_takes_the_norms_and_the_clip_tower_with_the_jax_builders
     ("MODEL.BACKBONE.NAME", "build_regnet_fpn_backbone"),
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [True, True, True]),  # not one flag a stage (JAX indexes four)
     ("MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE", "diou"), ("MODEL.RPN.BBOX_REG_LOSS_TYPE", "diou"),
-    ("MODEL.RESNETS.DEPTH", 18), ("MODEL.RESNETS.DEPTH", 34), ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 14 * 2),
+    # depths 18 and 34 are taken since the BasicBlock towers were ported: these ids now hold depths the
+    # plain tower does not have
+    pytest.param("MODEL.RESNETS.DEPTH", 26, id="MODEL.RESNETS.DEPTH-18"),
+    pytest.param("MODEL.RESNETS.DEPTH", 200, id="MODEL.RESNETS.DEPTH-34"), ("MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 14 * 2),
     ("MODEL.CONSISTENCY_BRANCH", "image"), ("MODEL.CLIP.FOCAL_SCALED_LOSS", 0.5),
 ])
 def test_the_fpn_family_refuses_what_it_leaves_out_naming_the_key(key, value):

@@ -27,7 +27,9 @@ section C).
 import copy
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -35,9 +37,14 @@ from cddmsl_tpu.data import DatasetCatalog as JaxDatasetCatalog
 from cddmsl_tpu.data import build_semisup_train_loader_two_crops as jax_two_crop_loader
 from cddmsl_tpu.data.datasets.synthetic import register_synthetic_quick as jax_register_synthetic_quick
 from cddmsl_tpu.engine.defaults import _init_batch
+from cddmsl_tpu.engine import mean_teacher as jax_mt
 from cddmsl_tpu.engine.mean_teacher import MeanTeacherTrainer as JaxMeanTeacherTrainer
+from cddmsl_tpu.engine.train_loop import split_batch_stats
 from cddmsl_tpu.models import build_model as jax_build_model
 from cddmsl_tpu.parallel import replicate, shard_batch
+from cddmsl_tpu.parallel.mesh import mesh_from_cfg
+from cddmsl_tpu.solver import build_lr_schedule as jax_build_lr_schedule
+from cddmsl_tpu.solver import build_optimizer as jax_build_optimizer
 from cddmsl_torch import train_net
 from cddmsl_torch.checkpoint.convert_jax import _DISCRIMINATOR_RULES, _convert, convert_jax_params
 from cddmsl_torch.config import add_ateacher_config, get_cfg
@@ -71,18 +78,37 @@ def _recording(cls, runs):
     return Recording
 
 
+def _jax_step_only_trainer(cfg, params, dis):
+    """JAX's MeanTeacherTrainer with the parts its `_make_step` reads, as its
+    __init__ assembles them (mesh, model, optimizer, discriminator and its
+    SGD) and its MTState on `params` and `dis` (zero momenta, step 0, as
+    __init__ makes them); without the structure-only initialisation that
+    __init__ traces and the caller would replace, nor the test machinery."""
+    jtr = object.__new__(JaxMeanTeacherTrainer)
+    jtr.cfg, jtr.model, jtr.mesh = cfg, jax_build_model(cfg), mesh_from_cfg(cfg)
+    jtr.optimizer = jax_build_optimizer(cfg, split_batch_stats(params)[0])
+    jtr.discriminator = jax_mt.FCDiscriminator(dtype=jnp.float32)
+    jtr.dis_optimizer = optax.sgd(jax_build_lr_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM)
+    jtr.mt_state = jax_mt.MTState(step=jnp.zeros((), jnp.int32), params=params, teacher_params=params,
+                                  dis_params=dis, opt_state=jtr.optimizer.init(split_batch_stats(params)[0]),
+                                  dis_opt_state=jtr.dis_optimizer.init(dis))
+    jtr.mt_step = jtr._make_step()
+    return jtr
+
+
 class _JaxRun:
     """JAX's mean-teacher trainer on the schedule's 4-device mesh, its state
     set to the tree, advanced one step of its own jitted step at a time;
-    a context manager."""
+    a context manager. `step_only` builds only what the step reads
+    (`_jax_step_only_trainer`), for runs that use nothing else of it."""
 
-    def __init__(self, params, dis, root, *opts):
+    def __init__(self, params, dis, root, *opts, step_only=False):
         # names of its own: JAX's metadata catalog keeps a name's directory for
         # the process, and other tests register the schedules' names elsewhere
         jax_register_synthetic_quick(str(root / "jax_fixture"), prefix=JAX_PREFIX)
         cfg = jax_cfg(NAME, *opts, "TPU.FAST_INIT", "True", "OUTPUT_DIR", str(root / "jax"), "DATASETS.TRAIN",
                       f"('{JAX_PREFIX}_trainval_plain',)", "DATASETS.TEST", f"('{JAX_PREFIX}_test',)")
-        self.trainer = JaxMeanTeacherTrainer(cfg)
+        self.trainer = _jax_step_only_trainer(cfg, params, dis) if step_only else JaxMeanTeacherTrainer(cfg)
         assert dict(self.trainer.mesh.shape) == {"data": 4}
         state = self.trainer.mt_state.replace(params=params, teacher_params=jax.tree_util.tree_map(np.copy, params),
                                               dis_params=dis)
@@ -115,7 +141,7 @@ class _JaxRun:
 def _jax_steps(params, dis, root):
     """`STEPS` of JAX's steps on the parity schedule: (metrics of each step,
     the final MTState)."""
-    with _JaxRun(params, dis, root, *PARITY) as run:
+    with _JaxRun(params, dis, root, *PARITY, step_only=True) as run:
         return [run.step() for _ in range(STEPS)], run.host_state()
 
 

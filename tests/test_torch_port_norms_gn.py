@@ -51,7 +51,9 @@ TINY_RECIPE = ["MODEL.ROI_HEADS.NUM_CLASSES", "2", "MODEL.RESNETS.DEPTH", "10", 
                "SOLVER.BASE_LR", "0.001", "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.PRECISE_BN.NUM_ITER", "2",
                "INPUT.MIN_SIZE_TRAIN", "(96,)", "INPUT.MAX_SIZE_TRAIN", "160", "INPUT.MIN_SIZE_TEST", "96",
                "INPUT.MAX_SIZE_TEST", "160", "TPU.PAD_SIZE_TRAIN", "[96, 160]", "TPU.PAD_SIZE_TEST", "[96, 160]",
-               "TPU.COMPUTE_DTYPE", "float32", "MODEL.CLIP.IMS_PER_BATCH_TEST", "2"]
+               "TPU.COMPUTE_DTYPE", "float32", "MODEL.CLIP.IMS_PER_BATCH_TEST", "2",
+               # the heads at a CPU's width too (the recipes' 256-channel convs are most of the time)
+               "MODEL.ROI_BOX_HEAD.CONV_DIM", "32", "MODEL.ROI_BOX_HEAD.FC_DIM", "64", "MODEL.ROI_MASK_HEAD.CONV_DIM", "32"]
 
 
 @pytest.mark.parametrize("norm", ["gn", "syncbn"])

@@ -20,6 +20,7 @@ calls (the offline RPN's NMS, the pool on the CLIP map, the detection NMS).
 """
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 import torch
@@ -625,3 +626,96 @@ def test_the_narrow_panoptic_dconv_step_is_well_conditioned():
     batch = chip_smoke.tiny_unpadded_batch(chip_smoke.DCONV_SEED + 1, stuff_classes=6)
     apart = _update_under_noise(lambda: chip_smoke.narrow_dconv_panoptic_model(batch), batch)
     assert apart < 5e-5, apart
+
+
+# ---------------- phase 22 ----------------
+def test_phase_22_runs_the_cityscapes_file_on_its_own_sets_at_the_1024x2048_pad(tmp_path):
+    """(b)'s tree: the file's own set names, batch 8, the final test, the
+    pad that holds Cityscapes' 1024x2048 images at MIN_SIZE_TRAIN up to 1024
+    and MAX_SIZE 2048; (a)'s: the rotated file builds R-18 to a res4 of 256
+    channels and an RPN head conv of 1024, as JAX's, and `check_supported`
+    refuses it."""
+    from cddmsl_torch.config import check_supported
+    from cddmsl_torch.models.build import build_rotated_fast_rcnn
+
+    pad = repr(list(chip_smoke.CITY_INST_HW))
+    cfg = chip_smoke.train_cfg(str(tmp_path), chip_smoke.CITY_INST_CONFIG, chip_smoke.CITY_INST_NAMES,
+                               chip_smoke.CITY_INST_STEPS, "TPU.PAD_SIZE_TRAIN", pad, "TPU.PAD_SIZE_TEST", pad)
+    check_supported(cfg, world=1)
+    assert list(cfg.DATASETS.TRAIN) == ["cityscapes_fine_instance_seg_train"]
+    assert list(cfg.DATASETS.TEST) == ["cityscapes_fine_instance_seg_val"]
+    assert max(cfg.INPUT.MIN_SIZE_TRAIN) == 1024 and cfg.INPUT.MAX_SIZE_TRAIN == 2048 and cfg.MODEL.MASK_ON
+    assert list(cfg.TPU.PAD_SIZE_TRAIN) == list(cfg.TPU.PAD_SIZE_TEST) == [1024, 2048]
+    rot = get_cfg()
+    rot.merge_from_file(str(Path(chip_smoke.__file__).parent / "configs" / chip_smoke.ROTATED_CONFIG))
+    with torch.device("meta"):
+        model = build_rotated_fast_rcnn(rot, device="meta")
+    assert model.backbone.out_channels["res4"] == 256 and model.proposal_generator.num_anchors == 60
+    with pytest.raises(NotImplementedError, match="RotatedFastRCNN"):
+        check_supported(rot, world=1)
+
+
+def test_phase_22_records_and_checks_each_rotated_op_of_a_step(monkeypatch):
+    """(a) on a narrow rotated model on the CPU: `recorded_rotated_calls`
+    takes the RRPN match's, the RoI sampler's, both NMS's and both pools'
+    inputs, and `rotated_ops_on_card` checks and prints each (here the
+    "card" is the CPU and the timer runs a call once)."""
+    from cddmsl_torch.models.rotated_rcnn import RotatedFastRCNN
+    from cddmsl_torch.models.sampling import generator_draw
+
+    dev = torch.device("cpu")
+    model = RotatedFastRCNN(num_classes=8, depth=18, pixel_std=(57.0, 57.0, 57.0)).eval()  # res4 of 256
+    init_random_(model, torch.Generator().manual_seed(0))
+    batch = chip_smoke.rotated_batch(2, (64, 96), 10, 4, 0, dev)
+    assert batch.gt_valid.sum(1).tolist() == [4, 4] and (batch.gt_boxes[~batch.gt_valid] == 0).all()
+    with chip_smoke.recorded_rotated_calls() as calls, torch.enable_grad():
+        losses = model(batch, generator_draw(torch.Generator().manual_seed(1)))
+    with chip_smoke.recorded_rotated_calls() as infer:
+        model.inference(batch)
+    assert set(losses) == {"loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg"}
+    anchors = 4 * 6 * 60
+    assert [tuple(b.shape) for c in calls["iou"] for b in c] == [(10, 5), (anchors, 5)] * 2 + [(10, 5), (138, 5)] * 2
+    assert [(c[0].shape[0], c[3]) for c in calls["nms"] + infer["nms"]] == [(512, 128)] * 4 + [(256, 32)] * 2
+    assert [tuple(c[1].shape) for c in calls["pool"] + infer["pool"]] == [(2, 64, 5), (2, 128, 5)]
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps, warmup=2: (fn(), 0.0)[1])
+    chip_smoke.rotated_ops_on_card({k: calls[k] + infer[k] for k in calls}, "cpu")
+
+
+def test_the_rotated_bounds_count_what_the_data_needs():
+    """The IoU's clipped pairs are those `near_pairs` finds (a box and its
+    far copy: 1 of 4 pairs each way), its clip work the vertices and
+    crossings of each step (a square against itself: 4 read a step, no
+    crossing; against its copy 2 px to the right: the left edge crosses it
+    twice), and an axis-aligned 32x32 box pooled 7x7 at 1/16 reads the 2x2
+    map pixels under its samples' corners."""
+    from cddmsl_torch.ops.rotated import clip_work
+
+    boxes = torch.tensor([[10.0, 10.0, 4.0, 4.0, 0.0], [100.0, 100.0, 4.0, 4.0, 30.0]])
+    _, _, clipped = chip_smoke.rotated_iou_bound_ms(boxes, boxes)
+    assert clipped == 2
+    square, moved = boxes[:1], torch.tensor([[12.0, 10.0, 4.0, 4.0, 0.0]])
+    assert clip_work(square, square) == (1, 16, 0, 4)
+    assert clip_work(square, moved) == (1, 16, 2, 4)
+    ms, by, _ = chip_smoke.rotated_iou_bound_ms(square.expand(64, 5), moved.expand(64, 5))
+    flops = 64 * 64 * (10 + 14 + 16 * 5 + 2 * 8 + 4 * 4)  # every pair clipped
+    t_ops, t_bytes = flops / chip_smoke.H100_FP32_FLOP_PER_S, (128 * 20 + 64 * 64 * 4) / chip_smoke.H100_BYTES_PER_S
+    assert t_ops > t_bytes and by == "operations" and ms == pytest.approx(t_ops * 1e3)
+    feats = torch.zeros(1, 8, 8, 4)
+    box = torch.tensor([[[40.0, 40.0, 32.0, 32.0, 0.0]]])  # (24..56) px: (1.5..3.5) - 0.5 map px
+    ms, by, pixels = chip_smoke.rotated_pool_bound_ms(feats, box, 7, 1 / 16)
+    assert pixels == 9  # rows and columns 1..3
+    # 9 pixels of 4 fp32 channels, the box, 7x7x4 fp32 values; 68 flops each
+    assert by == "bytes" and ms == pytest.approx((9 * 16 + 20 + 196 * 4) / chip_smoke.H100_BYTES_PER_S * 1e3)
+
+
+def test_the_tta_merge_gets_a_problem_that_keeps_about_max_det():
+    """(c)'s merge candidates: 2 x 100 class-shifted boxes an image, the
+    second hundred the first moved by at most 2 px a side, every one valid;
+    the plain merge keeps at least `TTA_MIN_KEPT` of them an image."""
+    boxes, scores, valid = chip_smoke.tta_merge_candidates((3, 200), 8, (1024, 2048), 0, torch.device("cpu"))
+    assert boxes.shape == (3, 200, 4) and scores.shape == (3, 200) and bool(valid.all())
+    assert float(scores.min()) >= 0.05 and float(scores.max()) < 1.0
+    assert float((boxes[:, 100:] - boxes[:, :100]).abs().max()) <= 2.0 + 1e-3
+    for i in range(3):
+        kept = int(nms_ops.nms_plain(boxes[i], scores[i], 0.5, 100, valid=valid[i])[1].sum())
+        assert chip_smoke.TTA_MIN_KEPT <= kept <= 100, kept

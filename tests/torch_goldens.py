@@ -19,6 +19,7 @@ JAX's train step is never compiled.
 """
 
 import contextlib
+import functools
 import os
 from pathlib import Path
 
@@ -73,8 +74,22 @@ def jax_initial_tree(name: str, *opts):
     return params, dis
 
 
-def _uniforms(keys, n):
-    return torch.from_numpy(np.array(jax.vmap(lambda k: jax.random.uniform(k, (n,)))(keys)))
+@functools.partial(jax.jit, static_argnames=("site", "b", "n"))
+def _site_uniforms(key, site, b, n):
+    """uniform((n,)) under each of the B keys that JAX's step draws from at
+    `site` below `key`; one program per (site, b, n), bit for bit the eager
+    ops' values (the key tree and the uniforms are integer and bit
+    operations)."""
+    split_rows = jax.vmap(jax.random.split)
+    if site in ("rpn_pos", "rpn_neg"):
+        keys = split_rows(jax.random.split(key, b))[:, int(site == "rpn_neg")]
+    elif site == "roi_gather":
+        keys = split_rows(jax.random.split(key, b))[:, 1]
+    elif site in ("roi_pos", "roi_neg"):
+        keys = split_rows(split_rows(jax.random.split(key, b))[:, 0])[:, int(site == "roi_neg")]
+    else:  # region
+        keys = jax.random.split(key, b)
+    return jax.vmap(lambda k: jax.random.uniform(k, (n,)))(keys)
 
 
 def jax_draw(k_rpn, k_roi, k_region=None):
@@ -83,21 +98,18 @@ def jax_draw(k_rpn, k_roi, k_region=None):
     heads' split(k_roi, B), k1, k2 = split(key), the two of split(k1) and
     uniform(k2); the region boxes' split(k_region, B) (the same tree
     `test_torch_port_train._jax_draws` lays out)."""
-    split_rows = jax.vmap(jax.random.split)
 
     def draw(site, shape):
         b, n = shape
         if site in ("rpn_pos", "rpn_neg"):
-            keys = split_rows(jax.random.split(k_rpn, b))[:, int(site == "rpn_neg")]
-        elif site == "roi_gather":
-            keys = split_rows(jax.random.split(k_roi, b))[:, 1]
-        elif site in ("roi_pos", "roi_neg"):
-            keys = split_rows(split_rows(jax.random.split(k_roi, b))[:, 0])[:, int(site == "roi_neg")]
+            key = k_rpn
+        elif site in ("roi_gather", "roi_pos", "roi_neg"):
+            key = k_roi
         elif site == "region" and k_region is not None:
-            keys = jax.random.split(k_region, b)
+            key = k_region
         else:
             raise KeyError(f"JAX's step draws nothing at {site!r}")
-        return _uniforms(keys, n)
+        return torch.from_numpy(np.array(_site_uniforms(key, site, b, n)))
 
     return draw
 
